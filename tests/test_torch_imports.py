@@ -1,0 +1,111 @@
+"""The port imports torch and numpy only, and its entry points run on the
+card unless the caller asks for the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tpu_pt_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _submodules():
+    names = ["tpu_pt_torch"]
+    for m in pkgutil.walk_packages(tpu_pt_torch.__path__, "tpu_pt_torch."):
+        names.append(m.name)
+    return sorted(names)
+
+
+def test_every_module_layout_name_is_present():
+    names = set(_submodules())
+    for sub in ("core", "scene", "bvh", "render", "kernels"):
+        assert f"tpu_pt_torch.{sub}" in names
+    for mod in ("config", "convert", "core.vecmath", "core.intersect",
+                "core.camera", "core.sampling", "scene.types", "scene.meshes",
+                "scene.cornell", "bvh.sah", "bvh.native", "bvh.cluster",
+                "kernels.cluster_isect", "kernels.pair_scan", "render.envmap",
+                "render.bsdf", "render.lights", "render.brute",
+                "render.integrator", "render.driver", "render.wavefront",
+                "render.film"):
+        assert f"tpu_pt_torch.{mod}" in names, mod
+
+
+def test_fresh_import_of_every_submodule_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_submodules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpu_pt', 'ml_dtypes', 'triton'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_no_source_file_mentions_the_jax_package_in_an_import():
+    pkg = os.path.dirname(tpu_pt_torch.__file__)
+    for dirpath, _, files in os.walk(pkg):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            with open(os.path.join(dirpath, fn)) as fh:
+                for line in fh:
+                    s = line.strip()
+                    if s.startswith(("import ", "from ")):
+                        head = s.split()[1].split(".")[0]
+                        assert head not in ("jax", "tpu_pt", "ml_dtypes",
+                                            "jaxlib"), (fn, s)
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from tpu_pt_torch.bvh import cluster
+    from tpu_pt_torch.config import RenderConfig
+    from tpu_pt_torch.render import wavefront
+    from tpu_pt_torch.scene import cornell
+
+    scene = cornell.cornell("spheres")
+    cb = cluster.build_cluster_bvh(scene)
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1)
+    cam = cornell.camera(8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wavefront.render_wavefront_counts(scene, cam, cfg, (0, 0), cb, queue=64)
+    # Asked for the CPU, it runs.
+    img = wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=64,
+                                     device="cpu")
+    assert tuple(img.shape) == (8, 8, 3)
+
+
+def test_kernel_library_is_not_built_at_import_and_raises_without_nvcc():
+    """No nvcc on a machine without the toolkit: asking for the library
+    raises, it never falls back."""
+    import shutil
+
+    from tpu_pt_torch.kernels import _build
+
+    assert _build._lib is None or torch.cuda.is_available()
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has nvcc")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load()
+
+
+def test_chip_smoke_exits_nonzero_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""

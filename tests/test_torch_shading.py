@@ -1,0 +1,204 @@
+"""BSDF, light sampling, environment map and hit-point gather of the PyTorch
+port vs the JAX package.  Floats: rtol 1e-5, atol 1e-6 (both are float32 with
+a different operation fusion); booleans and lobe choices equal."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from tpu_pt.render import brute as jbrute
+from tpu_pt.render import bsdf as jbsdf
+from tpu_pt.render import envmap as jenv
+from tpu_pt.render import integrator as jint
+from tpu_pt.render import lights as jlights
+from tpu_pt.scene import cornell as jc
+from tpu_pt.scene import types as jt
+from tpu_pt_torch.render import brute as tbrute
+from tpu_pt_torch.render import bsdf as tbsdf
+from tpu_pt_torch.render import envmap as tenv
+from tpu_pt_torch.render import integrator as tint
+from tpu_pt_torch.render import lights as tlights
+from tpu_pt_torch.scene import cornell as tc
+from tpu_pt_torch.scene import types as tt
+
+from torch_port_util import T, rays
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+R = 2048
+
+MAT_ROWS = [
+    dict(kind=jt.MAT_DIFFUSE, albedo=(0.7, 0.6, 0.5)),
+    dict(kind=jt.MAT_MIRROR, albedo=(0.9, 0.9, 0.8)),
+    dict(kind=jt.MAT_GLASS, albedo=(1.0, 0.95, 0.9), ior=1.45),
+    dict(kind=jt.MAT_REFRACT, albedo=(0.9, 1.0, 0.9), ior=1.33),
+    dict(kind=jt.MAT_EMISSIVE, emission=(5.0, 4.0, 3.0)),
+    dict(kind=jt.MAT_GGX, albedo=(0.8, 0.7, 0.3), roughness=0.35),
+    dict(kind=jt.MAT_GGX, albedo=(0.9, 0.9, 0.9), roughness=0.05),
+]
+
+LIGHT_ROWS = [
+    dict(kind=jt.LIGHT_AREA, position=(-0.5, 1.9, -0.5), edge_x=(1, 0, 0),
+         edge_y=(0, 0, 1), normal=(0, -1, 0), radiance=(10, 9, 8)),
+    dict(kind=jt.LIGHT_POINT, position=(0.3, 1.5, 0.2), radiance=(3, 3, 4)),
+    dict(kind=jt.LIGHT_DIRECTIONAL, normal=(0.3, -1.0, 0.2), radiance=(2, 2, 2)),
+    dict(kind=jt.LIGHT_HEMISPHERE, radiance=(0.5, 0.6, 0.9)),
+    dict(kind=jt.LIGHT_TRI, position=(0.0, 2.0, 0.0), edge_x=(0.5, 0, 0.1),
+         edge_y=(0.1, 0, 0.6), normal=(0, -1, 0), radiance=(7, 7, 7)),
+    dict(kind=jt.LIGHT_ENV, radiance=(1, 1, 1)),
+    dict(kind=jt.LIGHT_SPOT, position=(0.0, 1.8, 0.0), edge_x=(0.8, 2.0, 0.0),
+         normal=(0, -1, 0), radiance=(6, 5, 4)),
+]
+
+
+def test_constants_match():
+    for name in dir(jt):
+        if name.startswith(("MAT_", "LIGHT_")):
+            assert getattr(tt, name) == getattr(jt, name), name
+    for name in ("DRAW_JITTER", "_STRIDE", "_LIGHT0", "_BSDF", "_RR"):
+        assert getattr(tint, name) == getattr(jint, name), name
+
+
+def _mats(seed):
+    rs = np.random.RandomState(seed)
+    mid = rs.randint(0, len(MAT_ROWS), size=R).astype(np.int32)
+    mj = jbsdf.gather_mat(jt.make_materials(MAT_ROWS), jnp.asarray(mid))
+    mt = tbsdf.gather_mat(tt.make_materials(MAT_ROWS).__class__(
+        *(T(np.asarray(x)) for x in tt.make_materials(MAT_ROWS))), T(mid))
+    return rs, mj, mt
+
+
+def _unit(rs, n, upper=False):
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if upper:
+        d[:, 2] = np.abs(d[:, 2])
+    return d.astype(np.float32)
+
+
+def test_gather_mat_and_is_delta():
+    _, mj, mt = _mats(0)
+    for f in mj._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(mj, f)),
+                                      getattr(mt, f).numpy(), err_msg=f)
+    np.testing.assert_array_equal(np.asarray(jbsdf.is_delta(mj)),
+                                  tbsdf.is_delta(mt).numpy())
+
+
+def test_eval_f():
+    rs, mj, mt = _mats(1)
+    wo, wi = _unit(rs, R, upper=True), _unit(rs, R)
+    a = jbsdf.eval_f(mj, jnp.asarray(wo), jnp.asarray(wi))
+    b = tbsdf.eval_f(mt, T(wo), T(wi))
+    np.testing.assert_allclose(np.asarray(a), b.numpy(), **TOL)
+
+
+def test_bsdf_sample():
+    rs, mj, mt = _mats(2)
+    wo = _unit(rs, R)             # both hemispheres: glass from inside too
+    u = rs.rand(R, 3).astype(np.float32)
+    a = jbsdf.sample(mj, jnp.asarray(wo), jnp.asarray(u))
+    b = tbsdf.sample(mt, T(wo), T(u))
+    np.testing.assert_array_equal(np.asarray(a.delta), b.delta.numpy())
+    np.testing.assert_array_equal(np.asarray(a.valid), b.valid.numpy())
+    v = np.asarray(a.valid)[:, 0]
+    np.testing.assert_allclose(np.asarray(a.wi)[v], b.wi.numpy()[v], **TOL)
+    # weight = f*cos/pdf.  The near-mirror GGX row (roughness 0.05, alpha^2 =
+    # 6e-6) is ill-conditioned: D's denominator c2*(a2-1)+1 cancels to ~a2
+    # near cos_h = 1, so one ulp of c2 moves D by percents, and f (D at the
+    # re-normalised half vector) and pdf (D at the sampled one) no longer
+    # cancel bit for bit.  Those rows are held to 10 %; all others to 1e-4.
+    sharp = np.asarray(mj.roughness)[:, 0] < 0.1
+    wa, wb = np.asarray(a.weight), b.weight.numpy()
+    np.testing.assert_allclose(wa[v & ~sharp], wb[v & ~sharp], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(wa[v & sharp], wb[v & sharp], rtol=0.1,
+                               atol=1e-5)
+
+
+def _light_tables():
+    env = np.asarray(jenv.gradient_sky(16, 32), np.float32)
+    tabs = jenv.build_env_tables(env)
+    lj = jt.make_lights(LIGHT_ROWS)
+    lt = tt.make_lights(LIGHT_ROWS)
+    lt = lt.__class__(*(T(np.asarray(x)) for x in lt))
+    return env, tabs, lj, lt
+
+
+@pytest.mark.parametrize("li", range(len(LIGHT_ROWS)))
+@pytest.mark.parametrize("tables", [True, False])
+def test_sample_light(li, tables):
+    env, tabs, lj, lt = _light_tables()
+    rs = np.random.RandomState(10 + li)
+    p = rs.uniform(-1, 1, (R, 3)).astype(np.float32)
+    u = rs.rand(R, 2).astype(np.float32)
+    a = jlights.sample_light(
+        lj, li, jnp.asarray(p), jnp.asarray(u), env_map=jnp.asarray(env),
+        env_tables=tuple(jnp.asarray(x) for x in tabs) if tables else None)
+    b = tlights.sample_light(
+        lt, li, T(p), T(u), env_map=T(env),
+        env_tables=tuple(T(np.asarray(x)) for x in tabs) if tables else None)
+    np.testing.assert_array_equal(np.asarray(a.delta), b.delta.numpy())
+    for f in ("wi", "dist", "radiance", "pdf"):
+        x, y = np.asarray(getattr(a, f)), getattr(b, f).numpy()
+        assert x.shape == y.shape, f
+        np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-6, err_msg=f)
+
+
+def test_envmap_eval_sample_pdf():
+    env, tabs, _, _ = _light_tables()
+    rs = np.random.RandomState(3)
+    d = _unit(rs, R)
+    u = rs.rand(R, 2).astype(np.float32)
+    mj, cj = (jnp.asarray(x) for x in tabs)
+    mt, ct = (T(np.asarray(x)) for x in tabs)
+    np.testing.assert_allclose(
+        np.asarray(jenv.eval_env(jnp.asarray(env), jnp.asarray(d))),
+        tenv.eval_env(T(env), T(d)).numpy(), **TOL)
+    da, pa = jenv.sample_env(mj, cj, jnp.asarray(u))
+    db, pb = tenv.sample_env(mt, ct, T(u))
+    np.testing.assert_allclose(np.asarray(da), db.numpy(), **TOL)
+    np.testing.assert_allclose(np.asarray(pa), pb.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        np.asarray(jenv.env_pdf(mj, cj, jnp.asarray(d))),
+        tenv.env_pdf(mt, ct, T(d)).numpy(), rtol=1e-5, atol=1e-6)
+    # No-map placeholder evaluates to zeros in both.
+    z = np.zeros((1, 1, 3), np.float32)
+    assert not tenv.eval_env(T(z), T(d)).any()
+
+
+def test_shade_info_and_brute():
+    """The port's dense oracle and hit-point gather on the Cornell scene
+    (triangles + sphere primitives)."""
+    sj, st = jc.cornell("spheres"), tc.cornell("spheres").to("cpu")
+    ro, rd = rays(1024, 7)
+    tmin = np.zeros((1024, 1), np.float32)
+    tmax = np.full((1024, 1), 1e30, np.float32)
+    hj = jbrute.intersect(sj, jnp.asarray(ro), jnp.asarray(rd),
+                          jnp.asarray(tmin), jnp.asarray(tmax))
+    ht = tbrute.intersect(st, T(ro), T(rd), T(tmin), T(tmax))
+    np.testing.assert_array_equal(np.asarray(hj.hit), ht.hit.numpy())
+    m = np.asarray(hj.hit)[:, 0]
+    assert m.sum() > 100
+    np.testing.assert_allclose(np.asarray(hj.t)[m], ht.t.numpy()[m], **TOL)
+    t_same = (np.asarray(hj.t) == ht.t.numpy())[:, 0][m]
+    prim_eq = (np.asarray(hj.prim) == ht.prim.numpy())[m]
+    assert prim_eq[t_same].all() and prim_eq.mean() > 0.999
+    oj = jbrute.occluded(sj, jnp.asarray(ro), jnp.asarray(rd),
+                         jnp.full((1024, 1), 2.0))
+    ot = tbrute.occluded(st, T(ro), T(rd), T(np.full((1024, 1), 2.0, np.float32)))
+    np.testing.assert_array_equal(np.asarray(oj), ot.numpy())
+
+    # shade_info on the SAME hit record (the JAX one), so only the gather and
+    # the normal math are compared.
+    from tpu_pt_torch.render.brute import Hit
+
+    h_same = Hit(*(T(np.asarray(x)) for x in hj))
+    a = jint.shade_info(sj, jnp.asarray(ro), jnp.asarray(rd), hj)
+    b = tint.shade_info(st, T(ro), T(rd), h_same)
+    for f in ("p", "ns", "ng"):
+        np.testing.assert_allclose(np.asarray(getattr(a, f))[m],
+                                   getattr(b, f).numpy()[m], rtol=1e-5,
+                                   atol=1e-5, err_msg=f)
+    for f in a.mat._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(a.mat, f))[m],
+                                      getattr(b.mat, f).numpy()[m], err_msg=f)

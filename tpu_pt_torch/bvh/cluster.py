@@ -1,0 +1,702 @@
+"""Cluster BVH: SAH leaves as dense primitive tiles under an implicit 8-ary
+AABB pyramid, traversed level-synchronously for a whole batch of rays.
+
+  1. **Clusters**: SAH leaves of <= TILE (128) primitives, pretransformed to
+     a (C, 12, TILE) tile tensor — primitive lane = minor axis, so one
+     cluster is one contiguous 6 KB block.
+  2. **Implicit 8-ary level pyramid** over cluster AABBs: level l+1 packs
+     the 8 children of node i at rows [8i, 8i+8), so the traversal needs no
+     index tables; a child fetch is one contiguous block gather.
+  3. **Sort-free compact descent**: a dense slab test of every ray against
+     the top level, then per level a block gather of the live nodes'
+     children, a dense slab test and a 1-bit lane compaction.
+  4. **Pair stage**: the live (ray, cluster) candidates are flattened to one
+     ray-major pair list, every pair is tile-tested
+     (``kernels.cluster_isect.pair_tile_isect``) and reduced per ray
+     (``kernels.pair_scan.pair_segmin``).  Exact: every live candidate is
+     tested, no best-t feedback.
+
+Capacity contract: the per-level frontier widths, the leaf candidate count
+and the flat pair budget are static.  Truncation is *counted* (the
+``*_counted`` entry points return it) and a count of 0 means the traversal
+was exact.
+
+Only the compact traversal is here; everything runs under
+``torch.no_grad()`` semantics (no tensor requires grad).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from tpu_pt_torch.core.intersect import INF
+from tpu_pt_torch.kernels.cluster_isect import (
+    B as PBLK, _mt_group, pair_tile_isect, pair_tile_isect_ref)
+from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref
+from tpu_pt_torch.render.brute import Hit
+from tpu_pt_torch.scene.types import Scene
+
+TILE = 128  # primitives per cluster
+
+
+def _bf16_outward(lo: np.ndarray, hi: np.ndarray):
+    """Round AABBs OUTWARD onto the bf16 grid (lo down, hi up) so that a
+    bf16 slab test can only produce false POSITIVES, never a false miss.
+    Returns the uint16 bit patterns (h_lo, h_hi).
+
+    Works in bf16 magnitude-bit space: truncating an f32 to its high 16
+    bits rounds toward zero, so the needed 1-ulp nudge is sign-dependent.
+    """
+    def trunc(x):
+        b = x.astype(np.float32).view(np.uint32)
+        return (b >> 16).astype(np.uint16)
+
+    def val(h):
+        return (h.astype(np.uint32) << 16).view(np.float32)
+
+    h_lo = trunc(lo)
+    need = val(h_lo) > lo          # only for negative lo (trunc went up)
+    h_lo = (h_lo + need.astype(np.uint16))
+    h_hi = trunc(hi)
+    need = val(h_hi) < hi          # only for positive hi (trunc went down)
+    h_hi = (h_hi + need.astype(np.uint16))
+    return h_lo, h_hi
+
+
+def _levels16(levels):
+    """bf16 outward-rounded copies of the level tables, as (N, 8) uint16
+    arrays of bf16 BIT PATTERNS (numpy has no bfloat16; the tensors view
+    them as ``torch.bfloat16``, whose ``.float()`` is exact)."""
+    out = []
+    for lv in levels:
+        lv = np.asarray(lv)
+        h_lo, h_hi = _bf16_outward(lv[:, 0:3], lv[:, 3:6])
+        row = np.zeros((lv.shape[0], 8), np.uint16)
+        row[:, 0:3] = h_lo
+        row[:, 3:6] = h_hi
+        out.append(row)
+    return out
+
+
+def _bf16_tensor(bits: np.ndarray, device):
+    """uint16 bf16 bit patterns -> a ``torch.bfloat16`` tensor."""
+    return torch.from_numpy(
+        np.ascontiguousarray(bits).view(np.int16)).to(device).view(
+        torch.bfloat16)
+
+
+class ClusterBVH(NamedTuple):
+    """levels[l]: (N_l, 8) f32 rows [min.xyz, max.xyz, 0, 0], root-first;
+    level[l+1] has exactly 8*N_l rows (empty slots have min=+INF, max=-INF
+    and fail every slab test).
+    levels16[l]: bf16 copies rounded OUTWARD — the gathered tables of the
+      descent (host: uint16 bit patterns; device: ``torch.bfloat16``).
+    tiles: (C, 12, L) f32 — lane p of cluster c holds primitive p as rows
+      [v0.xyz, e1.xyz, e2.xyz, type, 0, 0] (tri: edges; sphere: v0=centre,
+      e1.x=radius, type=1; padding lanes are all-zero => miss).
+    tile_gid: (C, L) i32 global primitive id (pad lanes 0 — never hit).
+    frontiers / k_leaf: static per-level frontier capacities and the leaf
+      candidate budget.
+    pair_mults: pair budgets × Q: (top flatten, intermediate levels,
+      closest leaf pairs, NARROW any-hit leaf pairs).
+    top_soa / child16: device-side derived tables (``to`` fills them):
+      ``levels[0].T`` and, per level l >= 1, the (N_l / 8, 64) field-major
+      sibling rows [f0 of children 0..7, f1 of children 0..7, ...]."""
+
+    levels: tuple
+    tiles: object
+    tile_gid: object
+    frontiers: tuple
+    k_leaf: int
+    pair_budget: int
+    pair_mults: tuple
+    levels16: tuple
+    top_soa: object = None
+    child16: tuple = ()
+
+    @property
+    def n_clusters(self) -> int:
+        return self.tiles.shape[0]
+
+    def to(self, device) -> "ClusterBVH":
+        """Tensors on ``device`` plus the derived descent tables."""
+        device = torch.device(device)
+        here = self.tiles.device if torch.is_tensor(self.tiles) else None
+        if self.top_soa is not None and here is not None \
+                and here.type == device.type \
+                and device.index in (None, here.index):
+            return self
+
+        def dev(x):
+            return x.to(device) if torch.is_tensor(x) else torch.from_numpy(
+                np.ascontiguousarray(x)).to(device)
+
+        levels = tuple(dev(lv) for lv in self.levels)
+        levels16 = tuple(
+            lv.to(device) if torch.is_tensor(lv) else _bf16_tensor(lv, device)
+            for lv in self.levels16)
+        child16 = (None,) + tuple(
+            lv.reshape(-1, 8, 8).transpose(1, 2).reshape(-1, 64).contiguous()
+            for lv in levels16[1:])
+        return self._replace(
+            levels=levels, tiles=dev(self.tiles).contiguous(),
+            tile_gid=dev(self.tile_gid), levels16=levels16,
+            top_soa=levels[0].T.contiguous(), child16=child16)
+
+
+def make_cluster_bvh(levels, tiles, tile_gid, frontiers, k_leaf: int,
+                     pair_budget: int, pair_mults=(8, 8, 6),
+                     levels16=None) -> ClusterBVH:
+    """Host container from numpy arrays.  A 3-entry ``pair_mults`` gets the
+    derived 4th entry, the NARROW any-hit pair budget: about 2/3 of the
+    closest leaf multiplier, at least 2."""
+    pair_mults = tuple(pair_mults)
+    if len(pair_mults) == 3:
+        pair_mults += (max(2, -(-2 * pair_mults[2] // 3)),)
+    if levels16 is None:
+        levels16 = _levels16(levels)
+    return ClusterBVH(tuple(levels), tiles, tile_gid, tuple(frontiers),
+                      int(k_leaf), int(pair_budget), pair_mults,
+                      tuple(levels16))
+
+
+def _prim_lane_rows(scene: Scene, pid: np.ndarray) -> np.ndarray:
+    """(len(pid), 12) packed rows for the tile tensor (before transpose)."""
+    v = np.asarray(scene.vertices)
+    ti = np.asarray(scene.tri_idx)
+    sc = np.asarray(scene.sph_center)
+    sr = np.asarray(scene.sph_radius)
+    n_tris = ti.shape[0]
+    rows = np.zeros((len(pid), 12), np.float32)
+    is_tri = pid < n_tris
+    tg = pid[is_tri]
+    v0 = v[ti[tg, 0]]
+    rows[is_tri, 0:3] = v0
+    rows[is_tri, 3:6] = v[ti[tg, 1]] - v0
+    rows[is_tri, 6:9] = v[ti[tg, 2]] - v0
+    sg = pid[~is_tri] - n_tris
+    rows[~is_tri, 0:3] = sc[sg]
+    rows[~is_tri, 3] = sr[sg]
+    rows[~is_tri, 9] = 1.0
+    return rows
+
+
+def default_frontiers(level_sizes: Sequence[int]):
+    """Per-level frontier capacities (top-first) + leaf candidate budget K.
+
+    A ray through an n^3-cell grid pierces ~3n cells; the leaf level follows
+    that model (2.5n + 8).  INTERMEDIATE levels need ~4n: their AABBs
+    overlap more (each is the union of 8 children), so a ray stabs more of
+    them than the disjoint-grid estimate (4n + 10)."""
+    caps = []
+    last = len(level_sizes) - 1
+    for i, s in enumerate(level_sizes):
+        n = max(1.0, float(s)) ** (1.0 / 3.0)
+        if i == last:
+            caps.append(int(min(s, max(12, int(2.5 * n) + 8))))
+        else:
+            caps.append(int(min(s, max(16, int(4.0 * n) + 10))))
+    return tuple(caps), caps[-1]
+
+
+def build_cluster_bvh(scene: Scene, tile: int = TILE,
+                      frontiers: Sequence[int] | None = None,
+                      k_leaf: int | None = None,
+                      pair_budget: int | None = None,
+                      dense_start: int = 512,
+                      pair_mults: Sequence[int] | None = None) -> ClusterBVH:
+    """Host build: SAH leaves (<= tile prims) from the native C++ builder ->
+    padded tile tensor + implicit 8-ary AABB pyramid (all numpy; upload
+    with ``.to(device)``).  ``scene`` holds host arrays."""
+    from tpu_pt_torch.bvh import native
+
+    start, cnt, lo, hi, pid = native.build_leaves(scene, max_leaf=tile)
+    C = len(start)
+
+    # Tile tensor: (C, 12, tile) with zero padding (zero rows never hit:
+    # zero edges => det 0 for triangles, radius 0 for spheres).  Lanes are
+    # sorted by gid within each cluster so "first lane at min t" — the rule
+    # the pair kernel uses — IS the lowest-gid tie-break.
+    rows_all = _prim_lane_rows(scene, pid)  # (P, 12) in leaf order
+    rows = np.zeros((C, tile, 12), np.float32)
+    gid = np.zeros((C, tile), np.int32)
+    for c in range(C):
+        s, n = start[c], cnt[c]
+        o = np.argsort(pid[s:s + n], kind="stable")
+        rows[c, :n] = rows_all[s:s + n][o]
+        gid[c, :n] = pid[s:s + n][o]
+    tiles = np.ascontiguousarray(rows.transpose(0, 2, 1))  # (C, 12, tile)
+
+    # Implicit 8-ary pyramid: sizes fixed top-down so level l+1 has exactly
+    # 8x the rows of level l (the ladder N0, 8*N0, 64*N0, ... >= C); slots
+    # beyond real nodes are empty AABBs (min=+INF > max=-INF, never hit).
+    # The top level is tested DENSELY against every ray, so it can be
+    # hundreds of nodes wide — every level it replaces removes a block
+    # gather + compaction step.
+    n_levels = 1
+    top = C
+    while top > dense_start:
+        top = -(-top // 8)
+        n_levels += 1
+    sizes = [top * 8 ** l for l in range(n_levels)]  # top-first
+
+    bot = np.zeros((sizes[-1], 8), np.float32)
+    bot[:, 0:3] = np.inf
+    bot[:, 3:6] = -np.inf
+    bot[:C, 0:3] = lo
+    bot[:C, 3:6] = hi
+    levels = [bot]
+    for _ in range(n_levels - 1):
+        child = levels[0]
+        parent = np.zeros((child.shape[0] // 8, 8), np.float32)
+        parent[:, 0:3] = child[:, 0:3].reshape(-1, 8, 3).min(1)
+        parent[:, 3:6] = child[:, 3:6].reshape(-1, 8, 3).max(1)
+        levels.insert(0, parent)
+
+    if frontiers is None or k_leaf is None:
+        df, dk = default_frontiers([lv.shape[0] for lv in levels])
+        frontiers = tuple(frontiers) if frontiers is not None else df
+        k_leaf = int(k_leaf) if k_leaf is not None else dk
+    if len(frontiers) != len(levels):
+        raise ValueError(f"{len(frontiers)} frontier caps {tuple(frontiers)} "
+                         f"for {len(levels)} levels {sizes}")
+    pair_budget = pair_budget or min(k_leaf, 4)
+    return make_cluster_bvh(
+        levels, tiles, gid, tuple(frontiers), int(k_leaf), int(pair_budget),
+        pair_mults=tuple(pair_mults) if pair_mults is not None else (8, 8, 6))
+
+
+# ---------------------------------------------------------------------------
+# Pair stage
+# ---------------------------------------------------------------------------
+
+
+def _prim_tile_test(tile, ro, rd, t_min, t_max):
+    """Dense MT + sphere test of rays vs their tile.  tile: (P, 12, L);
+    ro/rd: (P, 3); t bounds (P, 1).  Returns (t (P, L), u, v) with INF on
+    miss.  (The arithmetic is ``kernels.cluster_isect._mt_group``.)"""
+    rays = torch.zeros((tile.shape[0], 16), dtype=tile.dtype,
+                       device=tile.device)
+    rays[:, 0:3] = ro
+    rays[:, 3:6] = rd
+    rays[:, 6:7] = t_min
+    rays[:, 7:8] = t_max
+    rays[:, 8] = 1.0
+    return _mt_group(tile, rays)
+
+
+def _pair_rows(ro, rd, t_min1, t_max1, ray_c, cid_c, pair_ok):
+    """Operands of the pair-tile kernel for a flat pair batch: the cluster
+    ids (i32) and the (P, 16) ray rows, both padded with dead pairs to a
+    multiple of 128."""
+    P = cid_c.shape[0]
+    pad = (-P) % PBLK
+    rays = torch.zeros((P + pad, 16), dtype=torch.float32, device=ro.device)
+    rays[:P, 0:3] = ro[ray_c]
+    rays[:P, 3:6] = rd[ray_c]
+    rays[:P, 6] = t_min1[ray_c]
+    rays[:P, 7] = t_max1[ray_c]
+    rays[:P, 8] = pair_ok.to(torch.float32)
+    cid_p = cid_c.to(torch.int32)
+    if pad:
+        cid_p = torch.cat([cid_p, cid_p.new_zeros((pad,))])
+    return cid_p.contiguous(), rays
+
+
+def _test_pair_batch(cb: ClusterBVH, ro, rd, t_min1, t_max1, ray_c, cid_c,
+                     pair_ok, use_kernels: bool = True):
+    """Tile intersection of a flat pair batch.  Returns per-pair
+    (t (P,), u, v, gid i32) with INF on miss."""
+    cid_c = torch.clamp(cid_c, 0, cb.n_clusters - 1)
+    P = cid_c.shape[0]
+    cid_p, rays = _pair_rows(ro, rd, t_min1, t_max1, ray_c, cid_c, pair_ok)
+    isect = pair_tile_isect if use_kernels else pair_tile_isect_ref
+    out = isect(cb.tiles, cid_p, rays)[:P]
+    lane = out[:, 1].to(torch.int64).clamp(0, cb.tiles.shape[2] - 1)
+    return out[:, 0], out[:, 2], out[:, 3], cb.tile_gid[cid_c, lane]
+
+
+# ---------------------------------------------------------------------------
+# Compact traversal: the descent needs neither ORDER nor best-t feedback,
+# only COMPACTION.  1-bit compaction is sort-free: an inclusive cumsum ranks
+# the live lanes and one scatter places them.
+# ---------------------------------------------------------------------------
+
+
+def _rank_inclusive(live):
+    """Per-row inclusive rank of live lanes: rank[q, i] = #live in
+    live[q, :i+1] (int64)."""
+    return torch.cumsum(live, dim=1)
+
+
+def _compact_lanes(live, idx, cap: int):
+    """Stable 1-bit lane compaction: move live lanes to the front.
+
+    live: (Q, N) bool; idx: (Q, N) i64 payload; cap: static output width.
+    Returns (idx_c (Q, cap) i64, live_c (Q, cap) bool, overflow (Q,) i64 —
+    live lanes beyond cap, dropped).  out[q, j] = idx of the (j+1)-th live
+    lane, 0 in the slots past the live count: a masked scatter of ``idx``
+    to column ``rank - 1`` of a zero tensor (dead and overflowing lanes go
+    to a spare column that is cut off)."""
+    n = live.shape[1]
+    cap = min(cap, n)
+    rank = _rank_inclusive(live)                           # (Q, N) inclusive
+    total = rank[:, -1]
+    col = torch.where(live & (rank <= cap), rank - 1, cap)
+    buf = torch.zeros((live.shape[0], cap + 1), dtype=idx.dtype,
+                      device=idx.device)
+    buf.scatter_(1, col, idx)
+    live_c = torch.arange(cap, device=live.device)[None, :] < total[:, None]
+    return buf[:, :cap], live_c, torch.clamp_min(total - cap, 0)
+
+
+def _slab_soa(blo, bhi, ro, rd_inv, t_min, t_max):
+    """Component-wise (SoA) slab test: blo/bhi are 3-tuples of per-axis
+    arrays broadcastable against per-axis ray columns ro[i]/rd_inv[i].
+    Returns the entry t, INF on miss.  0·inf = NaN on an axis-parallel ray
+    at a slab boundary is mapped to "no constraint"."""
+    t0 = t_min
+    t1 = t_max
+    for i in range(3):
+        lo = (blo[i] - ro[i]) * rd_inv[i]
+        hi = (bhi[i] - ro[i]) * rd_inv[i]
+        near = torch.minimum(lo, hi)
+        far = torch.maximum(lo, hi)
+        near = torch.nan_to_num(near, nan=-float("inf"), posinf=float("inf"),
+                                neginf=-float("inf"))
+        far = torch.nan_to_num(far, nan=float("inf"), posinf=float("inf"),
+                               neginf=-float("inf"))
+        t0 = torch.maximum(t0, near)
+        t1 = torch.minimum(t1, far)
+    return torch.where((blo[0] <= bhi[0]) & (t0 <= t1), t0,
+                       torch.full_like(t0, INF))
+
+
+def _descend_compact(cb: ClusterBVH, ro, rd_inv, t_min, t_max,
+                     collect: list | None = None):
+    """Sort-free frontier descent.  Returns (cand (Q, K) i64 cluster ids,
+    live (Q, K) bool, overflow (Q,) i64 live candidates truncated at any
+    level).  Candidates are lane-compacted but UNORDERED by t — the compact
+    traversal tests all of them, so order is irrelevant.
+
+    collect: when a list is passed, one (needed (Q,), truncated (Q,)) pair
+    per level is appended (needed = live candidates BEFORE the cap)."""
+    Q = ro.shape[0]
+    levels = cb.levels
+    caps = cb.frontiers
+    ro_c = tuple(ro[:, i:i + 1] for i in range(3))          # (Q, 1) each
+    ri_c = tuple(rd_inv[:, i:i + 1] for i in range(3))
+
+    topT = cb.top_soa                                       # (8, N0)
+    te = _slab_soa(tuple(topT[i][None, :] for i in range(3)),
+                   tuple(topT[3 + i][None, :] for i in range(3)),
+                   ro_c, ri_c, t_min, t_max)                # (Q, N0)
+    idx0 = torch.arange(levels[0].shape[0], device=ro.device)[None, :] \
+        .expand(te.shape)
+    cand, live, overflow = _compact_lanes(te < INF, idx0, caps[0])
+    if collect is not None:
+        collect.append((torch.sum(te < INF, dim=1), overflow))
+
+    eight = torch.arange(8, device=ro.device)
+    for l in range(1, len(levels)):
+        # Field-major sibling rows from the bf16 outward-rounded table
+        # (GATHER_BF16): a field slice of the gathered block keeps the 8
+        # children minor.
+        child = cb.child16[l] if GATHER_BF16 else \
+            levels[l].reshape(-1, 8, 8).transpose(1, 2).reshape(-1, 64)
+        blk = child[torch.clamp(cand, 0, child.shape[0] - 1)]  # (Q, cap, 64)
+        K8 = cand.shape[1] * 8
+        blk = blk.float().reshape(Q, cand.shape[1], 8, 8)
+
+        def field(f):
+            return blk[:, :, f, :].reshape(Q, K8)
+
+        tc = _slab_soa((field(0), field(1), field(2)),
+                       (field(3), field(4), field(5)),
+                       ro_c, ri_c, t_min, t_max)            # (Q, cap*8)
+        live_c = (tc < INF) & live[:, :, None].expand(
+            live.shape + (8,)).reshape(Q, K8)
+        cidx = (cand[:, :, None] * 8 + eight).reshape(Q, K8)
+        cap = cb.k_leaf if l == len(levels) - 1 else caps[l]
+        cand, live, ovf = _compact_lanes(live_c, cidx, cap)
+        overflow = overflow + ovf
+        if collect is not None:
+            collect.append((torch.sum(live_c, dim=1), ovf))
+    return cand, live, overflow
+
+
+def _flatten_live(key_ray, payload, keep: int, Q: int):
+    """Compact live pairs to the front (a stable sort used as a
+    compaction), truncate to ``keep``.
+
+    key_ray: (M,) — ray id for live pairs, Q (sentinel) for dead.
+    Returns (rayP (keep,), payloadP (keep,), n_dropped scalar)."""
+    k, order = torch.sort(key_ray, stable=True)
+    p = payload[order]
+    n_live = torch.sum(key_ray < Q)
+    dropped = torch.clamp_min(n_live - keep, 0)
+    return k[:keep], p[:keep], dropped
+
+
+def _flat_pairs(cand, live, Q: int, budget: int):
+    """(Q, K) compacted candidates -> ray-sorted flat pair list.
+    Returns (rayP (budget,), cidP (budget,), dropped scalar, cnt_c (Q,),
+    right_c (Q,), lost (Q,)): ray q's pairs occupy
+    [right_c - cnt_c, right_c); ``lost`` counts its pairs cut by the
+    static budget."""
+    arq = torch.arange(Q, device=cand.device)
+    key = torch.where(live, arq[:, None], Q)
+    rayP, cidP, dropped = _flatten_live(key.reshape(-1), cand.reshape(-1),
+                                        budget, Q)
+    cnt = torch.sum(live, dim=1)                         # (Q,)
+    right = torch.cumsum(cnt, dim=0)
+    base = right - cnt
+    right_c = torch.clamp_max(right, budget)
+    cnt_c = torch.clamp_min(right_c - torch.clamp_max(base, budget), 0)
+    lost = cnt - cnt_c                                   # per-ray drops
+    return rayP, cidP, dropped, cnt_c, right_c, lost
+
+
+def _reduce_pairs_closest(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt,
+                          right, use_kernels: bool = True):
+    """Tile-test a ray-sorted pair list and reduce to per-ray nearest —
+    the SORT form, kept as the twin of the kernel path
+    (:func:`_reduce_pairs_closest_scan`).  Returns (best_t (Q,), gid, u, v).
+
+    The pair list is already ray-major, so sorting by (ray, t, gid) puts
+    each ray's winning pair — nearest t, lowest gid at ties — at its
+    segment head."""
+    Q = ro.shape[0]
+    P = rayP.shape[0]
+    pair_ok = rayP < Q
+    rayPc = torch.clamp_max(rayP, Q - 1)
+    t_p, u_p, v_p, g_p = _test_pair_batch(
+        cb, ro, rd, t_min1, t_max1, rayPc, cidP, pair_ok, use_kernels)
+    g_key = torch.where(t_p < INF, g_p, torch.full_like(g_p, 2**31 - 1))
+    # Lexicographic (ray, t, gid) order by three stable sorts, last key first.
+    order = torch.sort(g_key, stable=True).indices
+    order = order[torch.sort(t_p[order], stable=True).indices]
+    order = order[torch.sort(rayP[order], stable=True).indices]
+    head = order[torch.clamp_max(right - cnt, P - 1)]      # segment starts
+    best_t = t_p[head]
+    has = (cnt > 0) & (best_t < INF)
+    zero = torch.zeros_like(best_t)
+    return (torch.where(has, best_t, torch.full_like(best_t, INF)),
+            torch.where(has, g_key[head], torch.zeros_like(g_key[head])),
+            torch.where(has, u_p[head], zero),
+            torch.where(has, v_p[head], zero))
+
+
+def _scan_supported(cb: ClusterBVH, Q: int) -> bool:
+    """Always True: the per-ray reduce carries gid and the segment bounds as
+    int32, which lifts the f32 ``< 2^24`` limit on primitive and ray ids of
+    a scan that rides them on float lanes."""
+    return True
+
+
+def _segmin_pairs(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right,
+                  use_kernels: bool, with_gid: bool):
+    Q = ro.shape[0]
+    pair_ok = rayP < Q
+    rayPc = torch.clamp_max(rayP, Q - 1)
+    t_p, u_p, v_p, g_p = _test_pair_batch(
+        cb, ro, rd, t_min1, t_max1, rayPc, cidP, pair_ok, use_kernels)
+    if not with_gid:
+        g_p = torch.zeros_like(g_p)
+    segmin = pair_segmin if use_kernels else pair_segmin_ref
+    return segmin(t_p.contiguous(), g_p.contiguous(), u_p.contiguous(),
+                  v_p.contiguous(), cnt.to(torch.int32), right.to(torch.int32))
+
+
+def _reduce_pairs_closest_scan(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt,
+                               right, use_kernels: bool = True):
+    """Kernel form of _reduce_pairs_closest: same inputs, same bit-exact
+    outputs, no sort (per-ray segmented (t, gid)-min)."""
+    best_t, best_g, best_u, best_v = _segmin_pairs(
+        cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right, use_kernels,
+        with_gid=True)
+    has = (cnt > 0) & (best_t < INF)
+    zero = torch.zeros_like(best_t)
+    return (torch.where(has, best_t, torch.full_like(best_t, INF)),
+            torch.where(has, best_g, torch.zeros_like(best_g)),
+            torch.where(has, best_u, zero),
+            torch.where(has, best_v, zero))
+
+
+def _reduce_pairs_anyhit_scan(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt,
+                              right, use_kernels: bool = True):
+    """Any-hit reduce: occluded iff the ray's segment minimum is a hit
+    (gid = 0 for every pair; only t is read)."""
+    best_t = _segmin_pairs(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt,
+                           right, use_kernels, with_gid=False)[0]
+    return (cnt > 0) & (best_t < INF)
+
+
+# Intra-batch traversal split: run the traversal as SPLIT independent
+# sub-batches of Q/SPLIT rays each.  Per-ray results are identical (all
+# stages reduce per ray); only the static pair budget is sliced per
+# sub-batch, so truncation PATTERNS can differ — which the overflow counter
+# reports.
+SPLIT_CLOSEST = 4
+SPLIT_ANYHIT = 4
+
+# Gather the descent's child AABBs from the bf16 outward-rounded tables
+# (half the gathered bytes; candidate selection stays exact because the
+# rounding is conservative).
+GATHER_BF16 = True
+
+
+def _split_batches(Q: int, split: int) -> int:
+    """Effective split factor: sub-batches stay >= 1024 rays wide so that
+    fixed per-stage costs don't dominate."""
+    k = max(1, int(split))
+    while k > 1 and (Q % k != 0 or Q // k < 1024):
+        k //= 2
+    return k
+
+
+def _interleave(parts):
+    """Inverse of the strided split x[i::k]: stack on a new axis 1, fold."""
+    return torch.stack(parts, 1).reshape(-1, *parts[0].shape[1:])
+
+
+def _traverse_compact(cb: ClusterBVH, ro, rd, t_min, t_max,
+                      use_kernels: bool = True):
+    """Closest hit: sort-free descent + one flat all-candidates pair batch
+    + per-ray segmented min.  Exact because every live candidate is tested.
+    Returns (best_t (Q,1), gid, u (Q,1), v (Q,1), n_overflow).
+
+    Sub-batches are STRIDED (sub-batch i takes lanes i, i+k, ...), not
+    contiguous: wavefront respawn fills lanes in pixel order, so contiguous
+    slices would concentrate coherent hot blocks and blow the per-sub-batch
+    pair budget.  The strided views are made contiguous here (the kernel
+    wrappers refuse anything else)."""
+    k = _split_batches(ro.shape[0], SPLIT_CLOSEST)
+    if k > 1:
+        outs = [_traverse_compact_1(cb, ro[i::k].contiguous(),
+                                    rd[i::k].contiguous(),
+                                    t_min[i::k].contiguous(),
+                                    t_max[i::k].contiguous(), use_kernels)
+                for i in range(k)]
+        bt, g, u, v, novf = zip(*outs)
+        return (_interleave(bt), _interleave(g), _interleave(u),
+                _interleave(v), sum(novf))
+    return _traverse_compact_1(cb, ro, rd, t_min, t_max, use_kernels)
+
+
+def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
+                        use_kernels: bool = True):
+    Q = ro.shape[0]
+    t_min1 = t_min[:, 0]
+    t_max1 = t_max[:, 0]
+    cand, live, ovf = _descend_compact(cb, ro, 1.0 / rd, t_min1[:, None],
+                                       t_max1[:, None])
+    budget = int(cb.pair_mults[2] * Q)
+    rayP, cidP, dropped, cnt, right, _ = _flat_pairs(cand, live, Q, budget)
+    n_ovf = torch.sum(ovf) + dropped
+    best_t, best_g, best_u, best_v = _reduce_pairs_closest_scan(
+        cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right, use_kernels)
+    return best_t[:, None], best_g, best_u[:, None], best_v[:, None], n_ovf
+
+
+def _traverse_compact_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
+                             narrow: bool = False, use_kernels: bool = True):
+    """Occlusion: any tested pair with a hit in range occludes its ray.
+    narrow=True selects the steady-state shadow pair budget
+    (pair_mults[3]).  Returns (occ (Q,) bool, n_overflow)."""
+    k = _split_batches(ro.shape[0], SPLIT_ANYHIT)
+    if k > 1:  # strided slices — see _traverse_compact
+        outs = [_traverse_compact_anyhit_1(
+                    cb, ro[i::k].contiguous(), rd[i::k].contiguous(),
+                    t_min[i::k].contiguous(), t_max[i::k].contiguous(),
+                    narrow, use_kernels)
+                for i in range(k)]
+        occ, novf = zip(*outs)
+        return _interleave(occ), sum(novf)
+    return _traverse_compact_anyhit_1(cb, ro, rd, t_min, t_max, narrow,
+                                      use_kernels)
+
+
+def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
+                               narrow: bool = False,
+                               use_kernels: bool = True):
+    Q = ro.shape[0]
+    t_min1 = t_min[:, 0]
+    t_max1 = t_max[:, 0]
+    cand, live, ovf = _descend_compact(cb, ro, 1.0 / rd, t_min1[:, None],
+                                       t_max1[:, None])
+    # Any-hit pair budget: callers that KNOW the batch is a steady-state
+    # shadow wave (the wavefront loop body after its wide warm-up prefix)
+    # pass narrow=True for the pair_mults[3] budget (shadow batches are
+    # about half-occupied in steady state); all other calls use the wide
+    # pair_mults[2] budget, which also covers fully-occupied first-wave
+    # shadows.
+    mult = cb.pair_mults[3] if narrow else cb.pair_mults[2]
+    budget = int(mult * Q)
+    rayP, cidP, dropped, cnt, right, _ = _flat_pairs(cand, live, Q, budget)
+    n_ovf = torch.sum(ovf) + dropped
+    occ = _reduce_pairs_anyhit_scan(
+        cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right, use_kernels)
+    return occ, n_ovf
+
+
+def compact_stats(cb: ClusterBVH, ro, rd, t_min, t_max):
+    """Observability for the capacity contract.  Returns (n_live_pairs,
+    n_overflow) where n_overflow counts candidates truncated ANYWHERE:
+    descent frontier caps (including the k_leaf lane cap) plus
+    flat-pair-budget drops.  The compact traversal is exact iff
+    n_overflow == 0 for the scene/ray population."""
+    t_min1 = t_min[:, 0] if t_min.dim() == 2 else t_min
+    t_max1 = t_max[:, 0] if t_max.dim() == 2 else t_max
+    Q = ro.shape[0]
+    cand, live, overflow = _descend_compact(
+        cb, ro, 1.0 / rd, t_min1[:, None], t_max1[:, None])
+    budget = int(cb.pair_mults[2] * Q)
+    rayP, _, dropped, _, _, _ = _flat_pairs(cand, live, Q, budget)
+    n_live = torch.sum(rayP < Q)
+    return n_live, torch.sum(overflow) + dropped
+
+
+def _as_col(t, Q: int, device):
+    """Scalar or (Q,1)-broadcastable bound -> (Q, 1) f32 tensor."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=device)
+    return t.expand(Q, 1) if t.dim() else t.reshape(1, 1).expand(Q, 1)
+
+
+def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
+                      use_kernels: bool = True):
+    """Nearest hit + the capacity-contract overflow count for this call
+    (candidates truncated by frontier caps / k_leaf / the flat pair
+    budget).  The traversal is exact iff the count is 0."""
+    t_max_b = _as_col(t_max, ro.shape[0], ro.device)
+    best_t, gid, u, v, ovf = _traverse_compact(cb, ro, rd, t_min, t_max_b,
+                                               use_kernels)
+    found = best_t < t_max_b
+    return Hit(hit=found,
+               t=torch.where(found, best_t, torch.full_like(best_t, INF)),
+               prim=gid, u=u, v=v), ovf
+
+
+def intersect(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
+              use_kernels: bool = True) -> Hit:
+    return intersect_counted(cb, scene, ro, rd, t_min, t_max, use_kernels)[0]
+
+
+def occluded_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
+                     narrow: bool = False, use_kernels: bool = True):
+    """Occlusion + overflow count (see intersect_counted)."""
+    t_min = torch.zeros((ro.shape[0], 1), dtype=torch.float32,
+                        device=ro.device)
+    t_max = _as_col(t_max, ro.shape[0], ro.device)
+    occ, ovf = _traverse_compact_anyhit(cb, ro, rd, t_min, t_max,
+                                        narrow=narrow, use_kernels=use_kernels)
+    return occ[:, None], ovf
+
+
+def occluded(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
+             use_kernels: bool = True):
+    return occluded_counted(cb, scene, ro, rd, t_max,
+                            use_kernels=use_kernels)[0]

@@ -1,0 +1,88 @@
+"""ctypes bridge to the native C++ SAH builder (``native/bvh_builder.cpp``
+at the repository root).
+
+The shared library is compiled with ``g++`` at first use into the package's
+ignored build directory (``tpu_pt_torch/_build/``).  If it cannot be built
+the call raises: there is no silent switch to another builder, which would
+change the tree.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+
+import numpy as np
+
+from tpu_pt_torch.bvh.sah import prim_bounds
+from tpu_pt_torch.scene.types import Scene
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(os.path.dirname(_PKG), "native", "bvh_builder.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+_lib = None
+
+
+def lib_path() -> str:
+    """Build-directory path of the library, keyed by the source's content."""
+    with open(_SRC, "rb") as fh:
+        tag = hashlib.sha256(fh.read() + " ".join(_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"libbvh_{tag}.so")
+
+
+def _build(path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed building {_SRC}:\n{proc.stderr}")
+    os.replace(tmp, path)   # atomic: concurrent builders never load a partial file
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        path = lib_path()
+        if not os.path.exists(path):
+            _build(path)
+        lib = ctypes.CDLL(path)
+        fp = ctypes.POINTER(ctypes.c_float)
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.bvh_build.restype = ctypes.c_void_p
+        lib.bvh_build.argtypes = [fp, fp, ctypes.c_int, ctypes.c_int, ip]
+        lib.bvh_count_leaves.restype = ctypes.c_int
+        lib.bvh_count_leaves.argtypes = [ctypes.c_void_p]
+        lib.bvh_emit_leaves.restype = None
+        lib.bvh_emit_leaves.argtypes = [ctypes.c_void_p, fp, fp, ip, ip, ip]
+        _lib = lib
+    return _lib
+
+
+def build_leaves(scene: Scene, max_leaf: int):
+    """Native SAH build -> (start, count, lo, hi, prim_perm) leaf arrays in
+    DFS order (the cluster-BVH host build)."""
+    lib = _load()
+    lo, hi = prim_bounds(scene)
+    lo = np.ascontiguousarray(lo, np.float32)
+    hi = np.ascontiguousarray(hi, np.float32)
+    n = lo.shape[0]
+    fp = ctypes.POINTER(ctypes.c_float)
+    ip = ctypes.POINTER(ctypes.c_int)
+    n_nodes = ctypes.c_int(0)
+    handle = lib.bvh_build(lo.ctypes.data_as(fp), hi.ctypes.data_as(fp),
+                           n, max_leaf, ctypes.byref(n_nodes))
+    n_leaves = lib.bvh_count_leaves(ctypes.c_void_p(handle))
+    l_lo = np.empty((n_leaves, 3), np.float32)
+    l_hi = np.empty((n_leaves, 3), np.float32)
+    start = np.empty((n_leaves,), np.int32)
+    count = np.empty((n_leaves,), np.int32)
+    perm = np.empty((n,), np.int32)
+    lib.bvh_emit_leaves(
+        ctypes.c_void_p(handle), l_lo.ctypes.data_as(fp),
+        l_hi.ctypes.data_as(fp), start.ctypes.data_as(ip),
+        count.ctypes.data_as(ip), perm.ctypes.data_as(ip))
+    return start, count, l_lo, l_hi, perm

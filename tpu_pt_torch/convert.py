@@ -1,0 +1,68 @@
+"""Carry scenes, cluster BVHs and cameras across as plain dicts of numpy
+arrays (plus static ints / tuples) and rebuild the port's containers on a
+given device.  The dict keys are the containers' field names; nothing here
+knows where the arrays came from."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from tpu_pt_torch.bvh.cluster import ClusterBVH, make_cluster_bvh
+from tpu_pt_torch.core.camera import Camera
+from tpu_pt_torch.scene.types import Lights, Materials, Scene
+
+
+def _np(x, dtype):
+    # A writable copy: tensors made from it must not alias a read-only buffer.
+    return np.array(x, dtype=dtype, order="C")
+
+
+def scene_from_numpy(d: dict, device="cuda") -> Scene:
+    """d: Scene field names -> arrays, with ``materials`` and ``lights`` as
+    nested dicts of their field names."""
+    f32, i32 = np.float32, np.int32
+    mat = d["materials"]
+    lig = d["lights"]
+    scene = Scene(
+        vertices=_np(d["vertices"], f32), normals=_np(d["normals"], f32),
+        tri_idx=_np(d["tri_idx"], i32), tri_mat=_np(d["tri_mat"], i32),
+        sph_center=_np(d["sph_center"], f32),
+        sph_radius=_np(d["sph_radius"], f32), sph_mat=_np(d["sph_mat"], i32),
+        materials=Materials(
+            kind=_np(mat["kind"], i32), albedo=_np(mat["albedo"], f32),
+            emission=_np(mat["emission"], f32), ior=_np(mat["ior"], f32),
+            roughness=_np(mat["roughness"], f32)),
+        lights=Lights(
+            kind=_np(lig["kind"], i32), position=_np(lig["position"], f32),
+            edge_x=_np(lig["edge_x"], f32), edge_y=_np(lig["edge_y"], f32),
+            normal=_np(lig["normal"], f32), radiance=_np(lig["radiance"], f32)),
+        env_map=_np(d["env_map"], f32),
+        env_marg_cdf=_np(d["env_marg_cdf"], f32),
+        env_cond_cdf=_np(d["env_cond_cdf"], f32),
+    )
+    return scene.to(device)
+
+
+def cluster_bvh_from_numpy(d: dict, device="cuda") -> ClusterBVH:
+    """d: ``levels`` (list of (N_l, 8) f32), ``tiles``, ``tile_gid``, the
+    static ``frontiers``, ``k_leaf``, ``pair_budget``, ``pair_mults`` (3 or
+    4 entries) and optionally ``levels16`` as uint16 bf16 bit patterns
+    (derived from ``levels`` when absent)."""
+    levels16 = d.get("levels16")
+    if levels16 is not None:
+        levels16 = [_np(lv, np.uint16) for lv in levels16]
+    cb = make_cluster_bvh(
+        [_np(lv, np.float32) for lv in d["levels"]],
+        _np(d["tiles"], np.float32), _np(d["tile_gid"], np.int32),
+        tuple(int(f) for f in d["frontiers"]), int(d["k_leaf"]),
+        int(d["pair_budget"]), pair_mults=tuple(d["pair_mults"]),
+        levels16=levels16)
+    return cb.to(device)
+
+
+def camera_from_numpy(d: dict, device="cuda") -> Camera:
+    """d: ``c2w`` (3, 3), ``origin`` (3,), ``hfov``, ``vfov`` (degrees)."""
+    return Camera(c2w=_np(d["c2w"], np.float32),
+                  origin=_np(d["origin"], np.float32),
+                  hfov=np.float32(d["hfov"]),
+                  vfov=np.float32(d["vfov"])).to(device)

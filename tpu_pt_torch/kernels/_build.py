@@ -1,0 +1,119 @@
+"""Build and load the package's CUDA kernel library.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all started together), links the objects into one shared library
+with a plain C interface under ``tpu_pt_torch/_build/`` and loads it with
+``ctypes``.  The library's name carries a hash of the sources and flags, so
+an edit rebuilds and an unchanged tree reuses the file.  Nothing here is
+imported or built at module import; a failure to find ``nvcc``, to compile
+or to load raises.
+
+``-fmad=false`` (and no fast-math): every FP32 operation rounds once, as
+the plain PyTorch versions of the kernels do, so the two can be compared
+bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xcompiler", "-fPIC"]
+_lib = None
+build_log = ""   # nvcc's output from the build this process made, if any
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of tpu_pt_torch are compiled "
+            "on the machine that holds the card")
+    return exe
+
+
+def lib_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"libtpu_pt_kernels_{h.hexdigest()[:12]}.so")
+
+
+def build(path: str, verbose_ptxas: bool = False) -> None:
+    """Compile every source in parallel, then link into ``path``."""
+    global build_log
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose_ptxas else [])
+    tag = f"{os.path.basename(path)}.{os.getpid()}"
+    procs = []
+    for src in sources():
+        obj = os.path.join(
+            BUILD_DIR, f"{tag}.{os.path.basename(src)[:-3]}.o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *flags, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(src)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = os.path.join(BUILD_DIR, f"{tag}.tmp")
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in procs)],
+        capture_output=True, text=True)
+    for _, obj, _ in procs:
+        os.remove(obj)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, path)
+
+
+def load(verbose_ptxas: bool = False):
+    """The loaded library (built first if its file is missing)."""
+    global _lib
+    if _lib is None:
+        path = lib_path()
+        if not os.path.exists(path):
+            build(path, verbose_ptxas=verbose_ptxas)
+        lib = ctypes.CDLL(path)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.pair_tile_isect_launch.restype = ci
+        lib.pair_tile_isect_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+        lib.pair_segmin_launch.restype = ci
+        lib.pair_segmin_launch.argtypes = [vp] * 10 + [ci, vp]
+        _lib = lib
+    return _lib
+
+
+def check_cuda_input(name: str, x, dtype, shape=None) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape``, where given; None entries are free)."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None:
+        if x.dim() != len(shape) or any(
+                s is not None and s != d for s, d in zip(shape, x.shape)):
+            raise ValueError(
+                f"{name}: expected shape {shape}, got {tuple(x.shape)}")
