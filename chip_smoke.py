@@ -8,17 +8,28 @@
 
 Builds the native SAH builder and the CUDA kernel library from the sources
 in this checkout, holds every kernel against its plain PyTorch version on
-the card, checks the cluster traversal against the brute-force oracle,
-renders the 1.3M-triangle scene small (kernels vs plain versions) and at
-full width (1024x1024, spp 1, depth 4, queue 4096), and prints one JSON
-object per phase.  Any failed phase raises and the process exits non-zero.
-Without a CUDA device it exits with code 2 before printing any result.
+the card, checks the cluster traversal (ray-major and cluster-major pair
+stage) against the brute-force oracle, and drives three paths at full width:
+
+- ``render_main``: the 1.3M-triangle scene through the wavefront renderer
+  and the cluster BVH (1024x1024, spp 1, depth 4, queue 4096), after the
+  same scene rendered small with kernels and with plain versions;
+- ``render_oracle``: the unrolled oracle renderer through the dense-sweep
+  backend (``backend="pallas"``) at the command line's defaults (512x512,
+  spp 16, depth 4) on two Cornell scenes, after small renders held against
+  the brute backend, the plain versions and the wavefront renderer;
+- ``render_dedup``: the ``render_main`` render once more through the
+  cluster-major ("dedup") pair stage.
+
+It prints one JSON object per phase.  Any failed phase raises and the
+process exits non-zero.  Without a CUDA device it exits with code 2 before
+printing any result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is ``{"kernels": [...]}`` with, per kernel, its launches
-on the full-width render, its error against the plain version, its time, the
-plain version's time and its roofline bound.
+on the full-width path that runs it, its error against the plain version,
+its time, the plain version's time and its roofline bound.
 """
 
 from __future__ import annotations
@@ -42,15 +53,34 @@ from tpu_pt_torch.config import RenderConfig  # noqa: E402
 from tpu_pt_torch.core.intersect import INF  # noqa: E402
 from tpu_pt_torch.kernels import _build  # noqa: E402
 from tpu_pt_torch.kernels.cluster_isect import (  # noqa: E402
-    check_pair_out, pair_tile_isect, pair_tile_isect_ref)
+    check_pair_out, pair_tile_isect, pair_tile_isect_dedup,
+    pair_tile_isect_dedup_ref, pair_tile_isect_ref)
+from tpu_pt_torch.kernels.intersect import (  # noqa: E402
+    PallasScene, anyhit_ref, closest_ref, dense_anyhit, dense_closest)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref  # noqa: E402
-from tpu_pt_torch.render import brute, film, wavefront  # noqa: E402
-from tpu_pt_torch.render.driver import _intersectors_counted  # noqa: E402
+from tpu_pt_torch.render import brute, film, integrator, wavefront  # noqa: E402
+from tpu_pt_torch.render.driver import (  # noqa: E402
+    _intersectors, _intersectors_counted, render)
 from tpu_pt_torch.scene import cornell, meshes  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, FP32 outside tensor cores
+N_SM, FP32_LANES_PER_SM = 132, 128   # H100 SXM
+
+# FP32 operations per (ray, primitive row) test, counted from
+# csrc/pair_isect_common.cuh::prim_test (each add, subtract, multiply,
+# divide, square root, compare and abs as one): a triangle or padding row
+# costs 54 (edge products 9, det 5, parallel test 2, 1 / det 1, tvec 3,
+# u 6, qvec 9, v 6, t 6, type test 1, six range tests); a sphere row 40
+# more for its quadratic.  The closest-hit sweep adds 3 (the shrinking
+# range and the strict compare), the any-hit sweep 1.
+OPS_TRI_ROW, OPS_SPH_ROW = 54, 94
+OPS_CLOSEST, OPS_ANYHIT = 3, 1
+
+# mean_radiance of cornell("spheres") at 512x512, spp 16, depth 4, key 0,
+# backend "brute", rendered by the JAX package's oracle renderer on a CPU:
+# what `JAX_PLATFORMS=cpu python tests/oracle_anchor.py 512 16 4 0` prints.
+ORACLE_ANCHOR = 0.4897062356149342
 
 # Accounting of the same render recorded by the JAX package's benchmark run
 # (hardware-free fields of BENCH_r05.json).
@@ -74,15 +104,29 @@ def sync():
 # Phase 1 — device
 # --------------------------------------------------------------------------
 
-def phase_device():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def nvidia_smi(query, *fmt):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=" + ",".join(("csv", "noheader") + fmt)],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    """Returns nvidia-smi's name and power limit, and the card's non-fused
+    FP32 rate: SMs x FP32 lanes x the maximum SM clock.  The kernel library
+    is compiled with -fmad=false, so one lane retires one operation (not
+    one fused multiply-add) a clock: this, and not the data sheet's FMA
+    figure of twice as much, is the ceiling of its arithmetic."""
+    smi = nvidia_smi("name,power.limit")
+    sm_mhz = float(nvidia_smi("clocks.max.sm", "nounits"))
+    fp32_ops_per_s = N_SM * FP32_LANES_PER_SM * sm_mhz * 1e6
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count()})
-    return smi
+          "count": torch.cuda.device_count(),
+          "clocks_max_sm_MHz": sm_mhz,
+          "fp32_nonfused_ops_per_s": fp32_ops_per_s})
+    return smi, fp32_ops_per_s
 
 
 # --------------------------------------------------------------------------
@@ -110,8 +154,9 @@ def phase_build():
 # --------------------------------------------------------------------------
 
 def pair_inputs(cb, ro, rd, t_max, mult):
-    """Operands of both kernels for one traversal sub-batch: what
-    ``_traverse_compact_1`` hands to the pair stage and to the reduce."""
+    """Operands of the pair kernels for one traversal sub-batch: what
+    ``_traverse_compact_1`` hands to the ray-major pair stage and to the
+    reduce, and what it hands to the cluster-major pair stage."""
     Q = ro.shape[0]
     t_min1 = torch.zeros((Q,), device=DEV)
     t_max1 = t_max[:, 0]
@@ -123,7 +168,11 @@ def pair_inputs(cb, ro, rd, t_max, mult):
     cidc = torch.clamp(cidP, 0, cb.n_clusters - 1)
     cid_p, rays = cluster._pair_rows(ro, rd, t_min1, t_max1, rayPc, cidc,
                                      pair_ok)
-    return cid_p, rays, cnt.to(torch.int32), right.to(torch.int32), cidc
+    # The same list as the cluster-major stage takes it: sorted by cid.
+    cid_s, rays_s, _, _ = cluster._dedup_rows(cb, ro, rd, t_min1, t_max1,
+                                              rayP, cidP)
+    return (cid_p, rays, cnt.to(torch.int32), right.to(torch.int32),
+            cid_s, rays_s)
 
 
 def queue_batches(scene, cam, cb, cfg, key, queue, n_warm):
@@ -250,6 +299,158 @@ def k1_edge_case():
     return tuple(torch.from_numpy(x).to(DEV) for x in (t, g, u, v, cnt, right))
 
 
+def max_abs_diff(a, b):
+    """Largest |a - b| over the entries where both are finite and below
+    INF (0.0 for bitwise-equal tensors)."""
+    a, b = a.float(), b.float()
+    m = torch.isfinite(a) & torch.isfinite(b) & (a < INF) & (b < INF)
+    return float((a[m] - b[m]).abs().max()) if bool(m.any()) else 0.0
+
+
+def pair_kernel_bytes(live_tiles, P, L):
+    """Bytes a pair-tile kernel must move, each input read once: the 10
+    rows the test uses (rows 10, 11 are padding) of every DISTINCT tile a
+    live pair names, the cid and ray rows; each output row written once."""
+    return live_tiles * 10 * L * 4 + P * (16 * 4 + 4) + P * 8 * 4
+
+
+def tile_fetches(cid, rays, run=8):
+    """Tile fetches the cluster-major kernel makes on this list: one per
+    change of cluster id among the live pairs of a run of ``run`` pairs
+    (csrc/pair_tile_isect_dedup.cu keeps the tile in registers in between)."""
+    idx = torch.nonzero(rays[:, 8] > 0)[:, 0]
+    if idx.numel() == 0:
+        return 0
+    c, r = cid[idx], idx // run
+    change = (c[1:] != c[:-1]) | (r[1:] != r[:-1])
+    return 1 + int(change.sum())
+
+
+def compare_k3(tiles, cid, rays, label):
+    """The cluster-major kernel against its plain version AND against the
+    ray-major kernel on the same rows: bitwise, no tolerance."""
+    out_k = pair_tile_isect_dedup(tiles, cid, rays)
+    sync()
+    out_r = pair_tile_isect_dedup_ref(tiles, cid, rays)
+    out_2 = pair_tile_isect(tiles, cid, rays)
+    check_pair_out(out_k, rays, label="pair_tile_isect_dedup")
+    assert bool(torch.equal(out_k, out_r)), \
+        f"K3 {label}: kernel and plain version differ (must be bitwise)"
+    assert bool(torch.equal(out_k, out_2)), \
+        f"K3 {label}: differs from pair_tile_isect on the same rows"
+    live = rays[:, 8] > 0
+    return {"case": label, "pairs": int(cid.shape[0]),
+            "live_pairs": int(live.sum()),
+            "live_tiles": int(cid[live].unique().numel()),
+            "tile_fetches": tile_fetches(cid, rays),
+            "sorted": bool((cid[1:] >= cid[:-1]).all()),
+            "hits": int((out_k[:, 0] < INF).sum()), "bitwise": True,
+            "equals_pair_tile_isect": True,
+            "max_abs_err": max_abs_diff(out_k[:, 0], out_r[:, 0])}
+
+
+def k3_edge_case():
+    """On the tiles of the ray-major edge case (sphere lanes, an all-padding
+    tile, a tile with two equal lanes): one cluster id throughout; an id
+    that changes at every pair; ids in runs of 12, so that runs of 8
+    straddle two ids; a block of dead pairs only.  Every 7th pair of the
+    first three parts is dead too."""
+    tiles, _, rays = k2_edge_case()                # P = 1024
+    C = tiles.shape[0]
+    i = torch.arange(256)
+    cid = torch.cat([torch.zeros(256, dtype=torch.int64), i % C,
+                     (i // 12) % C, i % C]).to(torch.int32)
+    rays[768:, 8] = 0.0
+    return tiles, cid.to(DEV), rays
+
+
+def box_rays(n, seed, t_max):
+    """(n, 8) ray rows from inside the Cornell box in random directions
+    (most hit); every 9th ray has t_max < t_min and can never hit."""
+    g = torch.Generator().manual_seed(seed)
+    lo = torch.tensor([-0.9, 0.1, -0.9])
+    ro = lo + torch.rand((n, 3), generator=g) * 1.8
+    rd = torch.randn((n, 3), generator=g)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    rows = torch.zeros((n, 8))
+    rows[:, 0:3], rows[:, 4:7] = ro, rd
+    rows[:, 7] = t_max
+    rows[::9, 7] = -1.0
+    return rows.to(DEV)
+
+
+def dense_edge_case():
+    """Two identical triangles 128 rows apart and two in one tile (the
+    lowest slot must win), a farther triangle in a lower slot, a sphere
+    row, zero padding rows; rays that hit each, one that misses and one
+    with t_max < t_min."""
+    prims = torch.zeros((384, 16))
+    tri = torch.tensor([-1.0, -1, 0, 2, 0, 0, 0, 2, 0])
+    for slot in (5, 133, 261, 300):
+        prims[slot, 0:9] = tri
+    prims[2, 0:9] = tri
+    prims[2, 2] = -1.0
+    prims[140, 0:4] = torch.tensor([3.0, 0.0, 0.0, 0.5])   # sphere at x = 3
+    prims[140, 10] = 1.0
+    ro = torch.tensor([[-0.5, -0.5, 3.0], [0.2, -0.7, 1.0], [5.0, 5.0, 5.0],
+                       [3.0, 0.1, 4.0], [-0.5, -0.5, 3.0]])
+    rows = torch.zeros((5, 8))
+    rows[:, 0:3] = ro
+    rows[:, 6] = -1.0
+    rows[:, 7] = 1e30
+    rows[4, 7] = -1.0                                       # never hits
+    return rows.to(DEV), prims.to(DEV)
+
+
+def compare_dense(rows, prims, label):
+    """Both dense kernels against their plain versions: bitwise."""
+    out_k = dense_closest(rows, prims)
+    occ_k = dense_anyhit(rows, prims)
+    sync()
+    out_r = closest_ref(rows, prims)
+    occ_r = anyhit_ref(rows, prims)
+    for name, a, b in zip(("t", "u", "v", "slot"), out_k, out_r):
+        assert a.dtype == b.dtype and bool(torch.equal(a, b)), \
+            f"K4 {label}: {name} differs from the plain version (must be bitwise)"
+    assert bool(torch.equal(occ_k, occ_r)), \
+        f"K5 {label}: differs from the plain version (must be bitwise)"
+    hit = out_k[0] < INF
+    # A ray is occluded inside [t_min, t_max] exactly when it has a nearest
+    # hit there.
+    assert bool(torch.equal(occ_k > 0.5, hit)), f"{label}: K4 and K5 disagree"
+    return {"case": label, "rays": int(rows.shape[0]),
+            "rows": int(prims.shape[0]), "hits": int(hit.sum()),
+            "bitwise": True,
+            "max_abs_err": max(max_abs_diff(a, b)
+                               for a, b in zip(out_k[:3], out_r[:3])),
+            "max_abs_err_occ": float((occ_k - occ_r).abs().max())}, out_k
+
+
+def oracle_chunk_rays(scene, cam, ps, cfg, key):
+    """The ray rows the dense kernels get in the first chunk of the
+    full-size oracle render: its camera rays (closest hit) and the shadow
+    rays cast from their hit points (any hit)."""
+    isect, occl = _intersectors("pallas", ps)
+    got = {}
+
+    def isect_spy(scene, ro, rd, t_min, t_max):
+        got.setdefault("closest", torch.cat([ro, t_min, rd, t_max], 1))
+        return isect(scene, ro, rd, t_min, t_max)
+
+    def occl_spy(scene, ro, rd, t_max):
+        got.setdefault("anyhit", torch.cat(
+            [ro, torch.zeros_like(t_max), rd, t_max], 1))
+        return occl(scene, ro, rd, t_max)
+
+    pix_chunk = (1 << 17) // cfg.spp
+    pixel_ids = torch.arange(pix_chunk, device=DEV).repeat_interleave(cfg.spp)
+    sample_ids = torch.arange(cfg.spp, device=DEV).repeat(pix_chunk)
+    with torch.no_grad():
+        integrator.render_chunk(scene, cam, cfg.replace(direct_only=True), key,
+                                pixel_ids, sample_ids, isect_spy, occl_spy)
+    return got["closest"].contiguous(), got["anyhit"].contiguous()
+
+
 def time_launches(fn, flush, repeats=30):
     """Median milliseconds of one call, each timed alone between CUDA
     events after the L2 cache was overwritten (the renderer touches ~100 MB
@@ -281,7 +482,7 @@ def time_launches(fn, flush, repeats=30):
 def phase_kernels(scene, cam, cb, cfg, key):
     first, mid, shadow = queue_batches(scene, cam, cb, cfg, key, 4096,
                                        n_warm=N_WARM)
-    cases_k2, cases_k1 = [], []
+    cases_k2, cases_k1, cases_k3, cases_dense = [], [], [], []
     timing = {}
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
     # The closest-hit traversal's budget (pair_mults[2], gid carried) and
@@ -290,8 +491,28 @@ def phase_kernels(scene, cam, cb, cfg, key):
             ("first_wave", first, cb.pair_mults[2], True),
             ("mid_render", mid, cb.pair_mults[2], True),
             ("mid_render_shadow_narrow", shadow, cb.pair_mults[3], False)):
-        cid, rays, cnt, right, _ = pair_inputs(cb, ro, rd, t_max, mult)
+        cid, rays, cnt, right, cid_s, rays_s = pair_inputs(cb, ro, rd, t_max,
+                                                            mult)
         res, out = compare_k2(cb.tiles, cid, rays, label)
+        if label != "first_wave":
+            res3 = compare_k3(cb.tiles, cid_s, rays_s, label)
+            assert res3["sorted"] and res3["live_pairs"] > 0
+            cases_k3.append(res3)
+            P3, L3 = int(cid_s.shape[0]), cb.tiles.shape[2]
+            tm3 = dict(
+                shape={"P": P3, "L": L3, "live_pairs": res3["live_pairs"],
+                       "live_tiles": res3["live_tiles"],
+                       "tile_fetches": res3["tile_fetches"]},
+                ms=time_launches(
+                    lambda: pair_tile_isect_dedup(cb.tiles, cid_s, rays_s),
+                    flush),
+                plain_ms=time_launches(
+                    lambda: pair_tile_isect_dedup_ref(cb.tiles, cid_s, rays_s),
+                    flush),
+                bytes=pair_kernel_bytes(res3["live_tiles"], P3, L3),
+                flops=res3["live_pairs"] * L3 * 100)
+            timing["pair_tile_isect_dedup" if label == "mid_render"
+                   else "pair_tile_isect_dedup@shadow_narrow"] = tm3
         live_cid = cid[rays[:, 8] > 0]
         res["live_pairs"] = int(live_cid.numel())
         res["live_tiles"] = int(live_cid.unique().numel())
@@ -308,11 +529,7 @@ def phase_kernels(scene, cam, cb, cfg, key):
             P, Q = int(cid.shape[0]), int(cnt.shape[0])
             L = cb.tiles.shape[2]
             live = res["live_pairs"]
-            # Each input read once: the 10 rows the test uses (rows 10, 11
-            # are padding) of every DISTINCT tile a live pair names, plus
-            # the cid and ray rows; each output row written once.
-            k2_bytes = (res["live_tiles"] * 10 * L * 4 + P * (16 * 4 + 4)
-                        + P * 8 * 4)
+            k2_bytes = pair_kernel_bytes(res["live_tiles"], P, L)
             k2_flops = live * L * 100    # ~100 FP32 operations per lane
             k1_bytes = int(cnt.sum()) * 16 + Q * 8 + Q * 16
             k1_ops = int(cnt.sum()) * 3
@@ -338,9 +555,75 @@ def phase_kernels(scene, cam, cb, cfg, key):
     assert res["hits"] > 0
     cases_k2.append(res)
     cases_k1.append(compare_k1(*k1_edge_case(), "edge_empty_long_tie_nan"))
+    res3 = compare_k3(*k3_edge_case(),
+                      "edge_one_id_every_pair_straddle_dead_block")
+    assert res3["hits"] > 0
+    cases_k3.append(res3)
+
+    # The dense kernels: two Cornell scenes, a full and a ragged ray count.
+    dense_scenes = {"cornell_spheres": cornell.cornell("spheres"),
+                    "cornell_mesh_4": cornell.cornell("mesh", mesh_subdiv=4)}
+    for name, scene_h in dense_scenes.items():
+        ps = PallasScene(scene_h).to(DEV)
+        for n in (4096, 300):
+            res, _ = compare_dense(box_rays(n, 17 + n, 1e30), ps.prims,
+                                   f"{name}_{n}_rays")
+            assert res["hits"] > n // 2
+            cases_dense.append(res)
+            res, _ = compare_dense(box_rays(n, 19 + n, 0.7), ps.prims,
+                                   f"{name}_{n}_rays_t_max_0.7")
+            assert 0 < res["hits"] < n
+            cases_dense.append(res)
+    rows_e, prims_e = dense_edge_case()
+    res, out_e = compare_dense(rows_e, prims_e, "edge_tie_sphere_pad_dead_ray")
+    assert out_e[3].tolist() == [5, 5, 0, 140, 0], out_e[3].tolist()
+    assert (out_e[0] < INF).tolist() == [True, True, False, True, False]
+    assert out_e[1][3].item() == 0.0 and out_e[2][3].item() == 0.0  # sphere u, v
+    cases_dense.append(res)
+
+    # Time them on one chunk of the full-size oracle render (R = 131,072).
+    o_scene_h = dense_scenes["cornell_mesh_4"]
+    o_cfg = RenderConfig(width=512, height=512, spp=16, max_depth=4)
+    ps = PallasScene(o_scene_h).to(DEV)
+    rows_c, rows_a = oracle_chunk_rays(
+        o_scene_h.to(DEV), cornell.camera(512, 512).to(DEV), ps, o_cfg, (0, 0))
+    res, _ = compare_dense(rows_c, ps.prims, "oracle_chunk_camera_rays")
+    cases_dense.append(res)
+    res, _ = compare_dense(rows_a, ps.prims, "oracle_chunk_shadow_rays")
+    cases_dense.append(res)
+    R, P = int(rows_c.shape[0]), int(ps.prims.shape[0])
+    n_sph = int((ps.prims[:, 10] > 0.5).sum())
+    row_ops = (P - n_sph) * OPS_TRI_ROW + n_sph * OPS_SPH_ROW
+    n_occ = int((dense_anyhit(rows_a, ps.prims) > 0.5).sum())
+    dense_bytes = R * 8 * 4 + P * 16 * 4
+    timing["dense_closest"] = dict(
+        shape={"R": R, "P": P, "sphere_rows": n_sph},
+        ms=time_launches(lambda: dense_closest(rows_c, ps.prims), flush),
+        plain_ms=time_launches(lambda: closest_ref(rows_c, ps.prims), flush,
+                               repeats=5),
+        bytes=dense_bytes + R * 16, flops=R * (row_ops + P * OPS_CLOSEST))
+    # Any hit: a ray that is not occluded must meet every row; an occluded
+    # one needs the one row that hits it.
+    timing["dense_anyhit"] = dict(
+        shape={"R": R, "P": P, "sphere_rows": n_sph, "occluded_rays": n_occ},
+        ms=time_launches(lambda: dense_anyhit(rows_a, ps.prims), flush),
+        plain_ms=time_launches(lambda: anyhit_ref(rows_a, ps.prims), flush,
+                               repeats=5),
+        bytes=dense_bytes + R * 4,
+        flops=(R - n_occ) * (row_ops + P * OPS_ANYHIT)
+        + n_occ * (OPS_TRI_ROW + OPS_ANYHIT))
     del flush
     k2_bitwise = all(c["bitwise"] for c in cases_k2)
-    emit({"phase": "kernels", "checked": ["pair_tile_isect", "pair_segmin"],
+    emit({"phase": "kernels",
+          "checked": ["pair_tile_isect", "pair_segmin",
+                      "pair_tile_isect_dedup", "dense_closest",
+                      "dense_anyhit"],
+          "pair_tile_isect_dedup": {
+              "tolerance": "bitwise, against the plain version and against "
+                           "pair_tile_isect on the same rows",
+              "cases": cases_k3},
+          "dense_closest_and_dense_anyhit": {"tolerance": "bitwise",
+                                             "cases": cases_dense},
           "pair_tile_isect": {
               "tolerance": "bitwise" if k2_bitwise else
               "t rtol 1e-6 atol 1e-6, hit mask equal, lane equal where t "
@@ -348,15 +631,21 @@ def phase_kernels(scene, cam, cb, cfg, key):
               "cases": cases_k2},
           "pair_segmin": {"tolerance": "bitwise", "cases": cases_k1},
           "timing_protocol": "median of single launches, CUDA events, L2 "
-                             "overwritten before each, shapes of the "
-                             f"closest-hit sub-batch after {N_WARM} steps",
+                             "overwritten before each; pair kernels at the "
+                             f"closest-hit sub-batch after {N_WARM} steps "
+                             "(and the narrow shadow batch), dense kernels "
+                             "at the first chunk of the 512x512 spp 16 "
+                             "oracle render of cornell mesh",
           "us_per_launch": {
               k: {"kernel": round(v["ms"] * 1e3, 2),
                   "plain": round(v["plain_ms"] * 1e3, 2), **v["shape"]}
               for k, v in timing.items()}})
     errs = {"pair_tile_isect": max(max(c["max_abs_err_t"], c["max_abs_err_uv"])
                                    for c in cases_k2),
-            "pair_segmin": max(c["max_abs_err"] for c in cases_k1)}
+            "pair_segmin": max(c["max_abs_err"] for c in cases_k1),
+            "pair_tile_isect_dedup": max(c["max_abs_err"] for c in cases_k3),
+            "dense_closest": max(c["max_abs_err"] for c in cases_dense),
+            "dense_anyhit": max(c["max_abs_err_occ"] for c in cases_dense)}
     return timing, errs
 
 
@@ -393,9 +682,34 @@ def phase_traverse():
         o_cl, ovf2 = cluster.occluded_counted(cb, scene, ro, rd, tmax2)
         assert bool(torch.equal(o_ref, o_cl)), f"{name}: occlusion"
         assert int(ovf) == 0 and int(ovf2) == 0, f"{name}: overflow"
+        # The cluster-major pair stage (it takes 128-lane tiles): against
+        # the brute oracle as above, with its own tie rule (prim agreement
+        # > 0.96, the reference's allowance), and against the ray-major
+        # stage on the same tree, where t is selected from the same pair
+        # results and must be bitwise equal.
+        cb_d = cb if cb.tiles.shape[2] == 128 else \
+            cluster.build_cluster_bvh(scene_h).to(DEV)
+        h_rm = cluster.intersect(cb_d, scene, ro, rd, tmin, tmax)
+        h_dd, ovf3 = cluster.intersect_counted(cb_d, scene, ro, rd, tmin, tmax,
+                                               dedup=True)
+        o_dd, ovf4 = cluster.occluded_counted(cb_d, scene, ro, rd, tmax2,
+                                              dedup=True)
+        assert int(ovf3) == 0 and int(ovf4) == 0, f"{name}: dedup overflow"
+        assert bool(torch.equal(h_ref.hit, h_dd.hit)), f"{name}: dedup hit mask"
+        assert torch.allclose(h_ref.t[m], h_dd.t[m], rtol=1e-5, atol=1e-6), \
+            f"{name}: dedup t"
+        assert bool(torch.equal(h_rm.t, h_dd.t)), \
+            f"{name}: dedup t differs from the ray-major stage"
+        prim_dd = float((h_ref.prim == h_dd.prim)[m].float().mean())
+        assert prim_dd > 0.96, f"{name}: dedup prim agreement"
+        assert bool(torch.equal(o_ref, o_dd)), f"{name}: dedup occlusion"
         out.append({"scene": name, "rays": n, "hits": int(m.sum()),
                     "prim_agreement": float(prim_eq.float().mean()),
-                    "occluded": int(o_ref.sum())})
+                    "occluded": int(o_ref.sum()),
+                    "dedup": {"tile": 128, "hit_mask_equal": True,
+                              "t_bitwise_equal_to_ray_major": True,
+                              "prim_agreement": prim_dd,
+                              "occluded_equal": True}})
     emit({"phase": "traverse", "cases": out})
 
 
@@ -503,7 +817,155 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     assert ovf == 0, (
         f"overflow {ovf}: candidates were truncated by the static budgets and "
         "the exact-repair fallback is not ported yet")
+    assert n_iter == RECORDED["steps_run"], f"steps_run {n_iter}"
+    return launches, line
+
+
+def phase_render_oracle():
+    """The oracle renderer through the dense-sweep backend: small renders
+    held against the brute backend, the plain versions and the wavefront
+    renderer (on the brute and on the dense-sweep intersector), then the
+    full-size renders (512x512, spp 16, depth 4, the
+    command line's defaults).  Returns the launches of the dense kernels
+    on the full-size Cornell mesh render."""
+    kernels = (dense_closest, dense_anyhit)
+    scenes = {"cornell_mesh_4": cornell.cornell("mesh", mesh_subdiv=4),
+              "cornell_spheres": cornell.cornell("spheres")}
+    small = RenderConfig(width=64, height=64, spp=4, max_depth=3)
+    full = RenderConfig(width=512, height=512, spp=16, max_depth=4)
+    key = (0, 0)
+    out = []
+    launches = {}
+    for name, scene_h in scenes.items():
+        ps = PallasScene(scene_h)
+        cam_s = cornell.camera(small.width, small.height)
+        img_k = render(scene_h, cam_s, small, key, backend="pallas", bvh=ps,
+                       device=DEV)
+        img_p = render(scene_h, cam_s, small, key, backend="pallas", bvh=ps,
+                       device=DEV, use_kernels=False)
+        img_b = render(scene_h, cam_s, small, key, backend="brute", device=DEV)
+        # The wavefront renderer against the oracle renderer, each pair on
+        # ONE intersector, so that only the scheduling differs (two
+        # intersectors round t differently, and an ulp of t moves a
+        # specular path: that pair is held to the looser tolerance above).
+        img_wb = wavefront.render_wavefront(scene_h, cam_s, small, key, None,
+                                            queue=4096, backend="brute",
+                                            device=DEV)
+        img_wk = wavefront.render_wavefront(scene_h, cam_s, small, key, ps,
+                                            queue=4096, backend="pallas",
+                                            device=DEV)
+        assert bool(torch.isfinite(img_k).all())
+        assert bool(torch.equal(img_k, img_p)), \
+            f"{name}: image with kernels differs from the plain versions'"
+        assert torch.allclose(img_k, img_b, rtol=1e-3, atol=1e-3), \
+            f"{name}: dense-sweep backend vs brute backend"
+        assert torch.allclose(img_wb, img_b, rtol=2e-4, atol=2e-5), \
+            f"{name}: wavefront renderer vs oracle renderer (brute)"
+        assert torch.allclose(img_wk, img_k, rtol=2e-4, atol=2e-5), \
+            f"{name}: wavefront renderer vs oracle renderer (dense sweep)"
+        cam = cornell.camera(full.width, full.height)
+        scene, cam, ps = scene_h.to(DEV), cam.to(DEV), ps.to(DEV)
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            # The launch counts of this path: zeroed just before one
+            # full-size render, read just after it.
+            for k in kernels:
+                k.launches = 0
+            sync()
+            t0 = time.time()
+            img = render(scene, cam, full, key, backend="pallas", bvh=ps,
+                         device=DEV)
+            sync()
+            times.append(time.time() - t0)
+        n_launch = {k.__name__: k.launches for k in kernels}
+        hits = full.max_depth + 1
+        shadow = scene.lights.count * full.ns_area_light
+        chunks = -(-full.n_pixels // ((1 << 17) // full.spp))
+        for kname, n in n_launch.items():
+            want = chunks * hits * (shadow if kname == "dense_anyhit" else 1)
+            assert n == want, f"{name}: {kname} launched {n} times, not {want}"
+        assert bool(torch.isfinite(img).all()), f"{name}: image not finite"
+        assert tuple(img.shape) == (full.height, full.width, 3)
+        mean = float(img.mean())
+        rays_cast = full.n_pixels * full.spp * hits * (1 + shadow)
+        run_s = min(times)
+        line = {"scene": name, "rows": int(ps.prims.shape[0]),
+                "n_prims": ps.n_prims, "size": full.width, "spp": full.spp,
+                "max_depth": full.max_depth, "key": list(key),
+                "small": {"size": small.width, "spp": small.spp,
+                          "max_depth": small.max_depth,
+                          "kernels_vs_plain_bitwise": True,
+                          "max_abs_diff_vs_brute":
+                              float((img_k - img_b).abs().max()),
+                          "max_abs_diff_wavefront_brute":
+                              float((img_wb - img_b).abs().max()),
+                          "max_abs_diff_wavefront_pallas":
+                              float((img_wk - img_k).abs().max()),
+                          "max_abs_diff_wavefront_brute_vs_oracle_pallas":
+                              float((img_wb - img_k).abs().max()),
+                          "tolerance": "pallas vs brute rtol 1e-3 atol 1e-3; "
+                                       "wavefront vs oracle on one "
+                                       "intersector rtol 2e-4 atol 2e-5"},
+                "run_s_all": [round(t, 3) for t in times],
+                "run_s": round(run_s, 3), "rays_cast": rays_cast,
+                "rays_cast_per_s": round(rays_cast / run_s, 1),
+                "launches": n_launch, "mean_radiance": mean,
+                "peak_mem_MB": round(torch.cuda.max_memory_allocated() / 1e6,
+                                     1)}
+        if name == "cornell_spheres":
+            line["anchor_mean_radiance"] = ORACLE_ANCHOR
+            line["vs_anchor"] = mean - ORACLE_ANCHOR
+            assert abs(mean - ORACLE_ANCHOR) <= 0.005 * ORACLE_ANCHOR, \
+                f"mean_radiance {mean} not within 0.5 % of {ORACLE_ANCHOR}"
+        else:
+            film.save("chip_smoke_cornell_mesh.png", img.cpu().numpy())
+            launches = n_launch
+        out.append(line)
+    emit({"phase": "render_oracle", "backend": "pallas", "renders": out})
     return launches
+
+
+def phase_render_dedup(scene, cam, cb, cfg, main):
+    """The headline render once through the cluster-major pair stage, held
+    to this run's own ``render_main``.  Returns the launches of its kernel."""
+    kernels = (pair_tile_isect_dedup, pair_tile_isect, pair_segmin)
+    for k in kernels:
+        k.launches = 0
+    sync()
+    t0 = time.time()
+    img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
+        scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
+        device=DEV, dedup=True)
+    sync()
+    run_s = time.time() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    mean = float(img.mean())
+    emit({"phase": "render_dedup", "scene": "big-1m", "size": cfg.width,
+          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
+          "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
+          "run_s_all_render_main": main["run_s_all"],
+          "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
+          "overflow": ovf, "mean_radiance": mean,
+          "rays_per_s": round((nc + ns) / run_s, 1),
+          "launches": launches,
+          "vs_render_main": {"n_closest": nc - main["n_closest"],
+                             "n_shadow": ns - main["n_shadow"],
+                             "steps_run": n_iter - main["steps_run"],
+                             "mean_radiance": mean - main["mean_radiance"]}})
+    assert bool(torch.isfinite(img).all()), "render_dedup: image not finite"
+    assert ovf == 0, f"render_dedup: overflow {ovf}"
+    assert n_iter == RECORDED["steps_run"], f"render_dedup: steps_run {n_iter}"
+    assert abs(mean - main["mean_radiance"]) <= 0.01 * main["mean_radiance"], \
+        f"render_dedup: mean_radiance {mean} vs {main['mean_radiance']}"
+    for name, got in (("n_closest", nc), ("n_shadow", ns)):
+        assert abs(got - main[name]) <= 1e-3 * main[name], \
+            f"render_dedup: {name} {got} vs render_main's {main[name]}"
+    # 459 steps x 2 traversals x 4 sub-batches.
+    assert launches["pair_tile_isect_dedup"] == 2 * 4 * n_iter, launches
+    assert launches["pair_tile_isect"] == 0 and launches["pair_segmin"] == 0, \
+        launches
+    return {"pair_tile_isect_dedup": launches["pair_tile_isect_dedup"]}
 
 
 def phase_loop(scene, cam, cb, cfg, key, profile, n_warm=30, n_steps=20):
@@ -588,7 +1050,7 @@ def phase_loop(scene, cam, cb, cfg, key, profile, n_warm=30, n_steps=20):
 def main():
     profile = "--profile" in sys.argv[1:]
     t_start = time.time()
-    smi = phase_device()
+    smi, fp32_ops_per_s = phase_device()
     phase_build()
 
     t0 = time.time()
@@ -611,18 +1073,30 @@ def main():
     timing, errs = phase_kernels(scene, cam, cb, cfg, (0, 3))
     phase_traverse()
     phase_render_small(scene, cb)
-    launches = phase_render_main(scene, cam, cb, cfg, build_s, n_tris)
+    launches, main_line = phase_render_main(scene, cam, cb, cfg, build_s,
+                                            n_tris)
+    launches.update(phase_render_dedup(scene, cam, cb, cfg, main_line))
     phase_loop(scene, cam, cb, cfg, (0, 3), profile)
+    launches.update(phase_render_oracle())
 
-    sources = {"pair_tile_isect": ("tpu_pt_torch/csrc/pair_tile_isect.cu",
-                                   "tpu_pt/kernels/cluster_isect.py:267"),
-               "pair_segmin": ("tpu_pt_torch/csrc/pair_segmin.cu",
-                               "tpu_pt/kernels/pair_scan.py:126")}
+    # file:line of the pl.pallas_call each kernel replaces.
+    sources = {
+        "pair_segmin": ("tpu_pt_torch/csrc/pair_segmin.cu",
+                        "tpu_pt/kernels/pair_scan.py:133"),
+        "pair_tile_isect": ("tpu_pt_torch/csrc/pair_tile_isect.cu",
+                            "tpu_pt/kernels/cluster_isect.py:288"),
+        "pair_tile_isect_dedup": ("tpu_pt_torch/csrc/pair_tile_isect_dedup.cu",
+                                  "tpu_pt/kernels/cluster_isect.py:258"),
+        "dense_closest": ("tpu_pt_torch/csrc/dense_isect.cu",
+                          "tpu_pt/kernels/intersect.py:159"),
+        "dense_anyhit": ("tpu_pt_torch/csrc/dense_isect.cu",
+                         "tpu_pt/kernels/intersect.py:177")}
     rows = []
     for name, (src, replaces) in sources.items():
+        assert launches[name] > 0, f"no full-width path launched {name}"
         tm = timing[name]
         by_bytes = tm["bytes"] / HBM_BYTES_PER_S * 1e3
-        by_ops = tm["flops"] / FP32_FLOP_PER_S * 1e3
+        by_ops = tm["flops"] / fp32_ops_per_s * 1e3
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": errs[name], "ms": tm["ms"],

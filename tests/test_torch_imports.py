@@ -28,7 +28,8 @@ def test_every_module_layout_name_is_present():
     for mod in ("config", "convert", "core.vecmath", "core.intersect",
                 "core.camera", "core.sampling", "scene.types", "scene.meshes",
                 "scene.cornell", "bvh.sah", "bvh.native", "bvh.cluster",
-                "kernels.cluster_isect", "kernels.pair_scan", "render.envmap",
+                "kernels.cluster_isect", "kernels.pair_scan",
+                "kernels.intersect", "render.envmap",
                 "render.bsdf", "render.lights", "render.brute",
                 "render.integrator", "render.driver", "render.wavefront",
                 "render.film"):
@@ -86,6 +87,65 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     img = wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=64,
                                      device="cpu")
     assert tuple(img.shape) == (8, 8, 3)
+
+
+def test_oracle_render_and_dense_scene_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    import numpy as np
+
+    from tpu_pt_torch import convert
+    from tpu_pt_torch.config import RenderConfig
+    from tpu_pt_torch.kernels.intersect import PallasScene
+    from tpu_pt_torch.render import driver
+    from tpu_pt_torch.scene import cornell
+
+    scene = cornell.cornell("spheres")
+    ps = PallasScene(scene)
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1)
+    cam = cornell.camera(8, 8)
+    for backend, bvh in (("brute", None), ("pallas", ps)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            driver.render(scene, cam, cfg, (0, 0), backend=backend, bvh=bvh)
+        img = driver.render(scene, cam, cfg, (0, 0), backend=backend, bvh=bvh,
+                            device="cpu")
+        assert tuple(img.shape) == (8, 8, 3) and img.device.type == "cpu"
+    d = dict(prims=np.asarray(ps.prims), n_prims=ps.n_prims)
+    # torch's own refusal: AssertionError from a CPU-only build, RuntimeError
+    # from a CUDA build without a device.
+    with pytest.raises((RuntimeError, AssertionError)):
+        convert.pallas_scene_from_numpy(d)
+    assert convert.pallas_scene_from_numpy(d, "cpu").prims.device.type == "cpu"
+
+
+def test_kernel_sources_are_all_declared_to_the_loader(tmp_path, monkeypatch):
+    """Every ``extern "C"`` launch function of csrc/*.cu has its argtypes
+    set in _build.load (a missing one would pass pointers as 32-bit ints),
+    and the shared header is part of the library's hash."""
+    import re
+    import shutil
+
+    from tpu_pt_torch.kernels import _build
+
+    declared = set()
+    for src in _build.sources():
+        with open(src) as fh:
+            declared |= set(re.findall(r'extern "C" int (\w+)\(', fh.read()))
+    assert declared == {"pair_tile_isect_launch", "pair_tile_isect_dedup_launch",
+                        "pair_segmin_launch", "dense_closest_launch",
+                        "dense_anyhit_launch"}
+    with open(_build.__file__) as fh:
+        loader = fh.read()
+    for name in declared:
+        assert f"lib.{name}.argtypes" in loader, name
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, copy)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(copy))
+    before = _build.lib_path()
+    assert before == _build.lib_path()
+    with open(copy / "pair_isect_common.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert _build.lib_path() != before
 
 
 def test_kernel_library_is_not_built_at_import_and_raises_without_nvcc():

@@ -14,7 +14,10 @@ AABB pyramid, traversed level-synchronously for a whole batch of rays.
      ray-major pair list, every pair is tile-tested
      (``kernels.cluster_isect.pair_tile_isect``) and reduced per ray
      (``kernels.pair_scan.pair_segmin``).  Exact: every live candidate is
-     tested, no best-t feedback.
+     tested, no best-t feedback.  With ``dedup=True`` the stage is
+     cluster-major instead: the list is sorted by cluster id, tile-tested by
+     ``kernels.cluster_isect.pair_tile_isect_dedup`` (one tile fetch per run
+     of equal ids) and reduced per ray by scatter-min / scatter-add.
 
 Capacity contract: the per-level frontier widths, the leaf candidate count
 and the flat pair budget are static.  Truncation is *counted* (the
@@ -34,7 +37,8 @@ import torch
 
 from tpu_pt_torch.core.intersect import INF
 from tpu_pt_torch.kernels.cluster_isect import (
-    B as PBLK, _mt_group, pair_tile_isect, pair_tile_isect_ref)
+    B as PBLK, _mt_group, pair_tile_isect, pair_tile_isect_dedup,
+    pair_tile_isect_dedup_ref, pair_tile_isect_ref)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref
 from tpu_pt_torch.render.brute import Hit
 from tpu_pt_torch.scene.types import Scene
@@ -535,6 +539,93 @@ def _reduce_pairs_anyhit_scan(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt,
     return (cnt > 0) & (best_t < INF)
 
 
+def _dedup_supported(cb: ClusterBVH, budget: int) -> bool:
+    """The cluster-major pair stage takes 128-lane tiles and a pair budget
+    that is a multiple of the pair kernel's block."""
+    return tuple(cb.tiles.shape[1:]) == (12, 128) and budget % PBLK == 0
+
+
+def _require_dedup(cb: ClusterBVH, budget: int) -> None:
+    """``dedup=True`` with a shape the stage does not take raises, so that
+    the stage asked for is the stage that ran."""
+    if not _dedup_supported(cb, budget):
+        raise ValueError(
+            "dedup=True needs (12, 128) tiles and a pair budget that is a "
+            f"multiple of {PBLK}; got tiles {tuple(cb.tiles.shape)} and "
+            f"budget {budget}")
+
+
+def _dedup_rows(cb: ClusterBVH, ro, rd, t_min1, t_max1, rayP, cidP):
+    """Operands of the cluster-major pair kernel: the pair list sorted by
+    CLUSTER id (stable; dead pairs keyed ``n_clusters`` so they sort last).
+    Returns (cid (P,) i32 ascending, clipped into range; rays (P, 16);
+    rayC (P,) ray of each sorted pair, clipped; okS (P,) live mask)."""
+    Q = ro.shape[0]
+    key = torch.where(rayP < Q, cidP, torch.full_like(cidP, cb.n_clusters))
+    cidS, order = torch.sort(key, stable=True)
+    okS = cidS < cb.n_clusters
+    cid_clip = torch.clamp_max(cidS, cb.n_clusters - 1)
+    rayC = torch.clamp_max(rayP[order], Q - 1)
+    cid, rays = _pair_rows(ro, rd, t_min1, t_max1, rayC, cid_clip, okS)
+    return cid, rays, rayC, okS
+
+
+def _test_pairs_dedup(cb: ClusterBVH, ro, rd, t_min1, t_max1, rayP, cidP,
+                      use_kernels: bool = True):
+    """Sort the pair list by cluster id and run the cluster-major pair
+    kernel, which fetches a tile once per run of equal ids.  Returns
+    per-pair results in the cid-sorted order:
+    (t (P,), u, v, gid, rayC, okS)."""
+    cid, rays, rayC, okS = _dedup_rows(cb, ro, rd, t_min1, t_max1, rayP, cidP)
+    isect = pair_tile_isect_dedup if use_kernels else pair_tile_isect_dedup_ref
+    out = isect(cb.tiles, cid, rays)
+    t_p = torch.where(okS, out[:, 0], torch.full_like(out[:, 0], INF))
+    lane = out[:, 1].to(torch.int64).clamp(0, 127)
+    return t_p, out[:, 2], out[:, 3], cb.tile_gid[cid.long(), lane], rayC, okS
+
+
+def _reduce_pairs_closest_dedup(cb, ro, rd, t_min1, t_max1, rayP, cidP,
+                                use_kernels: bool = True):
+    """Cluster-major closest-hit pair stage: tile-test the cid-sorted list,
+    then reduce per ray by scatter-min of t and a second scatter-min of the
+    pair index among the pairs that equal the best t.  min is
+    order-independent, so the atomics of the card give one result.  The tie
+    rule is therefore the LOWEST POSITION IN THE CID-SORTED LIST, not the
+    lowest gid: at equal t the primitive may differ from the ray-major
+    stage's; t itself is selected, never recomputed.
+    Returns (best_t (Q,), gid, u, v)."""
+    Q = ro.shape[0]
+    t_p, u_p, v_p, g_p, rayC, okS = _test_pairs_dedup(
+        cb, ro, rd, t_min1, t_max1, rayP, cidP, use_kernels)
+    P = t_p.shape[0]
+    best_t = torch.full((Q,), INF, dtype=torch.float32, device=ro.device)
+    best_t.scatter_reduce_(0, rayC, t_p, "amin", include_self=True)
+    is_best = okS & (t_p <= best_t[rayC]) & (t_p < INF)
+    pidx = torch.arange(P, device=ro.device)
+    widx = torch.full((Q,), P, dtype=torch.int64, device=ro.device)
+    widx.scatter_reduce_(0, rayC, torch.where(is_best, pidx, P), "amin",
+                         include_self=True)
+    has = widx < P
+    wc = torch.clamp(widx, 0, P - 1)
+    zero = torch.zeros_like(best_t)
+    return (torch.where(has, best_t, torch.full_like(best_t, INF)),
+            torch.where(has, g_p[wc], torch.zeros_like(g_p[wc])),
+            torch.where(has, u_p[wc], zero),
+            torch.where(has, v_p[wc], zero))
+
+
+def _reduce_pairs_anyhit_dedup(cb, ro, rd, t_min1, t_max1, rayP, cidP,
+                               use_kernels: bool = True):
+    """Cluster-major any-hit pair stage: an integer scatter-add of the
+    pairs that hit (deterministic)."""
+    Q = ro.shape[0]
+    t_p, _, _, _, rayC, okS = _test_pairs_dedup(
+        cb, ro, rd, t_min1, t_max1, rayP, cidP, use_kernels)
+    hit_pair = ((t_p < INF) & okS).to(torch.int32)
+    n_hit = torch.zeros((Q,), dtype=torch.int32, device=ro.device)
+    return n_hit.index_add_(0, rayC, hit_pair) > 0
+
+
 # Intra-batch traversal split: run the traversal as SPLIT independent
 # sub-batches of Q/SPLIT rays each.  Per-ray results are identical (all
 # stages reduce per ray); only the static pair budget is sliced per
@@ -564,7 +655,7 @@ def _interleave(parts):
 
 
 def _traverse_compact(cb: ClusterBVH, ro, rd, t_min, t_max,
-                      use_kernels: bool = True):
+                      use_kernels: bool = True, dedup: bool = False):
     """Closest hit: sort-free descent + one flat all-candidates pair batch
     + per-ray segmented min.  Exact because every live candidate is tested.
     Returns (best_t (Q,1), gid, u (Q,1), v (Q,1), n_overflow).
@@ -579,16 +670,17 @@ def _traverse_compact(cb: ClusterBVH, ro, rd, t_min, t_max,
         outs = [_traverse_compact_1(cb, ro[i::k].contiguous(),
                                     rd[i::k].contiguous(),
                                     t_min[i::k].contiguous(),
-                                    t_max[i::k].contiguous(), use_kernels)
+                                    t_max[i::k].contiguous(), use_kernels,
+                                    dedup)
                 for i in range(k)]
         bt, g, u, v, novf = zip(*outs)
         return (_interleave(bt), _interleave(g), _interleave(u),
                 _interleave(v), sum(novf))
-    return _traverse_compact_1(cb, ro, rd, t_min, t_max, use_kernels)
+    return _traverse_compact_1(cb, ro, rd, t_min, t_max, use_kernels, dedup)
 
 
 def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
-                        use_kernels: bool = True):
+                        use_kernels: bool = True, dedup: bool = False):
     Q = ro.shape[0]
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
@@ -597,13 +689,19 @@ def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
     budget = int(cb.pair_mults[2] * Q)
     rayP, cidP, dropped, cnt, right, _ = _flat_pairs(cand, live, Q, budget)
     n_ovf = torch.sum(ovf) + dropped
-    best_t, best_g, best_u, best_v = _reduce_pairs_closest_scan(
-        cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right, use_kernels)
+    if dedup:
+        _require_dedup(cb, budget)
+        best_t, best_g, best_u, best_v = _reduce_pairs_closest_dedup(
+            cb, ro, rd, t_min1, t_max1, rayP, cidP, use_kernels)
+    else:
+        best_t, best_g, best_u, best_v = _reduce_pairs_closest_scan(
+            cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right, use_kernels)
     return best_t[:, None], best_g, best_u[:, None], best_v[:, None], n_ovf
 
 
 def _traverse_compact_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
-                             narrow: bool = False, use_kernels: bool = True):
+                             narrow: bool = False, use_kernels: bool = True,
+                             dedup: bool = False):
     """Occlusion: any tested pair with a hit in range occludes its ray.
     narrow=True selects the steady-state shadow pair budget
     (pair_mults[3]).  Returns (occ (Q,) bool, n_overflow)."""
@@ -612,17 +710,18 @@ def _traverse_compact_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
         outs = [_traverse_compact_anyhit_1(
                     cb, ro[i::k].contiguous(), rd[i::k].contiguous(),
                     t_min[i::k].contiguous(), t_max[i::k].contiguous(),
-                    narrow, use_kernels)
+                    narrow, use_kernels, dedup)
                 for i in range(k)]
         occ, novf = zip(*outs)
         return _interleave(occ), sum(novf)
     return _traverse_compact_anyhit_1(cb, ro, rd, t_min, t_max, narrow,
-                                      use_kernels)
+                                      use_kernels, dedup)
 
 
 def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
                                narrow: bool = False,
-                               use_kernels: bool = True):
+                               use_kernels: bool = True,
+                               dedup: bool = False):
     Q = ro.shape[0]
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
@@ -638,8 +737,13 @@ def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
     budget = int(mult * Q)
     rayP, cidP, dropped, cnt, right, _ = _flat_pairs(cand, live, Q, budget)
     n_ovf = torch.sum(ovf) + dropped
-    occ = _reduce_pairs_anyhit_scan(
-        cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right, use_kernels)
+    if dedup:
+        _require_dedup(cb, budget)
+        occ = _reduce_pairs_anyhit_dedup(
+            cb, ro, rd, t_min1, t_max1, rayP, cidP, use_kernels)
+    else:
+        occ = _reduce_pairs_anyhit_scan(
+            cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right, use_kernels)
     return occ, n_ovf
 
 
@@ -667,13 +771,18 @@ def _as_col(t, Q: int, device):
 
 
 def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
-                      use_kernels: bool = True):
+                      use_kernels: bool = True, dedup: bool = False):
     """Nearest hit + the capacity-contract overflow count for this call
     (candidates truncated by frontier caps / k_leaf / the flat pair
-    budget).  The traversal is exact iff the count is 0."""
+    budget).  The traversal is exact iff the count is 0.
+
+    ``dedup=True`` runs the cluster-major pair stage (pairs sorted by
+    cluster id, the tile-sharing kernel, scatter-min per-ray reduce) in
+    place of the ray-major one; it raises on a shape that stage does not
+    take (see ``_dedup_supported``)."""
     t_max_b = _as_col(t_max, ro.shape[0], ro.device)
     best_t, gid, u, v, ovf = _traverse_compact(cb, ro, rd, t_min, t_max_b,
-                                               use_kernels)
+                                               use_kernels, dedup)
     found = best_t < t_max_b
     return Hit(hit=found,
                t=torch.where(found, best_t, torch.full_like(best_t, INF)),
@@ -681,22 +790,25 @@ def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
 
 
 def intersect(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
-              use_kernels: bool = True) -> Hit:
-    return intersect_counted(cb, scene, ro, rd, t_min, t_max, use_kernels)[0]
+              use_kernels: bool = True, dedup: bool = False) -> Hit:
+    return intersect_counted(cb, scene, ro, rd, t_min, t_max, use_kernels,
+                             dedup)[0]
 
 
 def occluded_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
-                     narrow: bool = False, use_kernels: bool = True):
+                     narrow: bool = False, use_kernels: bool = True,
+                     dedup: bool = False):
     """Occlusion + overflow count (see intersect_counted)."""
     t_min = torch.zeros((ro.shape[0], 1), dtype=torch.float32,
                         device=ro.device)
     t_max = _as_col(t_max, ro.shape[0], ro.device)
     occ, ovf = _traverse_compact_anyhit(cb, ro, rd, t_min, t_max,
-                                        narrow=narrow, use_kernels=use_kernels)
+                                        narrow=narrow, use_kernels=use_kernels,
+                                        dedup=dedup)
     return occ[:, None], ovf
 
 
 def occluded(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
-             use_kernels: bool = True):
+             use_kernels: bool = True, dedup: bool = False):
     return occluded_counted(cb, scene, ro, rd, t_max,
-                            use_kernels=use_kernels)[0]
+                            use_kernels=use_kernels, dedup=dedup)[0]

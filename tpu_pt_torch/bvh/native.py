@@ -62,6 +62,35 @@ def _load():
     return _lib
 
 
+def _prim_rows(scene: Scene, pid: np.ndarray) -> np.ndarray:
+    """Packed 16-wide primitive rows for the primitives ``pid`` of a host
+    scene: triangle ``[v0, e1, e2, mat bits, 0, pad]``, sphere
+    ``[centre, r, 0 0, 0 0 0, mat bits, 1.0, pad]``.  Column 9 holds the
+    int32 material id's BIT PATTERN viewed as f32 (often a denormal): it is
+    carried, never computed on.  Column 10 is the type."""
+    v = np.asarray(scene.vertices)
+    ti = np.asarray(scene.tri_idx)
+    tm = np.asarray(scene.tri_mat)
+    sc = np.asarray(scene.sph_center)
+    sr = np.asarray(scene.sph_radius)
+    sm = np.asarray(scene.sph_mat)
+    n_tris = ti.shape[0]
+    rows = np.zeros((len(pid), 16), np.float32)
+    is_tri = pid < n_tris
+    tg = pid[is_tri]
+    v0 = v[ti[tg, 0]]
+    rows[is_tri, 0:3] = v0
+    rows[is_tri, 3:6] = v[ti[tg, 1]] - v0
+    rows[is_tri, 6:9] = v[ti[tg, 2]] - v0
+    rows[is_tri, 9] = tm[tg].astype(np.int32).view(np.float32)
+    sg = pid[~is_tri] - n_tris
+    rows[~is_tri, 0:3] = sc[sg]
+    rows[~is_tri, 3] = sr[sg]
+    rows[~is_tri, 9] = sm[sg].astype(np.int32).view(np.float32)
+    rows[~is_tri, 10] = 1.0
+    return rows
+
+
 def build_leaves(scene: Scene, max_leaf: int):
     """Native SAH build -> (start, count, lo, hi, prim_perm) leaf arrays in
     DFS order (the cluster-BVH host build)."""

@@ -1,4 +1,4 @@
-"""Carry scenes, cluster BVHs and cameras across as plain dicts of numpy
+"""Carry scenes, cluster BVHs, dense-sweep scenes and cameras across as plain dicts of numpy
 arrays (plus static ints / tuples) and rebuild the port's containers on a
 given device.  The dict keys are the containers' field names; nothing here
 knows where the arrays came from."""
@@ -9,6 +9,7 @@ import numpy as np
 
 from tpu_pt_torch.bvh.cluster import ClusterBVH, make_cluster_bvh
 from tpu_pt_torch.core.camera import Camera
+from tpu_pt_torch.kernels.intersect import PallasScene
 from tpu_pt_torch.scene.types import Lights, Materials, Scene
 
 
@@ -66,3 +67,10 @@ def camera_from_numpy(d: dict, device="cuda") -> Camera:
                   origin=_np(d["origin"], np.float32),
                   hfov=np.float32(d["hfov"]),
                   vfov=np.float32(d["vfov"])).to(device)
+
+
+def pallas_scene_from_numpy(d: dict, device="cuda") -> PallasScene:
+    """d: ``prims`` ((P, 16) f32 rows, P a multiple of 128) and ``n_prims``
+    (the count of real rows)."""
+    return PallasScene(prims=_np(d["prims"], np.float32),
+                       n_prims=int(d["n_prims"])).to(device)

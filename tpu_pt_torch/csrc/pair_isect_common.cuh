@@ -1,0 +1,163 @@
+// Device functions shared by the ray/primitive kernels of this library
+// (pair_tile_isect.cu, pair_tile_isect_dedup.cu, dense_isect.cu): the
+// Möller–Trumbore / sphere test of one ray against one primitive, and the
+// block reduce of the pair-tile kernels.
+//
+// The arithmetic follows the plain PyTorch versions
+// (kernels/cluster_isect.py::_mt_group, kernels/intersect.py::_pair_test)
+// operation by operation, and the library is compiled with -fmad=false, so
+// that every operation rounds once, as it does there: kernel and plain
+// version agree bit for bit.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pair_isect {
+
+constexpr float kInf = 1e30f;
+
+// max(x, lo) / min(x, hi) that keep a NaN in x, like the array libraries'
+// maximum() / minimum().
+__device__ __forceinline__ float max_nan(float x, float lo) {
+  return (x > lo || x != x) ? x : lo;
+}
+__device__ __forceinline__ float min_nan(float x, float hi) {
+  return (x < hi || x != x) ? x : hi;
+}
+
+// (t, lane) ordering: smaller t first, lower lane at equal t.
+__device__ __forceinline__ bool better(float tb, int lb, float ta, int la) {
+  return (tb < ta) || (tb == ta && lb < la);
+}
+
+// One primitive: triangle (v0, e1, e2) or, where typ > 0.5, sphere
+// (v0 = centre, e1x = radius).  All zeros is padding and never hits.
+struct Prim {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, typ;
+};
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, t_min, t_max;
+};
+
+// Lane `lane` of tile `cid` of a (C, 12, L) tile array: rows 0-9 (rows 10
+// and 11 are padding and are not fetched).  Neighbouring lanes read
+// neighbouring addresses of each row.
+__device__ __forceinline__ Prim load_tile_lane(const float* __restrict__ tiles,
+                                               int cid, int L, int lane) {
+  const float* tile = tiles + (size_t)cid * 12 * L + lane;
+  Prim p;
+  p.v0x = tile[0 * L]; p.v0y = tile[1 * L]; p.v0z = tile[2 * L];
+  p.e1x = tile[3 * L]; p.e1y = tile[4 * L]; p.e1z = tile[5 * L];
+  p.e2x = tile[6 * L]; p.e2y = tile[7 * L]; p.e2z = tile[8 * L];
+  p.typ = tile[9 * L];
+  return p;
+}
+
+// Hit distance of the ray on the primitive inside [t_min, t_max], kInf on a
+// miss.  u, v are the triangle branch's barycentrics, for sphere
+// primitives too (0 there: e2 = 0 gives det = 0 and inv_det = 0).  The
+// sphere's quadratic is evaluated only for sphere primitives; its result is
+// selected, never mixed, so skipping it changes no bit.
+__device__ __forceinline__ float prim_test(const Prim& p, const Ray& r,
+                                           float& u, float& v, bool& is_sph) {
+  // pvec = rd x e2
+  const float px = r.dy * p.e2z - r.dz * p.e2y;
+  const float py = r.dz * p.e2x - r.dx * p.e2z;
+  const float pz = r.dx * p.e2y - r.dy * p.e2x;
+  const float det = p.e1x * px + p.e1y * py + p.e1z * pz;
+  const bool par = fabsf(det) < 1e-12f;
+  const float inv_det = par ? 0.0f : 1.0f / (par ? 1.0f : det);
+  const float tvx = r.ox - p.v0x, tvy = r.oy - p.v0y, tvz = r.oz - p.v0z;
+  u = (tvx * px + tvy * py + tvz * pz) * inv_det;
+  // qvec = tvec x e1
+  const float qx = tvy * p.e1z - tvz * p.e1y;
+  const float qy = tvz * p.e1x - tvx * p.e1z;
+  const float qz = tvx * p.e1y - tvy * p.e1x;
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  const float t_tri = (p.e2x * qx + p.e2y * qy + p.e2z * qz) * inv_det;
+  is_sph = p.typ > 0.5f;
+  if (!is_sph) {
+    const bool ok_tri = !par && (u >= 0.0f) && (v >= 0.0f) &&
+                        (u + v <= 1.0f) && (t_tri >= r.t_min) &&
+                        (t_tri <= r.t_max);
+    return ok_tri ? t_tri : kInf;
+  }
+  const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  const float b = 2.0f * (tvx * r.dx + tvy * r.dy + tvz * r.dz);
+  const float c = tvx * tvx + tvy * tvy + tvz * tvz - p.e1x * p.e1x;
+  const float disc = b * b - 4.0f * a * c;
+  const bool has = disc >= 0.0f;
+  const float sq = sqrtf(max_nan(disc, 0.0f));
+  const float inv2a = 1.0f / max_nan(2.0f * a, 1e-20f);
+  const float s0 = (-b - sq) * inv2a;
+  const float s1 = (-b + sq) * inv2a;
+  const bool ok0 = has && (s0 >= r.t_min) && (s0 <= r.t_max);
+  const bool ok1 = has && (s1 >= r.t_min) && (s1 <= r.t_max);
+  return (ok0 || ok1) ? (ok0 ? s0 : s1) : kInf;
+}
+
+// Scratch of one block reduce (at most 4 warps).
+struct ReduceScratch {
+  float t[4];
+  int lane[4];
+  int win;
+};
+
+// Reduce the block's (t, lane) to the nearest hit, lowest lane at equal t,
+// and let the winning lane write the pair's output row
+// [t, lane, u, v, 0, 0, 0, 0] (u = v = 0 on a miss and on sphere lanes).
+// Shuffles inside a warp, shared memory across the warps.  Every thread of
+// the block must call it; `s` must not be in use by another reduce that a
+// thread of the block may still be reading.
+__device__ __forceinline__ void reduce_write_pair(float t, float u, float v,
+                                                  bool is_sph, int lane,
+                                                  ReduceScratch* s,
+                                                  float* __restrict__ o) {
+  float bt = t;
+  int bl = lane;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ot = __shfl_down_sync(0xffffffffu, bt, off);
+    const int ol = __shfl_down_sync(0xffffffffu, bl, off);
+    if (better(ot, ol, bt, bl)) { bt = ot; bl = ol; }
+  }
+  const int warp = lane >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+  if ((lane & 31) == 0) { s->t[warp] = bt; s->lane[warp] = bl; }
+  __syncthreads();
+  if (lane == 0) {
+    for (int w = 1; w < n_warps; w++)
+      if (better(s->t[w], s->lane[w], bt, bl)) { bt = s->t[w]; bl = s->lane[w]; }
+    s->win = bl;
+    s->t[0] = bt;
+  }
+  __syncthreads();
+  if (lane == s->win) {
+    const bool found = s->t[0] < kInf;
+    o[0] = s->t[0];
+    o[1] = (float)lane;
+    o[2] = (found && !is_sph) ? u : 0.0f;
+    o[3] = (found && !is_sph) ? v : 0.0f;
+    o[4] = 0.0f; o[5] = 0.0f; o[6] = 0.0f; o[7] = 0.0f;
+  }
+}
+
+// The output row of a dead pair (live <= 0): a miss, written by lanes 0-7.
+__device__ __forceinline__ void write_miss_pair(int lane,
+                                                float* __restrict__ o) {
+  if (lane < 8) o[lane] = (lane == 0) ? kInf : 0.0f;
+}
+
+// Ray row of the pair kernels (16 floats):
+// [ro.xyz, rd.xyz, t_min, t_max, live, pad...].
+__device__ __forceinline__ Ray load_pair_ray(const float* __restrict__ ray) {
+  Ray r;
+  r.ox = ray[0]; r.oy = ray[1]; r.oz = ray[2];
+  r.dx = ray[3]; r.dy = ray[4]; r.dz = ray[5];
+  r.t_min = ray[6]; r.t_max = ray[7];
+  return r;
+}
+
+}  // namespace pair_isect

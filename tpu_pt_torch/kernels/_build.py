@@ -3,8 +3,9 @@
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
 source, all started together), links the objects into one shared library
 with a plain C interface under ``tpu_pt_torch/_build/`` and loads it with
-``ctypes``.  The library's name carries a hash of the sources and flags, so
-an edit rebuilds and an unchanged tree reuses the file.  Nothing here is
+``ctypes``.  The library's name carries a hash of the sources (``*.cu`` and
+the ``*.cuh`` they include) and flags, so an edit rebuilds and an unchanged
+tree reuses the file.  Nothing here is
 imported or built at module import; a failure to find ``nvcc``, to compile
 or to load raises.
 
@@ -46,7 +47,7 @@ def _nvcc() -> str:
 
 def lib_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(src, "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"libtpu_pt_kernels_{h.hexdigest()[:12]}.so")
@@ -97,8 +98,14 @@ def load(verbose_ptxas: bool = False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.pair_tile_isect_launch.restype = ci
         lib.pair_tile_isect_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+        lib.pair_tile_isect_dedup_launch.restype = ci
+        lib.pair_tile_isect_dedup_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
         lib.pair_segmin_launch.restype = ci
         lib.pair_segmin_launch.argtypes = [vp] * 10 + [ci, vp]
+        lib.dense_closest_launch.restype = ci
+        lib.dense_closest_launch.argtypes = [vp] * 6 + [ci, ci, vp]
+        lib.dense_anyhit_launch.restype = ci
+        lib.dense_anyhit_launch.argtypes = [vp, vp, vp, ci, ci, vp]
         _lib = lib
     return _lib
 

@@ -10,7 +10,9 @@ the lowest-id tie rule.
 (``csrc/pair_tile_isect.cu``, which replaces the Pallas kernel
 ``tpu_pt/kernels/cluster_isect.py::pair_tile_isect``) for CUDA tensors and
 runs ``pair_tile_isect_ref``, the plain PyTorch version, for CPU tensors.
-The choice follows the tensors' device and nothing else.
+``pair_tile_isect_dedup`` is the same function for a pair list sorted by
+cluster id (``csrc/pair_tile_isect_dedup.cu``).  The choice between kernel
+and plain version follows the tensors' device and nothing else.
 
 Row layout of a tile: lane p holds primitive p as rows
 [v0.xyz, e1.xyz, e2.xyz, type, 0, 0]; type 1 = sphere (v0 = centre,
@@ -127,6 +129,31 @@ def pair_tile_isect_ref(tiles, cid, rays):
     return out
 
 
+def _launch(wrapper, launch_name, tiles, cid, rays):
+    """Checks shared by the two pair-tile kernels, then one launch of
+    ``launch_name`` on the current stream, counted on ``wrapper``."""
+    from tpu_pt_torch.kernels import _build
+
+    name = wrapper.__name__
+    _check_shapes(tiles, cid, rays)
+    P = cid.shape[0]
+    _build.check_cuda_input("tiles", tiles, torch.float32)
+    _build.check_cuda_input("cid", cid, torch.int32, (P,))
+    _build.check_cuda_input("rays", rays, torch.float32, (P, 16))
+    if cid.device != tiles.device or rays.device != tiles.device:
+        raise ValueError(f"{name}: tensors on different devices")
+    out = torch.empty((P, 8), dtype=torch.float32, device=tiles.device)
+    if P == 0:
+        return out
+    err = getattr(_build.load(), launch_name)(
+        tiles.data_ptr(), cid.data_ptr(), rays.data_ptr(), out.data_ptr(),
+        P, tiles.shape[2], torch.cuda.current_stream(tiles.device).cuda_stream)
+    wrapper.launches += 1
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch error {err}")
+    return out
+
+
 def pair_tile_isect(tiles, cid, rays):
     """tiles: (C, 12, L) f32, L in {32, 64, 128}; cid: (P,) i32
     (P % 128 == 0, every id in [0, C)); rays: (P, 16) f32 rows
@@ -137,29 +164,37 @@ def pair_tile_isect(tiles, cid, rays):
     version."""
     if not tiles.is_cuda:
         return pair_tile_isect_ref(tiles, cid, rays)
-    from tpu_pt_torch.kernels import _build
-
-    _check_shapes(tiles, cid, rays)
-    P = cid.shape[0]
-    _build.check_cuda_input("tiles", tiles, torch.float32)
-    _build.check_cuda_input("cid", cid, torch.int32, (P,))
-    _build.check_cuda_input("rays", rays, torch.float32, (P, 16))
-    if cid.device != tiles.device or rays.device != tiles.device:
-        raise ValueError("pair_tile_isect: tensors on different devices")
-    out = torch.empty((P, 8), dtype=torch.float32, device=tiles.device)
-    if P == 0:
-        return out
-    lib = _build.load()
-    err = lib.pair_tile_isect_launch(
-        tiles.data_ptr(), cid.data_ptr(), rays.data_ptr(), out.data_ptr(),
-        P, tiles.shape[2], torch.cuda.current_stream(tiles.device).cuda_stream)
-    pair_tile_isect.launches += 1
-    if err != 0:
-        raise RuntimeError(f"pair_tile_isect: CUDA launch error {err}")
-    return out
+    return _launch(pair_tile_isect, "pair_tile_isect_launch", tiles, cid, rays)
 
 
 pair_tile_isect.launches = 0   # kernel launches made by this process
+
+
+def pair_tile_isect_dedup_ref(tiles, cid, rays):
+    """Plain PyTorch version of :func:`pair_tile_isect_dedup`.  The function
+    computed is :func:`pair_tile_isect`'s, pair by pair; the order of the
+    list only decides how many tile fetches the kernel saves."""
+    return pair_tile_isect_ref(tiles, cid, rays)
+
+
+def pair_tile_isect_dedup(tiles, cid, rays):
+    """Cluster-major variant of :func:`pair_tile_isect`: same operands and
+    output, for a pair list SORTED BY cid ascending (dead pairs' ids clipped
+    into range).  The kernel (``csrc/pair_tile_isect_dedup.cu``, which
+    replaces the Pallas kernel
+    ``tpu_pt/kernels/cluster_isect.py::pair_tile_isect_dedup``) keeps a tile
+    in registers across a run of 8 consecutive pairs and fetches again only
+    when the id changes.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
+    version."""
+    if not tiles.is_cuda:
+        return pair_tile_isect_dedup_ref(tiles, cid, rays)
+    return _launch(pair_tile_isect_dedup, "pair_tile_isect_dedup_launch",
+                   tiles, cid, rays)
+
+
+pair_tile_isect_dedup.launches = 0   # kernel launches made by this process
 
 
 def check_pair_out(out, rays, label: str = "pair_tile_isect"):
@@ -199,4 +234,15 @@ def pair_tile_isect_checked(tiles, cid, rays):
     _check_pair_in(tiles, cid, "pair_tile_isect")
     out = pair_tile_isect(tiles, cid, rays)
     check_pair_out(out, rays)
+    return out
+
+
+def pair_tile_isect_dedup_checked(tiles, cid, rays):
+    """pair_tile_isect_dedup + input/output contract checks, the ascending
+    order of cid among them."""
+    _check_pair_in(tiles, cid, "pair_tile_isect_dedup")
+    if not bool(torch.all(cid[1:] >= cid[:-1])):
+        raise AssertionError("pair_tile_isect_dedup: cluster ids not sorted")
+    out = pair_tile_isect_dedup(tiles, cid, rays)
+    check_pair_out(out, rays, label="pair_tile_isect_dedup")
     return out

@@ -1,20 +1,67 @@
-"""Intersector selection for the renderers."""
+"""Image rendering entry point and intersector selection.
+
+``render`` turns the unrolled integrator (``integrator.render_chunk``) into
+images: the image is a flat array of (pixel, sample) pairs processed in
+fixed-size chunks of whole pixels, so that a chunk reduces to pixel means
+with no scatter.  It is the reference/debug path and the oracle that the
+wavefront renderer (``render/wavefront.py``, the performance path) is tested
+against.
+"""
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
+from tpu_pt_torch.config import RenderConfig
 from tpu_pt_torch.render import brute
+from tpu_pt_torch.render.integrator import render_chunk
+from tpu_pt_torch.scene.types import Scene
+
+BACKENDS = ("brute", "pallas", "cluster")
 
 
-def _intersectors_counted(backend: str, bvh=None, use_kernels: bool = True):
-    """(intersect, occluded) closures that ALSO return the capacity-contract
-    overflow count (candidates truncated by static budgets).  The cluster
-    backend reports real counts; the brute backend is exact by construction
-    and returns a constant 0.  ``use_kernels=False`` runs the cluster
-    backend through the plain PyTorch versions of its kernels."""
+def _intersectors(backend: str, bvh=None, use_kernels: bool = True):
+    """(intersect, occluded) closures of a backend: ``"brute"`` (the dense
+    oracle, no structure), ``"pallas"`` (the dense-sweep kernels over a
+    ``PallasScene``; the name is the JAX package's) or ``"cluster"`` (a
+    ``ClusterBVH``).  ``use_kernels=False`` runs the plain PyTorch versions
+    of the backend's kernels."""
+    if backend == "brute":
+        return brute.intersect, brute.occluded
+    if backend == "pallas":
+        from tpu_pt_torch.kernels import intersect as dense
+
+        if bvh is None:
+            raise ValueError("backend='pallas' requires a PallasScene")
+        return (
+            functools.partial(dense.intersect, bvh, use_kernels=use_kernels),
+            functools.partial(dense.occluded, bvh, use_kernels=use_kernels),
+        )
+    if backend == "cluster":
+        from tpu_pt_torch.bvh import cluster as cluster_mod
+
+        if bvh is None:
+            raise ValueError("backend='cluster' requires a ClusterBVH")
+        return (
+            functools.partial(cluster_mod.intersect, bvh,
+                              use_kernels=use_kernels),
+            functools.partial(cluster_mod.occluded, bvh,
+                              use_kernels=use_kernels),
+        )
+    raise ValueError(f"unknown backend {backend!r}: this package has "
+                     f"{', '.join(BACKENDS)}")
+
+
+def _intersectors_counted(backend: str, bvh=None, use_kernels: bool = True,
+                          dedup: bool = False):
+    """Like ``_intersectors``, but each call ALSO returns the
+    capacity-contract overflow count (candidates truncated by static
+    budgets).  The cluster backend reports real counts (``dedup=True``
+    selects its cluster-major pair stage); every other backend is exact by
+    construction and returns a constant 0 (and ignores ``narrow``)."""
     if backend == "cluster":
         from tpu_pt_torch.bvh import cluster as cluster_mod
 
@@ -22,20 +69,66 @@ def _intersectors_counted(backend: str, bvh=None, use_kernels: bool = True):
             raise ValueError("backend='cluster' requires a ClusterBVH")
         return (
             functools.partial(cluster_mod.intersect_counted, bvh,
-                              use_kernels=use_kernels),
+                              use_kernels=use_kernels, dedup=dedup),
             functools.partial(cluster_mod.occluded_counted, bvh,
-                              use_kernels=use_kernels),
+                              use_kernels=use_kernels, dedup=dedup),
         )
-    if backend != "brute":
-        raise ValueError(f"unknown backend {backend!r}")
+    isect, occl = _intersectors(backend, bvh, use_kernels)
 
     def isect_c(scene, ro, rd, t_min, t_max):
         zero = torch.zeros((), dtype=torch.int64, device=ro.device)
-        return brute.intersect(scene, ro, rd, t_min, t_max), zero
+        return isect(scene, ro, rd, t_min, t_max), zero
 
     def occl_c(scene, ro, rd, t_max, narrow=False):
         del narrow  # exact backends have no pair budget
         zero = torch.zeros((), dtype=torch.int64, device=ro.device)
-        return brute.occluded(scene, ro, rd, t_max), zero
+        return occl(scene, ro, rd, t_max), zero
 
     return isect_c, occl_c
+
+
+def _on_device(device, scene, cam, bvh):
+    """Resolve the entry points' ``device`` argument and move the inputs.
+    Raises when a CUDA device is asked for and none is present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "tpu_pt_torch renders on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the host")
+    return (device, scene.to(device), cam.to(device),
+            bvh.to(device) if bvh is not None else None)
+
+
+@torch.no_grad()
+def render(scene: Scene, cam, cfg: RenderConfig, key, backend: str = "brute",
+           bvh=None, pix_chunk: Optional[int] = None, device="cuda",
+           use_kernels: bool = True):
+    """Render to a (H, W, 3) linear-radiance tensor on ``device`` (row 0 =
+    bottom row).  ``key`` is a pair of 32-bit ints.
+
+    Each chunk is ``pix_chunk`` whole pixels × ``spp`` samples.  By default
+    the brute backend keeps ``1 << 22`` ray × primitive pairs resident at
+    once and the others take ``(1 << 17) // spp`` pixels a chunk.  A tail
+    chunk is padded by re-rendering the last pixel."""
+    device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
+    isect, occl = _intersectors(backend, bvh, use_kernels)
+    n_pix = cfg.n_pixels
+    if pix_chunk is None:
+        if backend == "brute":
+            budget = 1 << 22  # ray × prim pairs resident at once
+            pix_chunk = max(1, budget // max(1, cfg.spp * scene.n_prims))
+        else:
+            pix_chunk = max(1, (1 << 17) // cfg.spp)
+        pix_chunk = min(pix_chunk, n_pix)
+
+    img = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
+    spp_ids = torch.arange(cfg.spp, device=device).repeat(pix_chunk)
+    for start in range(0, n_pix, pix_chunk):
+        ids = torch.arange(start, start + pix_chunk, device=device)
+        ids = ids.clamp_max(n_pix - 1)  # tail padding re-renders last pixel
+        pixel_ids = ids.repeat_interleave(cfg.spp)
+        L = render_chunk(scene, cam, cfg, key, pixel_ids, spp_ids, isect, occl)
+        L = L.reshape(pix_chunk, cfg.spp, 3).mean(dim=1)
+        end = min(start + pix_chunk, n_pix)
+        img[start:end] = L[: end - start]
+    return img.reshape(cfg.height, cfg.width, 3)

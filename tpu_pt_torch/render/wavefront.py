@@ -26,6 +26,7 @@ from tpu_pt_torch.core.sampling import draws_lane
 from tpu_pt_torch.core.vecmath import dot, make_coord_space, to_local, to_world
 from tpu_pt_torch.render import bsdf as bsdf_mod
 from tpu_pt_torch.render import lights as lights_mod
+from tpu_pt_torch.render.driver import _intersectors_counted, _on_device
 from tpu_pt_torch.render.envmap import eval_env
 from tpu_pt_torch.render.integrator import (
     _BSDF, _LIGHT0, _RR, _STRIDE, DRAW_JITTER, shade_info)
@@ -249,19 +250,19 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                     queue: int, backend: str, pix_lo: int, n_pix_local: int,
                     spp_lo: int = 0, spp_count: int = 0,
                     with_counts: bool = False, pix_stride: int = 1,
-                    use_kernels: bool = True):
+                    use_kernels: bool = True, dedup: bool = False):
     """Render pixels {pix_lo + j*pix_stride : j < n_pix_local} × samples
     [spp_lo, spp_lo+spp_count) -> (n_pix_local, 3) radiance sums (divide by
     cfg.spp for the full-spp mean).  ``scene``, ``cam`` and ``bvh`` hold
-    tensors on one device; ``key`` is two ints.
+    tensors on one device; ``key`` is two ints.  ``dedup=True`` runs the
+    cluster backend's cluster-major pair stage (see
+    ``bvh/cluster.py::intersect_counted``).
 
     Forward-only early-exit loop.  With ``with_counts`` also returns
     (n_closest, n_shadow, n_overflow, steps_run) as device scalars / int."""
-    from tpu_pt_torch.render.driver import _intersectors_counted
-
     spp_count = spp_count or cfg.spp
     intersect_fn, occluded_fn = _intersectors_counted(backend, bvh,
-                                                      use_kernels)
+                                                      use_kernels, dedup)
     device = scene.vertices.device
     Q = min(queue, n_pix_local * spp_count)
     st = init_queue(Q, n_pix_local, device)
@@ -292,32 +293,23 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     return (accum, (nc, ns, novf, n_iter)) if with_counts else accum
 
 
-def _on_device(device, scene, cam, bvh):
-    """Resolve the entry points' ``device`` argument and move the inputs.
-    Raises when a CUDA device is asked for and none is present."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "tpu_pt_torch renders on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the host")
-    return (device, scene.to(device), cam.to(device),
-            bvh.to(device) if bvh is not None else None)
-
-
 def render_wavefront(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                      queue: int = 1 << 17, backend: str = "cluster",
-                     device="cuda", use_kernels: bool = True):
+                     device="cuda", use_kernels: bool = True,
+                     dedup: bool = False):
     """Full-image render -> (H, W, 3) linear radiance tensor on ``device``.
     ``key`` is a pair of 32-bit ints."""
     device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
     accum = wavefront_accum(scene, cam, cfg, key, bvh, queue, backend,
-                            0, cfg.n_pixels, use_kernels=use_kernels)
+                            0, cfg.n_pixels, use_kernels=use_kernels,
+                            dedup=dedup)
     return (accum / cfg.spp).reshape(cfg.height, cfg.width, 3)
 
 
 def render_wavefront_counts(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                             queue: int = 1 << 17, backend: str = "cluster",
-                            device="cuda", use_kernels: bool = True):
+                            device="cuda", use_kernels: bool = True,
+                            dedup: bool = False):
     """Full-image render + ray accounting.
 
     Returns (image, n_closest, n_shadow, n_overflow, n_steps_run): the
@@ -329,6 +321,6 @@ def render_wavefront_counts(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
     accum, (nc, ns, novf, n_iter) = wavefront_accum(
         scene, cam, cfg, key, bvh, queue, backend, 0, cfg.n_pixels,
-        with_counts=True, use_kernels=use_kernels)
+        with_counts=True, use_kernels=use_kernels, dedup=dedup)
     img = (accum / cfg.spp).reshape(cfg.height, cfg.width, 3)
     return img, int(nc), int(ns), int(novf), n_iter
