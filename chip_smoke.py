@@ -8,18 +8,23 @@
 
 Builds the native SAH builder and the CUDA kernel library from the sources
 in this checkout, holds every kernel against its plain PyTorch version on
-the card, checks the cluster traversal (ray-major and cluster-major pair
-stage) against the brute-force oracle, and drives three paths at full width:
+the card, checks the cluster traversal (every form of its pair stage)
+against the brute-force oracle, and drives four paths at full width:
 
 - ``render_main``: the 1.3M-triangle scene through the wavefront renderer
-  and the cluster BVH (1024x1024, spp 1, depth 4, queue 4096), after the
-  same scene rendered small with kernels and with plain versions;
+  and the cluster BVH (1024x1024, spp 1, depth 4, queue 4096) with the
+  one-kernel pair stage (``pair_stage="fused"``, the default), after the
+  same scene rendered small with the fused kernel, the split stage's
+  kernels and plain versions;
+- ``render_split``: the same render through the two-kernel pair stage
+  (``pair_stage="split"``); its image must equal ``render_main``'s bit for
+  bit, and the two ``run_s`` are printed side by side;
 - ``render_oracle``: the unrolled oracle renderer through the dense-sweep
   backend (``backend="pallas"``) at the command line's defaults (512x512,
   spp 16, depth 4) on two Cornell scenes, after small renders held against
   the brute backend, the plain versions and the wavefront renderer;
 - ``render_dedup``: the ``render_main`` render once more through the
-  cluster-major ("dedup") pair stage.
+  cluster-major pair stage (``pair_stage="dedup"``).
 
 It prints one JSON object per phase.  Any failed phase raises and the
 process exits non-zero.  Without a CUDA device it exits with code 2 before
@@ -29,7 +34,13 @@ The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is ``{"kernels": [...]}`` with, per kernel, its launches
 on the full-width path that runs it, its error against the plain version,
-its time, the plain version's time and its roofline bound.
+its time, the plain version's time and its roofline bound.  ``ms`` is the
+median of single launches between CUDA events; for the pair kernels, which
+run a few microseconds, ``trace_us`` is the kernel's own duration in a
+profiler trace of the same launches (``trace_warm_us``: without the cache
+flush between them; ``trace_n`` and ``trace_warm_n``: the kernel records
+the two medians rest on), and ``launch_floor_us`` what either method reports
+for a kernel that does nothing.
 """
 
 from __future__ import annotations
@@ -57,6 +68,9 @@ from tpu_pt_torch.kernels.cluster_isect import (  # noqa: E402
     pair_tile_isect_dedup_ref, pair_tile_isect_ref)
 from tpu_pt_torch.kernels.intersect import (  # noqa: E402
     PallasScene, anyhit_ref, closest_ref, dense_anyhit, dense_closest)
+from tpu_pt_torch.kernels import pair_fused  # noqa: E402
+from tpu_pt_torch.kernels.pair_fused import (  # noqa: E402
+    pair_ray_reduce, pair_ray_reduce_checked, pair_ray_reduce_ref)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref  # noqa: E402
 from tpu_pt_torch.render import brute, film, integrator, wavefront  # noqa: E402
 from tpu_pt_torch.render.driver import (  # noqa: E402
@@ -156,7 +170,8 @@ def phase_build():
 def pair_inputs(cb, ro, rd, t_max, mult):
     """Operands of the pair kernels for one traversal sub-batch: what
     ``_traverse_compact_1`` hands to the ray-major pair stage and to the
-    reduce, and what it hands to the cluster-major pair stage."""
+    reduce, what it hands to the cluster-major pair stage, and (``fused``)
+    what it hands to the one-kernel stage: its own tensors as they are."""
     Q = ro.shape[0]
     t_min1 = torch.zeros((Q,), device=DEV)
     t_max1 = t_max[:, 0]
@@ -171,8 +186,10 @@ def pair_inputs(cb, ro, rd, t_max, mult):
     # The same list as the cluster-major stage takes it: sorted by cid.
     cid_s, rays_s, _, _ = cluster._dedup_rows(cb, ro, rd, t_min1, t_max1,
                                               rayP, cidP)
+    fused = dict(ro=ro, rd=rd, t_min1=t_min1, t_max1=t_max1, rayP=rayP,
+                 cidP=cidP, cnt=cnt, right=right)
     return (cid_p, rays, cnt.to(torch.int32), right.to(torch.int32),
-            cid_s, rays_s)
+            cid_s, rays_s, fused)
 
 
 def queue_batches(scene, cam, cb, cfg, key, queue, n_warm):
@@ -451,6 +468,189 @@ def oracle_chunk_rays(scene, cam, ps, cfg, key):
     return got["closest"].contiguous(), got["anyhit"].contiguous()
 
 
+def fused_ops(tiles, tile_gid, f):
+    return (tiles, tile_gid, f["ro"], f["rd"], f["t_min1"], f["t_max1"],
+            f["cidP"], f["cnt"], f["right"])
+
+
+def compare_fused(cb, f, label):
+    """The one-kernel pair stage, closest-hit and any-hit form: bitwise
+    against its plain version AND against the split stage's kernels
+    (pair_tile_isect -> pair_segmin and the array code around them) on the
+    card."""
+    ops = fused_ops(cb.tiles, cb.tile_gid, f)
+    args = (cb, f["ro"], f["rd"], f["t_min1"], f["t_max1"], f["rayP"],
+            f["cidP"], f["cnt"], f["right"])
+    ref = pair_ray_reduce_ref(*ops)
+    ref_occ = pair_ray_reduce_ref(*ops, any_hit=True)
+    split = cluster._reduce_pairs_closest_scan(*args)
+    split_occ = cluster._reduce_pairs_anyhit_scan(*args)
+    out = pair_ray_reduce(*ops)
+    occ = pair_ray_reduce(*ops, any_hit=True)
+    sync()
+    for name, a, b, c in zip(("t", "gid", "u", "v"), out, ref, split):
+        assert a.dtype == b.dtype and bool(torch.equal(a, b)), \
+            f"fused {label}: {name} differs from the plain version"
+        assert a.dtype == c.dtype and bool(torch.equal(a, c)), \
+            f"fused {label}: {name} differs from K1(K2)"
+    assert occ.dtype == torch.bool and bool(torch.equal(occ, ref_occ)), \
+        f"fused {label}: any-hit differs from the plain version"
+    assert bool(torch.equal(occ, split_occ)), \
+        f"fused {label}: any-hit differs from K1(K2)"
+    live = f["rayP"] < f["ro"].shape[0]
+    cnt = f["cnt"]
+    return {"case": label, "rays": int(cnt.shape[0]),
+            "pairs": int(f["cidP"].shape[0]), "live_pairs": int(cnt.sum()),
+            "live_tiles": int(f["cidP"][live].unique().numel()),
+            "rays_with_pairs": int((cnt > 0).sum()),
+            "max_pairs_of_a_ray": int(cnt.max()),
+            "hits": int((ref[0] < INF).sum()),
+            "bitwise": True, "equals_split_kernels": True,
+            "max_abs_err": max(max_abs_diff(a, b)
+                               for a, b in zip(out[:1] + out[2:],
+                                               ref[:1] + ref[2:]))}
+
+
+class _Tiles:
+    """What compare_fused reads of a ClusterBVH, for hand-made tiles."""
+
+    def __init__(self, tiles, tile_gid):
+        self.tiles, self.tile_gid = tiles, tile_gid
+        self.n_clusters = tiles.shape[0]
+
+
+def fused_edge_case(L):
+    """Hand-made tiles and segments for the fused kernel.  Tiles: 0 a
+    square floor at y = 0 (two triangles, gids 100, 101); 1 the SAME floor
+    with gids 50, 51 (equal t in another tile: the lower gid must win);
+    2 a floor at y = -1 (gids 10, 11); 3 a sphere of radius 1 at y = 2
+    (gid 7); 4 padding only.  Rays fall straight down from y = 5 inside the
+    sphere's outline.  Segments: empty ones; the tie in both orders; the
+    sphere above the floors; cluster ids outside [0, C); and a pair budget
+    that ends inside ray 12's segment (its second pair and every later ray
+    are cut, as ``_flat_pairs`` cuts them).  Returns (tiles holder, operand
+    dict, gid each ray must report, -1 for a miss)."""
+    def floor(y, gid0):
+        t = torch.zeros((12, L))
+        t[0:3, 0] = torch.tensor([-1.0, y, -1.0])
+        t[3, 0], t[8, 0] = 2.0, 2.0
+        t[0:3, 1] = torch.tensor([1.0, y, 1.0])
+        t[3, 1], t[8, 1] = -2.0, -2.0
+        g = torch.zeros((L,), dtype=torch.int32)
+        g[0], g[1] = gid0, gid0 + 1
+        return t, g
+
+    sph = torch.zeros((12, L))
+    sph[1, 3], sph[3, 3], sph[9, 3] = 2.0, 1.0, 1.0
+    g_sph = torch.zeros((L,), dtype=torch.int32)
+    g_sph[3] = 7
+    parts = [floor(0.0, 100), floor(0.0, 50), floor(-1.0, 10), (sph, g_sph),
+             (torch.zeros((12, L)), torch.zeros((L,), dtype=torch.int32))]
+    tiles = torch.stack([p[0] for p in parts]).to(DEV)
+    gid = torch.stack([p[1] for p in parts]).to(DEV)
+    segs = [[0], [], [0, 1], [1, 0], [2, 0, 1], [4, 1, 0], [4], [0, 3],
+            [3, 2], [-5], [99], [99, -5, 2], [2, 0], [0], [1]]
+    want = [100, -1, 50, 50, 50, 50, -1, 7, 7, 100, -1, 100, 10, -1, -1]
+    budget = sum(len(x) for x in segs[:12]) + 1
+    Q = len(segs)
+    g = torch.Generator().manual_seed(3)
+    ro = torch.rand((Q, 3), generator=g) - 0.5
+    ro[:, 1] = 5.0
+    rd = torch.tensor([0.0, -1.0, 0.0]).repeat(Q, 1)
+    cnt = torch.tensor([len(x) for x in segs])
+    right = torch.cumsum(cnt, 0)
+    base = right - cnt
+    right_c = right.clamp_max(budget)
+    cnt_c = (right_c - base.clamp_max(budget)).clamp_min(0)
+    cid = torch.tensor([c for x in segs for c in x])[:budget]
+    ray = torch.repeat_interleave(torch.arange(Q), cnt)[:budget]
+    f = dict(ro=ro, rd=rd, t_min1=torch.zeros(Q), t_max1=torch.full((Q,), 1e30),
+             rayP=ray, cidP=cid, cnt=cnt_c, right=right_c)
+    return _Tiles(tiles, gid), {k: v.to(DEV) for k, v in f.items()}, want
+
+
+def check_fused_edge_case(L):
+    """compare_fused on the hand-made case, and the winners it must name: a
+    square's two triangles share the diagonal, so its first gid or the next."""
+    cb, f, want = fused_edge_case(L)
+    label = f"edge_empty_cut_tie_sphere_cid_range_L{L}"
+    res = compare_fused(cb, f, label)
+    t, g, u, v = pair_ray_reduce(*fused_ops(cb.tiles, cb.tile_gid, f))
+    got = g.tolist()
+    for q, w in enumerate(want):
+        assert bool(t[q] < INF) == (w >= 0), f"{label}: ray {q} hit mask"
+        assert got[q] in ((0,) if w < 0 else (w,) if w == 7 else (w, w + 1)), \
+            f"{label}: ray {q} reports gid {got[q]}, not {w}"
+    assert float(u[7]) == 0.0 and float(v[8]) == 0.0     # sphere winners
+    assert 1.9 < float(t[7]) < 3.0
+    return res
+
+
+def fused_bytes(live_tiles, live_pairs, Q, L, any_hit):
+    """Bytes the fused stage must move, each input read once and each
+    output written once: rows 0-9 of every DISTINCT tile a live pair names
+    and, for the closest hit, its row of tile_gid; 8 B of cluster id per
+    live pair; per ray 48 B in (origin, direction, two bounds, two segment
+    bounds) and 16 B out (1 B for any hit)."""
+    per_tile = 10 * L * 4 + (0 if any_hit else L * 4)
+    return live_tiles * per_tile + live_pairs * 8 + Q * (48 + (1 if any_hit
+                                                               else 16))
+
+
+def launch_floor(blocks, threads=128):
+    """One launch of the library's empty kernel on the current stream."""
+    err = _build.load().launch_floor_launch(
+        blocks, threads, torch.cuda.current_stream(DEV).cuda_stream)
+    assert err == 0, f"launch_floor: CUDA launch error {err}"
+
+
+def trace_launches(fn, flush, name_part, repeats=30):
+    """Median microseconds of the kernel whose name contains ``name_part``
+    over ``repeats`` calls of ``fn`` under torch.profiler, and the number of
+    kernel records the median rests on; the L2 cache
+    overwritten before each as in :func:`time_launches`: the kernel's own
+    duration on the device, without the launch latency and the two event
+    records that lie between a pair of events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    for _ in range(3):
+        fn()
+    sync()
+    # The tracer now and then loses records of kernels this short: a window
+    # with fewer than `repeats` of them is taken again, a third of them must
+    # be there in the end, and how many there were goes out with the median.
+    us = []
+    for _ in range(3):
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                flush.zero_()
+                fn()
+            sync()
+        got = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and name_part in e.name]
+        assert len(got) <= repeats, \
+            f"trace: {len(got)} kernels named *{name_part}* in {repeats} calls"
+        us = max(us, got, key=len)
+        if len(us) == repeats:
+            break
+    assert 3 * len(us) >= repeats, \
+        f"trace: {len(us)} kernels named *{name_part}* in {repeats} calls"
+    return statistics.median(us), len(us)
+
+
+def time_both(fn, flush, name_part, repeats=30):
+    """A short kernel's three times: between events and in the trace with
+    the L2 cache overwritten before each launch, and in the trace with the
+    cache left as the launch before left it (the renderer lies between: a
+    step's four sub-batches share most of their tiles)."""
+    cold, n_cold = trace_launches(fn, flush, name_part, repeats)
+    warm, n_warm = trace_launches(fn, flush[:16], name_part, repeats)
+    return {"ms": time_launches(fn, flush, repeats), "trace_us": cold,
+            "trace_n": n_cold, "trace_warm_us": warm, "trace_warm_n": n_warm}
+
+
 def time_launches(fn, flush, repeats=30):
     """Median milliseconds of one call, each timed alone between CUDA
     events after the L2 cache was overwritten (the renderer touches ~100 MB
@@ -483,6 +683,7 @@ def phase_kernels(scene, cam, cb, cfg, key):
     first, mid, shadow = queue_batches(scene, cam, cb, cfg, key, 4096,
                                        n_warm=N_WARM)
     cases_k2, cases_k1, cases_k3, cases_dense = [], [], [], []
+    cases_fused = []
     timing = {}
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
     # The closest-hit traversal's budget (pair_mults[2], gid carried) and
@@ -491,8 +692,31 @@ def phase_kernels(scene, cam, cb, cfg, key):
             ("first_wave", first, cb.pair_mults[2], True),
             ("mid_render", mid, cb.pair_mults[2], True),
             ("mid_render_shadow_narrow", shadow, cb.pair_mults[3], False)):
-        cid, rays, cnt, right, cid_s, rays_s = pair_inputs(cb, ro, rd, t_max,
-                                                            mult)
+        cid, rays, cnt, right, cid_s, rays_s, fused = pair_inputs(
+            cb, ro, rd, t_max, mult)
+        res_f = compare_fused(cb, fused, label)
+        cases_fused.append(res_f)
+        # The fused kernel at this batch in the form the traversal uses
+        # there; first_wave (long segments) is timed too, for its tail.
+        ops = fused_ops(cb.tiles, cb.tile_gid, fused)
+        Qf, Lf = int(fused["cnt"].shape[0]), cb.tiles.shape[2]
+        timing["pair_ray_reduce" + {"first_wave": "@first_wave",
+                                    "mid_render": "",
+                                    "mid_render_shadow_narrow":
+                                        "@shadow_narrow"}[label]] = dict(
+            shape={"P": res_f["pairs"], "Q": Qf, "L": Lf,
+                   "live_pairs": res_f["live_pairs"],
+                   "live_tiles": res_f["live_tiles"],
+                   "max_pairs_of_a_ray": res_f["max_pairs_of_a_ray"],
+                   "any_hit": not with_gid},
+            **time_both(lambda: pair_ray_reduce(*ops, any_hit=not with_gid),
+                        flush, "pair_major_kernel"),
+            plain_ms=time_launches(
+                lambda: pair_ray_reduce_ref(*ops, any_hit=not with_gid),
+                flush, repeats=10),
+            bytes=fused_bytes(res_f["live_tiles"], res_f["live_pairs"],
+                              Qf, Lf, not with_gid),
+            flops=res_f["live_pairs"] * Lf * 100)
         res, out = compare_k2(cb.tiles, cid, rays, label)
         if label != "first_wave":
             res3 = compare_k3(cb.tiles, cid_s, rays_s, label)
@@ -503,9 +727,9 @@ def phase_kernels(scene, cam, cb, cfg, key):
                 shape={"P": P3, "L": L3, "live_pairs": res3["live_pairs"],
                        "live_tiles": res3["live_tiles"],
                        "tile_fetches": res3["tile_fetches"]},
-                ms=time_launches(
+                **time_both(
                     lambda: pair_tile_isect_dedup(cb.tiles, cid_s, rays_s),
-                    flush),
+                    flush, "pair_tile_isect_dedup_kernel"),
                 plain_ms=time_launches(
                     lambda: pair_tile_isect_dedup_ref(cb.tiles, cid_s, rays_s),
                     flush),
@@ -537,19 +761,42 @@ def phase_kernels(scene, cam, cb, cfg, key):
                 shape={"P": P, "L": L, "live_pairs": live,
                        "live_tiles": res["live_tiles"],
                        "tiles_MB": round(cb.tiles.numel() * 4 / 1e6, 1)},
-                ms=time_launches(lambda: pair_tile_isect(cb.tiles, cid, rays),
-                                 flush),
+                **time_both(lambda: pair_tile_isect(cb.tiles, cid, rays),
+                            flush, "pair_tile_isect_kernel"),
                 plain_ms=time_launches(
                     lambda: pair_tile_isect_ref(cb.tiles, cid, rays), flush),
                 bytes=k2_bytes, flops=k2_flops)
             timing["pair_segmin"] = dict(
                 shape={"P": P, "Q": Q, "live_pairs": int(cnt.sum())},
-                ms=time_launches(
-                    lambda: pair_segmin(t_p, g_p, u_p, v_p, cnt, right), flush),
+                **time_both(
+                    lambda: pair_segmin(t_p, g_p, u_p, v_p, cnt, right), flush,
+                    "pair_segmin_kernel"),
                 plain_ms=time_launches(
                     lambda: pair_segmin_ref(t_p, g_p, u_p, v_p, cnt, right),
                     flush, repeats=20),
                 bytes=k1_bytes, flops=k1_ops)
+            # What either way of timing reports for a kernel that does
+            # nothing, on the fused kernel's grid (a few blocks an SM) and
+            # on the pair-tile kernel's (a block per pair slot).
+            floors = {}
+            for what, blocks in (("grid_of_pair_ray_reduce",
+                                  min(-(-P // 4),
+                                      pair_fused.pair_grid_blocks(DEV))),
+                                 ("grid_of_pair_tile_isect", P)):
+                both = time_both(lambda: launch_floor(blocks), flush,
+                                 "launch_floor_kernel")
+                floors[what] = {"blocks": blocks, "threads": 128,
+                                "events_us": round(both["ms"] * 1e3, 2),
+                                "trace_us": both["trace_us"],
+                                "trace_n": both["trace_n"],
+                                "trace_warm_us": both["trace_warm_us"],
+                                "trace_warm_n": both["trace_warm_n"]}
+    for L_e in (128, 32):
+        cases_fused.append(check_fused_edge_case(L_e))
+    sync()
+    assert pair_fused._counters and all(
+        not bool(c.any()) for c in pair_fused._counters.values()), \
+        "pair_ray_reduce left a per-ray counter above zero"
     tiles_e, cid_e, rays_e = k2_edge_case()
     res, _ = compare_k2(tiles_e, cid_e, rays_e, "edge_sphere_pad_tie_dead")
     assert res["hits"] > 0
@@ -615,9 +862,15 @@ def phase_kernels(scene, cam, cb, cfg, key):
     del flush
     k2_bitwise = all(c["bitwise"] for c in cases_k2)
     emit({"phase": "kernels",
-          "checked": ["pair_tile_isect", "pair_segmin",
+          "checked": ["pair_ray_reduce", "pair_tile_isect", "pair_segmin",
                       "pair_tile_isect_dedup", "dense_closest",
                       "dense_anyhit"],
+          "pair_ray_reduce": {
+              "tolerance": "bitwise, closest-hit and any-hit form, against "
+                           "the plain version and against "
+                           "pair_segmin(pair_tile_isect) on the card",
+              "cases": cases_fused},
+          "launch_floor_us": floors,
           "pair_tile_isect_dedup": {
               "tolerance": "bitwise, against the plain version and against "
                            "pair_tile_isect on the same rows",
@@ -630,22 +883,32 @@ def phase_kernels(scene, cam, cb, cfg, key):
               "bitwise equal and on > 0.99 of hits",
               "cases": cases_k2},
           "pair_segmin": {"tolerance": "bitwise", "cases": cases_k1},
-          "timing_protocol": "median of single launches, CUDA events, L2 "
-                             "overwritten before each; pair kernels at the "
+          "timing_protocol": "kernel / plain: median of single launches "
+                             "between CUDA events, L2 "
+                             "overwritten before each; trace: median kernel "
+                             "duration under torch.profiler over the same "
+                             "launches (trace_warm: L2 not overwritten); "
+                             "pair kernels at the "
                              f"closest-hit sub-batch after {N_WARM} steps "
                              "(and the narrow shadow batch), dense kernels "
                              "at the first chunk of the 512x512 spp 16 "
                              "oracle render of cornell mesh",
           "us_per_launch": {
               k: {"kernel": round(v["ms"] * 1e3, 2),
+                  **({"trace": v["trace_us"], "trace_n": v["trace_n"],
+                      "trace_warm": v["trace_warm_us"],
+                      "trace_warm_n": v["trace_warm_n"]}
+                     if "trace_us" in v else {}),
                   "plain": round(v["plain_ms"] * 1e3, 2), **v["shape"]}
               for k, v in timing.items()}})
-    errs = {"pair_tile_isect": max(max(c["max_abs_err_t"], c["max_abs_err_uv"])
+    errs = {"pair_ray_reduce": max(c["max_abs_err"] for c in cases_fused),
+            "pair_tile_isect": max(max(c["max_abs_err_t"], c["max_abs_err_uv"])
                                    for c in cases_k2),
             "pair_segmin": max(c["max_abs_err"] for c in cases_k1),
             "pair_tile_isect_dedup": max(c["max_abs_err"] for c in cases_k3),
             "dense_closest": max(c["max_abs_err"] for c in cases_dense),
             "dense_anyhit": max(c["max_abs_err_occ"] for c in cases_dense)}
+    timing["launch_floor_us"] = floors["grid_of_pair_ray_reduce"]
     return timing, errs
 
 
@@ -682,6 +945,36 @@ def phase_traverse():
         o_cl, ovf2 = cluster.occluded_counted(cb, scene, ro, rd, tmax2)
         assert bool(torch.equal(o_ref, o_cl)), f"{name}: occlusion"
         assert int(ovf) == 0 and int(ovf2) == 0, f"{name}: overflow"
+        # The default above is the one-kernel pair stage; the two-kernel
+        # stage must give the same bits.
+        h_sp, ovf_s = cluster.intersect_counted(cb, scene, ro, rd, tmin, tmax,
+                                                pair_stage="split")
+        o_sp, ovf_s2 = cluster.occluded_counted(cb, scene, ro, rd, tmax2,
+                                                pair_stage="split")
+        assert int(ovf_s) == 0 and int(ovf_s2) == 0, f"{name}: split overflow"
+        for fld in ("hit", "t", "prim", "u", "v"):
+            assert bool(torch.equal(getattr(h_cl, fld), getattr(h_sp, fld))), \
+                f"{name}: {fld} of the fused and the split pair stage differ"
+        assert bool(torch.equal(o_cl, o_sp)), f"{name}: split occlusion"
+        # The fused kernel's checked form on one sub-batch of these rays:
+        # what the kernel relies on holds for the traversal's pair list, and
+        # the launch leaves its per-ray counters at zero.
+        k = cluster._split_batches(n, cluster.SPLIT_CLOSEST)
+        ro_s, rd_s = ro[0::k].contiguous(), rd[0::k].contiguous()
+        Qs = ro_s.shape[0]
+        lo_s, hi_s = tmin[0::k, 0].contiguous(), tmax[0::k, 0].contiguous()
+        cand, live, _ = cluster._descend_compact(cb, ro_s, 1.0 / rd_s,
+                                                 lo_s[:, None], hi_s[:, None])
+        _, cidP, dropped, cnt, right, _ = cluster._flat_pairs(
+            cand, live, Qs, cb.pair_mults[2] * Qs)
+        ops = (cb.tiles, cb.tile_gid, ro_s, rd_s, lo_s, hi_s, cidP, cnt, right)
+        t_ck = pair_ray_reduce_checked(*ops)[0]
+        occ_ck = pair_ray_reduce_checked(*ops, any_hit=True)
+        assert int(dropped) == 0, f"{name}: checked sub-batch dropped pairs"
+        assert bool(torch.equal(t_ck, h_cl.t[0::k, 0])), \
+            f"{name}: checked form differs from the traversal's t"
+        assert bool(torch.equal(occ_ck, h_cl.hit[0::k, 0])), \
+            f"{name}: checked any-hit form differs from the hit mask"
         # The cluster-major pair stage (it takes 128-lane tiles): against
         # the brute oracle as above, with its own tie rule (prim agreement
         # > 0.96, the reference's allowance), and against the ray-major
@@ -691,9 +984,9 @@ def phase_traverse():
             cluster.build_cluster_bvh(scene_h).to(DEV)
         h_rm = cluster.intersect(cb_d, scene, ro, rd, tmin, tmax)
         h_dd, ovf3 = cluster.intersect_counted(cb_d, scene, ro, rd, tmin, tmax,
-                                               dedup=True)
+                                               pair_stage="dedup")
         o_dd, ovf4 = cluster.occluded_counted(cb_d, scene, ro, rd, tmax2,
-                                              dedup=True)
+                                              pair_stage="dedup")
         assert int(ovf3) == 0 and int(ovf4) == 0, f"{name}: dedup overflow"
         assert bool(torch.equal(h_ref.hit, h_dd.hit)), f"{name}: dedup hit mask"
         assert torch.allclose(h_ref.t[m], h_dd.t[m], rtol=1e-5, atol=1e-6), \
@@ -706,6 +999,8 @@ def phase_traverse():
         out.append({"scene": name, "rays": n, "hits": int(m.sum()),
                     "prim_agreement": float(prim_eq.float().mean()),
                     "occluded": int(o_ref.sum()),
+                    "fused_equals_split_bitwise": True,
+                    "fused_checked_form_passes": True,
                     "dedup": {"tile": 128, "hit_mask_equal": True,
                               "t_bitwise_equal_to_ray_major": True,
                               "prim_agreement": prim_dd,
@@ -729,35 +1024,45 @@ def phase_render_small(scene, cb):
                        rr_start=2, rr_prob=0.7)
     cam = meshes.big_camera(256, 256).to(DEV)
     res = {}
-    for name, use in (("kernels", True), ("plain", False)):
+    for name, kw in (("fused", {}), ("split", dict(pair_stage="split")),
+                     ("plain", dict(use_kernels=False))):
         sync()
         t0 = time.time()
         out = wavefront.render_wavefront_counts(
             scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
-            device=DEV, use_kernels=use)
+            device=DEV, **kw)
         sync()
         res[name] = (out, time.time() - t0)
-    (img_k, nc_k, ns_k, ovf_k, it_k), s_k = res["kernels"]
+    (img_k, nc_k, ns_k, ovf_k, it_k), s_k = res["fused"]
+    (img_s, *counts_s), s_s = res["split"]
     (img_p, nc_p, ns_p, ovf_p, it_p), s_p = res["plain"]
     assert bool(torch.isfinite(img_k).all())
+    assert bool(torch.equal(img_k, img_s)), \
+        "render_small: fused-stage image vs split-stage image (must be bitwise)"
+    assert counts_s == [nc_k, ns_k, ovf_k, it_k], \
+        "render_small: counts of the fused and the split stage differ"
     assert torch.allclose(img_k, img_p, rtol=2e-4, atol=2e-5), \
         "render_small: kernel image vs plain-version image"
     emit({"phase": "render_small", "size": 256, "queue": 4096,
+          "fused_equals_split_bitwise": True,
           "images_equal_bitwise": bool(torch.equal(img_k, img_p)),
           "max_abs_diff": float((img_k - img_p).abs().max()),
-          "tolerance": "rtol 2e-4, atol 2e-5; counts equal or within 0.1 %",
+          "tolerance": "fused vs split kernels bitwise; kernels vs plain "
+                       "rtol 2e-4, atol 2e-5, counts equal or within 0.1 %",
           "n_closest": nc_k, "n_shadow": ns_k, "steps_run": it_k,
           "overflow": ovf_k, "overflow_plain": ovf_p,
           "d_n_closest": counts_close(nc_k, nc_p, "n_closest"),
           "d_n_shadow": counts_close(ns_k, ns_p, "n_shadow"),
           "d_steps": it_k - it_p,
-          "run_s_kernels": round(s_k, 3), "run_s_plain": round(s_p, 3),
+          "run_s_kernels": round(s_k, 3), "run_s_split": round(s_s, 3),
+          "run_s_plain": round(s_p, 3),
           "mean_radiance": float(img_k.mean())})
 
 
 def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     key = (0, 3)
-    kernels = (pair_tile_isect, pair_segmin)
+    kernels = (pair_ray_reduce, pair_tile_isect, pair_segmin,
+               pair_tile_isect_dedup)
 
     def run():
         sync()
@@ -779,8 +1084,11 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
         (img, nc, ns, ovf, n_iter), dt = run()
         times.append(dt)
     launches = {k.__name__: k.launches for k in kernels}
-    for name, n in launches.items():
-        assert n > 0, f"the main path never launched {name}"
+    # 2 traversals x 4 sub-batches a step, one launch each; the stage that
+    # was asked for is the stage that ran.
+    assert launches["pair_ray_reduce"] == 2 * 4 * n_iter, launches
+    assert not any(n for k, n in launches.items() if k != "pair_ray_reduce"), \
+        launches
     assert bool(torch.isfinite(img).all()), "render_main: image not finite"
     assert tuple(img.shape) == (cfg.height, cfg.width, 3)
     mean = float(img.mean())
@@ -818,7 +1126,48 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
         f"overflow {ovf}: candidates were truncated by the static budgets and "
         "the exact-repair fallback is not ported yet")
     assert n_iter == RECORDED["steps_run"], f"steps_run {n_iter}"
-    return launches, line
+    return {"pair_ray_reduce": launches["pair_ray_reduce"]}, line, img
+
+
+def phase_render_split(scene, cam, cb, cfg, main, img_main):
+    """The headline render through the two-kernel pair stage: bit-identical
+    to ``render_main``'s image, timed beside it on the same host.  Returns
+    the launches of its kernels in one render."""
+    kernels = (pair_tile_isect, pair_segmin, pair_ray_reduce,
+               pair_tile_isect_dedup)
+    times = []
+    for _ in range(2):
+        for k in kernels:
+            k.launches = 0
+        sync()
+        t0 = time.time()
+        img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
+            scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
+            device=DEV, pair_stage="split")
+        sync()
+        times.append(time.time() - t0)
+    launches = {k.__name__: k.launches for k in kernels}
+    run_s = statistics.median(times)
+    emit({"phase": "render_split", "scene": "big-1m", "size": cfg.width,
+          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
+          "run_s_all": [round(t, 3) for t in times], "run_s": round(run_s, 3),
+          "run_s_render_main": main["run_s"],
+          "run_s_all_render_main": main["run_s_all"],
+          "run_s_fused_over_split": round(main["run_s"] / run_s, 4),
+          "image_equals_render_main_bitwise": bool(torch.equal(img, img_main)),
+          "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
+          "overflow": ovf, "mean_radiance": float(img.mean()),
+          "rays_per_s": round((nc + ns) / run_s, 1), "launches": launches})
+    assert bool(torch.equal(img, img_main)), \
+        "render_split: image differs from render_main's (must be bitwise)"
+    assert (nc, ns, ovf, n_iter) == (main["n_closest"], main["n_shadow"],
+                                     main["overflow"], main["steps_run"]), \
+        "render_split: counts differ from render_main's"
+    assert launches["pair_tile_isect"] == 2 * 4 * n_iter, launches
+    assert launches["pair_segmin"] == 2 * 4 * n_iter, launches
+    assert launches["pair_ray_reduce"] == 0, launches
+    assert launches["pair_tile_isect_dedup"] == 0, launches
+    return {k: launches[k] for k in ("pair_tile_isect", "pair_segmin")}
 
 
 def phase_render_oracle():
@@ -929,14 +1278,15 @@ def phase_render_oracle():
 def phase_render_dedup(scene, cam, cb, cfg, main):
     """The headline render once through the cluster-major pair stage, held
     to this run's own ``render_main``.  Returns the launches of its kernel."""
-    kernels = (pair_tile_isect_dedup, pair_tile_isect, pair_segmin)
+    kernels = (pair_tile_isect_dedup, pair_tile_isect, pair_segmin,
+               pair_ray_reduce)
     for k in kernels:
         k.launches = 0
     sync()
     t0 = time.time()
     img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
         scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
-        device=DEV, dedup=True)
+        device=DEV, pair_stage="dedup")
     sync()
     run_s = time.time() - t0
     launches = {k.__name__: k.launches for k in kernels}
@@ -963,19 +1313,21 @@ def phase_render_dedup(scene, cam, cb, cfg, main):
             f"render_dedup: {name} {got} vs render_main's {main[name]}"
     # 459 steps x 2 traversals x 4 sub-batches.
     assert launches["pair_tile_isect_dedup"] == 2 * 4 * n_iter, launches
-    assert launches["pair_tile_isect"] == 0 and launches["pair_segmin"] == 0, \
-        launches
+    assert launches["pair_tile_isect"] == 0 and launches["pair_segmin"] == 0 \
+        and launches["pair_ray_reduce"] == 0, launches
     return {"pair_tile_isect_dedup": launches["pair_tile_isect_dedup"]}
 
 
-def phase_loop(scene, cam, cb, cfg, key, profile, n_warm=30, n_steps=20):
-    """Steady-state steps of the full-width loop, timed on the host clock:
+def phase_loop(scene, cam, cb, cfg, key, profile, pair_stage, n_warm=30,
+               n_steps=20):
+    """Steady-state steps of the full-width loop with the given form of the
+    pair stage, timed on the host clock:
     wall time per step and the part of it the host spends blocked in the
     loop condition's read of the device (``any(alive)``), which is where
     it waits for the step it queued.  With ``profile`` the same steps run
     once more under torch.profiler for the device's busy share and the
     kernels' own device time."""
-    isect, occl = _intersectors_counted("cluster", cb)
+    isect, occl = _intersectors_counted("cluster", cb, pair_stage=pair_stage)
     st = wavefront.init_queue(4096, cfg.n_pixels, DEV)
 
     def steps(st, n):
@@ -1000,7 +1352,7 @@ def phase_loop(scene, cam, cb, cfg, key, profile, n_warm=30, n_steps=20):
         sync()
         wall = time.time() - t0
         wall_plain = wall
-        emit({"phase": "loop", "steps": n_steps,
+        emit({"phase": "loop", "pair_stage": pair_stage, "steps": n_steps,
               "wall_ms_per_step": round(wall / n_steps * 1e3, 3),
               "host_read_ms_per_step": round(read_s / n_steps * 1e3, 3),
               "host_read_share": round(read_s / wall, 4)})
@@ -1026,8 +1378,10 @@ def phase_loop(scene, cam, cb, cfg, key, profile, n_warm=30, n_steps=20):
         d[1] += us
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     ours = {k: v for k, v in by_name.items()
-            if "pair_tile_isect_kernel" in k or "pair_segmin_kernel" in k}
-    emit({"phase": "profile", "steps": n_steps,
+            if any(part in k for part in (
+                "pair_major_kernel",
+                "pair_tile_isect_kernel", "pair_segmin_kernel"))}
+    emit({"phase": "profile", "pair_stage": pair_stage, "steps": n_steps,
           "wall_ms_per_step_profiled": round(wall / n_steps * 1e3, 3),
           "device_kernels_per_step": round(len(kern) / n_steps, 1),
           "device_busy_ms_per_step": round(dev_us / n_steps / 1e3, 3)
@@ -1038,7 +1392,7 @@ def phase_loop(scene, cam, cb, cfg, key, profile, n_warm=30, n_steps=20):
           "device_busy_share": round(dev_us / 1e6 / wall_plain, 4)
           if dev_us else None,
           "port_kernels": [
-              {"name": k[:60], "n_per_step": round(v[0] / n_steps, 1),
+              {"name": k[:90], "n_per_step": round(v[0] / n_steps, 1),
                "us_per_launch": round(v[1] / v[0], 2),
                "share_of_device_time": round(v[1] / dev_us, 4)}
               for k, v in ours.items()],
@@ -1073,14 +1427,21 @@ def main():
     timing, errs = phase_kernels(scene, cam, cb, cfg, (0, 3))
     phase_traverse()
     phase_render_small(scene, cb)
-    launches, main_line = phase_render_main(scene, cam, cb, cfg, build_s,
-                                            n_tris)
+    launches, main_line, img_main = phase_render_main(scene, cam, cb, cfg,
+                                                      build_s, n_tris)
+    launches.update(phase_render_split(scene, cam, cb, cfg, main_line,
+                                       img_main))
+    del img_main
     launches.update(phase_render_dedup(scene, cam, cb, cfg, main_line))
-    phase_loop(scene, cam, cb, cfg, (0, 3), profile)
+    for pair_stage in ("fused", "split"):
+        phase_loop(scene, cam, cb, cfg, (0, 3), profile, pair_stage)
     launches.update(phase_render_oracle())
 
     # file:line of the pl.pallas_call each kernel replaces.
     sources = {
+        "pair_ray_reduce": ("tpu_pt_torch/csrc/pair_ray_reduce.cu",
+                            "tpu_pt/kernels/cluster_isect.py:288 and "
+                            "tpu_pt/kernels/pair_scan.py:133"),
         "pair_segmin": ("tpu_pt_torch/csrc/pair_segmin.cu",
                         "tpu_pt/kernels/pair_scan.py:133"),
         "pair_tile_isect": ("tpu_pt_torch/csrc/pair_tile_isect.cu",
@@ -1097,13 +1458,20 @@ def main():
         tm = timing[name]
         by_bytes = tm["bytes"] / HBM_BYTES_PER_S * 1e3
         by_ops = tm["flops"] / fp32_ops_per_s * 1e3
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": tm["ms"],
-                     "plain_ms": tm["plain_ms"],
-                     "bound_ms": max(by_bytes, by_ops),
-                     "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                     "library_ms": None})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": errs[name], "ms": tm["ms"],
+               "plain_ms": tm["plain_ms"],
+               "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "library_ms": None}
+        if "trace_us" in tm:
+            row["trace_us"] = tm["trace_us"]
+            row["trace_n"] = tm["trace_n"]
+            row["trace_warm_us"] = tm["trace_warm_us"]
+            row["trace_warm_n"] = tm["trace_warm_n"]
+            row["launch_floor_us"] = timing["launch_floor_us"]
+        rows.append(row)
     emit({"phase": "done", "total_s": round(time.time() - t_start, 1)})
     print(smi, flush=True)
     emit({"kernels": rows})

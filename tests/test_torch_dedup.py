@@ -153,8 +153,8 @@ def test_dedup_traversal_matches_jax_and_the_ray_major_stage(setups, name):
     finally:
         jcl.DEDUP_PAIRS = old
     h_d, ovf = tcl.intersect_counted(ct, st, T(ro), T(rd), T(tmin), T(tmax),
-                                     dedup=True)
-    o_d, ovf_o = tcl.occluded_counted(ct, st, T(ro), T(rd), T(t4), dedup=True)
+                                     pair_stage="dedup")
+    o_d, ovf_o = tcl.occluded_counted(ct, st, T(ro), T(rd), T(t4), pair_stage="dedup")
     assert int(ovf) == 0 and int(ovf_o) == 0
     # Against the JAX package's dedup stage: hit mask exact, t to one ulp;
     # prim agreement > 0.96 is the JAX package's own allowance for this
@@ -183,10 +183,10 @@ def test_dedup_traversal_matches_jax_and_the_ray_major_stage(setups, name):
     # The plain-version switch changes nothing on the CPU; the convenience
     # forms pass the keyword on.
     h_p = tcl.intersect(ct, st, T(ro), T(rd), T(tmin), T(tmax),
-                        use_kernels=False, dedup=True)
+                        use_kernels=False, pair_stage="dedup")
     for f in ("t", "hit", "prim", "u", "v"):
         assert torch.equal(getattr(h_p, f), getattr(h_d, f)), f
-    assert torch.equal(tcl.occluded(ct, st, T(ro), T(rd), T(t4), dedup=True),
+    assert torch.equal(tcl.occluded(ct, st, T(ro), T(rd), T(t4), pair_stage="dedup"),
                        o_d)
 
 
@@ -251,17 +251,17 @@ def test_unsupported_shape_raises_instead_of_falling_through():
     ro, rd = (T(x) for x in rays(128, 3))
     tmin, tmax = (T(x) for x in _bounds(128))
     assert not tcl._dedup_supported(c64, 768)
-    with pytest.raises(ValueError, match="dedup=True needs"):
-        tcl.intersect(c64, st, ro, rd, tmin, tmax, dedup=True)
-    with pytest.raises(ValueError, match="dedup=True needs"):
-        tcl.occluded(c64, st, ro, rd, tmax, dedup=True)
+    with pytest.raises(ValueError, match="pair_stage='dedup' needs"):
+        tcl.intersect(c64, st, ro, rd, tmin, tmax, pair_stage="dedup")
+    with pytest.raises(ValueError, match="pair_stage='dedup' needs"):
+        tcl.occluded(c64, st, ro, rd, tmax, pair_stage="dedup")
     c128 = convert.cluster_bvh_from_numpy(
         bvh_dict(jcl.build_cluster_bvh(scene)), "cpu")
     assert tcl._dedup_supported(c128, 768)
     assert not tcl._dedup_supported(c128, 6 * 100)
-    with pytest.raises(ValueError, match="dedup=True needs"):
+    with pytest.raises(ValueError, match="pair_stage='dedup' needs"):
         tcl.intersect(c128, st, ro[:100], rd[:100], tmin[:100], tmax[:100],
-                      dedup=True)
+                      pair_stage="dedup")
     # Without the keyword the same calls run the ray-major stage.
     assert tcl.intersect(c64, st, ro, rd, tmin, tmax).t.shape == (128, 1)
     for c, b in ((c64, 768), (c128, 768), (c128, 600)):
@@ -280,12 +280,12 @@ def test_wavefront_with_dedup_matches_the_ray_major_render():
     a = twf.render_wavefront_counts(st, cam, cfg, (0, 3), ct, queue=256,
                                     device="cpu")
     b = twf.render_wavefront_counts(st, cam, cfg, (0, 3), ct, queue=256,
-                                    device="cpu", dedup=True)
+                                    device="cpu", pair_stage="dedup")
     np.testing.assert_allclose(b[0].numpy(), a[0].numpy(), rtol=2e-4,
                                atol=2e-5)
     assert a[1:] == b[1:] and b[3] == 0
     c = twf.render_wavefront(st, cam, cfg, (0, 3), ct, queue=256,
-                             device="cpu", dedup=True)
+                             device="cpu", pair_stage="dedup")
     assert torch.equal(c, b[0])
     # CPU tensors take the plain versions: nothing was launched.
     assert (tki.pair_tile_isect.launches,

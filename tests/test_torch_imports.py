@@ -29,7 +29,7 @@ def test_every_module_layout_name_is_present():
                 "core.camera", "core.sampling", "scene.types", "scene.meshes",
                 "scene.cornell", "bvh.sah", "bvh.native", "bvh.cluster",
                 "kernels.cluster_isect", "kernels.pair_scan",
-                "kernels.intersect", "render.envmap",
+                "kernels.pair_fused", "kernels.intersect", "render.envmap",
                 "render.bsdf", "render.lights", "render.brute",
                 "render.integrator", "render.driver", "render.wavefront",
                 "render.film"):
@@ -132,8 +132,12 @@ def test_kernel_sources_are_all_declared_to_the_loader(tmp_path, monkeypatch):
         with open(src) as fh:
             declared |= set(re.findall(r'extern "C" int (\w+)\(', fh.read()))
     assert declared == {"pair_tile_isect_launch", "pair_tile_isect_dedup_launch",
-                        "pair_segmin_launch", "dense_closest_launch",
+                        "pair_segmin_launch", "pair_ray_reduce_launch",
+                        "launch_floor_launch", "dense_closest_launch",
                         "dense_anyhit_launch"}
+    assert {os.path.basename(p) for p in _build.sources()} == {
+        "pair_tile_isect.cu", "pair_tile_isect_dedup.cu", "pair_segmin.cu",
+        "pair_ray_reduce.cu", "launch_floor.cu", "dense_isect.cu"}
     with open(_build.__file__) as fh:
         loader = fh.read()
     for name in declared:

@@ -11,11 +11,15 @@ AABB pyramid, traversed level-synchronously for a whole batch of rays.
      the top level, then per level a block gather of the live nodes'
      children, a dense slab test and a 1-bit lane compaction.
   4. **Pair stage**: the live (ray, cluster) candidates are flattened to one
-     ray-major pair list, every pair is tile-tested
-     (``kernels.cluster_isect.pair_tile_isect``) and reduced per ray
-     (``kernels.pair_scan.pair_segmin``).  Exact: every live candidate is
-     tested, no best-t feedback.  With ``dedup=True`` the stage is
-     cluster-major instead: the list is sorted by cluster id, tile-tested by
+     ray-major pair list; every pair is tile-tested and the results are
+     reduced per ray.  Exact: every live candidate is tested, no best-t
+     feedback.  ``pair_stage`` names the form (``PAIR_STAGES``):
+     ``"fused"`` (the default) does both in one kernel,
+     ``kernels.pair_fused.pair_ray_reduce``; ``"split"`` tile-tests the
+     list (``kernels.cluster_isect.pair_tile_isect``) and reduces it
+     (``kernels.pair_scan.pair_segmin``) with array code around the two,
+     and gives the same bits; ``"dedup"`` is cluster-major instead: the
+     list is sorted by cluster id, tile-tested by
      ``kernels.cluster_isect.pair_tile_isect_dedup`` (one tile fetch per run
      of equal ids) and reduced per ray by scatter-min / scatter-add.
 
@@ -37,13 +41,24 @@ import torch
 
 from tpu_pt_torch.core.intersect import INF
 from tpu_pt_torch.kernels.cluster_isect import (
-    B as PBLK, _mt_group, pair_tile_isect, pair_tile_isect_dedup,
-    pair_tile_isect_dedup_ref, pair_tile_isect_ref)
+    B as PBLK, _mt_group, pair_rows as _pair_rows, pair_tile_isect,
+    pair_tile_isect_dedup, pair_tile_isect_dedup_ref, pair_tile_isect_ref)
+from tpu_pt_torch.kernels.pair_fused import (
+    pair_ray_reduce, pair_ray_reduce_ref)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref
 from tpu_pt_torch.render.brute import Hit
 from tpu_pt_torch.scene.types import Scene
 
 TILE = 128  # primitives per cluster
+
+# Forms of the pair stage (the ``pair_stage`` keyword of the traversal).
+PAIR_STAGES = ("fused", "split", "dedup")
+
+
+def _check_pair_stage(pair_stage: str) -> None:
+    if pair_stage not in PAIR_STAGES:
+        raise ValueError(f"unknown pair_stage {pair_stage!r}: expected one "
+                         f"of {', '.join(PAIR_STAGES)}")
 
 
 def _bf16_outward(lo: np.ndarray, hi: np.ndarray):
@@ -292,24 +307,6 @@ def _prim_tile_test(tile, ro, rd, t_min, t_max):
     return _mt_group(tile, rays)
 
 
-def _pair_rows(ro, rd, t_min1, t_max1, ray_c, cid_c, pair_ok):
-    """Operands of the pair-tile kernel for a flat pair batch: the cluster
-    ids (i32) and the (P, 16) ray rows, both padded with dead pairs to a
-    multiple of 128."""
-    P = cid_c.shape[0]
-    pad = (-P) % PBLK
-    rays = torch.zeros((P + pad, 16), dtype=torch.float32, device=ro.device)
-    rays[:P, 0:3] = ro[ray_c]
-    rays[:P, 3:6] = rd[ray_c]
-    rays[:P, 6] = t_min1[ray_c]
-    rays[:P, 7] = t_max1[ray_c]
-    rays[:P, 8] = pair_ok.to(torch.float32)
-    cid_p = cid_c.to(torch.int32)
-    if pad:
-        cid_p = torch.cat([cid_p, cid_p.new_zeros((pad,))])
-    return cid_p.contiguous(), rays
-
-
 def _test_pair_batch(cb: ClusterBVH, ro, rd, t_min1, t_max1, ray_c, cid_c,
                      pair_ok, use_kernels: bool = True):
     """Tile intersection of a flat pair batch.  Returns per-pair
@@ -539,6 +536,25 @@ def _reduce_pairs_anyhit_scan(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt,
     return (cnt > 0) & (best_t < INF)
 
 
+def _reduce_pairs_closest_fused(cb, ro, rd, t_min1, t_max1, cidP, cnt, right,
+                                use_kernels: bool = True):
+    """One-kernel form of _reduce_pairs_closest_scan: same bit-exact
+    outputs straight from the traversal's tensors (the pairs' rays follow
+    from the segment bounds, so ``rayP`` is not needed)."""
+    fused = pair_ray_reduce if use_kernels else pair_ray_reduce_ref
+    return fused(cb.tiles, cb.tile_gid, ro.contiguous(), rd.contiguous(),
+                 t_min1.contiguous(), t_max1.contiguous(), cidP, cnt, right)
+
+
+def _reduce_pairs_anyhit_fused(cb, ro, rd, t_min1, t_max1, cidP, cnt, right,
+                               use_kernels: bool = True):
+    """One-kernel form of _reduce_pairs_anyhit_scan."""
+    fused = pair_ray_reduce if use_kernels else pair_ray_reduce_ref
+    return fused(cb.tiles, cb.tile_gid, ro.contiguous(), rd.contiguous(),
+                 t_min1.contiguous(), t_max1.contiguous(), cidP, cnt, right,
+                 any_hit=True)
+
+
 def _dedup_supported(cb: ClusterBVH, budget: int) -> bool:
     """The cluster-major pair stage takes 128-lane tiles and a pair budget
     that is a multiple of the pair kernel's block."""
@@ -546,12 +562,12 @@ def _dedup_supported(cb: ClusterBVH, budget: int) -> bool:
 
 
 def _require_dedup(cb: ClusterBVH, budget: int) -> None:
-    """``dedup=True`` with a shape the stage does not take raises, so that
-    the stage asked for is the stage that ran."""
+    """``pair_stage="dedup"`` with a shape the stage does not take raises,
+    so that the stage asked for is the stage that ran."""
     if not _dedup_supported(cb, budget):
         raise ValueError(
-            "dedup=True needs (12, 128) tiles and a pair budget that is a "
-            f"multiple of {PBLK}; got tiles {tuple(cb.tiles.shape)} and "
+            "pair_stage='dedup' needs (12, 128) tiles and a pair budget that "
+            f"is a multiple of {PBLK}; got tiles {tuple(cb.tiles.shape)} and "
             f"budget {budget}")
 
 
@@ -655,7 +671,7 @@ def _interleave(parts):
 
 
 def _traverse_compact(cb: ClusterBVH, ro, rd, t_min, t_max,
-                      use_kernels: bool = True, dedup: bool = False):
+                      use_kernels: bool = True, pair_stage: str = "fused"):
     """Closest hit: sort-free descent + one flat all-candidates pair batch
     + per-ray segmented min.  Exact because every live candidate is tested.
     Returns (best_t (Q,1), gid, u (Q,1), v (Q,1), n_overflow).
@@ -665,22 +681,24 @@ def _traverse_compact(cb: ClusterBVH, ro, rd, t_min, t_max,
     slices would concentrate coherent hot blocks and blow the per-sub-batch
     pair budget.  The strided views are made contiguous here (the kernel
     wrappers refuse anything else)."""
+    _check_pair_stage(pair_stage)
     k = _split_batches(ro.shape[0], SPLIT_CLOSEST)
     if k > 1:
         outs = [_traverse_compact_1(cb, ro[i::k].contiguous(),
                                     rd[i::k].contiguous(),
                                     t_min[i::k].contiguous(),
                                     t_max[i::k].contiguous(), use_kernels,
-                                    dedup)
+                                    pair_stage)
                 for i in range(k)]
         bt, g, u, v, novf = zip(*outs)
         return (_interleave(bt), _interleave(g), _interleave(u),
                 _interleave(v), sum(novf))
-    return _traverse_compact_1(cb, ro, rd, t_min, t_max, use_kernels, dedup)
+    return _traverse_compact_1(cb, ro, rd, t_min, t_max, use_kernels,
+                               pair_stage)
 
 
 def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
-                        use_kernels: bool = True, dedup: bool = False):
+                        use_kernels: bool = True, pair_stage: str = "fused"):
     Q = ro.shape[0]
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
@@ -689,7 +707,10 @@ def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
     budget = int(cb.pair_mults[2] * Q)
     rayP, cidP, dropped, cnt, right, _ = _flat_pairs(cand, live, Q, budget)
     n_ovf = torch.sum(ovf) + dropped
-    if dedup:
+    if pair_stage == "fused":
+        best_t, best_g, best_u, best_v = _reduce_pairs_closest_fused(
+            cb, ro, rd, t_min1, t_max1, cidP, cnt, right, use_kernels)
+    elif pair_stage == "dedup":
         _require_dedup(cb, budget)
         best_t, best_g, best_u, best_v = _reduce_pairs_closest_dedup(
             cb, ro, rd, t_min1, t_max1, rayP, cidP, use_kernels)
@@ -701,27 +722,28 @@ def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
 
 def _traverse_compact_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
                              narrow: bool = False, use_kernels: bool = True,
-                             dedup: bool = False):
+                             pair_stage: str = "fused"):
     """Occlusion: any tested pair with a hit in range occludes its ray.
     narrow=True selects the steady-state shadow pair budget
     (pair_mults[3]).  Returns (occ (Q,) bool, n_overflow)."""
+    _check_pair_stage(pair_stage)
     k = _split_batches(ro.shape[0], SPLIT_ANYHIT)
     if k > 1:  # strided slices — see _traverse_compact
         outs = [_traverse_compact_anyhit_1(
                     cb, ro[i::k].contiguous(), rd[i::k].contiguous(),
                     t_min[i::k].contiguous(), t_max[i::k].contiguous(),
-                    narrow, use_kernels, dedup)
+                    narrow, use_kernels, pair_stage)
                 for i in range(k)]
         occ, novf = zip(*outs)
         return _interleave(occ), sum(novf)
     return _traverse_compact_anyhit_1(cb, ro, rd, t_min, t_max, narrow,
-                                      use_kernels, dedup)
+                                      use_kernels, pair_stage)
 
 
 def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
                                narrow: bool = False,
                                use_kernels: bool = True,
-                               dedup: bool = False):
+                               pair_stage: str = "fused"):
     Q = ro.shape[0]
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
@@ -737,7 +759,10 @@ def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
     budget = int(mult * Q)
     rayP, cidP, dropped, cnt, right, _ = _flat_pairs(cand, live, Q, budget)
     n_ovf = torch.sum(ovf) + dropped
-    if dedup:
+    if pair_stage == "fused":
+        occ = _reduce_pairs_anyhit_fused(
+            cb, ro, rd, t_min1, t_max1, cidP, cnt, right, use_kernels)
+    elif pair_stage == "dedup":
         _require_dedup(cb, budget)
         occ = _reduce_pairs_anyhit_dedup(
             cb, ro, rd, t_min1, t_max1, rayP, cidP, use_kernels)
@@ -771,18 +796,20 @@ def _as_col(t, Q: int, device):
 
 
 def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
-                      use_kernels: bool = True, dedup: bool = False):
+                      use_kernels: bool = True, pair_stage: str = "fused"):
     """Nearest hit + the capacity-contract overflow count for this call
     (candidates truncated by frontier caps / k_leaf / the flat pair
     budget).  The traversal is exact iff the count is 0.
 
-    ``dedup=True`` runs the cluster-major pair stage (pairs sorted by
-    cluster id, the tile-sharing kernel, scatter-min per-ray reduce) in
-    place of the ray-major one; it raises on a shape that stage does not
-    take (see ``_dedup_supported``)."""
+    ``pair_stage`` is one of ``PAIR_STAGES`` (anything else raises):
+    ``"fused"`` and ``"split"`` are the ray-major stage as one kernel and
+    as two, bit-identical; ``"dedup"`` runs the cluster-major stage (pairs
+    sorted by cluster id, the tile-sharing kernel, scatter-min per-ray
+    reduce) and raises on a shape that stage does not take (see
+    ``_dedup_supported``)."""
     t_max_b = _as_col(t_max, ro.shape[0], ro.device)
     best_t, gid, u, v, ovf = _traverse_compact(cb, ro, rd, t_min, t_max_b,
-                                               use_kernels, dedup)
+                                               use_kernels, pair_stage)
     found = best_t < t_max_b
     return Hit(hit=found,
                t=torch.where(found, best_t, torch.full_like(best_t, INF)),
@@ -790,25 +817,26 @@ def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
 
 
 def intersect(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
-              use_kernels: bool = True, dedup: bool = False) -> Hit:
+              use_kernels: bool = True, pair_stage: str = "fused") -> Hit:
     return intersect_counted(cb, scene, ro, rd, t_min, t_max, use_kernels,
-                             dedup)[0]
+                             pair_stage)[0]
 
 
 def occluded_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
                      narrow: bool = False, use_kernels: bool = True,
-                     dedup: bool = False):
+                     pair_stage: str = "fused"):
     """Occlusion + overflow count (see intersect_counted)."""
     t_min = torch.zeros((ro.shape[0], 1), dtype=torch.float32,
                         device=ro.device)
     t_max = _as_col(t_max, ro.shape[0], ro.device)
     occ, ovf = _traverse_compact_anyhit(cb, ro, rd, t_min, t_max,
                                         narrow=narrow, use_kernels=use_kernels,
-                                        dedup=dedup)
+                                        pair_stage=pair_stage)
     return occ[:, None], ovf
 
 
 def occluded(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
-             use_kernels: bool = True, dedup: bool = False):
+             use_kernels: bool = True, pair_stage: str = "fused"):
     return occluded_counted(cb, scene, ro, rd, t_max,
-                            use_kernels=use_kernels, dedup=dedup)[0]
+                            use_kernels=use_kernels,
+                            pair_stage=pair_stage)[0]

@@ -1,7 +1,8 @@
 // Device functions shared by the ray/primitive kernels of this library
-// (pair_tile_isect.cu, pair_tile_isect_dedup.cu, dense_isect.cu): the
-// Möller–Trumbore / sphere test of one ray against one primitive, and the
-// block reduce of the pair-tile kernels.
+// (pair_tile_isect.cu, pair_tile_isect_dedup.cu, pair_ray_reduce.cu,
+// pair_segmin.cu, dense_isect.cu): the Möller–Trumbore / sphere test of one
+// ray against one primitive, the block reduce of the pair-tile kernels, and
+// the (t, gid) combine of the per-ray reduces.
 //
 // The arithmetic follows the plain PyTorch versions
 // (kernels/cluster_isect.py::_mt_group, kernels/intersect.py::_pair_test)
@@ -29,6 +30,21 @@ __device__ __forceinline__ float min_nan(float x, float hi) {
 // (t, lane) ordering: smaller t first, lower lane at equal t.
 __device__ __forceinline__ bool better(float tb, int lb, float ta, int la) {
   return (tb < ta) || (tb == ta && lb < la);
+}
+
+// A ray's running nearest hit in the per-ray reduces (pair_segmin.cu,
+// pair_ray_reduce.cu).
+struct Best {
+  float t;
+  int g;
+  float u, v;
+};
+
+// The reduces' combine: b replaces a iff it is nearer, or as near with the
+// lower primitive id.  Selection only, so every evaluation order gives the
+// same bits.
+__device__ __forceinline__ bool take_b(const Best& a, const Best& b) {
+  return (b.t < a.t) || (b.t == a.t && b.g < a.g);
 }
 
 // One primitive: triangle (v0, e1, e2) or, where typ > 0.5, sphere

@@ -12,28 +12,20 @@
 // Selection only, no float arithmetic: the result is bit-identical to the
 // scan's segment-end column.  The combine is the scan's: the later element
 // wins iff t_b < t_a, or t_b == t_a and gid_b < gid_a.  gid is int32 (the
-// scan carried it in f32, exact only below 2^24).
+// scan carried it in f32, exact only below 2^24).  The combine (take_b)
+// lives in pair_isect_common.cuh, shared with pair_ray_reduce.cu.
 //
 // Bound: bytes.  16 B per pair in, 8 B per ray in, 16 B per ray out.
 //
 // A ray with cnt == 0 gets (1e30, 0, 0, 0).
 
-#include <cuda_runtime.h>
+#include "pair_isect_common.cuh"
 
 namespace {
 
-constexpr float kInf = 1e30f;
+using namespace pair_isect;
+
 constexpr int kWarpsPerBlock = 4;
-
-struct Best {
-  float t;
-  int g;
-  float u, v;
-};
-
-__device__ __forceinline__ bool take_b(const Best& a, const Best& b) {
-  return (b.t < a.t) || (b.t == a.t && b.g < a.g);
-}
 
 __global__ void pair_segmin_kernel(const float* __restrict__ t,
                                    const int* __restrict__ gid,

@@ -102,6 +102,11 @@ def load(verbose_ptxas: bool = False):
         lib.pair_tile_isect_dedup_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
         lib.pair_segmin_launch.restype = ci
         lib.pair_segmin_launch.argtypes = [vp] * 10 + [ci, vp]
+        lib.pair_ray_reduce_launch.restype = ci
+        lib.pair_ray_reduce_launch.argtypes = (
+            [vp] * 16 + [ci, ctypes.c_longlong, ci, ci, ci, ci, vp])
+        lib.launch_floor_launch.restype = ci
+        lib.launch_floor_launch.argtypes = [ci, ci, vp]
         lib.dense_closest_launch.restype = ci
         lib.dense_closest_launch.argtypes = [vp] * 6 + [ci, ci, vp]
         lib.dense_anyhit_launch.restype = ci

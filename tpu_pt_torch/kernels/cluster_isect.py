@@ -94,6 +94,24 @@ def _mt_group(tiles, rays):
     return t, torch.where(is_sph, zero, u), torch.where(is_sph, zero, v)
 
 
+def pair_rows(ro, rd, t_min1, t_max1, ray_c, cid_c, pair_ok):
+    """Operands of the pair-tile kernel for a flat pair batch: the cluster
+    ids (i32) and the (P, 16) ray rows, both padded with dead pairs to a
+    multiple of 128."""
+    P = cid_c.shape[0]
+    pad = (-P) % B
+    rays = torch.zeros((P + pad, 16), dtype=torch.float32, device=ro.device)
+    rays[:P, 0:3] = ro[ray_c]
+    rays[:P, 3:6] = rd[ray_c]
+    rays[:P, 6] = t_min1[ray_c]
+    rays[:P, 7] = t_max1[ray_c]
+    rays[:P, 8] = pair_ok.to(torch.float32)
+    cid_p = cid_c.to(torch.int32)
+    if pad:
+        cid_p = torch.cat([cid_p, cid_p.new_zeros((pad,))])
+    return cid_p.contiguous(), rays
+
+
 def _check_shapes(tiles, cid, rays):
     if tiles.dim() != 3 or tiles.shape[1] != ROWS \
             or tiles.shape[2] not in LANE_WIDTHS:

@@ -56,22 +56,24 @@ def _intersectors(backend: str, bvh=None, use_kernels: bool = True):
 
 
 def _intersectors_counted(backend: str, bvh=None, use_kernels: bool = True,
-                          dedup: bool = False):
+                          pair_stage: str = "fused"):
     """Like ``_intersectors``, but each call ALSO returns the
     capacity-contract overflow count (candidates truncated by static
-    budgets).  The cluster backend reports real counts (``dedup=True``
-    selects its cluster-major pair stage); every other backend is exact by
-    construction and returns a constant 0 (and ignores ``narrow``)."""
+    budgets).  The cluster backend reports real counts (``pair_stage``
+    selects the form of its pair stage, see ``bvh/cluster.py``); every
+    other backend is exact by construction and returns a constant 0 (and
+    ignores ``narrow`` and ``pair_stage``)."""
     if backend == "cluster":
         from tpu_pt_torch.bvh import cluster as cluster_mod
 
         if bvh is None:
             raise ValueError("backend='cluster' requires a ClusterBVH")
+        cluster_mod._check_pair_stage(pair_stage)
         return (
             functools.partial(cluster_mod.intersect_counted, bvh,
-                              use_kernels=use_kernels, dedup=dedup),
+                              use_kernels=use_kernels, pair_stage=pair_stage),
             functools.partial(cluster_mod.occluded_counted, bvh,
-                              use_kernels=use_kernels, dedup=dedup),
+                              use_kernels=use_kernels, pair_stage=pair_stage),
         )
     isect, occl = _intersectors(backend, bvh, use_kernels)
 

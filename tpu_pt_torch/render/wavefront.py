@@ -250,19 +250,19 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                     queue: int, backend: str, pix_lo: int, n_pix_local: int,
                     spp_lo: int = 0, spp_count: int = 0,
                     with_counts: bool = False, pix_stride: int = 1,
-                    use_kernels: bool = True, dedup: bool = False):
+                    use_kernels: bool = True, pair_stage: str = "fused"):
     """Render pixels {pix_lo + j*pix_stride : j < n_pix_local} × samples
     [spp_lo, spp_lo+spp_count) -> (n_pix_local, 3) radiance sums (divide by
     cfg.spp for the full-spp mean).  ``scene``, ``cam`` and ``bvh`` hold
-    tensors on one device; ``key`` is two ints.  ``dedup=True`` runs the
-    cluster backend's cluster-major pair stage (see
-    ``bvh/cluster.py::intersect_counted``).
+    tensors on one device; ``key`` is two ints.  ``pair_stage`` selects the
+    form of the cluster backend's pair stage: ``"fused"``, ``"split"`` or
+    ``"dedup"`` (see ``bvh/cluster.py::intersect_counted``).
 
     Forward-only early-exit loop.  With ``with_counts`` also returns
     (n_closest, n_shadow, n_overflow, steps_run) as device scalars / int."""
     spp_count = spp_count or cfg.spp
     intersect_fn, occluded_fn = _intersectors_counted(backend, bvh,
-                                                      use_kernels, dedup)
+                                                      use_kernels, pair_stage)
     device = scene.vertices.device
     Q = min(queue, n_pix_local * spp_count)
     st = init_queue(Q, n_pix_local, device)
@@ -296,20 +296,20 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
 def render_wavefront(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                      queue: int = 1 << 17, backend: str = "cluster",
                      device="cuda", use_kernels: bool = True,
-                     dedup: bool = False):
+                     pair_stage: str = "fused"):
     """Full-image render -> (H, W, 3) linear radiance tensor on ``device``.
     ``key`` is a pair of 32-bit ints."""
     device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
     accum = wavefront_accum(scene, cam, cfg, key, bvh, queue, backend,
                             0, cfg.n_pixels, use_kernels=use_kernels,
-                            dedup=dedup)
+                            pair_stage=pair_stage)
     return (accum / cfg.spp).reshape(cfg.height, cfg.width, 3)
 
 
 def render_wavefront_counts(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                             queue: int = 1 << 17, backend: str = "cluster",
                             device="cuda", use_kernels: bool = True,
-                            dedup: bool = False):
+                            pair_stage: str = "fused"):
     """Full-image render + ray accounting.
 
     Returns (image, n_closest, n_shadow, n_overflow, n_steps_run): the
@@ -321,6 +321,6 @@ def render_wavefront_counts(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
     accum, (nc, ns, novf, n_iter) = wavefront_accum(
         scene, cam, cfg, key, bvh, queue, backend, 0, cfg.n_pixels,
-        with_counts=True, use_kernels=use_kernels, dedup=dedup)
+        with_counts=True, use_kernels=use_kernels, pair_stage=pair_stage)
     img = (accum / cfg.spp).reshape(cfg.height, cfg.width, 3)
     return img, int(nc), int(ns), int(novf), n_iter
