@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tpu_pt_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, one card
-    python3 chip_smoke.py --profile  # plus a torch.profiler window of the
-                                     # steady-state loop (device busy share,
-                                     # device time of the port's kernels)
+    python3 chip_smoke.py             # all phases, one card
+    python3 chip_smoke.py --profile   # plus torch.profiler windows of the
+                                      # steady-state loop for each form of
+                                      # the pair stage (device busy share,
+                                      # device time of the port's kernels)
+                                      # and the fused kernel's launches in
+                                      # the loop matched to their operands
+    python3 chip_smoke.py --paired 10 # instead of the phases: the headline
+                                      # render through the fused and the
+                                      # split pair stage, ten times each in
+                                      # turns (run_s medians and ratio)
 
 Builds the native SAH builder and the CUDA kernel library from the sources
 in this checkout, holds every kernel against its plain PyTorch version on
@@ -64,8 +71,8 @@ from tpu_pt_torch.config import RenderConfig  # noqa: E402
 from tpu_pt_torch.core.intersect import INF  # noqa: E402
 from tpu_pt_torch.kernels import _build  # noqa: E402
 from tpu_pt_torch.kernels.cluster_isect import (  # noqa: E402
-    check_pair_out, pair_tile_isect, pair_tile_isect_dedup,
-    pair_tile_isect_dedup_ref, pair_tile_isect_ref)
+    DEDUP_WARPS_PER_BLOCK, check_pair_out, dedup_grid_blocks, pair_tile_isect,
+    pair_tile_isect_dedup, pair_tile_isect_dedup_ref, pair_tile_isect_ref)
 from tpu_pt_torch.kernels.intersect import (  # noqa: E402
     PallasScene, anyhit_ref, closest_ref, dense_anyhit, dense_closest)
 from tpu_pt_torch.kernels import pair_fused  # noqa: E402
@@ -331,16 +338,18 @@ def pair_kernel_bytes(live_tiles, P, L):
     return live_tiles * 10 * L * 4 + P * (16 * 4 + 4) + P * 8 * 4
 
 
-def tile_fetches(cid, rays, run=8):
-    """Tile fetches the cluster-major kernel makes on this list: one per
-    change of cluster id among the live pairs of a run of ``run`` pairs
-    (csrc/pair_tile_isect_dedup.cu keeps the tile in registers in between)."""
+def tile_fetches(cid, rays):
+    """Distinct (block, cluster id) pairs among the live pairs of this list
+    under the grid the cluster-major kernel is launched with (slot s is
+    taken by warp s mod W, W the grid's warps, four warps a block): the
+    tile reads that a block cannot share with another of its warps through
+    the SM's L1 cache."""
+    P = cid.shape[0]
+    W = DEDUP_WARPS_PER_BLOCK * dedup_grid_blocks(P, _build.sm_count(DEV))
     idx = torch.nonzero(rays[:, 8] > 0)[:, 0]
-    if idx.numel() == 0:
-        return 0
-    c, r = cid[idx], idx // run
-    change = (c[1:] != c[:-1]) | (r[1:] != r[:-1])
-    return 1 + int(change.sum())
+    block = (idx % W) // DEDUP_WARPS_PER_BLOCK
+    return int(torch.unique(block * (int(cid.max()) + 1)
+                            + cid[idx].long()).numel())
 
 
 def compare_k3(tiles, cid, rays, label):
@@ -379,6 +388,57 @@ def k3_edge_case():
                      (i // 12) % C, i % C]).to(torch.int32)
     rays[768:, 8] = 0.0
     return tiles, cid.to(DEV), rays
+
+
+def edge_pair_rays(P, seed, live_every=7):
+    """(P, 16) ray rows from around the Cornell box in random directions;
+    every ``live_every``-th pair dead."""
+    g = torch.Generator().manual_seed(seed)
+    ro = torch.rand((P, 3), generator=g) * 6 - 3
+    ro[:, 1] = ro[:, 1].abs()
+    rd = torch.randn((P, 3), generator=g)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    rays = torch.zeros((P, 16))
+    rays[:, 0:3], rays[:, 3:6] = ro, rd
+    rays[:, 7] = 1e30
+    rays[:, 8] = (torch.arange(P) % live_every != 0).float()
+    return rays.to(DEV)
+
+
+def k3_grid_edge_cases():
+    """Cases for the cluster-major kernel's grid, which strides a warp over
+    the slots w, w + W, ... (W = 4 x blocks): (label, tiles, cid, rays)."""
+    tiles, _, _ = k2_edge_case()
+    C = tiles.shape[0]
+    # One id over 8,192 pairs, more than the grid's stride of 2,640 slots
+    # on 132 SMs: each warp meets several live slots of one tile.
+    P = 8192
+    yield ("one_id_longer_than_stride", tiles,
+           torch.full((P,), 2, dtype=torch.int32, device=DEV),
+           edge_pair_rays(P, 21))
+    # Sorted ids, liveness in no order: live pairs after dead ones.
+    P = 1024
+    rays = edge_pair_rays(P, 22)
+    g = torch.Generator().manual_seed(23)
+    rays[:, 8] = (torch.rand(P, generator=g) < 0.5).float().to(DEV)
+    cid = torch.sort(torch.randint(0, C, (P,), generator=g))[0]
+    yield "live_after_dead", tiles, cid.to(torch.int32).to(DEV), rays
+    # Narrower tiles, the kernel's V = 1 and 2: Cornell spheres' (sphere
+    # lanes) and Cornell mesh's.
+    for L in (32, 64):
+        t_l = torch.cat([torch.from_numpy(cluster.build_cluster_bvh(
+            sc, tile=L).tiles) for sc in (cornell.cornell("spheres"),
+                                          cornell.cornell("mesh",
+                                                          mesh_subdiv=2))])
+        t_l = t_l.to(DEV)
+        P = 2048
+        cid = torch.sort(torch.randint(0, t_l.shape[0], (P,), generator=g))[0]
+        yield (f"L{L}", t_l, cid.to(torch.int32).to(DEV),
+               edge_pair_rays(P, 24 + L))
+    # One block's worth of pairs.
+    P = 128
+    cid = (torch.arange(P) // 5 % C).to(torch.int32)
+    yield "P128", tiles, cid.to(DEV), edge_pair_rays(P, 25, live_every=3)
 
 
 def box_rays(n, seed, t_max):
@@ -806,6 +866,10 @@ def phase_kernels(scene, cam, cb, cfg, key):
                       "edge_one_id_every_pair_straddle_dead_block")
     assert res3["hits"] > 0
     cases_k3.append(res3)
+    for label, tiles_g, cid_g, rays_g in k3_grid_edge_cases():
+        res3 = compare_k3(tiles_g, cid_g, rays_g, "edge_" + label)
+        assert res3["hits"] > 0
+        cases_k3.append(res3)
 
     # The dense kernels: two Cornell scenes, a full and a ragged ray count.
     dense_scenes = {"cornell_spheres": cornell.cornell("spheres"),
@@ -1379,8 +1443,8 @@ def phase_loop(scene, cam, cb, cfg, key, profile, pair_stage, n_warm=30,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     ours = {k: v for k, v in by_name.items()
             if any(part in k for part in (
-                "pair_major_kernel",
-                "pair_tile_isect_kernel", "pair_segmin_kernel"))}
+                "pair_major_kernel", "pair_tile_isect_kernel",
+                "pair_segmin_kernel", "pair_tile_isect_dedup_kernel"))}
     emit({"phase": "profile", "pair_stage": pair_stage, "steps": n_steps,
           "wall_ms_per_step_profiled": round(wall / n_steps * 1e3, 3),
           "device_kernels_per_step": round(len(kern) / n_steps, 1),
@@ -1401,8 +1465,121 @@ def phase_loop(scene, cam, cb, cfg, key, profile, pair_stage, n_warm=30,
                "us_per_step": round(v[1] / n_steps, 1)} for k, v in top]})
 
 
+def phase_loop_pairs(scene, cam, cb, cfg, key, n_warm=30, n_steps=10):
+    """Each launch of the fused pair kernel in steady-state steps of the
+    full-width loop: its form (closest or any hit), the size of its operands
+    (slots, rays, live pairs, distinct tiles, longest segment) and its own
+    duration in a profiler trace, matched launch by launch.  Reading the
+    operands makes the host wait for the device after each launch; the
+    kernels' durations on the device do not depend on that."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    real = cluster.pair_ray_reduce
+    seen = []
+
+    def spy(tiles, tile_gid, ro, rd, t_min, t_max, cid, cnt, right,
+            any_hit=False):
+        out = real(tiles, tile_gid, ro, rd, t_min, t_max, cid, cnt, right,
+                   any_hit=any_hit)
+        live = int(right[-1])
+        seen.append({"any_hit": bool(any_hit), "P": int(cid.shape[0]),
+                     "Q": int(cnt.shape[0]), "live_pairs": live,
+                     "live_tiles": int(cid[:live].unique().numel()),
+                     "max_pairs_of_a_ray": int(cnt.max())})
+        return out
+
+    isect, occl = _intersectors_counted("cluster", cb, pair_stage="fused")
+    st = wavefront.init_queue(4096, cfg.n_pixels, DEV)
+    with torch.no_grad():
+        for i in range(n_warm):
+            st, _ = wavefront._step(scene, cam, cfg, key, isect, occl, st, 0,
+                                    cfg.n_pixels, 0, cfg.spp,
+                                    shadow_narrow=i >= 2)
+        sync()
+        cluster.pair_ray_reduce = spy
+        try:
+            with profiler(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_steps):
+                    st, _ = wavefront._step(scene, cam, cfg, key, isect, occl,
+                                            st, 0, cfg.n_pixels, 0, cfg.spp,
+                                            shadow_narrow=True)
+                sync()
+        finally:
+            cluster.pair_ray_reduce = real
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "pair_major_kernel" in e.name),
+                  key=lambda e: e.time_range.start)
+    matched = len(kern) == len(seen) and all(
+        (", true>" in e.name) == s["any_hit"] for e, s in zip(kern, seen))
+    forms = {}
+    for any_hit in (False, True):
+        rows = [s for s in seen if s["any_hit"] == any_hit]
+        us = [e.time_range.elapsed_us() for e in kern
+              if (", true>" in e.name) == any_hit]
+        f = {"launches": len(rows), "traced": len(us),
+             "us_median": statistics.median(us) if us else None,
+             "us_mean": statistics.fmean(us) if us else None}
+        for k in ("P", "Q", "live_pairs", "live_tiles", "max_pairs_of_a_ray"):
+            f[k + "_mean"] = statistics.fmean(r[k] for r in rows)
+        if matched:
+            x = np.array([r["live_pairs"] for r in rows], np.float64)
+            y = np.array([e.time_range.elapsed_us() for e, s in zip(kern, seen)
+                          if s["any_hit"] == any_hit])
+            slope, icpt = np.polyfit(x, y, 1)
+            f["us_fit"] = {"per_1000_live_pairs": float(slope * 1e3),
+                           "at_0": float(icpt)}
+        forms["any_hit" if any_hit else "closest"] = f
+    emit({"phase": "loop_pairs", "pair_stage": "fused", "steps": n_steps,
+          "matched_launch_by_launch": matched, "forms": forms})
+
+
+def phase_paired(scene, cam, cb, cfg, n):
+    """The headline render through the fused and the split pair stage
+    (``render_main``'s and ``render_split``'s), after one warm-up of each, n
+    times each in the order fused, split, split, fused, ...: every run_s,
+    the medians and their ratio."""
+    def run(stage):
+        sync()
+        t0 = time.time()
+        out = wavefront.render_wavefront_counts(
+            scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
+            device=DEV, pair_stage=stage)
+        sync()
+        return out, time.time() - t0
+
+    first = {s: run(s) for s in ("fused", "split")}
+    assert bool(torch.equal(first["fused"][0][0], first["split"][0][0])), \
+        "paired: the two stages' images differ"
+    counts = first["fused"][0][1:]
+    assert first["split"][0][1:] == counts
+    times = {"fused": [], "split": []}
+    for i in range(n):
+        for stage in ("fused", "split") if i % 2 == 0 else ("split", "fused"):
+            out, dt = run(stage)
+            assert out[1:] == counts, f"paired: {stage} counts moved"
+            times[stage].append(dt)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    emit({"phase": "paired", "scene": "big-1m", "size": cfg.width,
+          "runs_each": n, "order": "fused, split, split, fused, ...",
+          "warmup_s": {k: round(v[1], 3) for k, v in first.items()},
+          "run_s_fused": [round(t, 3) for t in times["fused"]],
+          "run_s_split": [round(t, 3) for t in times["split"]],
+          "median_fused": round(med["fused"], 3),
+          "median_split": round(med["split"], 3),
+          "fused_over_split": round(med["fused"] / med["split"], 4),
+          "fused_faster_in_pairs": sum(
+              f < s for f, s in zip(times["fused"], times["split"])),
+          "steps_run": counts[3], "overflow": counts[2]})
+
+
 def main():
-    profile = "--profile" in sys.argv[1:]
+    args = sys.argv[1:]
+    profile = "--profile" in args
+    paired = int(args[args.index("--paired") + 1]) if "--paired" in args \
+        else 0
     t_start = time.time()
     smi, fp32_ops_per_s = phase_device()
     phase_build()
@@ -1424,6 +1601,13 @@ def main():
     cfg = RenderConfig(width=1024, height=1024, spp=1, max_depth=4,
                        rr_start=2, rr_prob=0.7)
     cam = meshes.big_camera(1024, 1024).to(DEV)
+    if paired:
+        phase_paired(scene, cam, cb, cfg, paired)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     timing, errs = phase_kernels(scene, cam, cb, cfg, (0, 3))
     phase_traverse()
     phase_render_small(scene, cb)
@@ -1433,8 +1617,10 @@ def main():
                                        img_main))
     del img_main
     launches.update(phase_render_dedup(scene, cam, cb, cfg, main_line))
-    for pair_stage in ("fused", "split"):
+    for pair_stage in ("fused", "split", "dedup"):
         phase_loop(scene, cam, cb, cfg, (0, 3), profile, pair_stage)
+    if profile:
+        phase_loop_pairs(scene, cam, cb, cfg, (0, 3))
     launches.update(phase_render_oracle())
 
     # file:line of the pl.pallas_call each kernel replaces.

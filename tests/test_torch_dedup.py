@@ -292,22 +292,117 @@ def test_wavefront_with_dedup_matches_the_ray_major_render():
             tki.pair_tile_isect_dedup.launches) == (n2, n3)
 
 
+@pytest.mark.parametrize("P,n_sm,want", [
+    (6144, 132, 660), (4096, 132, 660), (2640, 132, 660), (2644, 132, 660),
+    (2636, 132, 659), (128, 132, 32), (0, 132, 1), (8, 1, 2), (10 ** 6, 1, 5),
+])
+def test_dedup_grid_is_a_warp_per_slot_up_to_five_blocks_an_sm(P, n_sm, want):
+    assert tki.dedup_grid_blocks(P, n_sm) == want
+    assert tki.DEDUP_WARPS_PER_BLOCK * want >= min(P, 4 * 5 * n_sm)
+
+
+@pytest.mark.parametrize("P,n_sm", [(-1, 132), (128, 0)])
+def test_dedup_grid_refuses_what_no_card_has(P, n_sm):
+    with pytest.raises(ValueError):
+        tki.dedup_grid_blocks(P, n_sm)
+
+
+def _small_operands():
+    tiles = torch.zeros((3, 12, 128))
+    cid = torch.zeros((256,), dtype=torch.int32)
+    rays = torch.zeros((256, 16))
+    return tiles, cid, rays
+
+
+BAD_DEDUP = [
+    ("tiles_rows", 0, lambda x: x[:, :11]),
+    ("tiles_width", 0, lambda x: x[:, :, :48]),
+    ("no_tiles", 0, lambda x: x[:0]),
+    ("pairs_not_multiple_of_128", 1, lambda x: x[:200]),
+    ("cid_column", 1, lambda x: x[:, None]),
+    ("rays_rows", 2, lambda x: x[:-128]),
+    ("rays_width", 2, lambda x: x[:, :8]),
+    ("cid_device", 1, lambda x: x.to("meta")),
+    ("rays_device", 2, lambda x: x.to("meta")),
+]
+
+
+@pytest.mark.parametrize("what,i,change", BAD_DEDUP,
+                         ids=[b[0] for b in BAD_DEDUP])
+def test_dedup_wrapper_refuses_bad_operands_before_any_launch(what, i, change):
+    ops = list(_small_operands())
+    ops[i] = change(ops[i])
+    n0 = tki.pair_tile_isect_dedup.launches
+    with pytest.raises(ValueError):
+        tki.pair_tile_isect_dedup(*ops)
+    assert tki.pair_tile_isect_dedup.launches == n0
+
+
+def test_dedup_kernel_checks_refuse_host_tensors_and_misaligned_rows():
+    """What the wrapper checks before a launch, on CPU tensors: they are
+    not CUDA tensors; a view that starts 4 bytes into its storage is not
+    16-byte aligned (the kernel reads tile and ray rows as float4)."""
+    tiles, cid, rays = _small_operands()
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tki._launch(tki.pair_tile_isect_dedup, "pair_tile_isect_dedup_launch",
+                    tiles, cid, rays, 3, 1)
+    tki._check_aligned("k3", tiles=tiles, rays=rays)
+    shifted = torch.zeros((256 * 16 + 1,))[1:].view(256, 16)
+    with pytest.raises(ValueError, match="rays must be 16-byte aligned"):
+        tki._check_aligned("k3", tiles=tiles, rays=shifted)
+    # The plain version takes the same view (it has no alignment to keep).
+    assert torch.equal(tki.pair_tile_isect_dedup(tiles, cid, shifted),
+                       tki.pair_tile_isect_dedup(tiles, cid, rays))
+
+
+def _gpu_cases():
+    """(label, tiles, cid, rows) for the card: real cid-sorted pair lists at
+    three tile widths, the 128-lane one also shuffled, cut to one block's
+    128 pairs and with its liveness scattered; one id over a run longer
+    than the grid's stride."""
+    scene = jm.big_scene(4)
+    for tile in (128, 64, 32):
+        ct = convert.cluster_bvh_from_numpy(
+            bvh_dict(jcl.build_cluster_bvh(scene, tile=tile)), "cpu")
+        ro, rd, tmin, tmax, rayP, cidP, _, _ = _pair_list(ct, 1024, 5)
+        cid, rows = _sorted_operands(ct, ro, rd, tmin, tmax, rayP, cidP)
+        yield f"sorted_L{tile}", ct.tiles, cid, rows
+        if tile != 128:
+            continue
+        perm = np.random.RandomState(1).permutation(len(cid))
+        yield "shuffled", ct.tiles, cid[perm], rows[perm]
+        yield "P128", ct.tiles, cid[:128], rows[:128]
+        scattered = rows.copy()
+        scattered[:, 8] = np.random.RandomState(2).rand(len(cid)) < 0.5
+        yield "live_after_dead", ct.tiles, cid, scattered
+        # The rows of the pairs that name the tile hit most often, repeated
+        # over 8,192 slots: more than 2,640, the grid's stride on 132 SMs.
+        out = tki.pair_tile_isect_dedup_ref(ct.tiles, T(cid), T(rows))
+        hit_cid = cid[out[:, 0].numpy() < INF]
+        c0 = int(np.bincount(hit_cid).argmax())
+        n = 8192
+        yield ("one_id_longer_than_stride", ct.tiles, np.full(n, c0, np.int32),
+               np.resize(rows[cid == c0], (n, 16)))
+
+
 @pytest.mark.gpu
 def test_dedup_kernel_matches_plain_version_and_ray_major_kernel_on_the_card():
     """Needs an NVIDIA GPU and nvcc: the cluster-major kernel bit for bit
     against its plain version and against the ray-major kernel on the same
-    rows, sorted and shuffled."""
+    rows, on the cases of ``_gpu_cases``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    scene = jm.big_scene(4)
-    ct = convert.cluster_bvh_from_numpy(
-        bvh_dict(jcl.build_cluster_bvh(scene)), "cpu")
-    ro, rd, tmin, tmax, rayP, cidP, _, _ = _pair_list(ct, 1024, 5)
-    cid, rows = _sorted_operands(ct, ro, rd, tmin, tmax, rayP, cidP)
-    perm = np.random.RandomState(1).permutation(len(cid))
-    tiles = ct.tiles.cuda()
-    for c, r in ((cid, rows), (cid[perm], rows[perm])):
-        dc, dr = T(c).cuda(), T(r).cuda()
-        out = tki.pair_tile_isect_dedup(tiles, dc, dr)
-        assert torch.equal(out, tki.pair_tile_isect_dedup_ref(tiles, dc, dr))
-        assert torch.equal(out, tki.pair_tile_isect(tiles, dc, dr))
+    for label, tiles, c, r in _gpu_cases():
+        dt, dc, dr = tiles.cuda(), T(c).cuda(), T(r).cuda()
+        n0 = tki.pair_tile_isect_dedup.launches
+        out = tki.pair_tile_isect_dedup(dt, dc, dr)
+        assert tki.pair_tile_isect_dedup.launches == n0 + 1
+        assert torch.equal(out, tki.pair_tile_isect_dedup_ref(dt, dc, dr)), \
+            label
+        assert torch.equal(out, tki.pair_tile_isect(dt, dc, dr)), label
+        assert bool((out[:, 0] < INF).any()), label
+    with pytest.raises(ValueError, match="aligned"):
+        tki.pair_tile_isect_dedup(dt, dc, torch.zeros(
+            dr.numel() + 1, device="cuda")[1:].view_as(dr))
+    with pytest.raises(ValueError, match="different devices"):
+        tki.pair_tile_isect_dedup(dt, dc.cpu(), dr)

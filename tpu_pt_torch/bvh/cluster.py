@@ -20,8 +20,8 @@ AABB pyramid, traversed level-synchronously for a whole batch of rays.
      (``kernels.pair_scan.pair_segmin``) with array code around the two,
      and gives the same bits; ``"dedup"`` is cluster-major instead: the
      list is sorted by cluster id, tile-tested by
-     ``kernels.cluster_isect.pair_tile_isect_dedup`` (one tile fetch per run
-     of equal ids) and reduced per ray by scatter-min / scatter-add.
+     ``kernels.cluster_isect.pair_tile_isect_dedup`` (pairs of one id sit
+     side by side, so their tile is found in cache) and reduced per ray by scatter-min / scatter-add.
 
 Capacity contract: the per-level frontier widths, the leaf candidate count
 and the flat pair budget are static.  Truncation is *counted* (the
@@ -589,7 +589,7 @@ def _dedup_rows(cb: ClusterBVH, ro, rd, t_min1, t_max1, rayP, cidP):
 def _test_pairs_dedup(cb: ClusterBVH, ro, rd, t_min1, t_max1, rayP, cidP,
                       use_kernels: bool = True):
     """Sort the pair list by cluster id and run the cluster-major pair
-    kernel, which fetches a tile once per run of equal ids.  Returns
+    kernel, whose neighbouring warps share a tile through the cache.  Returns
     per-pair results in the cid-sorted order:
     (t (P,), u, v, gid, rayC, okS)."""
     cid, rays, rayC, okS = _dedup_rows(cb, ro, rd, t_min1, t_max1, rayP, cidP)

@@ -1,8 +1,9 @@
 // Device functions shared by the ray/primitive kernels of this library
 // (pair_tile_isect.cu, pair_tile_isect_dedup.cu, pair_ray_reduce.cu,
 // pair_segmin.cu, dense_isect.cu): the Möller–Trumbore / sphere test of one
-// ray against one primitive, the block reduce of the pair-tile kernels, and
-// the (t, gid) combine of the per-ray reduces.
+// ray against one primitive, the block reduce of the pair-tile kernel, the
+// (t, gid) combine of the per-ray reduces, and the warp-per-pair kernels'
+// tile loads and warp reduce.
 //
 // The arithmetic follows the plain PyTorch versions
 // (kernels/cluster_isect.py::_mt_group, kernels/intersect.py::_pair_test)
@@ -17,6 +18,7 @@
 namespace pair_isect {
 
 constexpr float kInf = 1e30f;
+constexpr unsigned kFull = 0xffffffffu;
 
 // max(x, lo) / min(x, hi) that keep a NaN in x, like the array libraries'
 // maximum() / minimum().
@@ -45,6 +47,54 @@ struct Best {
 // same bits.
 __device__ __forceinline__ bool take_b(const Best& a, const Best& b) {
   return (b.t < a.t) || (b.t == a.t && b.g < a.g);
+}
+
+// The warp's best into its lane 0 (any hit: only t is kept).
+template <bool ANY>
+__device__ __forceinline__ void warp_reduce(Best& a) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Best b;
+    b.t = __shfl_down_sync(kFull, a.t, off);
+    if constexpr (ANY) {
+      if (b.t < a.t) a.t = b.t;
+    } else {
+      b.g = __shfl_down_sync(kFull, a.g, off);
+      b.u = __shfl_down_sync(kFull, a.u, off);
+      b.v = __shfl_down_sync(kFull, a.v, off);
+      if (take_b(a, b)) a = b;
+    }
+  }
+}
+
+// V consecutive lanes of one tile row (or gid row) as one 16-, 8- or 4-byte
+// load: a warp reads 32 V neighbouring words.  p must be aligned to 4 V bytes.
+template <int V>
+__device__ __forceinline__ void load_lanes(const float* __restrict__ p,
+                                           float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = q.x; x[1] = q.y;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_lanes(const int* __restrict__ p,
+                                           int (&x)[V]) {
+  if constexpr (V == 4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
+  } else if constexpr (V == 2) {
+    const int2 q = __ldg(reinterpret_cast<const int2*>(p));
+    x[0] = q.x; x[1] = q.y;
+  } else {
+    x[0] = __ldg(p);
+  }
 }
 
 // One primitive: triangle (v0, e1, e2) or, where typ > 0.5, sphere

@@ -54,35 +54,6 @@ namespace {
 using namespace pair_isect;
 
 constexpr int kBlock = 128;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <int V>
-__device__ __forceinline__ void load_lanes(const float* __restrict__ p,
-                                           float (&x)[V]) {
-  if constexpr (V == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
-  } else if constexpr (V == 2) {
-    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
-    x[0] = q.x; x[1] = q.y;
-  } else {
-    x[0] = __ldg(p);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void load_lanes(const int* __restrict__ p,
-                                           int (&x)[V]) {
-  if constexpr (V == 4) {
-    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
-    x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
-  } else if constexpr (V == 2) {
-    const int2 q = __ldg(reinterpret_cast<const int2*>(p));
-    x[0] = q.x; x[1] = q.y;
-  } else {
-    x[0] = __ldg(p);
-  }
-}
 
 // The kernel's operands.
 struct Args {
@@ -175,24 +146,6 @@ __device__ __forceinline__ void fold_tile(const TileLanes<V>& t, const Ray& r,
       if (tt < a.t) a.t = tt;
     } else {
       const Best b{tt, t.gid[x], is_sph ? 0.0f : u, is_sph ? 0.0f : v};
-      if (take_b(a, b)) a = b;
-    }
-  }
-}
-
-// The warp's best into its lane 0.
-template <bool ANY>
-__device__ __forceinline__ void warp_reduce(Best& a) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    Best b;
-    b.t = __shfl_down_sync(kFull, a.t, off);
-    if constexpr (ANY) {
-      if (b.t < a.t) a.t = b.t;
-    } else {
-      b.g = __shfl_down_sync(kFull, a.g, off);
-      b.u = __shfl_down_sync(kFull, a.u, off);
-      b.v = __shfl_down_sync(kFull, a.v, off);
       if (take_b(a, b)) a = b;
     }
   }

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
 _lib = None
 build_log = ""   # nvcc's output from the build this process made, if any
+_sm_count = {}   # device index -> number of SMs
 
 
 def sources() -> list:
@@ -99,7 +100,7 @@ def load(verbose_ptxas: bool = False):
         lib.pair_tile_isect_launch.restype = ci
         lib.pair_tile_isect_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
         lib.pair_tile_isect_dedup_launch.restype = ci
-        lib.pair_tile_isect_dedup_launch.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+        lib.pair_tile_isect_dedup_launch.argtypes = [vp] * 4 + [ci] * 4 + [vp]
         lib.pair_segmin_launch.restype = ci
         lib.pair_segmin_launch.argtypes = [vp] * 10 + [ci, vp]
         lib.pair_ray_reduce_launch.restype = ci
@@ -113,6 +114,17 @@ def load(verbose_ptxas: bool = False):
         lib.dense_anyhit_launch.argtypes = [vp, vp, vp, ci, ci, vp]
         _lib = lib
     return _lib
+
+
+def sm_count(device) -> int:
+    """Number of SMs of the CUDA ``device`` (asked once per device)."""
+    import torch
+
+    n = _sm_count.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_count[device.index] = n
+    return n
 
 
 def check_cuda_input(name: str, x, dtype, shape=None) -> None:

@@ -31,6 +31,12 @@ B = 128      # the pair count must be a multiple of this
 ROWS = 12
 LANE_WIDTHS = (32, 64, 128)   # tile widths the kernel takes
 
+# The cluster-major kernel's grid: blocks of four warps, a warp per pair
+# slot, at most five blocks an SM (2,640 warps on 132 SMs hold the live
+# pairs of a steady-state sub-batch in one pass).
+DEDUP_WARPS_PER_BLOCK = 4
+DEDUP_BLOCKS_PER_SM = 5
+
 
 def _mt_group(tiles, rays):
     """Dense test of P rays against their P tiles.
@@ -114,15 +120,17 @@ def pair_rows(ro, rd, t_min1, t_max1, ray_c, cid_c, pair_ok):
 
 def _check_shapes(tiles, cid, rays):
     if tiles.dim() != 3 or tiles.shape[1] != ROWS \
-            or tiles.shape[2] not in LANE_WIDTHS:
-        raise ValueError(f"tiles: expected (C, {ROWS}, L) with L in "
-                         f"{LANE_WIDTHS}, got {tuple(tiles.shape)}")
+            or tiles.shape[2] not in LANE_WIDTHS or tiles.shape[0] < 1:
+        raise ValueError(f"tiles: expected (C, {ROWS}, L) with C >= 1 and L "
+                         f"in {LANE_WIDTHS}, got {tuple(tiles.shape)}")
     P = cid.shape[0]
     if cid.dim() != 1 or P % B != 0:
         raise ValueError(f"cid: expected (P,) with P % {B} == 0, got "
                          f"{tuple(cid.shape)}")
     if tuple(rays.shape) != (P, 16):
         raise ValueError(f"rays: expected ({P}, 16), got {tuple(rays.shape)}")
+    if cid.device != tiles.device or rays.device != tiles.device:
+        raise ValueError("tiles, cid and rays on different devices")
 
 
 def pair_tile_isect_ref(tiles, cid, rays):
@@ -147,9 +155,18 @@ def pair_tile_isect_ref(tiles, cid, rays):
     return out
 
 
-def _launch(wrapper, launch_name, tiles, cid, rays):
+def _check_aligned(name, **tensors):
+    """Raise unless every tensor starts on a 16-byte boundary (the
+    cluster-major kernel reads tile and ray rows 16 bytes at a time)."""
+    for what, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned")
+
+
+def _launch(wrapper, launch_name, tiles, cid, rays, *extra):
     """Checks shared by the two pair-tile kernels, then one launch of
-    ``launch_name`` on the current stream, counted on ``wrapper``."""
+    ``launch_name`` (tiles, cid, rays, out, P, L, *extra, stream) on the
+    current stream, counted on ``wrapper``."""
     from tpu_pt_torch.kernels import _build
 
     name = wrapper.__name__
@@ -158,14 +175,13 @@ def _launch(wrapper, launch_name, tiles, cid, rays):
     _build.check_cuda_input("tiles", tiles, torch.float32)
     _build.check_cuda_input("cid", cid, torch.int32, (P,))
     _build.check_cuda_input("rays", rays, torch.float32, (P, 16))
-    if cid.device != tiles.device or rays.device != tiles.device:
-        raise ValueError(f"{name}: tensors on different devices")
     out = torch.empty((P, 8), dtype=torch.float32, device=tiles.device)
     if P == 0:
         return out
     err = getattr(_build.load(), launch_name)(
         tiles.data_ptr(), cid.data_ptr(), rays.data_ptr(), out.data_ptr(),
-        P, tiles.shape[2], torch.cuda.current_stream(tiles.device).cuda_stream)
+        P, tiles.shape[2], *extra,
+        torch.cuda.current_stream(tiles.device).cuda_stream)
     wrapper.launches += 1
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch error {err}")
@@ -195,21 +211,36 @@ def pair_tile_isect_dedup_ref(tiles, cid, rays):
     return pair_tile_isect_ref(tiles, cid, rays)
 
 
+def dedup_grid_blocks(P: int, n_sm: int) -> int:
+    """Blocks of the cluster-major kernel for P pair slots on a card with
+    ``n_sm`` SMs: a warp per slot, but no more than DEDUP_BLOCKS_PER_SM
+    blocks an SM; the grid strides over the rest."""
+    if P < 0 or n_sm < 1:
+        raise ValueError(f"dedup_grid_blocks: P {P}, n_sm {n_sm}")
+    return max(1, min(-(-P // DEDUP_WARPS_PER_BLOCK),
+                      DEDUP_BLOCKS_PER_SM * n_sm))
+
+
 def pair_tile_isect_dedup(tiles, cid, rays):
     """Cluster-major variant of :func:`pair_tile_isect`: same operands and
     output, for a pair list SORTED BY cid ascending (dead pairs' ids clipped
     into range).  The kernel (``csrc/pair_tile_isect_dedup.cu``, which
     replaces the Pallas kernel
-    ``tpu_pt/kernels/cluster_isect.py::pair_tile_isect_dedup``) keeps a tile
-    in registers across a run of 8 consecutive pairs and fetches again only
-    when the id changes.
+    ``tpu_pt/kernels/cluster_isect.py::pair_tile_isect_dedup``) gives each
+    pair slot a warp; the warps of a block take consecutive slots, so the
+    pairs that name one tile find it in cache.  tiles and rays must be
+    16-byte aligned; ids outside [0, C) are clamped by the kernel.
 
     CUDA tensors go to the kernel (or raise); CPU tensors to the plain
     version."""
     if not tiles.is_cuda:
         return pair_tile_isect_dedup_ref(tiles, cid, rays)
+    from tpu_pt_torch.kernels import _build
+
+    _check_aligned("pair_tile_isect_dedup", tiles=tiles, rays=rays)
+    blocks = dedup_grid_blocks(cid.shape[0], _build.sm_count(tiles.device))
     return _launch(pair_tile_isect_dedup, "pair_tile_isect_dedup_launch",
-                   tiles, cid, rays)
+                   tiles, cid, rays, tiles.shape[0], blocks)
 
 
 pair_tile_isect_dedup.launches = 0   # kernel launches made by this process

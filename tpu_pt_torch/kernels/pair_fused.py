@@ -55,16 +55,13 @@ from tpu_pt_torch.kernels.pair_scan import pair_segmin_ref
 PAIR_BLOCKS_PER_SM = 5
 
 _counters = {}   # (device index, stream) -> (Q',) i32 zeros, Q' >= Q
-_sm_count = {}   # device index -> number of SMs
 
 
 def pair_grid_blocks(device) -> int:
     """Most blocks the kernel launches on ``device``."""
-    n = _sm_count.get(device.index)
-    if n is None:
-        n = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_count[device.index] = n
-    return PAIR_BLOCKS_PER_SM * n
+    from tpu_pt_torch.kernels import _build
+
+    return PAIR_BLOCKS_PER_SM * _build.sm_count(device)
 
 
 def _ray_counters(device, Q: int):
