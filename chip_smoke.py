@@ -16,7 +16,7 @@
 Builds the native SAH builder and the CUDA kernel library from the sources
 in this checkout, holds every kernel against its plain PyTorch version on
 the card, checks the cluster traversal (every form of its pair stage)
-against the brute-force oracle, and drives four paths at full width:
+against the brute-force oracle, and drives five paths at full width:
 
 - ``render_main``: the 1.3M-triangle scene through the wavefront renderer
   and the cluster BVH (1024x1024, spp 1, depth 4, queue 4096) with the
@@ -31,7 +31,16 @@ against the brute-force oracle, and drives four paths at full width:
   spp 16, depth 4) on two Cornell scenes, after small renders held against
   the brute backend, the plain versions and the wavefront renderer;
 - ``render_dedup``: the ``render_main`` render once more through the
-  cluster-major pair stage (``pair_stage="dedup"``).
+  cluster-major pair stage (``pair_stage="dedup"``);
+- exact repair of capacity overflow: ``render_exact`` takes the 256² render
+  of the same scene, where the default capacities overflow, through the
+  command line's flow (a render that flags suspect pixels, the packed
+  fallback attached with ``cluster.attach_fallback``, the same render on
+  it, the repair of only the suspect pixels, and the render on the packed
+  walk alone), and ``render_fallback`` renders the headline once more with
+  the fallback attached: the walk kernel (``packed_walk``) is launched on
+  every traversal sub-batch, and the image must equal ``render_main``'s bit
+  for bit.
 
 It prints one JSON object per phase.  Any failed phase raises and the
 process exits non-zero.  Without a CUDA device it exits with code 2 before
@@ -79,10 +88,14 @@ from tpu_pt_torch.kernels import pair_fused  # noqa: E402
 from tpu_pt_torch.kernels.pair_fused import (  # noqa: E402
     pair_ray_reduce, pair_ray_reduce_checked, pair_ray_reduce_ref)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref  # noqa: E402
+from tpu_pt_torch.kernels.packed_walk import (  # noqa: E402
+    packed_walk, packed_walk_ref)
 from tpu_pt_torch.render import brute, film, integrator, wavefront  # noqa: E402
 from tpu_pt_torch.render.driver import (  # noqa: E402
     _intersectors, _intersectors_counted, render)
 from tpu_pt_torch.scene import cornell, meshes  # noqa: E402
+from tpu_pt_torch.scene.types import (  # noqa: E402
+    make_lights, make_materials, make_scene)
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -97,6 +110,13 @@ N_SM, FP32_LANES_PER_SM = 132, 128   # H100 SXM
 # range and the strict compare), the any-hit sweep 1.
 OPS_TRI_ROW, OPS_SPH_ROW = 54, 94
 OPS_CLOSEST, OPS_ANYHIT = 3, 1
+# FP32 operations of csrc/packed_walk.cu, counted the same way: a node step
+# costs 38 (six subtracts and six multiplies of the slab test, six
+# NaN-keeping min / max of two compares each, six NaN maps, three max and
+# three min over the axes, the box test, the leaf test); a row tested costs
+# OPS_TRI_ROW or OPS_SPH_ROW plus OPS_CLOSEST (t <, t ==, gid <, in both
+# forms); a ray 6 (three reciprocals, three sign tests for its octant).
+OPS_NODE, OPS_WALK_RAY = 38, 6
 
 # mean_radiance of cornell("spheres") at 512x512, spp 16, depth 4, key 0,
 # backend "brute", rendered by the JAX package's oracle renderer on a CPU:
@@ -154,7 +174,9 @@ def phase_device():
 # Phase 2 — build
 # --------------------------------------------------------------------------
 
-def phase_build():
+def phase_build(scene_h):
+    """The two libraries, then the packed BVH of the headline scene (the
+    exact fallback's tables, built on the host).  Returns it on the card."""
     t0 = time.time()
     native._load()
     t_bvh = time.time() - t0
@@ -162,12 +184,20 @@ def phase_build():
     _build.load(verbose_ptxas=True)
     t_k = time.time() - t0
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "error" in ln.lower()]
+             if "registers" in ln or "error" in ln.lower()
+             or ("Compiling entry" in ln and "packed_walk" in ln)]
+    t0 = time.time()
+    pk = native.build_packed(scene_h)
+    t_pk = time.time() - t0
     emit({"phase": "build", "libbvh_s": round(t_bvh, 2),
           "kernels_s": round(t_k, 2), "nvcc_flags": _build.NVCC_FLAGS,
           "sources": [os.path.relpath(s, os.path.dirname(__file__) or ".")
                       for s in _build.sources()],
-          "ptxas": ptxas})
+          "ptxas": ptxas, "packed_build_s": round(t_pk, 2),
+          "n_nodes": pk.n_nodes, "n_tables": pk.n_tables,
+          "table_rows": int(pk.table.shape[0]),
+          "table_MB": round(pk.table.nbytes / 1e6, 1)})
+    return pk.to(DEV)
 
 
 # --------------------------------------------------------------------------
@@ -204,7 +234,8 @@ def queue_batches(scene, cam, cb, cfg, key, queue, n_warm):
     split, as the traversal sees it): the closest-hit batch of the first
     camera wave, the mixed-depth closest-hit batch after ``n_warm`` steps,
     and the shadow batch of the last of those steps, which the any-hit
-    traversal takes at its narrow pair budget."""
+    traversal takes at its narrow pair budget; then the last two again as
+    the whole queue (``queue`` lanes, before the split)."""
     isect, occl_counted = _intersectors_counted("cluster", cb)
     shadow = []
 
@@ -213,22 +244,23 @@ def queue_batches(scene, cam, cb, cfg, key, queue, n_warm):
         return occl_counted(scene, ro, rd, t_max, narrow=narrow)
     st = wavefront.init_queue(queue, cfg.n_pixels, DEV)
 
-    def batch(st):
+    def batch(st, k):
         st = wavefront._respawn(cam, cfg, key, st, 0, cfg.n_pixels, 0, cfg.spp)
         t_max = torch.where(st.alive, 1e30, -1.0).to(torch.float32)
-        k = cluster._split_batches(queue, cluster.SPLIT_CLOSEST)
         return (st.ro[0::k].contiguous(), st.rd[0::k].contiguous(),
                 t_max[0::k].contiguous())
 
+    k = cluster._split_batches(queue, cluster.SPLIT_CLOSEST)
     with torch.no_grad():
-        first = batch(st)
+        first = batch(st, k)
         for i in range(n_warm):
             st, _ = wavefront._step(scene, cam, cfg, key, isect, occl, st, 0,
                                     cfg.n_pixels, 0, cfg.spp,
                                     shadow_narrow=i >= 2)
-        mid = batch(st)
+        mid, mid_full = batch(st, k), batch(st, 1)
     k = cluster._split_batches(queue, cluster.SPLIT_ANYHIT)
-    return first, mid, tuple(x[0::k].contiguous() for x in shadow)
+    return (first, mid, tuple(x[0::k].contiguous() for x in shadow), mid_full,
+            tuple(shadow))
 
 
 def compare_k2(tiles, cid, rays, label):
@@ -711,7 +743,7 @@ def time_both(fn, flush, name_part, repeats=30):
             "trace_n": n_cold, "trace_warm_us": warm, "trace_warm_n": n_warm}
 
 
-def time_launches(fn, flush, repeats=30):
+def time_launches(fn, flush, repeats=30, warmup=3):
     """Median milliseconds of one call, each timed alone between CUDA
     events after the L2 cache was overwritten (the renderer touches ~100 MB
     of tiles and many other tensors between two calls of a kernel).
@@ -723,7 +755,7 @@ def time_launches(fn, flush, repeats=30):
     validate arguments and launch.  A plain version of many small launches
     outlasts that head start, so its time includes host launch time, as it
     does in the renderer."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     sync()
     times = []
@@ -739,9 +771,227 @@ def time_launches(fn, flush, repeats=30):
     return statistics.median(times)
 
 
-def phase_kernels(scene, cam, cb, cfg, key):
-    first, mid, shadow = queue_batches(scene, cam, cb, cfg, key, 4096,
-                                       n_warm=N_WARM)
+def walk_args(pk, ro, rd, t_min, t_max):
+    """Operands of the packed walk (t bounds as (R,) columns)."""
+    return (pk.table, pk.prim_gid, ro.contiguous(), rd.contiguous(),
+            t_min.reshape(-1).contiguous(), t_max.reshape(-1).contiguous(),
+            pk.n_nodes, pk.n_tables, pk.max_leaf)
+
+
+def compare_walk(args, label, any_hit):
+    """packed_walk against packed_walk_ref, bitwise (the raw 32-bit words),
+    and the plain version's counts: lockstep iterations, node steps per ray
+    and rows tested (as the kernel tests them)."""
+    out_k = packed_walk(*args, any_hit=any_hit)
+    sync()
+    stats = {}
+    out_r = packed_walk_ref(*args, any_hit=any_hit, stats=stats)
+    outs_k = (out_k,) if any_hit else out_k
+    outs_r = (out_r,) if any_hit else out_r
+    for a, b in zip(outs_k, outs_r):
+        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
+            if a.dtype == torch.float32 else torch.equal(a, b)
+        assert same, f"packed_walk {label} ({'any hit' if any_hit else 'closest'}): " \
+            "kernel and plain version differ (must be bitwise)"
+    t_max = args[5]
+    steps = stats["steps"]
+    res = {"case": label, "form": "any_hit" if any_hit else "closest",
+           "rays": int(t_max.shape[0]),
+           "walking_rays": int((t_max >= args[4]).sum()),
+           "hits": int(out_r.sum()) if any_hit else int((out_r[0] < t_max).sum()),
+           "bitwise": True,
+           "max_abs_err": 0.0 if any_hit else max_abs_diff(out_k[0], out_r[0]),
+           "plain_iterations": stats["iterations"],
+           "max_steps": int(steps.max()), "mean_steps": float(steps.float().mean()),
+           "rows_tri": stats["rows_tri"], "rows_sph": stats["rows_sph"]}
+    return res, stats, out_r
+
+
+def walk_work(stats, R, any_hit):
+    """Bytes and FP32 operations the walk must spend on these rays: per node
+    step its 32-byte node, per row tested its 48 bytes (rows 0-11), per ray
+    its 32 bytes in and 16 (1 for any hit) out; operations as counted in
+    OPS_NODE."""
+    steps = int(stats["steps"].sum())
+    rows = stats["rows_tri"] + stats["rows_sph"]
+    n_bytes = steps * 32 + rows * 48 + R * (32 + (1 if any_hit else 16))
+    ops = (steps * OPS_NODE + stats["rows_tri"] * (OPS_TRI_ROW + OPS_CLOSEST)
+           + stats["rows_sph"] * (OPS_SPH_ROW + OPS_CLOSEST)
+           + R * OPS_WALK_RAY)
+    return n_bytes, ops
+
+
+def overflow_batches(scene, cb):
+    """The first closest-hit and the first shadow traversal sub-batch that
+    overflow in the 256² render of ``render_small`` (the traversal's own
+    operands, caught on their way in): form -> (ro, rd, t_min (Q,),
+    t_max (Q,), suspect (Q,)), for each form that overflowed at all; and
+    how many sub-batches of each form overflowed."""
+    cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4,
+                       rr_start=2, rr_prob=0.7)
+    cam = meshes.big_camera(256, 256).to(DEV)
+    real = {"closest": cluster._traverse_compact_1,
+            "any_hit": cluster._traverse_compact_anyhit_1}
+    got, n_over = {}, {"closest": 0, "any_hit": 0}
+
+    def spy(form):
+        def run(cb_, ro, rd, t_min, t_max, *a, suspect_out=None, **kw):
+            sus = []
+            out = real[form](cb_, ro, rd, t_min, t_max, *a, suspect_out=sus,
+                             **kw)
+            if suspect_out is not None:
+                suspect_out.append(sus[0])
+            if bool(sus[0].any()):
+                n_over[form] += 1
+                got.setdefault(form, (ro, rd, t_min[:, 0], t_max[:, 0],
+                                      sus[0]))
+            return out
+        return run
+
+    cluster._traverse_compact_1 = spy("closest")
+    cluster._traverse_compact_anyhit_1 = spy("any_hit")
+    try:
+        wavefront.render_wavefront_counts(scene, cam, cfg, (0, 3), cb,
+                                          queue=4096, device=DEV)
+    finally:
+        cluster._traverse_compact_1 = real["closest"]
+        cluster._traverse_compact_anyhit_1 = real["any_hit"]
+    assert got, "the 256² render did not overflow"
+    return got, n_over
+
+
+def walk_edge_rays(pk, n, seed):
+    """Rays with the walk's edge cases: half aimed into random leaf boxes,
+    axis-parallel directions (components +0 and -0), origins ON a node box
+    face with the direction in its plane (0 * inf = NaN in the slab test),
+    t_max = -1 (leaves at the root) and t_max = 0.5."""
+    rs = np.random.RandomState(seed)
+    boxes = pk.node_rows()[0]
+    leaves = boxes[boxes[:, 7].view(np.int32) >= 0]
+    # Origins in the box of most leaves, widened by half (a scene's root
+    # box may reach a far placeholder primitive).
+    lo = np.percentile(leaves[:, 0:3], 1, axis=0)
+    hi = np.percentile(leaves[:, 3:6], 99, axis=0)
+    lo, hi = lo - (hi - lo) / 2, hi + (hi - lo) / 2
+    ro = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
+    rd = rs.normal(size=(n, 3))
+    pick = leaves[rs.randint(0, len(leaves), n)]
+    aim = rs.uniform(pick[:, 0:3], np.maximum(pick[:, 3:6], pick[:, 0:3])) - ro
+    rd[1::2] = aim[1::2]
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    axes = np.eye(3, dtype=np.float32)
+    for i in range(0, n, 7):
+        rd[i] = axes[i % 3] * (1 if i % 2 else -1)
+        if i % 4 == 0:
+            rd[i, (i + 1) % 3] = -0.0
+    for i in range(5, n, 13):
+        b = boxes[rs.randint(0, len(boxes))]
+        ro[i] = rs.uniform(b[0:3], np.maximum(b[3:6], b[0:3]))
+        ax = i % 3
+        ro[i, ax] = b[ax]                          # on the min face
+        rd[i, ax] = 0.0                            # inside its plane
+        rd[i] /= max(np.linalg.norm(rd[i]), 1e-6)
+    t_max = np.full((n,), 1e30, np.float32)
+    t_max[8::19] = 0.5
+    t_max[::17] = -1.0
+    return tuple(torch.from_numpy(x).to(DEV) for x in
+                 (ro, rd, np.zeros((n,), np.float32), t_max))
+
+
+def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
+    """The walk kernel against its plain version, bitwise, closest and any
+    hit: (a) the first overflowing closest-hit and shadow sub-batch of the
+    256² render (of each form that overflows there) as the retrace hands
+    them over (t_max = -1 where a ray is not suspect); (b) the whole 4,096-lane queue after N_WARM steps, and
+    its shadow batch; (c) edge cases.  Times the kernel and the plain
+    version on (a) and (b).  Returns (cases, timing)."""
+    cases, timing = [], {}
+    got, n_over = overflow_batches(scene, cb)
+    batches = []
+    for form, (ro, rd, t_min, t_max, sus) in got.items():
+        t_max_f = torch.where(sus, t_max, torch.full_like(t_max, -1.0))
+        batches.append((f"overflow_{form}_sub_batch", ro, rd, t_min, t_max_f,
+                        form == "any_hit", int(sus.sum())))
+    for name, (ro, rd, t_max), any_hit in (("queue_4096", mid_full, False),
+                                           ("queue_4096_shadow", shadow_full,
+                                            True)):
+        batches.append((name, ro, rd, torch.zeros_like(t_max[:, 0]),
+                        t_max[:, 0], any_hit, None))
+    for name, ro, rd, t_min, t_max, any_hit, n_sus in batches:
+        args = walk_args(pk, ro, rd, t_min, t_max)
+        for form in (False, True):
+            res, stats, _ = compare_walk(args, name, form)
+            if n_sus is not None:
+                res["suspect_rays"] = n_sus
+            cases.append(res)
+            if form != any_hit:
+                continue
+            R = int(t_max.shape[0])
+            n_bytes, ops = walk_work(stats, R, form)
+            key = "packed_walk" + {"queue_4096": "",
+                                   "queue_4096_shadow": "@queue_4096_shadow",
+                                   "overflow_closest_sub_batch":
+                                       "@overflow_closest",
+                                   "overflow_any_hit_sub_batch":
+                                       "@overflow_shadow"}[name]
+            timing[key] = dict(
+                shape={"R": R, "walking_rays": res["walking_rays"],
+                       "any_hit": form, "max_steps": res["max_steps"],
+                       "mean_steps": round(res["mean_steps"], 3),
+                       "plain_iterations": res["plain_iterations"],
+                       "rows": stats["rows_tri"] + stats["rows_sph"]},
+                **time_both(lambda: packed_walk(*args, any_hit=form), flush,
+                            "packed_walk_kernel"),
+                # The plain version ran on these operands just before.
+                plain_ms=time_launches(
+                    lambda: packed_walk_ref(*args, any_hit=form), flush,
+                    repeats=2, warmup=0),
+                bytes=n_bytes, flops=ops)
+    # (c) Edge cases on the headline's table, on spheres and on coincident
+    # triangles; a batch in which no ray is suspect (all leave at the root).
+    v, f = meshes.icosphere(subdiv=1)
+    f = np.concatenate([f, f[:12]])          # 12 faces twice, higher ids
+    twin = make_scene(v, f, np.zeros(len(f), np.int32),
+                      make_materials([dict(albedo=(0.5,) * 3)]),
+                      make_lights([]))
+    for name, pk_e in (("edge_big1m", pk),
+                       ("edge_cornell_spheres",
+                        native.build_packed(cornell.cornell("spheres")).to(DEV)),
+                       ("edge_coincident_triangles",
+                        native.build_packed(twin).to(DEV))):
+        args = walk_args(pk_e, *walk_edge_rays(pk_e, 3000, 31))
+        for form in (False, True):
+            res, _, out = compare_walk(args, name, form)
+            assert res["hits"] > 0, f"packed_walk {name}: no hit"
+            cases.append(res)
+        if name == "edge_cornell_spheres":
+            assert res["rows_sph"] > 0, "no sphere row tested"
+    c = torch.from_numpy(v[f[:12]].mean(axis=1)).float()
+    args = walk_args(pk_e, (c * 3.0).to(DEV), (-c / c.norm(dim=1,
+                                                            keepdim=True)).to(DEV),
+                     torch.zeros(12, device=DEV), torch.full((12,), 1e30,
+                                                             device=DEV))
+    res, _, (t, slot, _, _) = compare_walk(args, "coincident_lowest_gid", False)
+    assert bool((t < INF).all()) and \
+        pk_e.prim_gid[slot.long()].tolist() == list(range(12)), \
+        "coincident triangles: not the lowest id"
+    cases.append(res)
+    ro, rd, t_max = mid
+    args = walk_args(pk, ro, rd, torch.zeros_like(t_max[:, 0]),
+                     torch.full_like(t_max[:, 0], -1.0))
+    for form in (False, True):
+        res, stats, _ = compare_walk(args, "no_suspect_sub_batch", form)
+        assert res["max_steps"] == 1 and res["hits"] == 0
+        cases.append(res)
+    timing["packed_walk@no_suspect"] = dict(
+        shape={"R": int(ro.shape[0]), "walking_rays": 0},
+        **time_both(lambda: packed_walk(*args), flush, "packed_walk_kernel"))
+    return cases, timing, n_over
+
+
+def phase_kernels(scene, cam, cb, cfg, key, pk):
+    first, mid, shadow, mid_full, shadow_full = queue_batches(
+        scene, cam, cb, cfg, key, 4096, n_warm=N_WARM)
     cases_k2, cases_k1, cases_k3, cases_dense = [], [], [], []
     cases_fused = []
     timing = {}
@@ -923,12 +1173,21 @@ def phase_kernels(scene, cam, cb, cfg, key):
         bytes=dense_bytes + R * 4,
         flops=(R - n_occ) * (row_ops + P * OPS_ANYHIT)
         + n_occ * (OPS_TRI_ROW + OPS_ANYHIT))
+    cases_walk, timing_walk, n_over = check_packed_walk(
+        scene, cb, pk, mid, mid_full, shadow_full, flush)
+    timing.update(timing_walk)
     del flush
     k2_bitwise = all(c["bitwise"] for c in cases_k2)
     emit({"phase": "kernels",
           "checked": ["pair_ray_reduce", "pair_tile_isect", "pair_segmin",
                       "pair_tile_isect_dedup", "dense_closest",
-                      "dense_anyhit"],
+                      "dense_anyhit", "packed_walk"],
+          "packed_walk": {
+              "tolerance": "bitwise (raw 32-bit words), closest-hit and "
+                           "any-hit form, against the plain version on the "
+                           "card",
+              "overflowing_sub_batches_of_the_256_render": n_over,
+              "cases": cases_walk},
           "pair_ray_reduce": {
               "tolerance": "bitwise, closest-hit and any-hit form, against "
                            "the plain version and against "
@@ -956,14 +1215,19 @@ def phase_kernels(scene, cam, cb, cfg, key):
                              f"closest-hit sub-batch after {N_WARM} steps "
                              "(and the narrow shadow batch), dense kernels "
                              "at the first chunk of the 512x512 spp 16 "
-                             "oracle render of cornell mesh",
+                             "oracle render of cornell mesh, packed_walk at "
+                             f"the whole 4096-lane queue after {N_WARM} "
+                             "steps (and its shadow batch) and at the first "
+                             "overflowing sub-batches of the 256² render "
+                             "(plain version: median of 2 calls)",
           "us_per_launch": {
               k: {"kernel": round(v["ms"] * 1e3, 2),
                   **({"trace": v["trace_us"], "trace_n": v["trace_n"],
                       "trace_warm": v["trace_warm_us"],
                       "trace_warm_n": v["trace_warm_n"]}
                      if "trace_us" in v else {}),
-                  "plain": round(v["plain_ms"] * 1e3, 2), **v["shape"]}
+                  **({"plain": round(v["plain_ms"] * 1e3, 2)}
+                     if "plain_ms" in v else {}), **v["shape"]}
               for k, v in timing.items()}})
     errs = {"pair_ray_reduce": max(c["max_abs_err"] for c in cases_fused),
             "pair_tile_isect": max(max(c["max_abs_err_t"], c["max_abs_err_uv"])
@@ -971,7 +1235,8 @@ def phase_kernels(scene, cam, cb, cfg, key):
             "pair_segmin": max(c["max_abs_err"] for c in cases_k1),
             "pair_tile_isect_dedup": max(c["max_abs_err"] for c in cases_k3),
             "dense_closest": max(c["max_abs_err"] for c in cases_dense),
-            "dense_anyhit": max(c["max_abs_err_occ"] for c in cases_dense)}
+            "dense_anyhit": max(c["max_abs_err_occ"] for c in cases_dense),
+            "packed_walk": max(c["max_abs_err"] for c in cases_walk)}
     timing["launch_floor_us"] = floors["grid_of_pair_ray_reduce"]
     return timing, errs
 
@@ -1121,12 +1386,167 @@ def phase_render_small(scene, cb):
           "run_s_kernels": round(s_k, 3), "run_s_split": round(s_s, 3),
           "run_s_plain": round(s_p, 3),
           "mean_radiance": float(img_k.mean())})
+    return img_k, (nc_k, ns_k, ovf_k, it_k)
+
+
+def phase_render_exact(scene, scene_h, cb, pk, small):
+    """The command line's flow of exact repair (tpu_pt/cli.py:175-235) on
+    ``render_small``'s render, where the default capacities overflow:
+    (1) a render that flags suspect pixels, (2) ``attach_fallback`` and the
+    same render on it, (3) the repair of only step 1's suspect pixels,
+    (4) the render on the packed walk alone.  Returns the cluster BVH with
+    the fallback attached and the walk's launches in step 2."""
+    cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4,
+                       rr_start=2, rr_prob=0.7)
+    cam = meshes.big_camera(256, 256).to(DEV)
+    key, kw = (0, 3), dict(queue=4096, device=DEV)
+    img_s, counts_s = small
+    run_s = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.time()
+        out = fn()
+        sync()
+        run_s[name] = round(time.time() - t0, 3)
+        return out
+
+    img1, nc1, ns1, ovf1, it1, sus1 = timed(
+        "suspect_counts", lambda: wavefront.render_wavefront_suspect_counts(
+            scene, cam, cfg, key, cb, **kw))
+    assert ovf1 > 0 and int(sus1.sum()) > 0, \
+        f"render_exact: no overflow to repair ({ovf1})"
+    assert bool(torch.equal(img1, img_s)) and (nc1, ns1, ovf1, it1) == counts_s, \
+        "render_exact: tracking suspects changed render_small's render"
+
+    t0 = time.time()
+    cb_fb = cluster.attach_fallback(cb, scene_h)
+    attach_s = time.time() - t0
+    # Suspect rays the walk repairs, per form, counted on the device.
+    real = {"closest": cluster._retrace_suspects_closest,
+            "any_hit": cluster._retrace_suspects_anyhit}
+    repaired = {k: torch.zeros((), dtype=torch.int64, device=DEV)
+                for k in real}
+
+    def spy(form):
+        def run(cb_, ro, rd, t_min1, t_max1, suspect, *a, **k):
+            repaired[form] += suspect.sum()
+            return real[form](cb_, ro, rd, t_min1, t_max1, suspect, *a, **k)
+        return run
+
+    cluster._retrace_suspects_closest = spy("closest")
+    cluster._retrace_suspects_anyhit = spy("any_hit")
+    packed_walk.launches = 0
+    try:
+        img2, nc2, ns2, ovf2, it2, sus2 = timed(
+            "suspect_counts_fallback",
+            lambda: wavefront.render_wavefront_suspect_counts(
+                scene, cam, cfg, key, cb_fb, **kw))
+    finally:
+        cluster._retrace_suspects_closest = real["closest"]
+        cluster._retrace_suspects_anyhit = real["any_hit"]
+    launches = packed_walk.launches
+    repaired = {k: int(v) for k, v in repaired.items()}
+    assert ovf2 > 0, "render_exact: the overflow is no longer reported"
+    assert launches == 2 * 4 * it2, f"render_exact: {launches} walk launches"
+    assert sum(repaired.values()) > 0, repaired
+    clean = ((sus1 == 0) & (sus2 == 0)).reshape(cfg.height, cfg.width)
+    assert bool(torch.equal(img2[clean], img1[clean])), \
+        "render_exact: a pixel suspect in neither render changed"
+
+    rep, ovf_r = timed("repair", lambda: wavefront.repair_suspect_pixels(
+        scene, cam, cfg, key, cb_fb, img1, sus1, **kw))
+    differ = (rep != img2).any(-1)
+    n_differ = int(differ.sum())
+    if n_differ:
+        # Only where one render took a hit from the tile test and the other
+        # from the walk's row test may t round differently.
+        assert not bool((differ & clean).any()), \
+            "render_exact: the repair changed a pixel suspect in neither render"
+        assert torch.allclose(rep, img2, rtol=2e-4, atol=2e-5), \
+            "render_exact: repaired image vs the fallback render"
+
+    pk_img, nc4, ns4, ovf4, it4 = timed(
+        "packed", lambda: wavefront.render_wavefront_counts(
+            scene, cam, cfg, key, pk, backend="packed", **kw))
+    assert ovf4 == 0, "render_exact: the packed backend reported overflow"
+    assert torch.allclose(pk_img, img2, rtol=1e-3, atol=1e-3), \
+        "render_exact: packed backend vs the fallback render"
+    counts_close(nc4, nc2, "render_exact packed n_closest")
+    counts_close(ns4, ns2, "render_exact packed n_shadow")
+    assert bool(torch.isfinite(rep).all())
+    emit({"phase": "render_exact", "scene": "big-1m", "size": cfg.width,
+          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
+          "key": list(key), "attach_fallback_s": round(attach_s, 2),
+          "overflow": ovf1, "overflow_with_fallback": ovf2,
+          "overflow_repair_subset": ovf_r,
+          "suspect_pixels": int(sus1.sum()),
+          "suspect_pixels_with_fallback": int(sus2.sum()),
+          "suspect_pixels_in_either": int((~clean).sum()),
+          "suspect_rays_repaired": repaired,
+          "packed_walk_launches": launches, "steps_run": [it1, it2, it4],
+          "n_closest": [nc1, nc2, nc4], "n_shadow": [ns1, ns2, ns4],
+          "run_s": run_s,
+          "mean_radiance_before_repair": float(img1.mean()),
+          "mean_radiance_after_repair": float(rep.mean()),
+          "mean_radiance_fallback_render": float(img2.mean()),
+          "mean_radiance_packed_backend": float(pk_img.mean()),
+          "repair_equals_fallback_render_bitwise": n_differ == 0,
+          "repair_pixels_differ": n_differ,
+          "repair_max_abs_diff": float((rep - img2).abs().max()),
+          "packed_vs_fallback_max_abs_diff": float((pk_img - img2).abs().max()),
+          "tolerance": "tracking suspects bitwise; pixels suspect in neither "
+                       "render bitwise; repair vs fallback render bitwise "
+                       "(else rtol 2e-4 atol 2e-5 where the two "
+                       "intersectors round t differently); packed backend "
+                       "rtol 1e-3 atol 1e-3, counts within 0.1 %"})
+    return cb_fb, launches
+
+
+def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
+    """The headline render once more with the exact fallback attached (what
+    tpu_pt/bench.py:274-283 re-renders after an overflow): no ray is
+    suspect, so the image and counts must be render_main's, and the walk is
+    launched on every traversal sub-batch all the same.  Returns its
+    launches."""
+    kernels = (packed_walk, pair_ray_reduce, pair_tile_isect, pair_segmin,
+               pair_tile_isect_dedup)
+    # The launch counts of this path: zeroed just before the render, read
+    # just after it.
+    for k in kernels:
+        k.launches = 0
+    sync()
+    t0 = time.time()
+    img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
+        scene, cam, cfg, (0, 3), cb_fb, queue=4096, backend="cluster",
+        device=DEV)
+    sync()
+    run_s = time.time() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    emit({"phase": "render_fallback", "scene": "big-1m", "size": cfg.width,
+          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
+          "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
+          "run_s_all_render_main": main["run_s_all"],
+          "run_s_over_render_main": round(run_s / main["run_s"], 4),
+          "image_equals_render_main_bitwise": bool(torch.equal(img, img_main)),
+          "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
+          "overflow": ovf, "launches": launches})
+    assert ovf == 0, f"render_fallback: overflow {ovf}"
+    assert bool(torch.equal(img, img_main)), \
+        "render_fallback: image differs from render_main's (must be bitwise)"
+    assert (nc, ns, n_iter) == (main["n_closest"], main["n_shadow"],
+                                main["steps_run"]), \
+        "render_fallback: counts differ from render_main's"
+    # 459 steps x 2 traversals x 4 sub-batches, one walk each.
+    assert launches["packed_walk"] == 2 * 4 * n_iter, launches
+    assert launches["pair_ray_reduce"] == 2 * 4 * n_iter, launches
+    return {"packed_walk": launches["packed_walk"]}
 
 
 def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     key = (0, 3)
     kernels = (pair_ray_reduce, pair_tile_isect, pair_segmin,
-               pair_tile_isect_dedup)
+               pair_tile_isect_dedup, packed_walk)
 
     def run():
         sync()
@@ -1152,7 +1572,7 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     # was asked for is the stage that ran.
     assert launches["pair_ray_reduce"] == 2 * 4 * n_iter, launches
     assert not any(n for k, n in launches.items() if k != "pair_ray_reduce"), \
-        launches
+        launches          # no fallback attached: no walk
     assert bool(torch.isfinite(img).all()), "render_main: image not finite"
     assert tuple(img.shape) == (cfg.height, cfg.width, 3)
     mean = float(img.mean())
@@ -1187,8 +1607,11 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
         assert abs(got - RECORDED[name]) <= 0.005 * RECORDED[name], \
             f"{name} {got} not within 0.5 % of {RECORDED[name]}"
     assert ovf == 0, (
-        f"overflow {ovf}: candidates were truncated by the static budgets and "
-        "the exact-repair fallback is not ported yet")
+        f"overflow {ovf}: candidates were truncated by the static budgets; "
+        "the headline is held to 0 with the default capacities (an overflow "
+        "is repaired exactly with cluster.attach_fallback and "
+        "wavefront.repair_suspect_pixels, phases render_exact and "
+        "render_fallback)")
     assert n_iter == RECORDED["steps_run"], f"steps_run {n_iter}"
     return {"pair_ray_reduce": launches["pair_ray_reduce"]}, line, img
 
@@ -1582,11 +2005,11 @@ def main():
         else 0
     t_start = time.time()
     smi, fp32_ops_per_s = phase_device()
-    phase_build()
 
     t0 = time.time()
     scene_h = meshes.big_scene(subdiv=8)
     t_scene = time.time() - t0
+    pk = phase_build(scene_h)
     t0 = time.time()
     cb_h = cluster.build_cluster_bvh(scene_h)
     build_s = time.time() - t0
@@ -1596,7 +2019,7 @@ def main():
           "bvh_build_s": round(build_s, 2), "tris": n_tris,
           "n_clusters": cb.n_clusters,
           "device_MB": round(torch.cuda.memory_allocated() / 1e6, 1)})
-    del scene_h, cb_h
+    del cb_h
 
     cfg = RenderConfig(width=1024, height=1024, spp=1, max_depth=4,
                        rr_start=2, rr_prob=0.7)
@@ -1608,11 +2031,16 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return
-    timing, errs = phase_kernels(scene, cam, cb, cfg, (0, 3))
+    timing, errs = phase_kernels(scene, cam, cb, cfg, (0, 3), pk)
     phase_traverse()
-    phase_render_small(scene, cb)
+    small = phase_render_small(scene, cb)
+    cb_fb, _ = phase_render_exact(scene, scene_h, cb, pk, small)
+    del small, scene_h
     launches, main_line, img_main = phase_render_main(scene, cam, cb, cfg,
                                                       build_s, n_tris)
+    launches.update(phase_render_fallback(scene, cam, cb_fb, cfg, main_line,
+                                          img_main))
+    del cb_fb
     launches.update(phase_render_split(scene, cam, cb, cfg, main_line,
                                        img_main))
     del img_main
@@ -1637,7 +2065,10 @@ def main():
         "dense_closest": ("tpu_pt_torch/csrc/dense_isect.cu",
                           "tpu_pt/kernels/intersect.py:159"),
         "dense_anyhit": ("tpu_pt_torch/csrc/dense_isect.cu",
-                         "tpu_pt/kernels/intersect.py:177")}
+                         "tpu_pt/kernels/intersect.py:177"),
+        "packed_walk": ("tpu_pt_torch/csrc/packed_walk.cu",
+                        "tpu_pt/bvh/packed.py:252 (_traverse, an XLA "
+                        "while_loop; no pl.pallas_call)")}
     rows = []
     for name, (src, replaces) in sources.items():
         assert launches[name] > 0, f"no full-width path launched {name}"
@@ -1657,6 +2088,17 @@ def main():
             row["trace_warm_us"] = tm["trace_warm_us"]
             row["trace_warm_n"] = tm["trace_warm_n"]
             row["launch_floor_us"] = timing["launch_floor_us"]
+        if name == "packed_walk":
+            # Timed at the whole 4096-lane queue; the same numbers for the
+            # other batches, and the rays' walks as the plain version
+            # counted them.
+            row["shape"] = tm["shape"]
+            row["other_batches"] = {
+                k.split("@")[1]: {f: v[f] for f in ("ms", "trace_us",
+                                                    "trace_warm_us",
+                                                    "plain_ms", "shape")
+                                  if f in v}
+                for k, v in timing.items() if k.startswith("packed_walk@")}
         rows.append(row)
     emit({"phase": "done", "total_s": round(time.time() - t_start, 1)})
     print(smi, flush=True)

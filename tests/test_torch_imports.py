@@ -28,8 +28,9 @@ def test_every_module_layout_name_is_present():
     for mod in ("config", "convert", "core.vecmath", "core.intersect",
                 "core.camera", "core.sampling", "scene.types", "scene.meshes",
                 "scene.cornell", "bvh.sah", "bvh.native", "bvh.cluster",
-                "kernels.cluster_isect", "kernels.pair_scan",
-                "kernels.pair_fused", "kernels.intersect", "render.envmap",
+                "bvh.packed", "kernels.cluster_isect", "kernels.pair_scan",
+                "kernels.pair_fused", "kernels.intersect",
+                "kernels.packed_walk", "render.envmap",
                 "render.bsdf", "render.lights", "render.brute",
                 "render.integrator", "render.driver", "render.wavefront",
                 "render.film"):
@@ -134,10 +135,11 @@ def test_kernel_sources_are_all_declared_to_the_loader(tmp_path, monkeypatch):
     assert declared == {"pair_tile_isect_launch", "pair_tile_isect_dedup_launch",
                         "pair_segmin_launch", "pair_ray_reduce_launch",
                         "launch_floor_launch", "dense_closest_launch",
-                        "dense_anyhit_launch"}
+                        "dense_anyhit_launch", "packed_walk_launch"}
     assert {os.path.basename(p) for p in _build.sources()} == {
         "pair_tile_isect.cu", "pair_tile_isect_dedup.cu", "pair_segmin.cu",
-        "pair_ray_reduce.cu", "launch_floor.cu", "dense_isect.cu"}
+        "pair_ray_reduce.cu", "launch_floor.cu", "dense_isect.cu",
+        "packed_walk.cu"}
     with open(_build.__file__) as fh:
         loader = fh.read()
     for name in declared:

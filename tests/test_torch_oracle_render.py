@@ -171,16 +171,23 @@ def test_radiance_is_keyed_by_ray_id_not_by_position():
 
 @pytest.mark.parametrize("backend", ["bvh", "packed", "nonsense"])
 def test_unknown_and_unported_backends_raise(backend):
+    """"bvh" is not ported and "nonsense" is no backend: both raise naming
+    the backends there are.  "packed" is a backend (the exact-repair walk):
+    asked for without its PackedBVH it raises saying so."""
     st = tc.cornell("spheres")
     cfg = TConfig(width=4, height=4, spp=1, max_depth=1)
-    with pytest.raises(ValueError, match="brute, pallas, cluster"):
+    match = "requires a PackedBVH" if backend == "packed" \
+        else "brute, pallas, cluster, packed"
+    with pytest.raises(ValueError, match=match):
         trender(st, tc.camera(4, 4), cfg, (0, 0), backend=backend,
                 device="cpu")
-    with pytest.raises(ValueError, match="brute, pallas, cluster"):
+    with pytest.raises(ValueError, match=match):
         tdriver._intersectors_counted(backend)
+    with pytest.raises(ValueError, match=match):
+        tdriver._intersectors_suspect(backend)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "cluster"])
+@pytest.mark.parametrize("backend", ["pallas", "cluster", "packed"])
 def test_backend_without_its_structure_raises(backend):
     st = tc.cornell("spheres")
     cfg = TConfig(width=4, height=4, spp=1, max_depth=1)

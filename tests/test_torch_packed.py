@@ -1,0 +1,346 @@
+"""The packed BVH of the port (bvh/packed.py, bvh/native.py::build_packed,
+kernels/packed_walk.py, backend "packed") against tpu_pt.bvh.packed and
+tpu_pt.bvh.native, and against the port's brute-force oracle.
+
+Tolerances: tables, primitive ids per slot and hit masks exact (both
+packages build with the same C++ source); hit t rtol/atol 1e-6 with prim
+agreement > 0.99 (tests/test_cluster.py:168-173); images rtol 2e-4 / atol
+2e-5.  The kernel itself runs only on the card (the ``gpu`` case)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_pt.bvh import native as jnative
+from tpu_pt.bvh import packed as jpk
+from tpu_pt.config import RenderConfig as JConfig
+from tpu_pt.render.driver import render as jrender
+from tpu_pt.render.wavefront import render_wavefront as jrender_wavefront
+from tpu_pt.scene import cornell as jc
+from tpu_pt.scene import meshes as jm
+from tpu_pt.scene import types as jt
+from tpu_pt_torch import convert
+from tpu_pt_torch.bvh import native as tnative
+from tpu_pt_torch.bvh import packed as tpk
+from tpu_pt_torch.config import RenderConfig as TConfig
+from tpu_pt_torch.kernels import packed_walk as tpw
+from tpu_pt_torch.render import brute as tbrute
+from tpu_pt_torch.render.driver import render as trender
+from tpu_pt_torch.render.wavefront import render_wavefront as trender_wavefront
+
+from torch_port_util import T, camera_dict, rays, scene_dict
+
+
+def _coincident_scene(mod_t, mod_m):
+    """An icosphere whose first 12 faces are there twice (the copies have
+    the higher primitive ids): coincident triangles, hit at the same t."""
+    v, f = mod_m.icosphere(subdiv=1)
+    f = np.concatenate([f, f[:12]])
+    return mod_t.make_scene(v, f, np.zeros(len(f), np.int32),
+                            mod_t.make_materials([dict(albedo=(0.5,) * 3)]),
+                            mod_t.make_lights([]))
+
+
+def _scenes(name):
+    """(JAX scene, port host scene) holding the very same arrays."""
+    if name == "coincident":
+        sj = _coincident_scene(jt, jm)
+    else:
+        sj = jc.cornell(name)
+    return sj, convert.scene_from_numpy(scene_dict(sj), "cpu")
+
+
+def packed_dict(pk) -> dict:
+    return dict(table=np.asarray(pk.table), prim_gid=np.asarray(pk.prim_gid),
+                max_leaf=pk.max_leaf, n_tables=pk.n_tables,
+                n_nodes=pk.n_nodes)
+
+
+@pytest.fixture(scope="module")
+def setups():
+    """name -> (jax scene, jax packed, port scene, port packed from the
+    JAX tables)."""
+    out = {}
+    for name in ("mesh", "spheres", "coincident"):
+        sj, st = _scenes(name)
+        pj = jnative.build_packed(sj)
+        out[name] = (sj, pj, st,
+                     convert.packed_bvh_from_numpy(packed_dict(pj), "cpu"))
+    return out
+
+
+def _edge_rays(packed, n, seed):
+    """Seeded rays with the walk's edge cases mixed in: axis-parallel
+    directions (components +0 and -0), origins ON a node box's face with the
+    direction inside that face's plane (0 * inf = NaN in the slab test),
+    t_max = -1 (must leave at the root) and short t_max."""
+    ro, rd = rays(n, seed)
+    rs = np.random.RandomState(seed + 1)
+    boxes = packed.node_rows()[0]
+    # Every other ray aims at a random point of a random leaf box (not its
+    # centre: that lies on the diagonal of a quad's two triangles).
+    leaves = boxes[boxes[:, 7].view(np.int32) >= 0]
+    pick = leaves[rs.randint(0, len(leaves), n)]
+    aim = rs.uniform(pick[:, 0:3], np.maximum(pick[:, 3:6], pick[:, 0:3])) - ro
+    aim /= np.linalg.norm(aim, axis=1, keepdims=True)
+    rd[1::2] = aim[1::2]
+    axes = np.eye(3, dtype=np.float32)
+    for i in range(0, n, 7):
+        rd[i] = axes[i % 3] * (1 if i % 2 else -1)
+        if i % 4 == 0:
+            rd[i, (i + 1) % 3] = -0.0
+    for i in range(5, n, 13):
+        b = boxes[rs.randint(0, len(boxes))]
+        ro[i] = rs.uniform(b[0:3], np.maximum(b[3:6], b[0:3]))
+        ax = i % 3
+        ro[i, ax] = b[ax]                          # on the min face
+        rd[i, ax] = 0.0                            # inside its plane
+        rd[i] /= max(np.linalg.norm(rd[i]), 1e-6)
+    t_min = np.zeros((n, 1), np.float32)
+    t_max = np.full((n, 1), 1e30, np.float32)
+    t_max[8::19] = 0.5
+    t_max[::17] = -1.0
+    return ro, rd, t_min, t_max
+
+
+@pytest.mark.parametrize("name", ["mesh", "spheres"])
+def test_native_build_packed_equals_jax_bitwise(name):
+    """The port's own build of the C++ source gives the JAX package's
+    tables bit for bit (the skip / meta columns are integers viewed as f32,
+    so the check compares bit patterns)."""
+    sj, st = _scenes(name)
+    pj = jnative.build_packed(sj)
+    pt = tnative.build_packed(st)
+    assert (pt.n_nodes, pt.n_tables, pt.max_leaf) == \
+        (pj.n_nodes, pj.n_tables, pj.max_leaf)
+    np.testing.assert_array_equal(pt.table.view(np.uint32),
+                                  np.asarray(pj.table).view(np.uint32))
+    np.testing.assert_array_equal(pt.prim_gid, np.asarray(pj.prim_gid))
+    assert pt.prim_gid.dtype == np.int32 and pt.table.dtype == np.float32
+    assert pt.prim_base == pj.prim_base and pt.n_prims == pj.n_prims
+    np.testing.assert_array_equal(pt.node_rows().view(np.uint32),
+                                  pj.node_rows().view(np.uint32))
+    dev = pt.to("cpu")
+    assert torch.is_tensor(dev.table) and dev.table.is_contiguous()
+    np.testing.assert_array_equal(dev.node_rows().view(np.uint32),
+                                  pj.node_rows().view(np.uint32))
+    assert dev.to("cpu").table is dev.table          # already there: no copy
+
+
+@pytest.mark.parametrize("name", ["mesh", "spheres", "coincident"])
+def test_intersect_matches_jax(setups, name):
+    sj, pj, st, pt = setups[name]
+    ro, rd, t_min, t_max = _edge_rays(pt, 2048, 3)
+    hj = jpk.intersect(pj, sj, jnp.asarray(ro), jnp.asarray(rd),
+                       jnp.asarray(t_min), jnp.asarray(t_max))
+    ht = tpk.intersect(pt, st, T(ro), T(rd), T(t_min), T(t_max))
+    np.testing.assert_array_equal(ht.hit.numpy(), np.asarray(hj.hit))
+    m = ht.hit.numpy()[:, 0]
+    assert 50 < m.sum() < len(m)
+    np.testing.assert_allclose(ht.t.numpy()[m], np.asarray(hj.t)[m],
+                               rtol=1e-6, atol=1e-6)
+    assert (ht.prim.numpy() == np.asarray(hj.prim))[m].mean() > 0.99
+    assert ht.prim.dtype == torch.int32
+    assert not ht.hit.numpy()[::17].any()             # t_max = -1
+
+
+@pytest.mark.parametrize("name", ["mesh", "spheres", "coincident"])
+def test_occluded_matches_jax(setups, name):
+    sj, pj, st, pt = setups[name]
+    ro, rd, _, t_max = _edge_rays(pt, 768, 4)
+    t_max = np.where(t_max > 1.0, 2.0, t_max).astype(np.float32)
+    oj = jpk.occluded(pj, sj, jnp.asarray(ro), jnp.asarray(rd),
+                      jnp.asarray(t_max))
+    ot = tpk.occluded(pt, st, T(ro), T(rd), T(t_max))
+    assert ot.dtype == torch.bool and tuple(ot.shape) == (768, 1)
+    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
+    assert 0 < int(ot.sum()) < 768
+
+
+def test_prim_row_test_and_octant_match_jax():
+    """The row test on mixed triangle / sphere / padding rows and random
+    ranges: hit mask exact, t within 1e-6; the octant index exact."""
+    rs = np.random.RandomState(5)
+    R = 2048
+    rows = np.zeros((R, 16), np.float32)
+    rows[:, 0:9] = rs.uniform(-1, 1, (R, 9))
+    sph = rs.rand(R) < 0.3
+    rows[sph, 3] = rs.uniform(0.2, 1.0, sph.sum())
+    rows[sph, 4:9] = 0.0
+    rows[sph, 10] = 1.0
+    rows[::23] = 0.0                                  # padding rows
+    ro, rd = rays(R, 6)
+    # Most rays aim near the row's triangle centroid or sphere centre.
+    aim = rows[:, 0:3] + np.where(sph[:, None], 0.0,
+                                  (rows[:, 3:6] + rows[:, 6:9]) / 3)
+    aim += rs.normal(0, 0.2, (R, 3))
+    to = aim - ro
+    rd = np.where(rs.rand(R, 1) < 0.8,
+                  to / np.linalg.norm(to, axis=1, keepdims=True),
+                  rd).astype(np.float32)
+    t_min = np.zeros((R, 1), np.float32)
+    t_max = rs.uniform(0.5, 8, (R, 1)).astype(np.float32)
+    active = (rs.rand(R, 1) < 0.9)
+    a = jpk._prim_row_test(jnp.asarray(rows), jnp.asarray(active),
+                           jnp.asarray(ro), jnp.asarray(rd),
+                           jnp.asarray(t_min), jnp.asarray(t_max))
+    b = tpk._prim_row_test(T(rows), T(active), T(ro), T(rd), T(t_min),
+                           T(t_max))
+    np.testing.assert_array_equal(b[0].numpy(), np.asarray(a[0]))
+    h = b[0].numpy()[:, 0]
+    assert 100 < h.sum() < R and (h & sph).any()
+    np.testing.assert_allclose(b[1].numpy()[h], np.asarray(a[1])[h],
+                               rtol=1e-6, atol=1e-6)
+    for x, y in zip(b[2:], a[2:]):    # u, v: as for the pair kernels (PR 1)
+        np.testing.assert_allclose(x.numpy()[h], np.asarray(y)[h], rtol=1e-4,
+                                   atol=1e-5)
+    assert (b[2].numpy()[sph] == 0).all()             # u = 0 on spheres
+    rd[::5, 0] = -0.0
+    np.testing.assert_array_equal(tpk._octant_of(T(rd)).numpy(),
+                                  np.asarray(jpk._octant_of(jnp.asarray(rd))))
+
+
+@pytest.mark.parametrize("name", ["mesh", "spheres", "coincident"])
+def test_packed_matches_the_ports_brute_oracle(name):
+    """The port's own tables (its native build) against its brute backend
+    (tests/test_packed.py:36-57): hit mask and occlusion exact, t to 1e-5 /
+    1e-6, prim on > 0.99 of hits."""
+    _, st = _scenes(name)
+    pt = tnative.build_packed(st).to("cpu")
+    ro, rd = rays(1024, 7)
+    t_min = torch.zeros((1024, 1))
+    t_max = torch.full((1024, 1), 1e30)
+    hb = tbrute.intersect(st, T(ro), T(rd), t_min, t_max)
+    hp = tpk.intersect(pt, st, T(ro), T(rd), t_min, t_max)
+    assert torch.equal(hb.hit, hp.hit)
+    m = hb.hit[:, 0]
+    torch.testing.assert_close(hp.t[m], hb.t[m], rtol=1e-5, atol=1e-6)
+    assert float((hb.prim == hp.prim)[m].float().mean()) > 0.99
+    t2 = torch.full((1024, 1), 2.0)
+    assert torch.equal(tbrute.occluded(st, T(ro), T(rd), t2),
+                       tpk.occluded(pt, st, T(ro), T(rd), t2))
+
+
+def test_coincident_triangles_take_the_lowest_gid(setups):
+    """Rays at the centroids of the doubled faces hit both copies at one t:
+    the walk names the lower id, as every backend of both packages does."""
+    sj, _, st, pt = setups["coincident"]
+    v, f = np.asarray(st.vertices), np.asarray(st.tri_idx)
+    c = v[f[:12]].mean(axis=1)
+    ro = (c * 3.0).astype(np.float32)
+    rd = (-c / np.linalg.norm(c, axis=1, keepdims=True)).astype(np.float32)
+    h = tpk.intersect(pt, st, T(ro), T(rd), torch.zeros((12, 1)),
+                      torch.full((12, 1), 1e30))
+    assert bool(h.hit.all())
+    np.testing.assert_array_equal(h.prim.numpy(), np.arange(12))
+
+
+def test_walk_stats_dead_rays_and_plain_path(setups):
+    """A ray with t_max < t_min fetches the root and nothing else and
+    reports (t_max, slot 0, 0, 0); the wrapper's CPU path is the plain
+    version; the any-hit form tests no row after its first hit."""
+    _, _, _, pt = setups["mesh"]
+    ro, rd, t_min, t_max = _edge_rays(pt, 512, 8)
+    args = (pt.table, pt.prim_gid, T(ro), T(rd), T(t_min[:, 0]),
+            T(t_max[:, 0]), pt.n_nodes, pt.n_tables, pt.max_leaf)
+    stats = {}
+    t, slot, u, v = tpw.packed_walk_ref(*args, stats=stats)
+    dead = t_max[:, 0] < 0
+    assert (stats["steps"].numpy()[dead] == 1).all()
+    assert (t.numpy()[dead] == -1.0).all() and (slot.numpy()[dead] == 0).all()
+    assert stats["iterations"] == int(stats["steps"].max())
+    assert stats["rows_tri"] > 0
+    for a, b in zip(tpw.packed_walk(*args), (t, slot, u, v)):
+        assert torch.equal(a, b)
+    s_any = {}
+    occ = tpw.packed_walk_ref(*args, any_hit=True, stats=s_any)
+    assert torch.equal(occ, tpw.packed_walk(*args, any_hit=True))
+    assert s_any["rows_tri"] < stats["rows_tri"]
+    assert torch.equal(occ, (t < T(t_max[:, 0])))
+
+
+def test_walk_refuses_bad_operands(setups):
+    _, _, _, pt = setups["spheres"]
+    ro, rd = rays(8, 9)
+    ok = (pt.table, pt.prim_gid, T(ro), T(rd), torch.zeros(8),
+          torch.ones(8), pt.n_nodes, pt.n_tables, pt.max_leaf)
+    tpw.packed_walk(*ok)
+    with pytest.raises(TypeError, match="ro"):
+        tpw.packed_walk(*ok[:2], T(ro).double(), *ok[3:])
+    with pytest.raises(TypeError, match="prim_gid"):
+        tpw.packed_walk(ok[0], ok[1].long(), *ok[2:])
+    with pytest.raises(ValueError, match="t_max"):
+        tpw.packed_walk(*ok[:5], torch.ones((8, 1)), *ok[6:])
+    with pytest.raises(ValueError, match="does not hold"):
+        tpw.packed_walk(*ok[:6], pt.n_nodes + 1, *ok[7:])
+    with pytest.raises(ValueError, match="CUDA"):
+        from tpu_pt_torch.kernels import _build
+        _build.check_cuda_input("table", pt.table, torch.float32)
+
+
+def test_oracle_render_packed_matches_jax(setups):
+    """The oracle renderer on backend "packed" (tests/test_packed.py:74-88
+    analogue): against the JAX package's render of the same tables, and
+    against the port's brute backend."""
+    sj, pj, st, pt = setups["spheres"]
+    kw = dict(width=24, height=24, spp=4, max_depth=3)
+    camj = jc.camera(24, 24)
+    camt = convert.camera_from_numpy(camera_dict(camj), "cpu")
+    img_j = jrender(sj, camj, JConfig(**kw), jax.random.key(2),
+                    backend="packed", bvh=pj)
+    img_t = trender(st, camt, TConfig(**kw), (0, 2), backend="packed",
+                    bvh=pt, device="cpu")
+    assert np.isfinite(img_t.numpy()).all() and img_t.numpy().mean() > 0.05
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=2e-4,
+                               atol=2e-5)
+    img_b = trender(st, camt, TConfig(**kw), (0, 2), backend="brute",
+                    device="cpu")
+    np.testing.assert_allclose(img_t.numpy(), img_b.numpy(), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_wavefront_packed_matches_jax(setups):
+    """The wavefront renderer on backend "packed" (tests/test_packed.py:
+    91-100 analogue) against the JAX package's."""
+    sj, pj, st, pt = setups["spheres"]
+    kw = dict(width=16, height=16, spp=4, max_depth=2)
+    camj = jc.camera(16, 16)
+    camt = convert.camera_from_numpy(camera_dict(camj), "cpu")
+    img_j = jrender_wavefront(sj, camj, JConfig(**kw), jax.random.key(3), pj,
+                              queue=512, backend="packed")
+    img_t = trender_wavefront(st, camt, TConfig(**kw), (0, 3), pt, queue=512,
+                              backend="packed", device="cpu")
+    assert np.isfinite(img_t.numpy()).all() and img_t.numpy().mean() > 0.05
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_packed_walk_matches_plain_version_on_the_card():
+    """Needs an NVIDIA GPU and nvcc: the walk kernel bit for bit against its
+    plain version, closest and any hit, on the edge rays of three scenes;
+    a batch where every ray leaves at the root; the wrapper's refusals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n0 = tpw.packed_walk.launches
+    for name in ("mesh", "spheres", "coincident"):
+        _, st = _scenes(name)
+        pt = tnative.build_packed(st).to("cuda")
+        ro, rd, t_min, t_max = _edge_rays(pt, 3000, 10)
+        for dead in (False, True):
+            if dead:
+                t_max = np.full_like(t_max, -1.0)
+            args = (pt.table, pt.prim_gid, T(ro).cuda(), T(rd).cuda(),
+                    T(t_min[:, 0]).cuda(), T(t_max[:, 0]).cuda(), pt.n_nodes,
+                    pt.n_tables, pt.max_leaf)
+            for a, b in zip(tpw.packed_walk(*args), tpw.packed_walk_ref(*args)):
+                assert torch.equal(a, b), name
+            assert torch.equal(tpw.packed_walk(*args, any_hit=True),
+                               tpw.packed_walk_ref(*args, any_hit=True)), name
+    assert tpw.packed_walk.launches == n0 + 12
+    with pytest.raises(ValueError):                   # strided view refused
+        tpw.packed_walk(args[0], args[1],
+                        torch.zeros((3000, 6), device="cuda")[:, :3],
+                        *args[3:])

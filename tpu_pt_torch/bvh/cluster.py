@@ -26,7 +26,13 @@ AABB pyramid, traversed level-synchronously for a whole batch of rays.
 Capacity contract: the per-level frontier widths, the leaf candidate count
 and the flat pair budget are static.  Truncation is *counted* (the
 ``*_counted`` entry points return it) and a count of 0 means the traversal
-was exact.
+was exact.  A ray whose candidates were cut anywhere is SUSPECT (its
+result may have lost a hit); ``suspect_out`` hands the per-ray mask to the
+caller.  With an exact fallback attached (``attach_fallback``: a packed
+BVH), every traversal call also walks the packed BVH for its suspect rays
+and takes the walk's answer for them, so truncation costs time, never a
+hit.  The walk is launched on every such call (non-suspect rays get
+``t_max = -1`` and leave at the root), so that no host read decides it.
 
 Only the compact traversal is here; everything runs under
 ``torch.no_grad()`` semantics (no tensor requires grad).
@@ -39,7 +45,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from tpu_pt_torch.core.intersect import INF
+from tpu_pt_torch.bvh import packed as packed_mod
+from tpu_pt_torch.core.intersect import INF, as_col
 from tpu_pt_torch.kernels.cluster_isect import (
     B as PBLK, _mt_group, pair_rows as _pair_rows, pair_tile_isect,
     pair_tile_isect_dedup, pair_tile_isect_dedup_ref, pair_tile_isect_ref)
@@ -123,7 +130,9 @@ class ClusterBVH(NamedTuple):
       closest leaf pairs, NARROW any-hit leaf pairs).
     top_soa / child16: device-side derived tables (``to`` fills them):
       ``levels[0].T`` and, per level l >= 1, the (N_l / 8, 64) field-major
-      sibling rows [f0 of children 0..7, f1 of children 0..7, ...]."""
+      sibling rows [f0 of children 0..7, f1 of children 0..7, ...].
+    fallback: None, or the exact-retrace ``PackedBVH`` of the same scene
+      (``attach_fallback``), moved with the rest by ``to``."""
 
     levels: tuple
     tiles: object
@@ -135,6 +144,7 @@ class ClusterBVH(NamedTuple):
     levels16: tuple
     top_soa: object = None
     child16: tuple = ()
+    fallback: object = None
 
     @property
     def n_clusters(self) -> int:
@@ -144,10 +154,13 @@ class ClusterBVH(NamedTuple):
         """Tensors on ``device`` plus the derived descent tables."""
         device = torch.device(device)
         here = self.tiles.device if torch.is_tensor(self.tiles) else None
+        fallback = None if self.fallback is None else \
+            self.fallback.to(device)
         if self.top_soa is not None and here is not None \
                 and here.type == device.type \
                 and device.index in (None, here.index):
-            return self
+            return self if fallback is None else \
+                self._replace(fallback=fallback)
 
         def dev(x):
             return x.to(device) if torch.is_tensor(x) else torch.from_numpy(
@@ -163,7 +176,8 @@ class ClusterBVH(NamedTuple):
         return self._replace(
             levels=levels, tiles=dev(self.tiles).contiguous(),
             tile_gid=dev(self.tile_gid), levels16=levels16,
-            top_soa=levels[0].T.contiguous(), child16=child16)
+            top_soa=levels[0].T.contiguous(), child16=child16,
+            fallback=fallback)
 
 
 def make_cluster_bvh(levels, tiles, tile_gid, frontiers, k_leaf: int,
@@ -642,6 +656,38 @@ def _reduce_pairs_anyhit_dedup(cb, ro, rd, t_min1, t_max1, rayP, cidP,
     return n_hit.index_add_(0, rayC, hit_pair) > 0
 
 
+def _retrace_suspects_closest(cb: ClusterBVH, ro, rd, t_min1, t_max1,
+                              suspect, best, use_kernels: bool = True):
+    """Exact repair: walk the packed fallback for the SUSPECT rays (the
+    others get ``t_max = -1`` and leave at the root) and take the walk's
+    answer for them.  best: (best_t (Q,), gid, u, v) of the pair stage;
+    returns the same four."""
+    best_t, best_g, best_u, best_v = best
+    t_max_f = torch.where(suspect, t_max1, torch.full_like(t_max1, -1.0))
+    bt, slot, bu, bv = packed_mod._traverse(
+        cb.fallback, ro, rd, t_min1[:, None], t_max_f[:, None], False,
+        use_kernels)
+    found = bt[:, 0] < t_max_f
+    gid = cb.fallback.prim_gid[slot.long()]
+    zero = torch.zeros_like(best_t)
+    return (torch.where(suspect, torch.where(found, bt[:, 0],
+                                             torch.full_like(best_t, INF)),
+                        best_t),
+            torch.where(suspect, torch.where(found, gid,
+                                             torch.zeros_like(gid)), best_g),
+            torch.where(suspect, torch.where(found, bu[:, 0], zero), best_u),
+            torch.where(suspect, torch.where(found, bv[:, 0], zero), best_v))
+
+
+def _retrace_suspects_anyhit(cb: ClusterBVH, ro, rd, t_min1, t_max1,
+                             suspect, occ, use_kernels: bool = True):
+    """Any-hit form of :func:`_retrace_suspects_closest`: occ (Q,) bool."""
+    t_max_f = torch.where(suspect, t_max1, torch.full_like(t_max1, -1.0))
+    occ_fb = packed_mod._traverse(cb.fallback, ro, rd, t_min1[:, None],
+                                  t_max_f[:, None], True, use_kernels)
+    return torch.where(suspect, occ_fb[:, 0], occ)
+
+
 # Intra-batch traversal split: run the traversal as SPLIT independent
 # sub-batches of Q/SPLIT rays each.  Per-ray results are identical (all
 # stages reduce per ray); only the static pair budget is sliced per
@@ -671,7 +717,8 @@ def _interleave(parts):
 
 
 def _traverse_compact(cb: ClusterBVH, ro, rd, t_min, t_max,
-                      use_kernels: bool = True, pair_stage: str = "fused"):
+                      use_kernels: bool = True, pair_stage: str = "fused",
+                      suspect_out: list | None = None):
     """Closest hit: sort-free descent + one flat all-candidates pair batch
     + per-ray segmented min.  Exact because every live candidate is tested.
     Returns (best_t (Q,1), gid, u (Q,1), v (Q,1), n_overflow).
@@ -680,33 +727,43 @@ def _traverse_compact(cb: ClusterBVH, ro, rd, t_min, t_max,
     contiguous: wavefront respawn fills lanes in pixel order, so contiguous
     slices would concentrate coherent hot blocks and blow the per-sub-batch
     pair budget.  The strided views are made contiguous here (the kernel
-    wrappers refuse anything else)."""
+    wrappers refuse anything else).
+
+    suspect_out: when a list is passed, the (Q,) bool suspect mask (this
+    ray's candidates were cut by some static budget) is appended."""
     _check_pair_stage(pair_stage)
     k = _split_batches(ro.shape[0], SPLIT_CLOSEST)
     if k > 1:
+        subs = [[] if suspect_out is not None else None for _ in range(k)]
         outs = [_traverse_compact_1(cb, ro[i::k].contiguous(),
                                     rd[i::k].contiguous(),
                                     t_min[i::k].contiguous(),
                                     t_max[i::k].contiguous(), use_kernels,
-                                    pair_stage)
+                                    pair_stage, suspect_out=subs[i])
                 for i in range(k)]
         bt, g, u, v, novf = zip(*outs)
+        if suspect_out is not None:
+            suspect_out.append(_interleave([sub[0] for sub in subs]))
         return (_interleave(bt), _interleave(g), _interleave(u),
                 _interleave(v), sum(novf))
     return _traverse_compact_1(cb, ro, rd, t_min, t_max, use_kernels,
-                               pair_stage)
+                               pair_stage, suspect_out=suspect_out)
 
 
 def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
-                        use_kernels: bool = True, pair_stage: str = "fused"):
+                        use_kernels: bool = True, pair_stage: str = "fused",
+                        suspect_out: list | None = None):
     Q = ro.shape[0]
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
     cand, live, ovf = _descend_compact(cb, ro, 1.0 / rd, t_min1[:, None],
                                        t_max1[:, None])
     budget = int(cb.pair_mults[2] * Q)
-    rayP, cidP, dropped, cnt, right, _ = _flat_pairs(cand, live, Q, budget)
+    rayP, cidP, dropped, cnt, right, lost = _flat_pairs(cand, live, Q, budget)
     n_ovf = torch.sum(ovf) + dropped
+    suspect = (ovf > 0) | (lost > 0)
+    if suspect_out is not None:
+        suspect_out.append(suspect)
     if pair_stage == "fused":
         best_t, best_g, best_u, best_v = _reduce_pairs_closest_fused(
             cb, ro, rd, t_min1, t_max1, cidP, cnt, right, use_kernels)
@@ -717,33 +774,44 @@ def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
     else:
         best_t, best_g, best_u, best_v = _reduce_pairs_closest_scan(
             cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right, use_kernels)
+    if cb.fallback is not None:
+        best_t, best_g, best_u, best_v = _retrace_suspects_closest(
+            cb, ro, rd, t_min1, t_max1, suspect,
+            (best_t, best_g, best_u, best_v), use_kernels)
     return best_t[:, None], best_g, best_u[:, None], best_v[:, None], n_ovf
 
 
 def _traverse_compact_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
                              narrow: bool = False, use_kernels: bool = True,
-                             pair_stage: str = "fused"):
+                             pair_stage: str = "fused",
+                             suspect_out: list | None = None):
     """Occlusion: any tested pair with a hit in range occludes its ray.
     narrow=True selects the steady-state shadow pair budget
-    (pair_mults[3]).  Returns (occ (Q,) bool, n_overflow)."""
+    (pair_mults[3]).  Returns (occ (Q,) bool, n_overflow); ``suspect_out``
+    as in :func:`_traverse_compact`."""
     _check_pair_stage(pair_stage)
     k = _split_batches(ro.shape[0], SPLIT_ANYHIT)
     if k > 1:  # strided slices — see _traverse_compact
+        subs = [[] if suspect_out is not None else None for _ in range(k)]
         outs = [_traverse_compact_anyhit_1(
                     cb, ro[i::k].contiguous(), rd[i::k].contiguous(),
                     t_min[i::k].contiguous(), t_max[i::k].contiguous(),
-                    narrow, use_kernels, pair_stage)
+                    narrow, use_kernels, pair_stage, suspect_out=subs[i])
                 for i in range(k)]
         occ, novf = zip(*outs)
+        if suspect_out is not None:
+            suspect_out.append(_interleave([sub[0] for sub in subs]))
         return _interleave(occ), sum(novf)
     return _traverse_compact_anyhit_1(cb, ro, rd, t_min, t_max, narrow,
-                                      use_kernels, pair_stage)
+                                      use_kernels, pair_stage,
+                                      suspect_out=suspect_out)
 
 
 def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
                                narrow: bool = False,
                                use_kernels: bool = True,
-                               pair_stage: str = "fused"):
+                               pair_stage: str = "fused",
+                               suspect_out: list | None = None):
     Q = ro.shape[0]
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
@@ -757,8 +825,11 @@ def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
     # shadows.
     mult = cb.pair_mults[3] if narrow else cb.pair_mults[2]
     budget = int(mult * Q)
-    rayP, cidP, dropped, cnt, right, _ = _flat_pairs(cand, live, Q, budget)
+    rayP, cidP, dropped, cnt, right, lost = _flat_pairs(cand, live, Q, budget)
     n_ovf = torch.sum(ovf) + dropped
+    suspect = (ovf > 0) | (lost > 0)
+    if suspect_out is not None:
+        suspect_out.append(suspect)
     if pair_stage == "fused":
         occ = _reduce_pairs_anyhit_fused(
             cb, ro, rd, t_min1, t_max1, cidP, cnt, right, use_kernels)
@@ -769,6 +840,9 @@ def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
     else:
         occ = _reduce_pairs_anyhit_scan(
             cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right, use_kernels)
+    if cb.fallback is not None:
+        occ = _retrace_suspects_anyhit(cb, ro, rd, t_min1, t_max1, suspect,
+                                       occ, use_kernels)
     return occ, n_ovf
 
 
@@ -789,17 +863,15 @@ def compact_stats(cb: ClusterBVH, ro, rd, t_min, t_max):
     return n_live, torch.sum(overflow) + dropped
 
 
-def _as_col(t, Q: int, device):
-    """Scalar or (Q,1)-broadcastable bound -> (Q, 1) f32 tensor."""
-    t = torch.as_tensor(t, dtype=torch.float32, device=device)
-    return t.expand(Q, 1) if t.dim() else t.reshape(1, 1).expand(Q, 1)
-
-
 def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
-                      use_kernels: bool = True, pair_stage: str = "fused"):
+                      use_kernels: bool = True, pair_stage: str = "fused",
+                      suspect_out: list | None = None):
     """Nearest hit + the capacity-contract overflow count for this call
     (candidates truncated by frontier caps / k_leaf / the flat pair
-    budget).  The traversal is exact iff the count is 0.
+    budget).  The traversal is exact iff the count is 0, or where a
+    fallback is attached (the count is still reported).  suspect_out: when
+    a list is passed, the (Q,) bool mask of the rays whose candidates were
+    cut is appended — the input of suspect-pixel repair.
 
     ``pair_stage`` is one of ``PAIR_STAGES`` (anything else raises):
     ``"fused"`` and ``"split"`` are the ray-major stage as one kernel and
@@ -807,9 +879,10 @@ def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
     sorted by cluster id, the tile-sharing kernel, scatter-min per-ray
     reduce) and raises on a shape that stage does not take (see
     ``_dedup_supported``)."""
-    t_max_b = _as_col(t_max, ro.shape[0], ro.device)
+    t_max_b = as_col(t_max, ro.shape[0], ro.device)
     best_t, gid, u, v, ovf = _traverse_compact(cb, ro, rd, t_min, t_max_b,
-                                               use_kernels, pair_stage)
+                                               use_kernels, pair_stage,
+                                               suspect_out)
     found = best_t < t_max_b
     return Hit(hit=found,
                t=torch.where(found, best_t, torch.full_like(best_t, INF)),
@@ -824,14 +897,17 @@ def intersect(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
 
 def occluded_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
                      narrow: bool = False, use_kernels: bool = True,
-                     pair_stage: str = "fused"):
-    """Occlusion + overflow count (see intersect_counted)."""
+                     pair_stage: str = "fused",
+                     suspect_out: list | None = None):
+    """Occlusion + overflow count (and suspect mask: see
+    intersect_counted)."""
     t_min = torch.zeros((ro.shape[0], 1), dtype=torch.float32,
                         device=ro.device)
-    t_max = _as_col(t_max, ro.shape[0], ro.device)
+    t_max = as_col(t_max, ro.shape[0], ro.device)
     occ, ovf = _traverse_compact_anyhit(cb, ro, rd, t_min, t_max,
                                         narrow=narrow, use_kernels=use_kernels,
-                                        pair_stage=pair_stage)
+                                        pair_stage=pair_stage,
+                                        suspect_out=suspect_out)
     return occ[:, None], ovf
 
 
@@ -840,3 +916,17 @@ def occluded(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
     return occluded_counted(cb, scene, ro, rd, t_max,
                             use_kernels=use_kernels,
                             pair_stage=pair_stage)[0]
+
+
+def attach_fallback(cb: ClusterBVH, scene: Scene,
+                    max_leaf: int = 4) -> ClusterBVH:
+    """A copy of ``cb`` carrying the exact-retrace fallback: the packed BVH
+    of ``scene`` (host arrays), built by the native builder, on ``cb``'s
+    device.  Every traversal call then re-walks its suspect rays exactly,
+    so truncation can cost time, never a hit."""
+    from tpu_pt_torch.bvh import native
+
+    pk = native.build_packed(scene, max_leaf=max_leaf)
+    if torch.is_tensor(cb.tiles):
+        pk = pk.to(cb.tiles.device)
+    return cb._replace(fallback=pk)

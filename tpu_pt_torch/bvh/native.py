@@ -23,6 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG), "native", "bvh_builder.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+_FP = ctypes.POINTER(ctypes.c_float)
+_IP = ctypes.POINTER(ctypes.c_int)
 _lib = None
 
 
@@ -50,14 +52,15 @@ def _load():
         if not os.path.exists(path):
             _build(path)
         lib = ctypes.CDLL(path)
-        fp = ctypes.POINTER(ctypes.c_float)
-        ip = ctypes.POINTER(ctypes.c_int)
         lib.bvh_build.restype = ctypes.c_void_p
-        lib.bvh_build.argtypes = [fp, fp, ctypes.c_int, ctypes.c_int, ip]
+        lib.bvh_build.argtypes = [_FP, _FP, ctypes.c_int, ctypes.c_int, _IP]
+        lib.bvh_emit.restype = None
+        lib.bvh_emit.argtypes = [ctypes.c_void_p, _FP, _IP]
         lib.bvh_count_leaves.restype = ctypes.c_int
         lib.bvh_count_leaves.argtypes = [ctypes.c_void_p]
         lib.bvh_emit_leaves.restype = None
-        lib.bvh_emit_leaves.argtypes = [ctypes.c_void_p, fp, fp, ip, ip, ip]
+        lib.bvh_emit_leaves.argtypes = [ctypes.c_void_p, _FP, _FP, _IP, _IP,
+                                        _IP]
         _lib = lib
     return _lib
 
@@ -91,19 +94,24 @@ def _prim_rows(scene: Scene, pid: np.ndarray) -> np.ndarray:
     return rows
 
 
-def build_leaves(scene: Scene, max_leaf: int):
-    """Native SAH build -> (start, count, lo, hi, prim_perm) leaf arrays in
-    DFS order (the cluster-BVH host build)."""
+def _build_tree(scene: Scene, max_leaf: int):
+    """Run the native SAH build over the scene's primitive bounds.  Returns
+    (library, handle, primitive count, node count); the handle is freed by
+    the one emit call that follows (``bvh_emit`` or ``bvh_emit_leaves``)."""
     lib = _load()
     lo, hi = prim_bounds(scene)
     lo = np.ascontiguousarray(lo, np.float32)
     hi = np.ascontiguousarray(hi, np.float32)
-    n = lo.shape[0]
-    fp = ctypes.POINTER(ctypes.c_float)
-    ip = ctypes.POINTER(ctypes.c_int)
     n_nodes = ctypes.c_int(0)
-    handle = lib.bvh_build(lo.ctypes.data_as(fp), hi.ctypes.data_as(fp),
-                           n, max_leaf, ctypes.byref(n_nodes))
+    handle = lib.bvh_build(lo.ctypes.data_as(_FP), hi.ctypes.data_as(_FP),
+                           lo.shape[0], max_leaf, ctypes.byref(n_nodes))
+    return lib, handle, lo.shape[0], n_nodes.value
+
+
+def build_leaves(scene: Scene, max_leaf: int):
+    """Native SAH build -> (start, count, lo, hi, prim_perm) leaf arrays in
+    DFS order (the cluster-BVH host build)."""
+    lib, handle, n, _ = _build_tree(scene, max_leaf)
     n_leaves = lib.bvh_count_leaves(ctypes.c_void_p(handle))
     l_lo = np.empty((n_leaves, 3), np.float32)
     l_hi = np.empty((n_leaves, 3), np.float32)
@@ -111,7 +119,22 @@ def build_leaves(scene: Scene, max_leaf: int):
     count = np.empty((n_leaves,), np.int32)
     perm = np.empty((n,), np.int32)
     lib.bvh_emit_leaves(
-        ctypes.c_void_p(handle), l_lo.ctypes.data_as(fp),
-        l_hi.ctypes.data_as(fp), start.ctypes.data_as(ip),
-        count.ctypes.data_as(ip), perm.ctypes.data_as(ip))
+        ctypes.c_void_p(handle), l_lo.ctypes.data_as(_FP),
+        l_hi.ctypes.data_as(_FP), start.ctypes.data_as(_IP),
+        count.ctypes.data_as(_IP), perm.ctypes.data_as(_IP))
     return start, count, l_lo, l_hi, perm
+
+
+def build_packed(scene: Scene, max_leaf: int = 4):
+    """Native SAH build -> ``bvh.packed.PackedBVH`` (host numpy): the eight
+    octant-ordered node tables and the primitive rows in leaf order.  Raises
+    where the library cannot be built, as ``build_leaves`` does."""
+    from tpu_pt_torch.bvh.packed import PackedBVH
+
+    lib, handle, n, n_nodes = _build_tree(scene, max_leaf)
+    nodes = np.empty((8, n_nodes, 8), np.float32)
+    perm = np.empty((n,), np.int32)
+    lib.bvh_emit(ctypes.c_void_p(handle), nodes.ctypes.data_as(_FP),
+                 perm.ctypes.data_as(_IP))
+    return PackedBVH.build(nodes=nodes, prims=_prim_rows(scene, perm),
+                           prim_gid=perm, max_leaf=max_leaf)

@@ -1,0 +1,122 @@
+"""Packed BVH: octant-ordered skip-pointer node tables and primitive rows in
+one table, walked by one ray at a time.
+
+The table is (K*N + P, 16) f32: K = 8 node tables of N rows each, one per
+octant of the ray direction (the same tree, children swapped so that the
+child nearer along the direction's signs comes first), then the P
+primitive rows in leaf order.
+  node row: [min.xyz, max.xyz, skip (i32 bits), meta (i32 bits), 0 x 8];
+            meta -1 for an inner node, else ``start | (count << 26)``.
+  prim row: triangle [v0, e1, e2, material bits, 0 (type), pad];
+            sphere   [centre, r, 0 0, 0 0 0, material bits, 1 (type), pad].
+``prim_gid`` maps a row slot to its global primitive id.
+
+It is the exact fallback of the cluster BVH (``bvh/cluster.py::
+attach_fallback``) and a backend of its own (``"packed"`` in
+``render/driver.py``).  The tables come from the native builder
+(``bvh/native.py::build_packed``).  The walk is ``kernels/packed_walk.py``:
+a CUDA kernel on the card, its plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpu_pt_torch.core.intersect import INF, as_col
+from tpu_pt_torch.kernels.packed_walk import (  # noqa: F401 (re-exported)
+    _octant_of, _prim_row_test, packed_walk, packed_walk_ref)
+from tpu_pt_torch.render.brute import Hit
+from tpu_pt_torch.scene.types import Scene
+
+
+class PackedBVH(NamedTuple):
+    """table: (n_tables * n_nodes + P, 16) f32; prim_gid: (P,) i32 (numpy
+    on the host, tensors after ``.to(device)``); max_leaf: rows a leaf may
+    hold (the walk tests at most that many)."""
+
+    table: object
+    prim_gid: object
+    max_leaf: int
+    n_tables: int
+    n_nodes: int
+
+    @staticmethod
+    def build(nodes, prims, prim_gid, max_leaf: int = 4) -> "PackedBVH":
+        """Assemble from host numpy parts: nodes (K, N, 8), prims (P, 16)."""
+        k, n, _ = nodes.shape
+        p = prims.shape[0]
+        table = np.zeros((k * n + p, 16), np.float32)
+        table[: k * n, :8] = nodes.reshape(k * n, 8)
+        table[k * n:] = prims
+        return PackedBVH(table=table, prim_gid=np.asarray(prim_gid, np.int32),
+                         max_leaf=int(max_leaf), n_tables=int(k),
+                         n_nodes=int(n))
+
+    def to(self, device) -> "PackedBVH":
+        """Tensors on ``device`` (no copy where they are there already)."""
+        def dev(x):
+            x = x if torch.is_tensor(x) else torch.from_numpy(
+                np.ascontiguousarray(x))
+            return x.to(device).contiguous()
+
+        return self._replace(table=dev(self.table),
+                             prim_gid=dev(self.prim_gid))
+
+    @property
+    def prim_base(self) -> int:
+        return self.n_tables * self.n_nodes
+
+    @property
+    def n_prims(self) -> int:
+        return self.prim_gid.shape[0]
+
+    def node_rows(self) -> np.ndarray:
+        """(K, N, 8) numpy copy of the node tables (tests, introspection)."""
+        t = self.table[: self.prim_base, :8]
+        t = t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+        return t.reshape(self.n_tables, self.n_nodes, 8)
+
+
+def _traverse(packed: PackedBVH, ro, rd, t_min, t_max, any_hit: bool,
+              use_kernels: bool = True):
+    """The walk for rays ro, rd (R, 3) over [t_min, t_max] ((R, 1) each):
+    the kernel (``packed_walk``, which takes CPU tensors to its plain
+    version) or, with ``use_kernels=False``, the plain version on any
+    device.  Returns (best_t (R, 1), slot (R,) i32, u (R, 1), v (R, 1)), or
+    with ``any_hit`` occ (R, 1)."""
+    walk = packed_walk if use_kernels else packed_walk_ref
+    out = walk(packed.table, packed.prim_gid, ro.contiguous(),
+               rd.contiguous(), t_min[:, 0].contiguous(),
+               t_max[:, 0].contiguous(), packed.n_nodes, packed.n_tables,
+               packed.max_leaf, any_hit=any_hit)
+    if any_hit:
+        return out[:, None]
+    t, slot, u, v = out
+    return t[:, None], slot, u[:, None], v[:, None]
+
+
+def intersect(packed: PackedBVH, scene: Scene, ro, rd, t_min, t_max,
+              use_kernels: bool = True) -> Hit:
+    """Nearest hit of each ray: ``found`` where the walk's best t is below
+    t_max (strict); lowest primitive id at equal t."""
+    R = ro.shape[0]
+    t_min = as_col(t_min, R, ro.device)
+    t_max = as_col(t_max, R, ro.device)
+    best_t, slot, u, v = _traverse(packed, ro, rd, t_min, t_max, False,
+                                   use_kernels)
+    found = best_t < t_max
+    return Hit(hit=found,
+               t=torch.where(found, best_t, torch.full_like(best_t, INF)),
+               prim=packed.prim_gid[slot.long()], u=u, v=v)
+
+
+def occluded(packed: PackedBVH, scene: Scene, ro, rd, t_max,
+             use_kernels: bool = True):
+    """Any-hit test over [0, t_max]: (R, 1) bool."""
+    R = ro.shape[0]
+    t_min = torch.zeros((R, 1), dtype=torch.float32, device=ro.device)
+    return _traverse(packed, ro, rd, t_min, as_col(t_max, R, ro.device),
+                     True, use_kernels)

@@ -1,13 +1,14 @@
-"""Carry scenes, cluster BVHs, dense-sweep scenes and cameras across as plain dicts of numpy
-arrays (plus static ints / tuples) and rebuild the port's containers on a
-given device.  The dict keys are the containers' field names; nothing here
-knows where the arrays came from."""
+"""Carry scenes, cluster BVHs, packed BVHs, dense-sweep scenes and cameras
+across as plain dicts of numpy arrays (plus static ints / tuples) and
+rebuild the port's containers on a given device.  The dict keys are the
+containers' field names; nothing here knows where the arrays came from."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from tpu_pt_torch.bvh.cluster import ClusterBVH, make_cluster_bvh
+from tpu_pt_torch.bvh.packed import PackedBVH
 from tpu_pt_torch.core.camera import Camera
 from tpu_pt_torch.kernels.intersect import PallasScene
 from tpu_pt_torch.scene.types import Lights, Materials, Scene
@@ -59,6 +60,15 @@ def cluster_bvh_from_numpy(d: dict, device="cuda") -> ClusterBVH:
         int(d["pair_budget"]), pair_mults=tuple(d["pair_mults"]),
         levels16=levels16)
     return cb.to(device)
+
+
+def packed_bvh_from_numpy(d: dict, device="cuda") -> PackedBVH:
+    """d: ``table`` ((n_tables * n_nodes + P, 16) f32), ``prim_gid`` ((P,)
+    i32) and the static ``max_leaf``, ``n_tables``, ``n_nodes``."""
+    return PackedBVH(table=_np(d["table"], np.float32),
+                     prim_gid=_np(d["prim_gid"], np.int32),
+                     max_leaf=int(d["max_leaf"]), n_tables=int(d["n_tables"]),
+                     n_nodes=int(d["n_nodes"])).to(device)
 
 
 def camera_from_numpy(d: dict, device="cuda") -> Camera:

@@ -11,6 +11,12 @@ from tpu_pt_torch.core.vecmath import cross, dot
 INF = 1e30
 
 
+def as_col(t, R: int, device):
+    """Scalar or (R, 1)-broadcastable ray bound -> (R, 1) f32 tensor."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=device)
+    return t.expand(R, 1) if t.dim() else t.reshape(1, 1).expand(R, 1)
+
+
 def ray_triangle(ro, rd, v0, e1, e2, t_min, t_max):
     """ro, rd, v0, e1, e2: (..., 3); t_min, t_max: (..., 1).  Returns
     (hit (..., 1) bool, t, u, v) with t = INF where no hit; u, v are the

@@ -1,15 +1,15 @@
 // Device functions shared by the ray/primitive kernels of this library
 // (pair_tile_isect.cu, pair_tile_isect_dedup.cu, pair_ray_reduce.cu,
-// pair_segmin.cu, dense_isect.cu): the Möller–Trumbore / sphere test of one
-// ray against one primitive, the block reduce of the pair-tile kernel, the
-// (t, gid) combine of the per-ray reduces, and the warp-per-pair kernels'
-// tile loads and warp reduce.
+// pair_segmin.cu, dense_isect.cu, packed_walk.cu): the Möller–Trumbore /
+// sphere test of one ray against one primitive, the block reduce of the
+// pair-tile kernel, the (t, gid) combine of the per-ray reduces, and the
+// warp-per-pair kernels' tile loads and warp reduce.
 //
 // The arithmetic follows the plain PyTorch versions
-// (kernels/cluster_isect.py::_mt_group, kernels/intersect.py::_pair_test)
-// operation by operation, and the library is compiled with -fmad=false, so
-// that every operation rounds once, as it does there: kernel and plain
-// version agree bit for bit.
+// (kernels/cluster_isect.py::_mt_group, kernels/intersect.py::_pair_test,
+// kernels/packed_walk.py::_prim_row_test) operation by operation, and the
+// library is compiled with -fmad=false, so that every operation rounds
+// once, as it does there: kernel and plain version agree bit for bit.
 
 #pragma once
 
@@ -121,13 +121,14 @@ __device__ __forceinline__ Prim load_tile_lane(const float* __restrict__ tiles,
   return p;
 }
 
-// Hit distance of the ray on the primitive inside [t_min, t_max], kInf on a
-// miss.  u, v are the triangle branch's barycentrics, for sphere
-// primitives too (0 there: e2 = 0 gives det = 0 and inv_det = 0).  The
-// sphere's quadratic is evaluated only for sphere primitives; its result is
-// selected, never mixed, so skipping it changes no bit.
-__device__ __forceinline__ float prim_test(const Prim& p, const Ray& r,
-                                           float& u, float& v, bool& is_sph) {
+// Whether the ray hits the primitive inside [t_min, t_max], and where (t).
+// u, v are the triangle branch's barycentrics, for sphere primitives too
+// (0 there: e2 = 0 gives det = 0 and inv_det = 0).  The sphere's quadratic
+// is evaluated only for sphere primitives; its result is selected, never
+// mixed, so skipping it changes no bit.
+__device__ __forceinline__ bool prim_hit(const Prim& p, const Ray& r,
+                                         float& t, float& u, float& v,
+                                         bool& is_sph) {
   // pvec = rd x e2
   const float px = r.dy * p.e2z - r.dz * p.e2y;
   const float py = r.dz * p.e2x - r.dx * p.e2z;
@@ -145,10 +146,9 @@ __device__ __forceinline__ float prim_test(const Prim& p, const Ray& r,
   const float t_tri = (p.e2x * qx + p.e2y * qy + p.e2z * qz) * inv_det;
   is_sph = p.typ > 0.5f;
   if (!is_sph) {
-    const bool ok_tri = !par && (u >= 0.0f) && (v >= 0.0f) &&
-                        (u + v <= 1.0f) && (t_tri >= r.t_min) &&
-                        (t_tri <= r.t_max);
-    return ok_tri ? t_tri : kInf;
+    t = t_tri;
+    return !par && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+           (t_tri >= r.t_min) && (t_tri <= r.t_max);
   }
   const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
   const float b = 2.0f * (tvx * r.dx + tvy * r.dy + tvz * r.dz);
@@ -161,7 +161,16 @@ __device__ __forceinline__ float prim_test(const Prim& p, const Ray& r,
   const float s1 = (-b + sq) * inv2a;
   const bool ok0 = has && (s0 >= r.t_min) && (s0 <= r.t_max);
   const bool ok1 = has && (s1 >= r.t_min) && (s1 <= r.t_max);
-  return (ok0 || ok1) ? (ok0 ? s0 : s1) : kInf;
+  t = ok0 ? s0 : s1;
+  return ok0 || ok1;
+}
+
+// Hit distance of the ray on the primitive inside [t_min, t_max], kInf on a
+// miss (prim_hit's t where it hits).
+__device__ __forceinline__ float prim_test(const Prim& p, const Ray& r,
+                                           float& u, float& v, bool& is_sph) {
+  float t;
+  return prim_hit(p, r, t, u, v, is_sph) ? t : kInf;
 }
 
 // Scratch of one block reduce (at most 4 warps).

@@ -112,6 +112,8 @@ def load(verbose_ptxas: bool = False):
         lib.dense_closest_launch.argtypes = [vp] * 6 + [ci, ci, vp]
         lib.dense_anyhit_launch.restype = ci
         lib.dense_anyhit_launch.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.packed_walk_launch.restype = ci
+        lib.packed_walk_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
         _lib = lib
     return _lib
 

@@ -1,0 +1,280 @@
+"""The packed BVH walk: every ray walks its octant's skip-pointer node table
+alone, stackless, and tests the primitive rows of the leaves whose box it
+enters.
+
+Counterpart of ``tpu_pt/bvh/packed.py::_traverse``, which is not a Pallas
+kernel: XLA compiles its ``lax.while_loop`` over the batch, in lockstep,
+into one program.  In eager PyTorch that lockstep loop costs some 270
+launches and one host read per iteration, and a batch runs as long as its
+longest ray (the suspect rays of the exact repair are those with the most
+candidates).  ``packed_walk`` therefore launches a hand-written CUDA kernel
+(``csrc/packed_walk.cu``): one thread per ray, the loop inside the thread,
+no host in the loop.  ``packed_walk_ref`` is the plain version: the
+lockstep loop written out column by column, in the kernel's order of
+operations, so that the two agree bit for bit.  ``packed_walk`` runs it for
+CPU tensors; for CUDA tensors it launches the kernel or raises.
+
+The table (see ``bvh/packed.py::PackedBVH``): ``n_tables`` node tables of
+``n_nodes`` rows each, then the primitive rows, all 16 floats wide.
+  node row: [min.xyz, max.xyz, skip (i32 bits), meta (i32 bits), 0 x 8];
+            meta is -1 for an inner node, else ``start | (count << 26)``.
+  prim row: triangle [v0, e1, e2, material bits, 0 (type), pad];
+            sphere   [centre, r, 0 0, 0 0 0, material bits, 1 (type), pad].
+The walk: a node whose box the ray enters within [t_min, best t] is
+descended into (``cursor + 1``); otherwise, and after a leaf, the walk goes
+to ``skip``.  A leaf tests its first ``min(count, max_leaf)`` rows; a row
+takes over when it hits nearer, or as near with a lower primitive id.  The
+any-hit form stops at the first such row.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_pt_torch.core.intersect import INF
+
+_GID_NONE = 2**31 - 1   # best gid before any hit
+
+
+def _octant_of(rd):
+    """(R,) int64 octant index from the direction's signs (-0 is not < 0)."""
+    return ((rd[:, 0] < 0).long() + 2 * (rd[:, 1] < 0).long()
+            + 4 * (rd[:, 2] < 0).long())
+
+
+def _prim_row_test(row, active, ro, rd, t_min, t_max):
+    """Möller–Trumbore / sphere test of each ray against its packed row.
+
+    row: (R, 16); active: (R, 1) bool; ro, rd: (R, 3); t_min, t_max:
+    (R, 1).  Returns (hit (R, 1), t (INF where not hit), u, v (0 on sphere
+    rows)).  Every sum is written out left to right and every product of a
+    cross product on its own, in ``csrc/pair_isect_common.cuh::prim_hit``'s
+    order: one rounding per operation, as there."""
+    def col(c):
+        return row[:, c:c + 1]
+
+    v0x, v0y, v0z = col(0), col(1), col(2)
+    e1x, e1y, e1z = col(3), col(4), col(5)
+    e2x, e2y, e2z = col(6), col(7), col(8)
+    ox, oy, oz = ro[:, 0:1], ro[:, 1:2], ro[:, 2:3]
+    dx, dy, dz = rd[:, 0:1], rd[:, 1:2], rd[:, 2:3]
+    zero = torch.zeros((), dtype=row.dtype, device=row.device)
+    one = torch.ones((), dtype=row.dtype, device=row.device)
+
+    # pvec = rd x e2
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    par = torch.abs(det) < 1e-12
+    inv_det = torch.where(par, zero, 1.0 / torch.where(par, one, det))
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    u = (tvx * px + tvy * py + tvz * pz) * inv_det
+    # qvec = tvec x e1
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t_tri = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    hit_tri = (~par) & (u >= 0) & (v >= 0) & (u + v <= 1) \
+        & (t_tri >= t_min) & (t_tri <= t_max)
+
+    # Sphere rows: v0 = centre, e1.x = radius.
+    a = dx * dx + dy * dy + dz * dz
+    b = 2.0 * (tvx * dx + tvy * dy + tvz * dz)
+    c = tvx * tvx + tvy * tvy + tvz * tvz - e1x * e1x
+    disc = b * b - 4.0 * a * c
+    has = disc >= 0
+    sq = torch.sqrt(torch.maximum(disc, zero))
+    inv2a = 1.0 / torch.maximum(2.0 * a, torch.full_like(a, 1e-20))
+    s0 = (-b - sq) * inv2a
+    s1 = (-b + sq) * inv2a
+    ok0 = has & (s0 >= t_min) & (s0 <= t_max)
+    ok1 = has & (s1 >= t_min) & (s1 <= t_max)
+
+    is_sph = col(10) > 0.5
+    hit = active & torch.where(is_sph, ok0 | ok1, hit_tri)
+    t = torch.where(is_sph, torch.where(ok0, s0, s1), t_tri)
+    return (hit, torch.where(hit, t, torch.full_like(t, INF)),
+            torch.where(is_sph, zero, u), torch.where(is_sph, zero, v))
+
+
+def _check(table, prim_gid, ro, rd, t_min, t_max, n_nodes, n_tables,
+           max_leaf):
+    if table.dim() != 2 or table.shape[1] != 16:
+        raise ValueError(f"table: expected (K*N + P, 16), got "
+                         f"{tuple(table.shape)}")
+    if prim_gid.dim() != 1 or prim_gid.shape[0] < 1:
+        raise ValueError(f"prim_gid: expected (P,) with P >= 1, got "
+                         f"{tuple(prim_gid.shape)}")
+    if n_nodes < 1 or n_tables < 1 or max_leaf < 1 \
+            or table.shape[0] != n_tables * n_nodes + prim_gid.shape[0]:
+        raise ValueError(
+            f"table of {table.shape[0]} rows does not hold {n_tables} node "
+            f"tables of {n_nodes} rows and {prim_gid.shape[0]} primitive rows "
+            f"(max_leaf {max_leaf})")
+    R = ro.shape[0]
+    for name, x, shape in (("ro", ro, (R, 3)), ("rd", rd, (R, 3)),
+                           ("t_min", t_min, (R,)), ("t_max", t_max, (R,))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(x.shape)}")
+    for name, x, dt in (("table", table, torch.float32),
+                        ("prim_gid", prim_gid, torch.int32),
+                        ("ro", ro, torch.float32), ("rd", rd, torch.float32),
+                        ("t_min", t_min, torch.float32),
+                        ("t_max", t_max, torch.float32)):
+        if x.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {x.dtype}")
+        if x.device != table.device:
+            raise ValueError("packed_walk: tensors on different devices")
+
+
+def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
+                    n_tables: int, max_leaf: int, any_hit: bool = False,
+                    stats: dict | None = None):
+    """Plain PyTorch version of :func:`packed_walk`: the lockstep walk of
+    ``tpu_pt/bvh/packed.py::_traverse``, one iteration per node step of
+    every ray still walking, until none is.
+
+    stats: when a dict is passed, it receives ``iterations`` (lockstep
+    iterations run), ``steps`` ((R,) node rows each ray fetched) and
+    ``rows_tri`` / ``rows_sph`` (triangle / sphere rows tested, counted as
+    the kernel tests them: the any-hit form stops at its first hit)."""
+    _check(table, prim_gid, ro, rd, t_min, t_max, n_nodes, n_tables,
+           max_leaf)
+    R = ro.shape[0]
+    dev = table.device
+    n = int(n_nodes)
+    n_prims = prim_gid.shape[0]
+    prim_base = n_tables * n
+    t_min = t_min[:, None]
+    rd_inv = 1.0 / rd
+    base = (_octant_of(rd) % n_tables) * n
+    ox, oy, oz = ro[:, 0:1], ro[:, 1:2], ro[:, 2:3]
+    ix, iy, iz = rd_inv[:, 0:1], rd_inv[:, 1:2], rd_inv[:, 2:3]
+    ninf = torch.full((), -float("inf"), device=dev)
+    pinf = torch.full((), float("inf"), device=dev)
+
+    cursor = torch.zeros((R,), dtype=torch.int64, device=dev)
+    best_t = t_max[:, None].clone()
+    best_gid = torch.full((R,), _GID_NONE, dtype=torch.int32, device=dev)
+    best_slot = torch.zeros((R,), dtype=torch.int32, device=dev)
+    best_u = torch.zeros((R, 1), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((R, 1), dtype=torch.float32, device=dev)
+    occ = torch.zeros((R, 1), dtype=torch.bool, device=dev)
+    steps = torch.zeros((R,), dtype=torch.int64, device=dev)
+    rows_tri = rows_sph = 0
+    iterations = 0
+    while bool(torch.any(cursor < n)):
+        iterations += 1
+        active = (cursor < n) & ~occ[:, 0]
+        steps += active
+        node = table[base + torch.where(active, cursor, 0)]
+        skip = node[:, 6].contiguous().view(torch.int32).long()
+        meta = node[:, 7].contiguous().view(torch.int32)
+
+        def axis(lo, hi):
+            near = torch.minimum(lo, hi)
+            far = torch.maximum(lo, hi)
+            return (torch.where(torch.isnan(near), ninf, near),
+                    torch.where(torch.isnan(far), pinf, far))
+
+        nx, fx = axis((node[:, 0:1] - ox) * ix, (node[:, 3:4] - ox) * ix)
+        ny, fy = axis((node[:, 1:2] - oy) * iy, (node[:, 4:5] - oy) * iy)
+        nz, fz = axis((node[:, 2:3] - oz) * iz, (node[:, 5:6] - oz) * iz)
+        t_near = torch.maximum(
+            torch.maximum(torch.maximum(nx, ny), nz), t_min)
+        t_far = torch.minimum(
+            torch.minimum(torch.minimum(fx, fy), fz), best_t)
+        hit_bb = (t_near <= t_far)[:, 0] & active
+
+        is_leaf = meta >= 0
+        start = (meta & ((1 << 26) - 1)).long()
+        cnt = (meta >> 26) & 63                      # logical shift
+        test_leaf = hit_bb & is_leaf
+        for k in range(max_leaf):
+            in_rng = test_leaf & (k < cnt)
+            slot = torch.clamp(start + k, 0, n_prims - 1)
+            row = table[prim_base + slot]
+            if stats is not None:
+                tested = in_rng & ~occ[:, 0] if any_hit else in_rng
+                sph = row[:, 10] > 0.5
+                rows_sph += int(torch.sum(tested & sph))
+                rows_tri += int(torch.sum(tested & ~sph))
+            h, t, u, v = _prim_row_test(row, in_rng[:, None], ro, rd, t_min,
+                                        best_t)
+            gid = prim_gid[slot]
+            closer = h & ((t < best_t)
+                          | ((t == best_t) & (gid < best_gid)[:, None]))
+            c = closer[:, 0]
+            best_slot = torch.where(c, slot.to(torch.int32), best_slot)
+            best_gid = torch.where(c, gid, best_gid)
+            best_u = torch.where(closer, u, best_u)
+            best_v = torch.where(closer, v, best_v)
+            best_t = torch.where(closer, t, best_t)
+            if any_hit:
+                occ = occ | closer
+
+        descend = hit_bb & ~is_leaf
+        nxt = torch.where(descend, cursor + 1, skip)
+        cursor = torch.where(active, nxt, torch.full_like(nxt, n))
+    if stats is not None:
+        stats.update(iterations=iterations, steps=steps, rows_tri=rows_tri,
+                     rows_sph=rows_sph)
+    if any_hit:
+        return occ[:, 0]
+    return best_t[:, 0], best_slot, best_u[:, 0], best_v[:, 0]
+
+
+def packed_walk(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
+                n_tables: int, max_leaf: int, any_hit: bool = False):
+    """table: (n_tables * n_nodes + P, 16) f32; prim_gid: (P,) i32; ro, rd:
+    (R, 3) f32; t_min, t_max: (R,) f32.  A ray whose ``t_max < t_min``
+    leaves at the root.
+
+    Returns (t (R,) f32, slot (R,) i32, u, v): ``t`` is the nearest hit's
+    distance, ``t_max`` where nothing hit nearer than that (the caller
+    decides ``found = t < t_max``), with the winner's row slot (an index
+    into ``prim_gid``, 0 where nothing hit) and barycentrics (0 on spheres);
+    lowest primitive id at equal t.  With ``any_hit`` returns (R,) bool: a
+    row hit within [t_min, t_max].
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
+    version."""
+    if not table.is_cuda:
+        return packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes,
+                               n_tables, max_leaf, any_hit)
+    from tpu_pt_torch.kernels import _build
+
+    _check(table, prim_gid, ro, rd, t_min, t_max, n_nodes, n_tables,
+           max_leaf)
+    for name, x in (("table", table), ("prim_gid", prim_gid), ("ro", ro),
+                    ("rd", rd), ("t_min", t_min), ("t_max", t_max)):
+        _build.check_cuda_input(name, x, x.dtype)
+    if table.data_ptr() % 16:
+        raise ValueError("packed_walk: table must be 16-byte aligned")
+    R = ro.shape[0]
+    dev = table.device
+    if any_hit:
+        occ = torch.empty((R,), dtype=torch.bool, device=dev)
+        outs = (0, 0, 0, 0, occ.data_ptr())
+    else:
+        out_t = torch.empty((R,), dtype=torch.float32, device=dev)
+        out_s = torch.empty((R,), dtype=torch.int32, device=dev)
+        out_u = torch.empty_like(out_t)
+        out_v = torch.empty_like(out_t)
+        outs = (out_t.data_ptr(), out_s.data_ptr(), out_u.data_ptr(),
+                out_v.data_ptr(), 0)
+    if R > 0:
+        err = _build.load().packed_walk_launch(
+            table.data_ptr(), prim_gid.data_ptr(), ro.data_ptr(),
+            rd.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), *outs, R,
+            int(n_nodes), int(n_tables), prim_gid.shape[0], int(max_leaf),
+            int(bool(any_hit)), torch.cuda.current_stream(dev).cuda_stream)
+        packed_walk.launches += 1
+        if err != 0:
+            raise RuntimeError(f"packed_walk: CUDA launch error {err}")
+    return occ if any_hit else (out_t, out_s, out_u, out_v)
+
+
+packed_walk.launches = 0   # kernel launches made by this process

@@ -20,14 +20,15 @@ from tpu_pt_torch.render import brute
 from tpu_pt_torch.render.integrator import render_chunk
 from tpu_pt_torch.scene.types import Scene
 
-BACKENDS = ("brute", "pallas", "cluster")
+BACKENDS = ("brute", "pallas", "cluster", "packed")
 
 
 def _intersectors(backend: str, bvh=None, use_kernels: bool = True):
     """(intersect, occluded) closures of a backend: ``"brute"`` (the dense
     oracle, no structure), ``"pallas"`` (the dense-sweep kernels over a
-    ``PallasScene``; the name is the JAX package's) or ``"cluster"`` (a
-    ``ClusterBVH``).  ``use_kernels=False`` runs the plain PyTorch versions
+    ``PallasScene``; the name is the JAX package's), ``"cluster"`` (a
+    ``ClusterBVH``) or ``"packed"`` (the per-ray walk over a
+    ``PackedBVH``).  ``use_kernels=False`` runs the plain PyTorch versions
     of the backend's kernels."""
     if backend == "brute":
         return brute.intersect, brute.occluded
@@ -49,6 +50,17 @@ def _intersectors(backend: str, bvh=None, use_kernels: bool = True):
             functools.partial(cluster_mod.intersect, bvh,
                               use_kernels=use_kernels),
             functools.partial(cluster_mod.occluded, bvh,
+                              use_kernels=use_kernels),
+        )
+    if backend == "packed":
+        from tpu_pt_torch.bvh import packed as packed_mod
+
+        if bvh is None:
+            raise ValueError("backend='packed' requires a PackedBVH")
+        return (
+            functools.partial(packed_mod.intersect, bvh,
+                              use_kernels=use_kernels),
+            functools.partial(packed_mod.occluded, bvh,
                               use_kernels=use_kernels),
         )
     raise ValueError(f"unknown backend {backend!r}: this package has "
@@ -87,6 +99,51 @@ def _intersectors_counted(backend: str, bvh=None, use_kernels: bool = True,
         return occl(scene, ro, rd, t_max), zero
 
     return isect_c, occl_c
+
+
+def _intersectors_suspect(backend: str, bvh=None, use_kernels: bool = True,
+                          pair_stage: str = "fused"):
+    """Like ``_intersectors_counted``, but each call also returns the
+    per-ray SUSPECT mask ((R,) bool: this ray's candidates were cut by a
+    static budget, so its result may have lost a hit).  Backends that are
+    exact by construction return all False."""
+    if backend == "cluster":
+        from tpu_pt_torch.bvh import cluster as cluster_mod
+
+        if bvh is None:
+            raise ValueError("backend='cluster' requires a ClusterBVH")
+        cluster_mod._check_pair_stage(pair_stage)
+
+        def isect_s(scene, ro, rd, t_min, t_max):
+            sus = []
+            hit, novf = cluster_mod.intersect_counted(
+                bvh, scene, ro, rd, t_min, t_max, use_kernels=use_kernels,
+                pair_stage=pair_stage, suspect_out=sus)
+            return hit, novf, sus[0]
+
+        def occl_s(scene, ro, rd, t_max, narrow=False):
+            sus = []
+            occ, novf = cluster_mod.occluded_counted(
+                bvh, scene, ro, rd, t_max, narrow=narrow,
+                use_kernels=use_kernels, pair_stage=pair_stage,
+                suspect_out=sus)
+            return occ, novf, sus[0]
+
+        return isect_s, occl_s
+    isect_c, occl_c = _intersectors_counted(backend, bvh, use_kernels,
+                                            pair_stage)
+
+    def isect_s(scene, ro, rd, t_min, t_max):
+        hit, novf = isect_c(scene, ro, rd, t_min, t_max)
+        return hit, novf, torch.zeros((ro.shape[0],), dtype=torch.bool,
+                                      device=ro.device)
+
+    def occl_s(scene, ro, rd, t_max, narrow=False):
+        occ, novf = occl_c(scene, ro, rd, t_max, narrow=narrow)
+        return occ, novf, torch.zeros((ro.shape[0],), dtype=torch.bool,
+                                      device=ro.device)
+
+    return isect_s, occl_s
 
 
 def _on_device(device, scene, cam, bvh):

@@ -10,8 +10,17 @@ Randomness is counter-based per (sample id, depth, purpose)
 
 The loop is a Python loop that exits as soon as the sample budget is spent
 and every lane is dead; its condition is one host read per step.  The
-queue state is updated out of place except for the radiance accumulator,
-which is added to in place.  Everything runs under ``torch.no_grad()``.
+queue state is updated out of place except for the radiance accumulator
+and the per-pixel suspect flags, which are updated in place.  Everything
+runs under ``torch.no_grad()``.
+
+Suspect-pixel repair: a render with ``with_suspects`` flags every pixel one
+of whose path segments had its traversal candidates cut by a static budget
+(``render_wavefront_suspect_counts``); ``repair_suspect_pixels`` renders
+only those pixels again on a cluster BVH with the exact fallback attached
+and splices them in.  A pixel subset renders through a ``pix_ids``
+indirection with every random draw keyed by the GLOBAL sample id, so a
+repaired pixel is the value it has in a full render.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ from tpu_pt_torch.core.sampling import draws_lane
 from tpu_pt_torch.core.vecmath import dot, make_coord_space, to_local, to_world
 from tpu_pt_torch.render import bsdf as bsdf_mod
 from tpu_pt_torch.render import lights as lights_mod
-from tpu_pt_torch.render.driver import _intersectors_counted, _on_device
+from tpu_pt_torch.render.driver import (
+    _intersectors_counted, _intersectors_suspect, _on_device)
 from tpu_pt_torch.render.envmap import eval_env
 from tpu_pt_torch.render.integrator import (
     _BSDF, _LIGHT0, _RR, _STRIDE, DRAW_JITTER, shade_info)
@@ -51,15 +61,21 @@ class QueueState(NamedTuple):
     next_sample: torch.Tensor  # () int64 — next unspawned sample id
     accum: torch.Tensor       # (P + Q, 3) radiance sums; the Q spare rows
     #                           take the (zero) adds of dead lanes
+    suspect: torch.Tensor     # (P,) i32 per-pixel suspect flags when
+    #                           tracked; (1,) unused otherwise
 
 
 def _respawn(cam, cfg: RenderConfig, key, st: QueueState, pix_lo, n_pix_local,
-             spp_lo, spp_count, pix_stride: int = 1) -> QueueState:
+             spp_lo, spp_count, pix_stride: int = 1,
+             pix_ids=None) -> QueueState:
     """Fill dead lanes with fresh camera samples from the remaining budget.
 
     The sample stream covers pixels {pix_lo + j*pix_stride : j <
     n_pix_local} × samples [spp_lo, spp_lo + spp_count); ray ids — and
-    therefore random numbers — are global either way."""
+    therefore random numbers — are global either way.  With ``pix_ids``
+    ((n_pix_local,) int64, the global pixel of each accumulator row) the
+    stream covers those pixels instead: ``ray_id`` then holds the LOCAL
+    sample id and every draw uses the global one (``_global_ray_id``)."""
     total = n_pix_local * spp_count
     dead = ~st.alive[:, 0]
     dead_i = dead.to(torch.int64)
@@ -69,11 +85,21 @@ def _respawn(cam, cfg: RenderConfig, key, st: QueueState, pix_lo, n_pix_local,
     n_spawned = torch.sum(spawn)
 
     pixel_local = torch.div(cand, spp_count, rounding_mode="floor")
-    pixel = pix_lo + torch.where(spawn, pixel_local,
-                                 torch.zeros_like(pixel_local)) * pix_stride
-    new_id = torch.where(
-        spawn, pixel * cfg.spp + spp_lo + cand % spp_count, st.ray_id)
-    jitter = draws_lane(key, new_id, torch.zeros_like(new_id) + DRAW_JITTER, 2)
+    sample = spp_lo + cand % spp_count
+    if pix_ids is not None:
+        pixel = pix_ids[torch.where(spawn, pixel_local,
+                                    torch.zeros_like(pixel_local)).clamp(
+            0, pix_ids.shape[0] - 1)]
+        new_id = torch.where(spawn, pixel_local * cfg.spp + sample,
+                             st.ray_id)
+        gid = torch.where(spawn, pixel * cfg.spp + sample,
+                          _global_ray_id(st.ray_id, cfg, pix_ids))
+    else:
+        pixel = pix_lo + torch.where(spawn, pixel_local,
+                                     torch.zeros_like(pixel_local)) * pix_stride
+        new_id = torch.where(spawn, pixel * cfg.spp + sample, st.ray_id)
+        gid = new_id
+    jitter = draws_lane(key, gid, torch.zeros_like(gid) + DRAW_JITTER, 2)
     xy = pixel_xy(cfg.width, cfg.height, pixel, jitter)
     ro_new, rd_new = generate_rays(cam, xy)
 
@@ -90,20 +116,42 @@ def _respawn(cam, cfg: RenderConfig, key, st: QueueState, pix_lo, n_pix_local,
     )
 
 
+def _global_ray_id(ray_id, cfg: RenderConfig, pix_ids):
+    """Local sample id -> global sample id under a ``pix_ids`` indirection
+    (identity when ``pix_ids`` is None); idle lanes (-1) stay -1."""
+    if pix_ids is None:
+        return ray_id
+    rid = torch.clamp_min(ray_id, 0)
+    row = torch.div(rid, cfg.spp, rounding_mode="floor").clamp(
+        0, pix_ids.shape[0] - 1)
+    g = pix_ids[row] * cfg.spp + rid % cfg.spp
+    return torch.where(ray_id < 0, ray_id, g)
+
+
 def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
           st: QueueState, pix_lo, n_pix_local, spp_lo, spp_count,
-          pix_stride: int = 1, shadow_narrow: bool = False):
+          pix_stride: int = 1, shadow_narrow: bool = False,
+          track_suspects: bool = False, pix_ids=None):
     """One wavefront iteration: respawn → intersect → shade/NEE → scatter.
-    Returns (state, (n_closest, n_shadow, n_overflow))."""
+    Returns (state, (n_closest, n_shadow, n_overflow)).  With
+    ``track_suspects`` the intersectors are ``_intersectors_suspect``'s and
+    the step raises the flag of every pixel whose live segment was suspect
+    in any of the step's traversals."""
     st = _respawn(cam, cfg, key, st, pix_lo, n_pix_local, spp_lo, spp_count,
-                  pix_stride)
+                  pix_stride, pix_ids)
     Q = st.ro.shape[0]
-    (contrib, pixel, cont, ro_n, rd_n, beta_n, inc_n,
+    (contrib, pixel, cont, ro_n, rd_n, beta_n, inc_n, sus_lane,
      nc, ns_, novf) = _step_slice(
         scene, cam, cfg, key, intersect_fn, occluded_fn,
         (st.ro, st.rd, st.beta, st.ray_id, st.depth, st.include_le,
-         st.alive), pix_lo, n_pix_local, spp_lo, pix_stride, shadow_narrow)
+         st.alive), pix_lo, n_pix_local, spp_lo, pix_stride, shadow_narrow,
+        track_suspects, pix_ids)
 
+    if track_suspects:
+        # A max, so the order of the lanes does not matter; dead lanes
+        # carry 0 and change nothing wherever they land.
+        st.suspect.scatter_reduce_(0, pixel.clamp(0, n_pix_local - 1),
+                                   sus_lane, "amax")
     contrib = torch.where(st.alive, contrib, torch.zeros_like(contrib))
     if cfg.spp == 1:
         # spp=1: in-flight ray ids are unique and ray_id == pixel, so live
@@ -129,13 +177,14 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
 
 def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
                 occluded_fn, lanes, pix_lo, n_pix_local, spp_lo, pix_stride,
-                shadow_narrow):
+                shadow_narrow, track_suspects=False, pix_ids=None):
     """Post-respawn step body.  Returns per-lane (contrib, pixel, cont,
-    ro_next, rd_next, beta_next, include_le_next, n_closest, n_shadow,
-    n_ovf)."""
+    ro_next, rd_next, beta_next, include_le_next, suspect (i32, or None
+    when not tracked), n_closest, n_shadow, n_ovf)."""
     ro0, rd0, beta0, ray_id, depth, include_le, alive0 = lanes
     Q = ro0.shape[0]
     dev = ro0.device
+    rid_g = _global_ray_id(ray_id, cfg, pix_ids)   # keys every draw
     n_closest = torch.sum(alive0[:, 0])  # rays traced now
     base = 1 + depth * _STRIDE  # (Q,) per-lane draw base
 
@@ -144,15 +193,22 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     # AND the cluster walk spawns no candidate pairs for them (budget +
     # work proportional to LIVE lanes only).
     t_max = torch.where(alive0, 1e30, -1.0).to(torch.float32)
-    hit, n_ovf = intersect_fn(scene, ro0, rd0, t_min, t_max)
+    sus_lane = None
+    if track_suspects:
+        hit, n_ovf, sus_c = intersect_fn(scene, ro0, rd0, t_min, t_max)
+        # Dead lanes are never suspect (t_max < 0 spawns no candidates).
+        sus_lane = (sus_c & alive0[:, 0]).to(torch.int32)
+    else:
+        hit, n_ovf = intersect_fn(scene, ro0, rd0, t_min, t_max)
     si = shade_info(scene, ro0, rd0, hit)
     wo_world = -rd0
     tb, bb = make_coord_space(si.ns)
     wo = to_local(wo_world, tb, bb, si.ns)
-    # Local accum index.
-    pixel = torch.div(
-        torch.div(torch.clamp_min(ray_id, 0), cfg.spp, rounding_mode="floor")
-        - pix_lo, pix_stride, rounding_mode="floor")
+    # Local accum index (ray_id is LOCAL under pix_ids).
+    pixel = torch.div(torch.clamp_min(ray_id, 0), cfg.spp,
+                      rounding_mode="floor")
+    if pix_ids is None:
+        pixel = torch.div(pixel - pix_lo, pix_stride, rounding_mode="floor")
 
     zero3 = torch.zeros((Q, 3), dtype=torch.float32, device=dev)
     # Miss → environment radiance.
@@ -173,7 +229,7 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     ns = cfg.ns_area_light
     for li in range(scene.lights.count):
         for s in range(ns):
-            u = draws_lane(key, ray_id, base + _LIGHT0 + li * ns + s, 2)
+            u = draws_lane(key, rid_g, base + _LIGHT0 + li * ns + s, 2)
             ls = lights_mod.sample_light(
                 scene.lights, li, si.p, u, env_map=scene.env_map,
                 env_tables=(scene.env_marg_cdf, scene.env_cond_cdf))
@@ -189,22 +245,28 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
             # Masked lanes get a negative range: trivial miss, no pair work.
             sh_tmax = torch.where(mask, ls.dist * (1.0 - 1e-3),
                                   torch.full_like(ls.dist, -1.0))
-            occ, ovf_s = occluded_fn(scene, shadow_o, ls.wi, sh_tmax,
-                                     narrow=shadow_narrow)
+            if track_suspects:
+                occ, ovf_s, sus_s = occluded_fn(scene, shadow_o, ls.wi,
+                                                sh_tmax, narrow=shadow_narrow)
+                sus_lane = torch.maximum(
+                    sus_lane, (sus_s & mask[:, 0]).to(torch.int32))
+            else:
+                occ, ovf_s = occluded_fn(scene, shadow_o, ls.wi, sh_tmax,
+                                         narrow=shadow_narrow)
             n_ovf = n_ovf + ovf_s
             w = f * ls.radiance * cos_s / (ls.pdf * ns)
             contrib = contrib + torch.where(mask & ~occ, beta0 * w, zero3)
 
     # ---- Scatter to next bounce. ----
     max_depth = 0 if cfg.direct_only else cfg.max_depth
-    u3 = draws_lane(key, ray_id, base + _BSDF, 3)
+    u3 = draws_lane(key, rid_g, base + _BSDF, 3)
     bs = bsdf_mod.sample(si.mat, wo, u3)
     wi_world = to_world(bs.wi, tb, bb, si.ns)
     cont = alive & bs.valid & (depth < max_depth)[:, None]
     beta = beta0 * torch.where(cont, bs.weight, torch.ones_like(bs.weight))
     # Russian roulette on the segment about to be traced.
     do_rr = (depth + 1 >= cfg.rr_start)[:, None]
-    u_rr = draws_lane(key, ray_id, base + _RR, 1)
+    u_rr = draws_lane(key, rid_g, base + _RR, 1)
     rr_kill = do_rr & (u_rr >= cfg.rr_prob)
     beta = torch.where(cont & do_rr, beta / cfg.rr_prob, beta)
     cont = cont & ~rr_kill
@@ -212,11 +274,12 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     ro_next = si.p + si.ng * torch.where(dot(wi_world, si.ng) > 0.0, cfg.eps,
                                          -cfg.eps)
     return (contrib, pixel, cont, ro_next, wi_world, beta, bs.delta,
-            n_closest, n_shadow, n_ovf)
+            sus_lane, n_closest, n_shadow, n_ovf)
 
 
-def init_queue(Q: int, n_pix_local: int, device) -> QueueState:
-    """Fresh all-dead queue + zero accumulator."""
+def init_queue(Q: int, n_pix_local: int, device,
+               track_suspects: bool = False) -> QueueState:
+    """Fresh all-dead queue + zero accumulator (and zero suspect flags)."""
     f32 = dict(dtype=torch.float32, device=device)
     rd = torch.zeros((Q, 3), **f32)
     rd[:, 2] = 1.0
@@ -230,6 +293,8 @@ def init_queue(Q: int, n_pix_local: int, device) -> QueueState:
         alive=torch.zeros((Q, 1), dtype=torch.bool, device=device),
         next_sample=torch.zeros((), dtype=torch.int64, device=device),
         accum=torch.zeros((n_pix_local + Q, 3), **f32),
+        suspect=torch.zeros((n_pix_local if track_suspects else 1,),
+                            dtype=torch.int32, device=device),
     )
 
 
@@ -250,22 +315,29 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                     queue: int, backend: str, pix_lo: int, n_pix_local: int,
                     spp_lo: int = 0, spp_count: int = 0,
                     with_counts: bool = False, pix_stride: int = 1,
-                    use_kernels: bool = True, pair_stage: str = "fused"):
+                    use_kernels: bool = True, pair_stage: str = "fused",
+                    with_suspects: bool = False, pix_ids=None):
     """Render pixels {pix_lo + j*pix_stride : j < n_pix_local} × samples
     [spp_lo, spp_lo+spp_count) -> (n_pix_local, 3) radiance sums (divide by
     cfg.spp for the full-spp mean).  ``scene``, ``cam`` and ``bvh`` hold
     tensors on one device; ``key`` is two ints.  ``pair_stage`` selects the
     form of the cluster backend's pair stage: ``"fused"``, ``"split"`` or
-    ``"dedup"`` (see ``bvh/cluster.py::intersect_counted``).
+    ``"dedup"`` (see ``bvh/cluster.py::intersect_counted``).  ``pix_ids``
+    ((n_pix_local,) global pixel ids, in place of ``pix_lo`` and
+    ``pix_stride``) renders that pixel subset, each pixel as in a full
+    render.
 
     Forward-only early-exit loop.  With ``with_counts`` also returns
-    (n_closest, n_shadow, n_overflow, steps_run) as device scalars / int."""
+    (n_closest, n_shadow, n_overflow, steps_run) as device scalars / int;
+    with ``with_suspects`` the (n_pix_local,) i32 suspect flags come last."""
     spp_count = spp_count or cfg.spp
-    intersect_fn, occluded_fn = _intersectors_counted(backend, bvh,
-                                                      use_kernels, pair_stage)
+    pick = _intersectors_suspect if with_suspects else _intersectors_counted
+    intersect_fn, occluded_fn = pick(backend, bvh, use_kernels, pair_stage)
     device = scene.vertices.device
+    if pix_ids is not None:
+        pix_ids = torch.as_tensor(pix_ids, dtype=torch.int64, device=device)
     Q = min(queue, n_pix_local * spp_count)
-    st = init_queue(Q, n_pix_local, device)
+    st = init_queue(Q, n_pix_local, device, track_suspects=with_suspects)
     steps = n_steps(cfg, Q, n_pix_local, spp_count)
     total = n_pix_local * spp_count
 
@@ -286,11 +358,15 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
             n_pix_local, spp_lo, spp_count, pix_stride=pix_stride,
             # direct-only renders: EVERY wave is a fresh fully-occupied
             # primary wave, so the steady-state budget never applies.
-            shadow_narrow=n_iter >= prefix and not cfg.direct_only)
+            shadow_narrow=n_iter >= prefix and not cfg.direct_only,
+            track_suspects=with_suspects, pix_ids=pix_ids)
         nc, ns, novf = nc + c, ns + s, novf + o
         n_iter += 1
     accum = st.accum[:n_pix_local]
-    return (accum, (nc, ns, novf, n_iter)) if with_counts else accum
+    ret = (accum, (nc, ns, novf, n_iter)) if with_counts else (accum,)
+    if with_suspects:
+        ret = (*ret, st.suspect)
+    return ret if len(ret) > 1 else ret[0]
 
 
 def render_wavefront(scene: Scene, cam, cfg: RenderConfig, key, bvh,
@@ -324,3 +400,54 @@ def render_wavefront_counts(scene: Scene, cam, cfg: RenderConfig, key, bvh,
         with_counts=True, use_kernels=use_kernels, pair_stage=pair_stage)
     img = (accum / cfg.spp).reshape(cfg.height, cfg.width, 3)
     return img, int(nc), int(ns), int(novf), n_iter
+
+
+def render_wavefront_suspect_counts(scene: Scene, cam, cfg: RenderConfig, key,
+                                    bvh, queue: int = 1 << 17,
+                                    backend: str = "cluster", device="cuda",
+                                    use_kernels: bool = True,
+                                    pair_stage: str = "fused"):
+    """``render_wavefront_counts`` + a per-pixel SUSPECT flag: pixel p is
+    flagged iff a traversal of one of its path segments had that segment's
+    candidates cut by a static budget, i.e. exactly the pixels a render on
+    the exact fallback could change.  Returns (image, n_closest, n_shadow,
+    n_overflow, n_steps_run, suspect (n_pixels,) i32 tensor on the device);
+    the input of :func:`repair_suspect_pixels`."""
+    device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
+    accum, (nc, ns, novf, n_iter), sus = wavefront_accum(
+        scene, cam, cfg, key, bvh, queue, backend, 0, cfg.n_pixels,
+        with_counts=True, use_kernels=use_kernels, pair_stage=pair_stage,
+        with_suspects=True)
+    img = (accum / cfg.spp).reshape(cfg.height, cfg.width, 3)
+    return img, int(nc), int(ns), int(novf), n_iter, sus
+
+
+def repair_suspect_pixels(scene: Scene, cam, cfg: RenderConfig, key,
+                          bvh_exact, img, suspect_flags, queue: int = 1 << 17,
+                          backend: str = "cluster", device="cuda",
+                          use_kernels: bool = True,
+                          pair_stage: str = "fused"):
+    """Render ONLY the suspect pixels again on ``bvh_exact`` (a cluster BVH
+    with the fallback attached) and splice them into ``img`` (H, W, 3).
+    Returns (repaired image on ``device``, overflow count of the subset
+    render).
+
+    The cost follows the suspect count, not the image size.  The subset is
+    padded to the next power of two, at least 16, by repeating the first
+    suspect pixel; the repeats fill accumulator rows of their own and are
+    dropped at the splice."""
+    device, scene, cam, bvh_exact = _on_device(device, scene, cam, bvh_exact)
+    sus = torch.nonzero(torch.as_tensor(suspect_flags).reshape(-1).to(
+        device)).reshape(-1)
+    out = torch.as_tensor(img, device=device).reshape(-1, 3).clone()
+    if sus.numel() == 0:
+        return out.reshape(cfg.height, cfg.width, 3), 0
+    n = 1 << max(4, (sus.numel() - 1).bit_length())
+    ids = torch.full((n,), int(sus[0]), dtype=torch.int64, device=device)
+    ids[: sus.numel()] = sus
+    accum, (_, _, novf, _) = wavefront_accum(
+        scene, cam, cfg, key, bvh_exact, min(queue, n * cfg.spp), backend, 0,
+        n, with_counts=True, use_kernels=use_kernels, pair_stage=pair_stage,
+        pix_ids=ids)
+    out[sus] = (accum / cfg.spp)[: sus.numel()]
+    return out.reshape(cfg.height, cfg.width, 3), int(novf)
