@@ -12,11 +12,13 @@
                                       # render through the fused and the
                                       # split pair stage, ten times each in
                                       # turns (run_s medians and ratio)
+    python3 chip_smoke.py --determinism  # instead of the phases: only the
+                                         # spp 4 render twice, held bitwise
 
 Builds the native SAH builder and the CUDA kernel library from the sources
 in this checkout, holds every kernel against its plain PyTorch version on
 the card, checks the cluster traversal (every form of its pair stage)
-against the brute-force oracle, and drives five paths at full width:
+against the brute-force oracle, and drives these paths at full width:
 
 - ``render_main``: the 1.3M-triangle scene through the wavefront renderer
   and the cluster BVH (1024x1024, spp 1, depth 4, queue 4096) with the
@@ -40,7 +42,18 @@ against the brute-force oracle, and drives five paths at full width:
   walk alone), and ``render_fallback`` renders the headline once more with
   the fallback attached: the walk kernel (``packed_walk``) is launched on
   every traversal sub-batch, and the image must equal ``render_main``'s bit
-  for bit.
+  for bit;
+- ``determinism``: the same scene at 128², spp 4, rendered twice; the two
+  images must be the same bits (several samples of a pixel are in flight in
+  one step, and the accumulate adds them in one fixed order);
+- the differentiable path: ``render_grad`` takes gradients of an L2 image
+  loss through the differentiable wavefront loop at the JAX package's grad
+  cell (256², target zeros), times forward and backward apart, and holds
+  that no kernel is launched in backward, that an albedo gradient matches
+  a central difference, that the same step with the exact fallback
+  attached renders ``render_exact``'s fallback image, and, on two small
+  scenes, that kernels and plain versions give the same loss and gradients
+  bit for bit.
 
 It prints one JSON object per phase.  Any failed phase raises and the
 process exits non-zero.  Without a CUDA device it exits with code 2 before
@@ -77,6 +90,7 @@ if not torch.cuda.is_available():
 
 from tpu_pt_torch.bvh import cluster, native  # noqa: E402
 from tpu_pt_torch.config import RenderConfig  # noqa: E402
+from tpu_pt_torch.core.camera import Camera, generate_rays, pixel_xy  # noqa: E402
 from tpu_pt_torch.core.intersect import INF  # noqa: E402
 from tpu_pt_torch.kernels import _build  # noqa: E402
 from tpu_pt_torch.kernels.cluster_isect import (  # noqa: E402
@@ -95,7 +109,7 @@ from tpu_pt_torch.render.driver import (  # noqa: E402
     _intersectors, _intersectors_counted, render)
 from tpu_pt_torch.scene import cornell, meshes  # noqa: E402
 from tpu_pt_torch.scene.types import (  # noqa: E402
-    make_lights, make_materials, make_scene)
+    LIGHT_AREA, make_lights, make_materials, make_scene)
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -979,13 +993,15 @@ def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
     ro, rd, t_max = mid
     args = walk_args(pk, ro, rd, torch.zeros_like(t_max[:, 0]),
                      torch.full_like(t_max[:, 0], -1.0))
-    for form in (False, True):
+    for form in (True, False):
         res, stats, _ = compare_walk(args, "no_suspect_sub_batch", form)
         assert res["max_steps"] == 1 and res["hits"] == 0
         cases.append(res)
+    n_bytes, ops = walk_work(stats, int(ro.shape[0]), False)
     timing["packed_walk@no_suspect"] = dict(
         shape={"R": int(ro.shape[0]), "walking_rays": 0},
-        **time_both(lambda: packed_walk(*args), flush, "packed_walk_kernel"))
+        **time_both(lambda: packed_walk(*args), flush, "packed_walk_kernel"),
+        bytes=n_bytes, flops=ops)
     return cases, timing, n_over
 
 
@@ -1389,6 +1405,31 @@ def phase_render_small(scene, cb):
     return img_k, (nc_k, ns_k, ovf_k, it_k)
 
 
+def phase_determinism(scene, cb):
+    """The same spp 4 render twice (``big-1m`` at 128², depth 4, RR from 2
+    at 0.7, queue 4096, key (0, 3)): at spp > 1 several samples of one pixel
+    are in flight in one step, so the accumulate must add them in a fixed
+    order for the two images to be the same bits."""
+    cfg = RenderConfig(width=128, height=128, spp=4, max_depth=4,
+                       rr_start=2, rr_prob=0.7)
+    cam = meshes.big_camera(128, 128).to(DEV)
+    outs = [wavefront.render_wavefront_counts(
+        scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
+        device=DEV) for _ in range(2)]
+    a, b = outs[0][0], outs[1][0]
+    differ = (a != b).any(-1)
+    equal = bool(torch.equal(a, b))
+    emit({"phase": "determinism", "scene": "big-1m", "size": cfg.width,
+          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
+          "images_equal_bitwise": equal,
+          "pixels_differ": int(differ.sum()),
+          "max_abs_diff": float((a - b).abs().max()),
+          "counts": [list(o[1:]) for o in outs],
+          "mean_radiance": float(a.mean())})
+    assert bool(torch.isfinite(a).all()), "determinism: image not finite"
+    assert equal, "determinism: two spp 4 renders differ"
+
+
 def phase_render_exact(scene, scene_h, cb, pk, small):
     """The command line's flow of exact repair (tpu_pt/cli.py:175-235) on
     ``render_small``'s render, where the default capacities overflow:
@@ -1500,7 +1541,295 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
                        "(else rtol 2e-4 atol 2e-5 where the two "
                        "intersectors round t differently); packed backend "
                        "rtol 1e-3 atol 1e-3, counts within 0.1 %"})
-    return cb_fb, launches
+    return cb_fb, launches, img2
+
+
+# --------------------------------------------------------------------------
+# The differentiable path
+# --------------------------------------------------------------------------
+
+# Every kernel wrapper of the package, for the forward / backward split of
+# the launch counts.
+ALL_KERNELS = (pair_ray_reduce, pair_tile_isect, pair_segmin,
+               pair_tile_isect_dedup, dense_closest, dense_anyhit, packed_walk)
+
+
+def take_launches():
+    """The launch counts of every kernel since the last call; zeroes them."""
+    out = {k.__name__: k.launches for k in ALL_KERNELS}
+    for k in ALL_KERNELS:
+        k.launches = 0
+    return out
+
+
+def grad_step(adjoint, params, scene, cam, cfg, key, bvh, hint, **kw):
+    """One differentiable step through the port's entry points, timed in its
+    two halves: ``adjoint.wavefront_loss`` (the forward pass on fresh leaves
+    of ``params``, target zeros), then ``torch.autograd.grad``.  The launch
+    counts of the two halves are taken apart."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    target = torch.zeros((cfg.n_pixels, 3), device=DEV)
+    take_launches()
+    sync()
+    t0 = time.time()
+    loss, img, (nc, ns, novf, n_iter), done = adjoint.wavefront_loss(
+        leaves, scene, cam, cfg, key, target, bvh, queue=4096,
+        steps_hint=hint, **kw)
+    sync()
+    t1 = time.time()
+    fwd = take_launches()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    sync()
+    t2 = time.time()
+    return dict(loss=loss.detach(), img=img.detach(), done=done,
+                overflow=int(novf), steps_run=n_iter,
+                grads=dict(zip(leaves, grads)), fwd_s=t1 - t0, bwd_s=t2 - t1,
+                launches_fwd=fwd, launches_bwd=take_launches())
+
+
+def most_seen_material(scene, cam, cb, cfg):
+    """The material that the most pixel centres see first."""
+    n = cfg.n_pixels
+    ids = torch.arange(n, device=DEV)
+    ro, rd = generate_rays(cam, pixel_xy(cfg.width, cfg.height, ids,
+                                         torch.full((n, 2), 0.5, device=DEV)))
+    hit = cluster.intersect(cb, scene, ro, rd, torch.zeros((n, 1), device=DEV),
+                            torch.full((n, 1), 1e30, device=DEV))
+    prim_mat = torch.cat([scene.tri_mat, scene.sph_mat])
+    return int(torch.bincount(prim_mat[hit.prim.long()[hit.hit[:, 0]]]
+                              .long()).argmax())
+
+
+def plane_scene():
+    """A diffuse quad under an area light, seen from above, and its camera
+    (the gradient scene of tests/test_diff.py): every hit point moves
+    smoothly with the vertices."""
+    g = 4.0
+    scene = make_scene(
+        np.asarray([(-g, 0, -g), (-g, 0, g), (g, 0, g), (g, 0, -g)],
+                   np.float32),
+        np.asarray([(0, 1, 2), (0, 2, 3)], np.int32),
+        np.asarray([0, 0], np.int32),
+        make_materials([dict(albedo=(0.6, 0.4, 0.3))]),
+        make_lights([dict(kind=LIGHT_AREA, position=(-0.5, 3.0, -0.5),
+                          edge_x=(1, 0, 0), edge_y=(0, 0, 1),
+                          normal=(0, -1, 0), radiance=(8.0, 8.0, 8.0))]))
+    cam = Camera.look_at(eye=(0.0, 2.0, 0.01), target=(0, 0, 0), hfov=30,
+                         aspect=1.0, up=(0, 0, -1))
+    return scene, cam
+
+
+def grads_equal(a, b):
+    return all(bool(torch.equal(a[k], b[k])) for k in a)
+
+
+def grads_max_diff(a, b):
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def phase_render_grad(scene, cb, cb_fb, img_fb):
+    """The differentiable path on the card.
+
+    (a) The grad cell as the JAX package's bench times it (``BENCH_GRAD=1``:
+    big-1m, 256², spp 1, depth 4, RR from 2 at 0.7, queue 4096, cluster
+    backend, fused pair stage, target zeros; hint from a counting forward
+    render, the full bound if it was too small): one warm step, then three
+    timed with keys 1, 2, 3.  No kernel launches in backward; the pair
+    kernel 8 times a step in forward; grads finite; albedo's gradient at
+    the material the camera sees most against a central difference.
+    (b) The same with the exact fallback attached, key (0, 3): the forward
+    image is ``render_exact``'s fallback render.
+    (c) Kernels against their plain versions through autograd, on two small
+    scenes; and the dense-sweep backend's gradients against the brute
+    backend's."""
+    from tpu_pt_torch.diff import adjoint, params as dparams
+
+    cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4,
+                       rr_start=2, rr_prob=0.7)
+    cam = meshes.big_camera(256, 256).to(DEV)
+    params = dparams.split(scene)[0]
+    _, nc, ns, _, n_iter = wavefront.render_wavefront_counts(
+        scene, cam, cfg, (0, 0), cb, queue=4096, device=DEV)
+    hint = int(n_iter * 1.2) + cfg.max_depth + 2
+
+    def step(key, bvh=cb):
+        out = grad_step(adjoint, params, scene, cam, cfg, key, bvh, hint)
+        if not out["done"]:     # the hint was too small: the full bound
+            out = grad_step(adjoint, params, scene, cam, cfg, key, bvh, None)
+            out["hint_failed"] = True
+        return out
+
+    def check_launches(r, walk):
+        assert not any(r["launches_bwd"].values()), \
+            f"render_grad: kernels launched in backward: {r['launches_bwd']}"
+        # 2 traversals x 4 sub-batches a step, one launch each.
+        for name in ("pair_ray_reduce",) + (("packed_walk",) if walk else ()):
+            assert r["launches_fwd"][name] == 2 * 4 * r["steps_run"], \
+                r["launches_fwd"]
+
+    step((0, 0))                                    # warm
+    runs = []
+    for i in (1, 2, 3):
+        if i == 3:
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+        runs.append(step((0, i)))
+    peak = torch.cuda.max_memory_allocated()
+    fwd_s = statistics.median(r["fwd_s"] for r in runs)
+    bwd_s = statistics.median(r["bwd_s"] for r in runs)
+    total_s = statistics.median(r["fwd_s"] + r["bwd_s"] for r in runs)
+    last = runs[-1]
+
+    # Central difference of the loss in one albedo entry (no sampling
+    # decision depends on albedo), on the last run's key.
+    m = most_seen_material(scene, cam, cb, cfg)
+    eps = 1e-2
+    target = torch.zeros((cfg.n_pixels, 3), device=DEV)
+
+    def loss_at(d):
+        alb = params["albedo"].clone()
+        alb[m, 0] += d
+        with torch.no_grad():
+            return float(adjoint.wavefront_loss(
+                dict(params, albedo=alb), scene, cam, cfg, (0, 3), target,
+                cb, queue=4096, steps_hint=hint)[0])
+
+    fd = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+    g = float(last["grads"]["albedo"][m, 0])
+    emit({"phase": "render_grad", "part": "grad_cell", "scene": "big-1m",
+          "size": cfg.width, "spp": cfg.spp, "max_depth": cfg.max_depth,
+          "queue": 4096, "pair_stage": "fused",
+          "keys": [[0, i] for i in (1, 2, 3)], "steps_hint": hint,
+          "counting_steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
+          "fwd_s_all": [round(r["fwd_s"], 3) for r in runs],
+          "bwd_s_all": [round(r["bwd_s"], 3) for r in runs],
+          "fwd_s": round(fwd_s, 3), "bwd_s": round(bwd_s, 3),
+          "bwd_over_fwd": round(bwd_s / fwd_s, 4),
+          "grad_rays_per_s": round((nc + ns) / total_s, 1),
+          "loss": [float(r["loss"]) for r in runs],
+          "done": [r["done"] for r in runs],
+          "hint_failed": any(r.get("hint_failed", False) for r in runs),
+          "overflow": [r["overflow"] for r in runs],
+          "steps_run": [r["steps_run"] for r in runs],
+          "peak_mem_MB": round(peak / 1e6, 1),
+          "mem_before_step_MB": round(mem0 / 1e6, 1),
+          "launches_fwd": last["launches_fwd"],
+          "launches_bwd": last["launches_bwd"],
+          "fd_albedo": {"material": m, "channel": 0, "eps": eps, "grad": g,
+                        "central_difference": fd,
+                        "rel_err": abs(g - fd) / abs(fd)},
+          "tolerance": "backward launches 0; pair_ray_reduce 8 x steps; "
+                       "grads finite; albedo grad vs central difference "
+                       "rtol 2e-2"})
+    for r in runs:
+        check_launches(r, walk=False)
+        assert all(bool(torch.isfinite(x).all())
+                   for x in r["grads"].values()), \
+            "render_grad: a gradient is not finite"
+        assert bool(torch.isfinite(r["loss"])) and r["done"]
+    assert abs(g - fd) <= 2e-2 * abs(fd), \
+        f"render_grad: albedo grad {g} vs central difference {fd}"
+    del runs, last
+
+    # (b) The fallback attached: every traversal also walks its suspect
+    # rays exactly, so the image is render_exact's fallback render.
+    fb = step((0, 3), cb_fb)
+    img = fb["img"].reshape(cfg.height, cfg.width, 3)
+    differ = (img != img_fb).any(-1)
+    emit({"phase": "render_grad", "part": "fallback", "key": [0, 3],
+          "image_equals_render_exact_bitwise": int(differ.sum()) == 0,
+          "pixels_differ": int(differ.sum()),
+          "max_abs_diff": float((img - img_fb).abs().max()),
+          "fwd_s": round(fb["fwd_s"], 3), "bwd_s": round(fb["bwd_s"], 3),
+          "overflow": fb["overflow"], "steps_run": fb["steps_run"],
+          "loss": float(fb["loss"]), "launches_fwd": fb["launches_fwd"],
+          "launches_bwd": fb["launches_bwd"],
+          "tolerance": "bitwise, else rtol 2e-4 atol 2e-5 where the tile "
+                       "test and the walk's row test round t apart; loss "
+                       "= mean(img²) bitwise"})
+    check_launches(fb, walk=True)
+    assert bool(fb["loss"] == torch.mean(fb["img"] ** 2)), \
+        "render_grad: the fallback loss is not mean(img²) of its image"
+    assert torch.allclose(img, img_fb, rtol=2e-4, atol=2e-5), \
+        "render_grad: fallback-attached image vs render_exact's fallback render"
+    del fb
+
+    # (c) Small scenes: kernels against plain versions, twice the same
+    # call, and the dense sweep against the brute backend.
+    plane, plane_cam = plane_scene()
+    small = {"plane_64": (plane, plane_cam,
+                          RenderConfig(width=64, height=64, spp=1,
+                                       direct_only=True)),
+             "cornell_spheres_32": (cornell.cornell("spheres"),
+                                    cornell.camera(32, 32),
+                                    RenderConfig(width=32, height=32, spp=2,
+                                                 max_depth=3))}
+    for name, (scene_h, cam_h, cfg_s) in small.items():
+        cb_s = cluster.build_cluster_bvh(scene_h)
+        p_h = {k: torch.as_tensor(v) for k, v in
+               dparams.split(scene_h.to("cpu"))[0].items()}
+        target = np.zeros((cfg_s.n_pixels, 3), np.float32)
+        args = (scene_h, cam_h, cfg_s, (0, 2), target, cb_s)
+        take_launches()
+        kw = dict(queue=1024, device=DEV)
+        lk, gk = adjoint.loss_and_grad_wavefront(p_h, *args, **kw)
+        n_k = take_launches()
+        lk2, gk2 = adjoint.loss_and_grad_wavefront(p_h, *args, **kw)
+        lp, gp = adjoint.loss_and_grad_wavefront(p_h, *args, **kw,
+                                                 use_kernels=False)
+        n_p = take_launches()
+        # The flat renderer on the dense sweep (K4, K5) in its two halves,
+        # then through loss_and_grad, against the brute backend.
+        ps = PallasScene(scene_h).to(DEV)
+        leaves = {k: v.to(DEV).requires_grad_(True) for k, v in p_h.items()}
+        img_d = adjoint.render_flat(dparams.merge(leaves, scene_h.to(DEV)),
+                                    cam_h, cfg_s, (0, 2), backend="pallas",
+                                    bvh=ps, device=DEV)
+        loss_d = torch.mean(img_d ** 2)
+        n_fwd = take_launches()
+        g_d = dict(zip(leaves, torch.autograd.grad(loss_d,
+                                                   list(leaves.values()))))
+        n_bwd = take_launches()
+        ld2, gd2 = adjoint.loss_and_grad(p_h, scene_h, cam_h, cfg_s, (0, 2),
+                                         target, backend="pallas", bvh=ps,
+                                         device=DEV)
+        lb, gb = adjoint.loss_and_grad(p_h, scene_h, cam_h, cfg_s, (0, 2),
+                                       target, backend="brute", device=DEV)
+        entry = {
+            "phase": "render_grad", "part": "small", "scene": name,
+            "size": cfg_s.width, "spp": cfg_s.spp, "queue": 1024,
+            "kernels_vs_plain_bitwise": bool(torch.equal(lk, lp))
+            and grads_equal(gk, gp),
+            "kernels_vs_plain_max_abs_diff": max(float((lk - lp).abs()),
+                                                 grads_max_diff(gk, gp)),
+            "same_call_twice_bitwise": bool(torch.equal(lk, lk2))
+            and grads_equal(gk, gk2),
+            "same_call_twice_max_abs_diff": max(float((lk - lk2).abs()),
+                                                grads_max_diff(gk, gk2)),
+            "launches_one_call": n_k, "launches_two_calls_after": n_p,
+            "dense_launches_fwd": n_fwd, "dense_launches_bwd": n_bwd,
+            "pallas_halves_equal_loss_and_grad": bool(
+                torch.equal(ld2, loss_d.detach())) and grads_equal(gd2, g_d),
+            "pallas_vs_brute_loss_rel_err":
+                abs(float(ld2) - float(lb)) / abs(float(lb)),
+            "pallas_vs_brute_max_abs_diff": grads_max_diff(gd2, gb),
+            "loss": float(lk),
+            "tolerance": "kernels vs plain and two calls bitwise; pallas vs "
+                         "brute rtol 1e-3 atol 1e-3"}
+        emit(entry)
+        assert n_k["pair_ray_reduce"] > 0 and \
+            n_p["pair_ray_reduce"] == n_k["pair_ray_reduce"], (n_k, n_p)
+        assert n_fwd["dense_closest"] > 0 and n_fwd["dense_anyhit"] > 0, n_fwd
+        assert not any(n_bwd.values()), n_bwd
+        assert entry["pallas_halves_equal_loss_and_grad"], \
+            f"{name}: loss_and_grad vs its two halves"
+        assert entry["kernels_vs_plain_bitwise"], \
+            f"{name}: kernels vs plain versions through autograd"
+        assert entry["same_call_twice_bitwise"], f"{name}: two calls differ"
+        assert torch.allclose(ld2, lb, rtol=1e-3, atol=1e-3) and all(
+            torch.allclose(gd2[k], gb[k], rtol=1e-3, atol=1e-3) for k in gb), \
+            f"{name}: dense-sweep gradients vs brute gradients"
 
 
 def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
@@ -2003,12 +2332,21 @@ def main():
     profile = "--profile" in args
     paired = int(args[args.index("--paired") + 1]) if "--paired" in args \
         else 0
+    determinism_only = "--determinism" in args
     t_start = time.time()
     smi, fp32_ops_per_s = phase_device()
 
     t0 = time.time()
     scene_h = meshes.big_scene(subdiv=8)
     t_scene = time.time() - t0
+    if determinism_only:
+        scene, cb = scene_h.to(DEV), cluster.build_cluster_bvh(scene_h).to(DEV)
+        phase_determinism(scene, cb)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     pk = phase_build(scene_h)
     t0 = time.time()
     cb_h = cluster.build_cluster_bvh(scene_h)
@@ -2034,7 +2372,10 @@ def main():
     timing, errs = phase_kernels(scene, cam, cb, cfg, (0, 3), pk)
     phase_traverse()
     small = phase_render_small(scene, cb)
-    cb_fb, _ = phase_render_exact(scene, scene_h, cb, pk, small)
+    phase_determinism(scene, cb)
+    cb_fb, _, img_fb = phase_render_exact(scene, scene_h, cb, pk, small)
+    phase_render_grad(scene, cb, cb_fb, img_fb)
+    del img_fb
     del small, scene_h
     launches, main_line, img_main = phase_render_main(scene, cam, cb, cfg,
                                                       build_s, n_tris)
@@ -2069,19 +2410,23 @@ def main():
         "packed_walk": ("tpu_pt_torch/csrc/packed_walk.cu",
                         "tpu_pt/bvh/packed.py:252 (_traverse, an XLA "
                         "while_loop; no pl.pallas_call)")}
+    def bound(tm):
+        """(bound_ms, bound_by) of a timing entry's bytes and operations."""
+        by_bytes = tm["bytes"] / HBM_BYTES_PER_S * 1e3
+        by_ops = tm["flops"] / fp32_ops_per_s * 1e3
+        return (max(by_bytes, by_ops),
+                "bytes" if by_bytes >= by_ops else "operations")
+
     rows = []
     for name, (src, replaces) in sources.items():
         assert launches[name] > 0, f"no full-width path launched {name}"
         tm = timing[name]
-        by_bytes = tm["bytes"] / HBM_BYTES_PER_S * 1e3
-        by_ops = tm["flops"] / fp32_ops_per_s * 1e3
+        bound_ms, bound_by = bound(tm)
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": errs[name], "ms": tm["ms"],
-               "plain_ms": tm["plain_ms"],
-               "bound_ms": max(by_bytes, by_ops),
-               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-               "library_ms": None}
+               "plain_ms": tm["plain_ms"], "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None}
         if "trace_us" in tm:
             row["trace_us"] = tm["trace_us"]
             row["trace_n"] = tm["trace_n"]
@@ -2094,10 +2439,12 @@ def main():
             # counted them.
             row["shape"] = tm["shape"]
             row["other_batches"] = {
-                k.split("@")[1]: {f: v[f] for f in ("ms", "trace_us",
-                                                    "trace_warm_us",
-                                                    "plain_ms", "shape")
-                                  if f in v}
+                k.split("@")[1]: {**{f: v[f] for f in ("ms", "trace_us",
+                                                       "trace_warm_us",
+                                                       "plain_ms", "shape")
+                                     if f in v},
+                                  **dict(zip(("bound_ms", "bound_by"),
+                                             bound(v)))}
                 for k, v in timing.items() if k.startswith("packed_walk@")}
         rows.append(row)
     emit({"phase": "done", "total_s": round(time.time() - t_start, 1)})

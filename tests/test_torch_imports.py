@@ -23,7 +23,7 @@ def _submodules():
 
 def test_every_module_layout_name_is_present():
     names = set(_submodules())
-    for sub in ("core", "scene", "bvh", "render", "kernels"):
+    for sub in ("core", "scene", "bvh", "render", "kernels", "diff"):
         assert f"tpu_pt_torch.{sub}" in names
     for mod in ("config", "convert", "core.vecmath", "core.intersect",
                 "core.camera", "core.sampling", "scene.types", "scene.meshes",
@@ -33,7 +33,7 @@ def test_every_module_layout_name_is_present():
                 "kernels.packed_walk", "render.envmap",
                 "render.bsdf", "render.lights", "render.brute",
                 "render.integrator", "render.driver", "render.wavefront",
-                "render.film"):
+                "render.film", "diff.params", "diff.adjoint"):
         assert f"tpu_pt_torch.{mod}" in names, mod
 
 
@@ -117,6 +117,50 @@ def test_oracle_render_and_dense_scene_default_to_cuda_and_raise_without_a_card(
     with pytest.raises((RuntimeError, AssertionError)):
         convert.pallas_scene_from_numpy(d)
     assert convert.pallas_scene_from_numpy(d, "cpu").prims.device.type == "cpu"
+
+
+def test_gradient_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    import numpy as np
+
+    from tpu_pt_torch import convert
+    from tpu_pt_torch.bvh import cluster
+    from tpu_pt_torch.config import RenderConfig
+    from tpu_pt_torch.diff import adjoint, params
+    from tpu_pt_torch.render import wavefront
+    from tpu_pt_torch.scene import cornell
+
+    scene = cornell.cornell("empty")
+    cb = cluster.build_cluster_bvh(scene)
+    cfg = RenderConfig(width=4, height=4, spp=1, direct_only=True)
+    cam = cornell.camera(4, 4)
+    p = {k: np.asarray(v) for k, v in params.split(scene)[0].items()}
+    target = np.zeros((cfg.n_pixels, 3), np.float32)
+    calls = {
+        "render_flat": lambda **kw: adjoint.render_flat(scene, cam, cfg,
+                                                        (0, 0), **kw),
+        "render_grad": lambda **kw: adjoint.render_grad(
+            p, scene, cam, cfg, (0, 0), target, **kw),
+        "loss_and_grad": lambda **kw: adjoint.loss_and_grad(
+            p, scene, cam, cfg, (0, 0), target, **kw),
+        "loss_and_grad_wavefront": lambda **kw:
+            adjoint.loss_and_grad_wavefront(p, scene, cam, cfg, (0, 0),
+                                            target, cb, queue=16,
+                                            steps_hint=8, **kw),
+        "render_wavefront(fast=False)": lambda **kw:
+            wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=16,
+                                       fast=False, **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        out = call(device="cpu")
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.device.type == "cpu", name
+    with pytest.raises((RuntimeError, AssertionError)):
+        convert.params_from_numpy(p)
+    assert convert.params_from_numpy(p, "cpu")["albedo"].requires_grad
 
 
 def test_kernel_sources_are_all_declared_to_the_loader(tmp_path, monkeypatch):

@@ -1,15 +1,18 @@
-"""Carry scenes, cluster BVHs, packed BVHs, dense-sweep scenes and cameras
-across as plain dicts of numpy arrays (plus static ints / tuples) and
-rebuild the port's containers on a given device.  The dict keys are the
-containers' field names; nothing here knows where the arrays came from."""
+"""Carry scenes, cluster BVHs, packed BVHs, dense-sweep scenes, cameras and
+differentiable parameters across as plain dicts of numpy arrays (plus
+static ints / tuples) and rebuild the port's containers on a given device.
+The dict keys are the containers' field names; nothing here knows where
+the arrays came from."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpu_pt_torch.bvh.cluster import ClusterBVH, make_cluster_bvh
 from tpu_pt_torch.bvh.packed import PackedBVH
 from tpu_pt_torch.core.camera import Camera
+from tpu_pt_torch.diff.params import KEYS as PARAM_KEYS
 from tpu_pt_torch.kernels.intersect import PallasScene
 from tpu_pt_torch.scene.types import Lights, Materials, Scene
 
@@ -84,3 +87,12 @@ def pallas_scene_from_numpy(d: dict, device="cuda") -> PallasScene:
     (the count of real rows)."""
     return PallasScene(prims=_np(d["prims"], np.float32),
                        n_prims=int(d["n_prims"])).to(device)
+
+
+def params_from_numpy(d: dict, device="cuda") -> dict:
+    """d: the differentiable parameters by ``diff.params.KEYS`` name
+    (``vertices`` (V, 3), ``albedo`` (M, 3), ``roughness`` (M,),
+    ``emission`` (M, 3), ``light_radiance`` (L, 3)) -> leaf f32 tensors on
+    ``device`` with ``requires_grad=True``."""
+    return {k: torch.from_numpy(_np(d[k], np.float32)).to(device)
+            .requires_grad_(True) for k in PARAM_KEYS}

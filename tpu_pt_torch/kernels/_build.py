@@ -129,9 +129,22 @@ def sm_count(device) -> int:
     return n
 
 
+def refuse_grad(kernel: str, **tensors) -> None:
+    """Raise if any of ``tensors`` requires grad.  The kernels and their
+    plain versions take no part in autograd (the differentiable renderers
+    run every traversal on detached inputs), so a missing detach must fail
+    here rather than silently cut a gradient."""
+    for name, x in tensors.items():
+        if getattr(x, "requires_grad", False):
+            raise ValueError(f"{kernel}: {name} requires grad; traversal "
+                             "kernels take detached inputs only")
+
+
 def check_cuda_input(name: str, x, dtype, shape=None) -> None:
     """Raise unless ``x`` is a contiguous CUDA tensor of ``dtype`` (and
-    ``shape``, where given; None entries are free)."""
+    ``shape``, where given; None entries are free) that does not require
+    grad (checked first)."""
+    refuse_grad("check_cuda_input", **{name: x})
     if not x.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
     if x.dtype != dtype:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from tpu_pt_torch.core.intersect import INF
+from tpu_pt_torch.kernels import _build
 
 B = 128      # the pair count must be a multiple of this
 ROWS = 12
@@ -119,6 +120,7 @@ def pair_rows(ro, rd, t_min1, t_max1, ray_c, cid_c, pair_ok):
 
 
 def _check_shapes(tiles, cid, rays):
+    _build.refuse_grad("pair_tile_isect", tiles=tiles, cid=cid, rays=rays)
     if tiles.dim() != 3 or tiles.shape[1] != ROWS \
             or tiles.shape[2] not in LANE_WIDTHS or tiles.shape[0] < 1:
         raise ValueError(f"tiles: expected (C, {ROWS}, L) with C >= 1 and L "
@@ -167,8 +169,6 @@ def _launch(wrapper, launch_name, tiles, cid, rays, *extra):
     """Checks shared by the two pair-tile kernels, then one launch of
     ``launch_name`` (tiles, cid, rays, out, P, L, *extra, stream) on the
     current stream, counted on ``wrapper``."""
-    from tpu_pt_torch.kernels import _build
-
     name = wrapper.__name__
     _check_shapes(tiles, cid, rays)
     P = cid.shape[0]
@@ -235,8 +235,6 @@ def pair_tile_isect_dedup(tiles, cid, rays):
     version."""
     if not tiles.is_cuda:
         return pair_tile_isect_dedup_ref(tiles, cid, rays)
-    from tpu_pt_torch.kernels import _build
-
     _check_aligned("pair_tile_isect_dedup", tiles=tiles, rays=rays)
     blocks = dedup_grid_blocks(cid.shape[0], _build.sm_count(tiles.device))
     return _launch(pair_tile_isect_dedup, "pair_tile_isect_dedup_launch",

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from tpu_pt_torch.core.intersect import INF
+from tpu_pt_torch.kernels import _build
 from tpu_pt_torch.render.brute import Hit
 from tpu_pt_torch.scene.types import Scene
 
@@ -97,6 +98,7 @@ def _pair_test(rows, ro, rd, t_min, t_max):
 
 
 def _check_shapes(rays, prims):
+    _build.refuse_grad("dense sweep", rays=rays, prims=prims)
     if rays.dim() != 2 or rays.shape[1] != 8:
         raise ValueError(f"rays: expected (R, 8), got {tuple(rays.shape)}")
     if prims.dim() != 2 or prims.shape[1] != 16 or prims.shape[0] % TBLK \
@@ -155,8 +157,6 @@ def anyhit_ref(rays, prims):
 
 
 def _check_cuda(rays, prims, name):
-    from tpu_pt_torch.kernels import _build
-
     _check_shapes(rays, prims)
     _build.check_cuda_input("rays", rays, torch.float32)
     _build.check_cuda_input("prims", prims, torch.float32)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from tpu_pt_torch.core.intersect import INF
+from tpu_pt_torch.kernels import _build
 
 _GID_NONE = 2**31 - 1   # best gid before any hit
 
@@ -101,6 +102,8 @@ def _prim_row_test(row, active, ro, rd, t_min, t_max):
 
 def _check(table, prim_gid, ro, rd, t_min, t_max, n_nodes, n_tables,
            max_leaf):
+    _build.refuse_grad("packed_walk", table=table, prim_gid=prim_gid, ro=ro,
+                       rd=rd, t_min=t_min, t_max=t_max)
     if table.dim() != 2 or table.shape[1] != 16:
         raise ValueError(f"table: expected (K*N + P, 16), got "
                          f"{tuple(table.shape)}")
@@ -244,8 +247,6 @@ def packed_walk(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
     if not table.is_cuda:
         return packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes,
                                n_tables, max_leaf, any_hit)
-    from tpu_pt_torch.kernels import _build
-
     _check(table, prim_gid, ro, rd, t_min, t_max, n_nodes, n_tables,
            max_leaf)
     for name, x in (("table", table), ("prim_gid", prim_gid), ("ro", ro),

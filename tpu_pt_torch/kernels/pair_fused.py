@@ -45,6 +45,7 @@ from __future__ import annotations
 import torch
 
 from tpu_pt_torch.core.intersect import INF
+from tpu_pt_torch.kernels import _build
 from tpu_pt_torch.kernels.cluster_isect import (
     LANE_WIDTHS, ROWS, pair_rows, pair_tile_isect_ref)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin_ref
@@ -59,8 +60,6 @@ _counters = {}   # (device index, stream) -> (Q',) i32 zeros, Q' >= Q
 
 def pair_grid_blocks(device) -> int:
     """Most blocks the kernel launches on ``device``."""
-    from tpu_pt_torch.kernels import _build
-
     return PAIR_BLOCKS_PER_SM * _build.sm_count(device)
 
 
@@ -76,6 +75,9 @@ def _ray_counters(device, Q: int):
 
 
 def _check_shapes(tiles, tile_gid, ro, rd, t_min, t_max, cid, cnt, right):
+    _build.refuse_grad("pair_ray_reduce", tiles=tiles, tile_gid=tile_gid,
+                       ro=ro, rd=rd, t_min=t_min, t_max=t_max, cid=cid,
+                       cnt=cnt, right=right)
     if tiles.dim() != 3 or tiles.shape[1] != ROWS \
             or tiles.shape[2] not in LANE_WIDTHS or tiles.shape[0] < 1:
         raise ValueError(f"tiles: expected (C, {ROWS}, L) with C >= 1 and L "
@@ -170,8 +172,6 @@ def pair_ray_reduce(tiles, tile_gid, ro, rd, t_min, t_max, cid, cnt, right,
     if not tiles.is_cuda:
         return pair_ray_reduce_ref(tiles, tile_gid, ro, rd, t_min, t_max, cid,
                                    cnt, right, any_hit)
-    from tpu_pt_torch.kernels import _build
-
     _check_shapes(tiles, tile_gid, ro, rd, t_min, t_max, cid, cnt, right)
     for name, x in (("tiles", tiles), ("tile_gid", tile_gid), ("ro", ro),
                     ("rd", rd), ("t_min", t_min), ("t_max", t_max),

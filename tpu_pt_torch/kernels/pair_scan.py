@@ -27,9 +27,12 @@ from __future__ import annotations
 import torch
 
 from tpu_pt_torch.core.intersect import INF
+from tpu_pt_torch.kernels import _build
 
 
 def _check_shapes(t, gid, u, v, cnt, right):
+    _build.refuse_grad("pair_segmin", t=t, gid=gid, u=u, v=v, cnt=cnt,
+                       right=right)
     P = t.shape[0]
     for name, x in (("t", t), ("gid", gid), ("u", u), ("v", v)):
         if tuple(x.shape) != (P,):
@@ -76,8 +79,6 @@ def pair_segmin(t, gid, u, v, cnt, right):
     version."""
     if not t.is_cuda:
         return pair_segmin_ref(t, gid, u, v, cnt, right)
-    from tpu_pt_torch.kernels import _build
-
     _check_shapes(t, gid, u, v, cnt, right)
     P, Q = t.shape[0], cnt.shape[0]
     for name, x, dt, n in (("t", t, torch.float32, P),

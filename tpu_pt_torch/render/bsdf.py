@@ -157,8 +157,10 @@ def sample(mat: MatProps, wo, u):
     wi_r = wi_t
     w_r = torch.where(tir, zero3, mat.albedo * (eta * eta))
 
-    # ---- GGX glossy: sample the half-vector from the NDF. ----
-    alpha_d = _ggx_alpha(mat.roughness)
+    # ---- GGX glossy: sample the half-vector from the NDF (detached alpha:
+    # the sampling DECISION is not differentiated; the integrand f is, so
+    # roughness gradients flow through ``weight`` via _ggx_f). ----
+    alpha_d = _ggx_alpha(mat.roughness).detach()
     a2_d = alpha_d * alpha_d
     u0 = u[..., 0:1]
     c2 = (1.0 - u0) / torch.clamp_min(1.0 + (a2_d - 1.0) * u0, 1e-12)
@@ -168,9 +170,9 @@ def sample(mat: MatProps, wo, u):
     h = torch.cat(
         [torch.cos(phi) * sin_h, torch.sin(phi) * sin_h, cos_h * flip], dim=-1)
     oh = torch.sum(wo * h, dim=-1, keepdim=True)
-    wi_gx = 2.0 * oh * h - wo
-    pdf_h = _ggx_d(cos_h, alpha_d) * cos_h / torch.clamp_min(
-        4.0 * torch.abs(oh), 1e-9)
+    wi_gx = (2.0 * oh * h - wo).detach()
+    pdf_h = (_ggx_d(cos_h, alpha_d) * cos_h / torch.clamp_min(
+        4.0 * torch.abs(oh), 1e-9)).detach()
     same_side = (wi_gx[..., 2:3] * flip > 0.0)
     f_gx = _ggx_f(mat, wo * flip3, wi_gx * flip3)
     w_gx = torch.where(same_side & (pdf_h > 1e-12),

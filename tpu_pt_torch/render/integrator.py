@@ -18,10 +18,15 @@ Light transport:
   - Russian roulette starts at bounce ``rr_start`` with continuation
     probability ``rr_prob`` (throughput compensated).
 
-Forward only: the renderers run under ``torch.no_grad()``.  Where the JAX
-package stops gradients (barycentrics, hit distance, the BSDF and pixel
-jitter draws), the differentiable path of the port will ``detach()``; no
-autograd plumbing exists yet."""
+Differentiability (detached-sampling reparameterized gradients, as in the
+JAX package): the barycentrics, the hit distance, the pixel jitter and the
+BSDF uniforms and sampled direction are ``detach()``ed, and the hit point
+of a triangle is recomputed from its vertices, so gradients flow through
+the shading geometry and the materials, never through a sampling decision.
+Every intersector call runs under ``torch.no_grad()`` on detached rays: its
+outputs are only read through detached values, so no gradient changes, and
+autograd records nothing of the ray-primitive tests.  ``driver.render``
+runs forward only; ``diff/adjoint.py`` differentiates ``render_chunk``."""
 
 from __future__ import annotations
 
@@ -58,7 +63,8 @@ class ShadeInfo(NamedTuple):
 
 def shade_info(scene: Scene, ro, rd, hit: Hit) -> ShadeInfo:
     """Gather hit-point geometry + material.  The triangle hit position is
-    recomputed from the barycentrics as (1-u-v)·v0 + u·v1 + v·v2."""
+    recomputed from the (detached) barycentrics as (1-u-v)·v0 + u·v1 +
+    v·v2, so d(p)/d(vertices) flows; the hit distance is detached too."""
     is_tri = hit.prim < scene.n_tris
     zero_i = torch.zeros_like(hit.prim)
     tri_id = torch.where(is_tri, hit.prim, zero_i)
@@ -68,8 +74,8 @@ def shade_info(scene: Scene, ro, rd, hit: Hit) -> ShadeInfo:
     v0 = scene.vertices[idx[:, 0]]
     v1 = scene.vertices[idx[:, 1]]
     v2 = scene.vertices[idx[:, 2]]
-    u = hit.u
-    v = hit.v
+    u = hit.u.detach()
+    v = hit.v.detach()
     w0 = 1.0 - u - v
     p_tri = w0 * v0 + u * v1 + v * v2
     n0 = scene.normals[idx[:, 0]]
@@ -81,7 +87,7 @@ def shade_info(scene: Scene, ro, rd, hit: Hit) -> ShadeInfo:
     ng_tri = torch.where(dot(ng_tri, ns_tri) < 0.0, -ng_tri, ng_tri)
 
     center = scene.sph_center[sph_id]
-    p_sph = ro + hit.t * rd
+    p_sph = ro + hit.t.detach() * rd
     ns_sph = normalize(p_sph - center)
 
     is_tri_c = is_tri[:, None]
@@ -111,12 +117,15 @@ def radiance(scene: Scene, intersect_fn: Callable, occluded_fn: Callable,
     t_max = torch.full((R, 1), 1e30, **f32)
 
     n_lights = scene.lights.count
+    scene_d = scene.detach()   # what the intersectors see
     ns_samples = cfg.ns_area_light
     n_hits = 1 if cfg.direct_only else cfg.max_depth + 1
 
     for depth in range(n_hits):
         base = 1 + depth * _STRIDE
-        hit = intersect_fn(scene, ro, rd, t_min, t_max)
+        with torch.no_grad():
+            hit = intersect_fn(scene_d, ro.detach(), rd.detach(), t_min,
+                               t_max)
         # Miss -> environment radiance ((1, 1, 3) zeros when none is set).
         L = L + torch.where(alive & ~hit.hit & include_le,
                             beta * eval_env(scene.env_map, rd), zero3)
@@ -150,8 +159,10 @@ def radiance(scene: Scene, intersect_fn: Callable, occluded_fn: Callable,
                 # Shadow ray (cast unconditionally; lanes are masked).
                 shadow_o = si.p + si.ng * torch.where(
                     dot(ls.wi, si.ng) > 0.0, cfg.eps, -cfg.eps)
-                occ = occluded_fn(scene, shadow_o, ls.wi,
-                                  ls.dist * (1.0 - 1e-3))
+                with torch.no_grad():
+                    occ = occluded_fn(scene_d, shadow_o.detach(),
+                                      ls.wi.detach(),
+                                      ls.dist.detach() * (1.0 - 1e-3))
                 w = f * ls.radiance * cos_s / (ls.pdf * ns_samples)
                 L = L + torch.where(contrib_mask & ~occ, beta * w, zero3)
 
@@ -159,8 +170,8 @@ def radiance(scene: Scene, intersect_fn: Callable, occluded_fn: Callable,
         if depth == n_hits - 1:
             break
         u3 = draws(key, ray_ids, base + _BSDF, 3)
-        bs = bsdf_mod.sample(si.mat, wo, u3)
-        wi_world = to_world(bs.wi, tb, bb, si.ns)
+        bs = bsdf_mod.sample(si.mat, wo, u3.detach())
+        wi_world = to_world(bs.wi.detach(), tb, bb, si.ns)
         beta = beta * bs.weight
         include_le = bs.delta
         alive = alive & bs.valid
@@ -181,7 +192,7 @@ def render_chunk(scene: Scene, cam, cfg: RenderConfig, key, pixel_ids,
     """Radiance for a flat chunk of (pixel, sample) pairs -> (R, 3)."""
     ray_ids = pixel_ids * cfg.spp + sample_ids
     jitter = draws(key, ray_ids, DRAW_JITTER, 2)
-    xy = pixel_xy(cfg.width, cfg.height, pixel_ids, jitter)
+    xy = pixel_xy(cfg.width, cfg.height, pixel_ids, jitter.detach())
     ro, rd = generate_rays(cam, xy)
     return radiance(scene, intersect_fn, occluded_fn, ro, rd, ray_ids, key,
                     cfg)

@@ -1,4 +1,4 @@
-"""Persistent-wavefront renderer (forward only).
+"""Persistent-wavefront renderer, forward and differentiable.
 
 Bounce depth is the OUTER loop over one global, fixed-size ray queue.  The
 queue is kept always full: every step, dead lanes are refilled with fresh
@@ -10,9 +10,20 @@ Randomness is counter-based per (sample id, depth, purpose)
 
 The loop is a Python loop that exits as soon as the sample budget is spent
 and every lane is dead; its condition is one host read per step.  The
-queue state is updated out of place except for the radiance accumulator
-and the per-pixel suspect flags, which are updated in place.  Everything
-runs under ``torch.no_grad()``.
+queue state, the radiance accumulator and the per-pixel suspect flags are
+updated out of place.  The accumulator has one row per local (pixel,
+sample): an in-flight sample id is unique among the live lanes, so every
+row gets at most one add a step, and the samples of a pixel are summed in
+sample order when the loop ends.  The sum therefore has one order, on the
+card as on the host, at every spp.
+
+The forward renders run under ``torch.no_grad()``.  The differentiable
+loop (``wavefront_accum(differentiable=True)``) records the shading of
+every step on the autograd tape; every traversal runs under
+``torch.no_grad()`` on detached inputs, so the tape keeps only its hit and
+occlusion records and backward never traverses.  Sampling decisions (the
+pixel jitter, the BSDF uniforms and direction, barycentrics and hit
+distance) are detached, as in the JAX package.
 
 Suspect-pixel repair: a render with ``with_suspects`` flags every pixel one
 of whose path segments had its traversal candidates cut by a static budget
@@ -59,8 +70,9 @@ class QueueState(NamedTuple):
     include_le: torch.Tensor  # (Q, 1) add emission at next hit
     alive: torch.Tensor       # (Q, 1) lane carries a live path
     next_sample: torch.Tensor  # () int64 — next unspawned sample id
-    accum: torch.Tensor       # (P + Q, 3) radiance sums; the Q spare rows
-    #                           take the (zero) adds of dead lanes
+    accum: torch.Tensor       # (S + Q, 3) radiance sums, one row per local
+    #                           (pixel, sample), S = P * spp_count; the Q
+    #                           spare rows take the (zero) adds of dead lanes
     suspect: torch.Tensor     # (P,) i32 per-pixel suspect flags when
     #                           tracked; (1,) unused otherwise
 
@@ -100,7 +112,7 @@ def _respawn(cam, cfg: RenderConfig, key, st: QueueState, pix_lo, n_pix_local,
         new_id = torch.where(spawn, pixel * cfg.spp + sample, st.ray_id)
         gid = new_id
     jitter = draws_lane(key, gid, torch.zeros_like(gid) + DRAW_JITTER, 2)
-    xy = pixel_xy(cfg.width, cfg.height, pixel, jitter)
+    xy = pixel_xy(cfg.width, cfg.height, pixel, jitter.detach())
     ro_new, rd_new = generate_rays(cam, xy)
 
     spawn_c = spawn[:, None]
@@ -139,7 +151,6 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
     in any of the step's traversals."""
     st = _respawn(cam, cfg, key, st, pix_lo, n_pix_local, spp_lo, spp_count,
                   pix_stride, pix_ids)
-    Q = st.ro.shape[0]
     (contrib, pixel, cont, ro_n, rd_n, beta_n, inc_n, sus_lane,
      nc, ns_, novf) = _step_slice(
         scene, cam, cfg, key, intersect_fn, occluded_fn,
@@ -147,23 +158,15 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
          st.alive), pix_lo, n_pix_local, spp_lo, pix_stride, shadow_narrow,
         track_suspects, pix_ids)
 
+    suspect = st.suspect
     if track_suspects:
         # A max, so the order of the lanes does not matter; dead lanes
         # carry 0 and change nothing wherever they land.
-        st.suspect.scatter_reduce_(0, pixel.clamp(0, n_pix_local - 1),
-                                   sus_lane, "amax")
-    contrib = torch.where(st.alive, contrib, torch.zeros_like(contrib))
-    if cfg.spp == 1:
-        # spp=1: in-flight ray ids are unique and ray_id == pixel, so live
-        # lanes add to DISTINCT pixels; dead lanes are remapped to distinct
-        # spare rows past the image.  Every row gets at most one add, so the
-        # in-place index_add_ is deterministic.
-        lane = torch.arange(Q, device=pixel.device)
-        pixel_u = torch.where(st.alive[:, 0], pixel, n_pix_local + lane)
-        st.accum.index_add_(0, pixel_u, contrib)
-    else:
-        # Dead lanes may land anywhere: they add 0.0.
-        st.accum.index_add_(0, pixel.clamp(0, n_pix_local - 1), contrib)
+        suspect = suspect.scatter_reduce(0, pixel.clamp(0, n_pix_local - 1),
+                                         sus_lane, "amax")
+    # The lane's row: its local (pixel, sample).
+    sample = torch.clamp_min(st.ray_id, 0) % cfg.spp - spp_lo
+    row = pixel * spp_count + sample
     st = st._replace(
         ro=torch.where(cont, ro_n, st.ro),
         rd=torch.where(cont, rd_n, st.rd),
@@ -171,8 +174,42 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
         depth=st.depth + 1,
         include_le=torch.where(cont, inc_n, st.include_le),
         alive=cont,
+        accum=_accumulate(st.accum, row, contrib, st.alive),
+        suspect=suspect,
     )
     return st, (nc, ns_, novf)
+
+
+def _accumulate(accum, row, contrib, alive):
+    """accum (S + Q, 3) plus each live lane's contribution at its ``row`` in
+    [0, S); dead lanes add zero to the distinct spare rows S + lane.  The
+    live lanes' rows are distinct (in-flight sample ids are unique), so
+    every row gets at most one add: the result does not depend on the order
+    of the adds, on the card as on the host.  Out of place, so that
+    autograd can record it."""
+    Q = row.shape[0]
+    lane = torch.arange(Q, device=row.device)
+    row_u = torch.where(alive[:, 0], row, accum.shape[0] - Q + lane)
+    return accum.index_add(
+        0, row_u, torch.where(alive, contrib, torch.zeros_like(contrib)))
+
+
+def _sample_sum(accum, n_pix_local: int, spp_count: int):
+    """(n_pix_local, 3) radiance sums from the per-sample rows, added in
+    sample order (at spp_count 1, the rows themselves)."""
+    acc = accum[: n_pix_local * spp_count].reshape(n_pix_local, spp_count, 3)
+    out = acc[:, 0]
+    for s in range(1, spp_count):
+        out = out + acc[:, s]
+    return out
+
+
+def _untaped(traverse, scene, *rays, **kw):
+    """A traversal outside autograd, on detached rays: its outputs are
+    records with no graph behind them, so backward never runs it (the
+    port's form of the JAX package's ``save_only_these_names("isect")``)."""
+    with torch.no_grad():
+        return traverse(scene, *(r.detach() for r in rays), **kw)
 
 
 def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
@@ -194,12 +231,14 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     # work proportional to LIVE lanes only).
     t_max = torch.where(alive0, 1e30, -1.0).to(torch.float32)
     sus_lane = None
+    scene_d = scene.detach()   # what the traversals see
     if track_suspects:
-        hit, n_ovf, sus_c = intersect_fn(scene, ro0, rd0, t_min, t_max)
+        hit, n_ovf, sus_c = _untaped(intersect_fn, scene_d, ro0, rd0, t_min,
+                                     t_max)
         # Dead lanes are never suspect (t_max < 0 spawns no candidates).
         sus_lane = (sus_c & alive0[:, 0]).to(torch.int32)
     else:
-        hit, n_ovf = intersect_fn(scene, ro0, rd0, t_min, t_max)
+        hit, n_ovf = _untaped(intersect_fn, scene_d, ro0, rd0, t_min, t_max)
     si = shade_info(scene, ro0, rd0, hit)
     wo_world = -rd0
     tb, bb = make_coord_space(si.ns)
@@ -246,13 +285,14 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
             sh_tmax = torch.where(mask, ls.dist * (1.0 - 1e-3),
                                   torch.full_like(ls.dist, -1.0))
             if track_suspects:
-                occ, ovf_s, sus_s = occluded_fn(scene, shadow_o, ls.wi,
-                                                sh_tmax, narrow=shadow_narrow)
+                occ, ovf_s, sus_s = _untaped(occluded_fn, scene_d, shadow_o,
+                                             ls.wi, sh_tmax,
+                                             narrow=shadow_narrow)
                 sus_lane = torch.maximum(
                     sus_lane, (sus_s & mask[:, 0]).to(torch.int32))
             else:
-                occ, ovf_s = occluded_fn(scene, shadow_o, ls.wi, sh_tmax,
-                                         narrow=shadow_narrow)
+                occ, ovf_s = _untaped(occluded_fn, scene_d, shadow_o, ls.wi,
+                                      sh_tmax, narrow=shadow_narrow)
             n_ovf = n_ovf + ovf_s
             w = f * ls.radiance * cos_s / (ls.pdf * ns)
             contrib = contrib + torch.where(mask & ~occ, beta0 * w, zero3)
@@ -260,8 +300,8 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     # ---- Scatter to next bounce. ----
     max_depth = 0 if cfg.direct_only else cfg.max_depth
     u3 = draws_lane(key, rid_g, base + _BSDF, 3)
-    bs = bsdf_mod.sample(si.mat, wo, u3)
-    wi_world = to_world(bs.wi, tb, bb, si.ns)
+    bs = bsdf_mod.sample(si.mat, wo, u3.detach())
+    wi_world = to_world(bs.wi.detach(), tb, bb, si.ns)
     cont = alive & bs.valid & (depth < max_depth)[:, None]
     beta = beta0 * torch.where(cont, bs.weight, torch.ones_like(bs.weight))
     # Russian roulette on the segment about to be traced.
@@ -278,8 +318,10 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
 
 
 def init_queue(Q: int, n_pix_local: int, device,
-               track_suspects: bool = False) -> QueueState:
-    """Fresh all-dead queue + zero accumulator (and zero suspect flags)."""
+               track_suspects: bool = False,
+               spp_count: int = 1) -> QueueState:
+    """Fresh all-dead queue + zero accumulator (one row per local (pixel,
+    sample) and Q spare rows) and zero suspect flags."""
     f32 = dict(dtype=torch.float32, device=device)
     rd = torch.zeros((Q, 3), **f32)
     rd[:, 2] = 1.0
@@ -292,7 +334,7 @@ def init_queue(Q: int, n_pix_local: int, device,
         include_le=torch.zeros((Q, 1), dtype=torch.bool, device=device),
         alive=torch.zeros((Q, 1), dtype=torch.bool, device=device),
         next_sample=torch.zeros((), dtype=torch.int64, device=device),
-        accum=torch.zeros((n_pix_local + Q, 3), **f32),
+        accum=torch.zeros((n_pix_local * spp_count + Q, 3), **f32),
         suspect=torch.zeros((n_pix_local if track_suspects else 1,),
                             dtype=torch.int32, device=device),
     )
@@ -310,13 +352,14 @@ def n_steps(cfg: RenderConfig, queue: int, n_pix: int = 0,
     return -(-total_segments // queue) + depth
 
 
-@torch.no_grad()
 def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                     queue: int, backend: str, pix_lo: int, n_pix_local: int,
                     spp_lo: int = 0, spp_count: int = 0,
                     with_counts: bool = False, pix_stride: int = 1,
                     use_kernels: bool = True, pair_stage: str = "fused",
-                    with_suspects: bool = False, pix_ids=None):
+                    with_suspects: bool = False, pix_ids=None,
+                    differentiable: bool = False, steps_hint=None,
+                    with_done: bool = False):
     """Render pixels {pix_lo + j*pix_stride : j < n_pix_local} × samples
     [spp_lo, spp_lo+spp_count) -> (n_pix_local, 3) radiance sums (divide by
     cfg.spp for the full-spp mean).  ``scene``, ``cam`` and ``bvh`` hold
@@ -327,9 +370,23 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     ``pix_stride``) renders that pixel subset, each pixel as in a full
     render.
 
-    Forward-only early-exit loop.  With ``with_counts`` also returns
-    (n_closest, n_shadow, n_overflow, steps_run) as device scalars / int;
-    with ``with_suspects`` the (n_pix_local,) i32 suspect flags come last."""
+    Early-exit loop.  By default it runs under ``torch.no_grad()``, and
+    after ``WIDE_PREFIX_STEPS`` wide-budget steps its shadow traversals
+    run the narrow any-hit budget.  With ``differentiable`` the sums carry
+    the autograd graph back to the scene's tensors (the traversals stay
+    outside it), and every step runs the WIDE any-hit budget, as the JAX
+    package's differentiable scan does; the loop still leaves as soon as
+    nothing is alive or left to spawn, which changes no value: the steps it
+    skips add nothing.
+
+    ``steps_hint`` caps the loop at ``max(1, min(bound, steps_hint))``
+    steps (the JAX package's static scan length); a cap that is too small
+    drops samples, so pass ``with_done`` and check it.
+
+    With ``with_counts`` also returns (n_closest, n_shadow, n_overflow,
+    steps_run) as device scalars / int; with ``with_suspects`` the
+    (n_pix_local,) i32 suspect flags follow; with ``with_done`` the last
+    item is a bool: no lane alive and every sample spawned."""
     spp_count = spp_count or cfg.spp
     pick = _intersectors_suspect if with_suspects else _intersectors_counted
     intersect_fn, occluded_fn = pick(backend, bvh, use_kernels, pair_stage)
@@ -337,48 +394,59 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     if pix_ids is not None:
         pix_ids = torch.as_tensor(pix_ids, dtype=torch.int64, device=device)
     Q = min(queue, n_pix_local * spp_count)
-    st = init_queue(Q, n_pix_local, device, track_suspects=with_suspects)
+    st = init_queue(Q, n_pix_local, device, track_suspects=with_suspects,
+                    spp_count=spp_count)
     steps = n_steps(cfg, Q, n_pix_local, spp_count)
+    if steps_hint is not None:
+        steps = max(1, min(steps, int(steps_hint)))
     total = n_pix_local * spp_count
+
+    def busy():
+        # One host read: anything alive or left to spawn?
+        return bool(torch.any(st.alive) | (st.next_sample < total))
 
     # Wide warm-up PREFIX: the first waves' shadow batches are fully
     # occupied and wide-angle coherent — the binding any-hit pair
-    # population — so they run the wide any-hit budget; later steps run the
-    # NARROW one (pair_mults[3]).
+    # population — so they run the wide any-hit budget; later steps of a
+    # forward render run the NARROW one (pair_mults[3]).
     prefix = min(WIDE_PREFIX_STEPS, steps)
     nc = ns = novf = torch.zeros((), dtype=torch.int64, device=device)
     n_iter = 0
-    while n_iter < steps:
-        if n_iter >= prefix:
-            # One host read per step: anything alive or left to spawn?
-            if not bool(torch.any(st.alive) | (st.next_sample < total)):
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        while n_iter < steps:
+            if n_iter >= prefix and not busy():
                 break
-        st, (c, s, o) = _step(
-            scene, cam, cfg, key, intersect_fn, occluded_fn, st, pix_lo,
-            n_pix_local, spp_lo, spp_count, pix_stride=pix_stride,
-            # direct-only renders: EVERY wave is a fresh fully-occupied
-            # primary wave, so the steady-state budget never applies.
-            shadow_narrow=n_iter >= prefix and not cfg.direct_only,
-            track_suspects=with_suspects, pix_ids=pix_ids)
-        nc, ns, novf = nc + c, ns + s, novf + o
-        n_iter += 1
-    accum = st.accum[:n_pix_local]
+            st, (c, s, o) = _step(
+                scene, cam, cfg, key, intersect_fn, occluded_fn, st, pix_lo,
+                n_pix_local, spp_lo, spp_count, pix_stride=pix_stride,
+                # direct-only renders: EVERY wave is a fresh fully-occupied
+                # primary wave, so the steady-state budget never applies.
+                shadow_narrow=(n_iter >= prefix and not cfg.direct_only
+                               and not differentiable),
+                track_suspects=with_suspects, pix_ids=pix_ids)
+            nc, ns, novf = nc + c, ns + s, novf + o
+            n_iter += 1
+        accum = _sample_sum(st.accum, n_pix_local, spp_count)
     ret = (accum, (nc, ns, novf, n_iter)) if with_counts else (accum,)
     if with_suspects:
         ret = (*ret, st.suspect)
+    if with_done:
+        ret = (*ret, not busy())
     return ret if len(ret) > 1 else ret[0]
 
 
 def render_wavefront(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                      queue: int = 1 << 17, backend: str = "cluster",
                      device="cuda", use_kernels: bool = True,
-                     pair_stage: str = "fused"):
+                     pair_stage: str = "fused", fast: bool = True):
     """Full-image render -> (H, W, 3) linear radiance tensor on ``device``.
-    ``key`` is a pair of 32-bit ints."""
+    ``key`` is a pair of 32-bit ints.  ``fast=False`` renders through the
+    differentiable loop (``wavefront_accum(differentiable=True)``): the
+    image carries the graph back to the scene's tensors."""
     device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
     accum = wavefront_accum(scene, cam, cfg, key, bvh, queue, backend,
                             0, cfg.n_pixels, use_kernels=use_kernels,
-                            pair_stage=pair_stage)
+                            pair_stage=pair_stage, differentiable=not fast)
     return (accum / cfg.spp).reshape(cfg.height, cfg.width, 3)
 
 

@@ -44,6 +44,13 @@ def _to_tensors(nt, device):
     return type(nt)(*out)
 
 
+def _detached(nt):
+    """NamedTuple of tensors / nested NamedTuples -> the same container
+    with every tensor detached."""
+    return type(nt)(*(_detached(x) if hasattr(x, "_fields") else x.detach()
+                      for x in nt))
+
+
 class Materials(NamedTuple):
     kind: object       # (M,) int32
     albedo: object     # (M, 3) f32 — diffuse albedo / specular tint / transmittance
@@ -82,6 +89,10 @@ class Scene(NamedTuple):
     def to(self, device) -> "Scene":
         """The same scene with every array a tensor on ``device``."""
         return _to_tensors(self, device)
+
+    def detach(self) -> "Scene":
+        """The same scene (of tensors) cut from the autograd graph."""
+        return _detached(self)
 
     @property
     def n_tris(self) -> int:
