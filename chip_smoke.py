@@ -16,7 +16,9 @@
                                          # spp 4 render twice, held bitwise
 
 Builds the native SAH builder and the CUDA kernel library from the sources
-in this checkout, holds every kernel against its plain PyTorch version on
+in this checkout (the headline scene's BVHs must come from the native
+builder; the Python SAH builder and its packing are timed on the Cornell
+scenes), holds every kernel against its plain PyTorch version on
 the card, checks the cluster traversal (every form of its pair stage)
 against the brute-force oracle, and drives these paths at full width:
 
@@ -29,9 +31,18 @@ against the brute-force oracle, and drives these paths at full width:
   (``pair_stage="split"``); its image must equal ``render_main``'s bit for
   bit, and the two ``run_s`` are printed side by side;
 - ``render_oracle``: the unrolled oracle renderer through the dense-sweep
-  backend (``backend="pallas"``) at the command line's defaults (512x512,
-  spp 16, depth 4) on two Cornell scenes, after small renders held against
-  the brute backend, the plain versions and the wavefront renderer;
+  backend (``backend="pallas"``) and through the flat SAH BVH walk
+  (``backend="bvh"``, the kernel ``flat_walk``) at the command line's
+  defaults (512x512, spp 16, depth 4) on two Cornell scenes, after small
+  renders held against the brute backend, the plain versions and the
+  wavefront renderer;
+- ``render_autotune``: the capacity autotuner (``cluster.
+  autotune_for_render``, the wavefront probe) at ``render_exact``'s 256²
+  cell, whose tuned image (after the command line's verify-then-retry
+  where it still overflows) must be ``render_exact``'s fallback render bit
+  for bit, and at the headline as the command line's ``--autotune`` runs
+  it (probed at 512²), with one headline render on the tuned BVH beside
+  ``render_main``'s;
 - ``render_dedup``: the ``render_main`` render once more through the
   cluster-major pair stage (``pair_stage="dedup"``);
 - exact repair of capacity overflow: ``render_exact`` takes the 256² render
@@ -80,6 +91,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -88,7 +100,7 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke.py needs a CUDA device; none is available\n")
     sys.exit(2)
 
-from tpu_pt_torch.bvh import cluster, native  # noqa: E402
+from tpu_pt_torch.bvh import cluster, native, packed, sah  # noqa: E402
 from tpu_pt_torch.config import RenderConfig  # noqa: E402
 from tpu_pt_torch.core.camera import Camera, generate_rays, pixel_xy  # noqa: E402
 from tpu_pt_torch.core.intersect import INF  # noqa: E402
@@ -104,6 +116,7 @@ from tpu_pt_torch.kernels.pair_fused import (  # noqa: E402
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref  # noqa: E402
 from tpu_pt_torch.kernels.packed_walk import (  # noqa: E402
     packed_walk, packed_walk_ref)
+from tpu_pt_torch.kernels.flat_walk import flat_walk, flat_walk_ref  # noqa: E402
 from tpu_pt_torch.render import brute, film, integrator, wavefront  # noqa: E402
 from tpu_pt_torch.render.driver import (  # noqa: E402
     _intersectors, _intersectors_counted, render)
@@ -131,6 +144,11 @@ OPS_CLOSEST, OPS_ANYHIT = 3, 1
 # OPS_TRI_ROW or OPS_SPH_ROW plus OPS_CLOSEST (t <, t ==, gid <, in both
 # forms); a ray 6 (three reciprocals, three sign tests for its octant).
 OPS_NODE, OPS_WALK_RAY = 38, 6
+# csrc/flat_walk.cu: a node step as OPS_NODE (its leaf test is count > 0);
+# a triangle tested costs OPS_TRI_ROW, 6 for its two edges and 4 for the
+# take-over test (t <, t ==, t < 1e30, id <), a sphere OPS_SPH_ROW + 4; a
+# ray 3 (its reciprocals).
+OPS_FLAT_TRI, OPS_FLAT_SPH, OPS_FLAT_RAY = OPS_TRI_ROW + 10, OPS_SPH_ROW + 4, 3
 
 # mean_radiance of cornell("spheres") at 512x512, spp 16, depth 4, key 0,
 # backend "brute", rendered by the JAX package's oracle renderer on a CPU:
@@ -188,21 +206,61 @@ def phase_device():
 # Phase 2 — build
 # --------------------------------------------------------------------------
 
+def built_by(fn):
+    """(fn(), the builder that built it): "native", or "python_sah" where
+    the build emitted a ``native.BuilderFallbackWarning`` (the native
+    library could not be built or loaded).  Other warnings pass on."""
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = fn()
+    fell = False
+    for w in rec:
+        if issubclass(w.category, native.BuilderFallbackWarning):
+            fell = True
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+    return out, "python_sah" if fell else "native"
+
+
 def phase_build(scene_h):
-    """The two libraries, then the packed BVH of the headline scene (the
-    exact fallback's tables, built on the host).  Returns it on the card."""
+    """The two libraries, then the packed BVH (the exact fallback's tables)
+    and the cluster BVH of the headline scene, built on the host; both must
+    come from the native builder.  Then the Python SAH builder and its
+    octant packing on the two Cornell scenes of the oracle.  Returns (the
+    packed BVH on the card, the host cluster BVH, its build seconds)."""
     t0 = time.time()
-    native._load()
+    lib = native._load()
     t_bvh = time.time() - t0
+    assert lib is not None, f"native SAH builder: {native.load_error}"
     t0 = time.time()
     _build.load(verbose_ptxas=True)
     t_k = time.time() - t0
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "error" in ln.lower()
-             or ("Compiling entry" in ln and "packed_walk" in ln)]
+             or ("Compiling entry" in ln and ("packed_walk" in ln
+                                              or "flat_walk" in ln))]
     t0 = time.time()
-    pk = native.build_packed(scene_h)
+    pk, pk_by = built_by(lambda: native.build_packed_any(scene_h))
     t_pk = time.time() - t0
+    t0 = time.time()
+    cb_h, cb_by = built_by(lambda: cluster.build_cluster_bvh(scene_h))
+    build_s = time.time() - t0
+    host = {}
+    for name, sc in (("cornell_mesh_4", cornell.cornell("mesh",
+                                                          mesh_subdiv=4)),
+                     ("cornell_spheres", cornell.cornell("spheres"))):
+        t0 = time.time()
+        fb = sah.build_bvh(sc)
+        t1 = time.time()
+        pkc = packed.pack_bvh(fb, sc)
+        t2 = time.time()
+        host[name] = {"n_prims": int(sc.n_prims), "n_nodes": fb.n_nodes,
+                      "build_bvh_s": round(t1 - t0, 4),
+                      "pack_bvh_s": round(t2 - t1, 4),
+                      "packed_rows": int(pkc.table.shape[0]),
+                      "builder": "python_sah (bvh/sah.py::build_bvh), "
+                                 "packed by bvh/packed.py::pack_bvh"}
     emit({"phase": "build", "libbvh_s": round(t_bvh, 2),
           "kernels_s": round(t_k, 2), "nvcc_flags": _build.NVCC_FLAGS,
           "sources": [os.path.relpath(s, os.path.dirname(__file__) or ".")
@@ -210,8 +268,14 @@ def phase_build(scene_h):
           "ptxas": ptxas, "packed_build_s": round(t_pk, 2),
           "n_nodes": pk.n_nodes, "n_tables": pk.n_tables,
           "table_rows": int(pk.table.shape[0]),
-          "table_MB": round(pk.table.nbytes / 1e6, 1)})
-    return pk.to(DEV)
+          "table_MB": round(pk.table.nbytes / 1e6, 1),
+          "builder": {"big1m_packed": pk_by, "big1m_cluster": cb_by},
+          "cluster_build_s": round(build_s, 2),
+          "flat_host_builds": host})
+    assert pk_by == "native" and cb_by == "native", \
+        f"big-1m not built by the native builder: packed {pk_by}, " \
+        f"cluster {cb_by}"
+    return pk.to(DEV), cb_h, build_s
 
 
 # --------------------------------------------------------------------------
@@ -822,17 +886,22 @@ def compare_walk(args, label, any_hit):
 
 
 def walk_work(stats, R, any_hit):
-    """Bytes and FP32 operations the walk must spend on these rays: per node
-    step its 32-byte node, per row tested its 48 bytes (rows 0-11), per ray
-    its 32 bytes in and 16 (1 for any hit) out; operations as counted in
-    OPS_NODE."""
+    """Bytes and FP32 operations the walk must spend on these rays.  Bytes:
+    each input it needs read once (every node row any ray fetched, 32 bytes;
+    every primitive row any ray tested, 48 bytes and its 4-byte id; per ray
+    32 bytes in) and each output written once (16 bytes a ray, 1 for any
+    hit).  Operations as counted in OPS_NODE, per node step and row tested.
+    Also the traffic of the walk as it runs: every node step and row test
+    reading its bytes again."""
     steps = int(stats["steps"].sum())
     rows = stats["rows_tri"] + stats["rows_sph"]
-    n_bytes = steps * 32 + rows * 48 + R * (32 + (1 if any_hit else 16))
+    ray_io = R * (32 + (1 if any_hit else 16))
+    n_bytes = (int(stats["node_seen"].sum()) * 32
+               + int(stats["row_seen"].sum()) * 52 + ray_io)
     ops = (steps * OPS_NODE + stats["rows_tri"] * (OPS_TRI_ROW + OPS_CLOSEST)
            + stats["rows_sph"] * (OPS_SPH_ROW + OPS_CLOSEST)
            + R * OPS_WALK_RAY)
-    return n_bytes, ops
+    return n_bytes, ops, steps * 32 + rows * 48 + ray_io
 
 
 def overflow_batches(scene, cb):
@@ -941,7 +1010,7 @@ def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
             if form != any_hit:
                 continue
             R = int(t_max.shape[0])
-            n_bytes, ops = walk_work(stats, R, form)
+            n_bytes, ops, traffic = walk_work(stats, R, form)
             key = "packed_walk" + {"queue_4096": "",
                                    "queue_4096_shadow": "@queue_4096_shadow",
                                    "overflow_closest_sub_batch":
@@ -953,7 +1022,9 @@ def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
                        "any_hit": form, "max_steps": res["max_steps"],
                        "mean_steps": round(res["mean_steps"], 3),
                        "plain_iterations": res["plain_iterations"],
-                       "rows": stats["rows_tri"] + stats["rows_sph"]},
+                       "rows": stats["rows_tri"] + stats["rows_sph"],
+                       "least_MB": round(n_bytes / 1e6, 4),
+                       "traffic_MB": round(traffic / 1e6, 4)},
                 **time_both(lambda: packed_walk(*args, any_hit=form), flush,
                             "packed_walk_kernel"),
                 # The plain version ran on these operands just before.
@@ -997,12 +1068,205 @@ def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
         res, stats, _ = compare_walk(args, "no_suspect_sub_batch", form)
         assert res["max_steps"] == 1 and res["hits"] == 0
         cases.append(res)
-    n_bytes, ops = walk_work(stats, int(ro.shape[0]), False)
+    n_bytes, ops, _ = walk_work(stats, int(ro.shape[0]), False)
     timing["packed_walk@no_suspect"] = dict(
         shape={"R": int(ro.shape[0]), "walking_rays": 0},
         **time_both(lambda: packed_walk(*args), flush, "packed_walk_kernel"),
         bytes=n_bytes, flops=ops)
     return cases, timing, n_over
+
+
+def flat_args(fb, sc, ro, rd, t_min, t_max):
+    """Operands of the flat walk: a FlatBVH and a scene on the card, rays
+    (t bounds as (R,) columns)."""
+    return (fb.node_min, fb.node_max, fb.skip, fb.prim_start, fb.prim_count,
+            fb.prim_ids, sc.tri_idx, sc.vertices, sc.sph_center,
+            sc.sph_radius, ro.contiguous(), rd.contiguous(),
+            t_min.reshape(-1).contiguous(), t_max.reshape(-1).contiguous(),
+            sah.MAX_LEAF)
+
+
+def compare_flat(args, label, any_hit):
+    """flat_walk against flat_walk_ref, bitwise (the raw 32-bit words), and
+    the plain version's counts: lockstep iterations, node steps per ray and
+    primitives tested (as the kernel tests them)."""
+    out_k = flat_walk(*args, any_hit=any_hit)
+    sync()
+    stats = {}
+    out_r = flat_walk_ref(*args, any_hit=any_hit, stats=stats)
+    outs_k = (out_k,) if any_hit else out_k
+    outs_r = (out_r,) if any_hit else out_r
+    for a, b in zip(outs_k, outs_r):
+        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
+            if a.dtype == torch.float32 else torch.equal(a, b)
+        assert same, f"flat_walk {label} ({'any hit' if any_hit else 'closest'}): " \
+            "kernel and plain version differ (must be bitwise)"
+    t_min, t_max = args[12], args[13]
+    steps = stats["steps"]
+    res = {"case": label, "form": "any_hit" if any_hit else "closest",
+           "rays": int(t_max.shape[0]),
+           "walking_rays": int((t_max >= t_min).sum()),
+           "hits": int(out_r.sum()) if any_hit else int((out_r[0] < t_max).sum()),
+           "bitwise": True,
+           "max_abs_err": 0.0 if any_hit else max_abs_diff(out_k[0], out_r[0]),
+           "plain_iterations": stats["iterations"],
+           "max_steps": int(steps.max()), "mean_steps": float(steps.float().mean()),
+           "prims_tri": stats["prims_tri"], "prims_sph": stats["prims_sph"]}
+    return res, stats, out_r
+
+
+def flat_work(stats, R, any_hit, tri_idx):
+    """Bytes and FP32 operations the flat walk must spend on these rays.
+    Bytes: each input it needs read once (every node any ray fetched, 36
+    bytes: box, skip, start, count; every primitive any ray tested, its
+    4-byte id in ``prim_ids`` and, for a triangle, 12 bytes of indices and
+    its distinct vertices, 12 bytes each, for a sphere 16 bytes of centre
+    and radius; per ray 32 bytes in) and each output written once (16 bytes
+    a ray, 1 for any hit).  Operations as counted in OPS_NODE and
+    OPS_FLAT_*, per node step and primitive tested.  Also the traffic of
+    the walk as it runs: 36 bytes a node step, 52 a triangle and 20 a
+    sphere tested."""
+    steps = int(stats["steps"].sum())
+    tri, sph = stats["prims_tri"], stats["prims_sph"]
+    seen = stats["prim_seen"]
+    T = int(tri_idx.shape[0])
+    tris = torch.nonzero(seen[:T]).reshape(-1)
+    n_vert = int(tri_idx[tris].unique().numel())
+    ray_io = R * (32 + (1 if any_hit else 16))
+    n_bytes = (int(stats["node_seen"].sum()) * 36 + int(seen.sum()) * 4
+               + int(tris.numel()) * 12 + n_vert * 12
+               + int(seen[T:].sum()) * 16 + ray_io)
+    ops = (steps * OPS_NODE + tri * OPS_FLAT_TRI + sph * OPS_FLAT_SPH
+           + R * OPS_FLAT_RAY)
+    return n_bytes, ops, steps * 36 + tri * 52 + sph * 20 + ray_io
+
+
+def flat_edge_rays(fb, n, seed):
+    """walk_edge_rays' cases on a host FlatBVH: half the rays aimed into
+    random leaf boxes, axis-parallel directions (+0 and -0 components),
+    origins ON a node box's face with the direction in its plane (0 * inf =
+    NaN in the slab test), t_max = -1 (leaves at the root) and 0.5."""
+    rs = np.random.RandomState(seed)
+    nlo, nhi = fb.node_min, fb.node_max
+    leaf = fb.prim_count > 0
+    lo = np.percentile(nlo[leaf], 1, axis=0)
+    hi = np.percentile(nhi[leaf], 99, axis=0)
+    lo, hi = lo - (hi - lo) / 2, hi + (hi - lo) / 2
+    ro = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
+    rd = rs.normal(size=(n, 3))
+    pick = np.flatnonzero(leaf)[rs.randint(0, int(leaf.sum()), n)]
+    aim = rs.uniform(nlo[pick], np.maximum(nhi[pick], nlo[pick])) - ro
+    rd[1::2] = aim[1::2]
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    axes = np.eye(3, dtype=np.float32)
+    for i in range(0, n, 7):
+        rd[i] = axes[i % 3] * (1 if i % 2 else -1)
+        if i % 4 == 0:
+            rd[i, (i + 1) % 3] = -0.0
+    for i in range(5, n, 13):
+        b = rs.randint(0, len(nlo))
+        ro[i] = rs.uniform(nlo[b], np.maximum(nhi[b], nlo[b]))
+        ax = i % 3
+        ro[i, ax] = nlo[b, ax]                     # on the min face
+        rd[i, ax] = 0.0                            # inside its plane
+        if np.linalg.norm(rd[i]) < 1e-3:           # was along that axis
+            rd[i, (ax + 1) % 3] = 1.0
+        rd[i] /= np.linalg.norm(rd[i])
+    t_max = np.full((n,), 1e30, np.float32)
+    t_max[8::19] = 0.5
+    t_max[::17] = -1.0
+    return tuple(torch.from_numpy(x).to(DEV) for x in
+                 (ro, rd, np.zeros((n,), np.float32), t_max))
+
+
+def sphere_grid_scene():
+    """27 spheres on a grid and two triangles: leaves of spheres only."""
+    v, f = meshes.icosphere(subdiv=1)
+    g = np.stack(np.meshgrid(*[np.linspace(-1.5, 1.5, 3)] * 3), -1)
+    return make_scene(v, f[:2], np.zeros(2, np.int32),
+                      make_materials([dict(albedo=(0.5,) * 3)]),
+                      make_lights([]),
+                      sph_center=g.reshape(-1, 3).astype(np.float32),
+                      sph_radius=[0.3 + 0.01 * i for i in range(27)],
+                      sph_mat=np.zeros(27, np.int32))
+
+
+def check_flat_walk(o_scene_h, rows_c, rows_a, flush):
+    """The flat walk kernel against its plain version, bitwise, closest and
+    any hit: (a) the first chunk of the full-size oracle render of
+    ``o_scene_h`` (its camera rays and their shadow rays, R = 131,072), timed
+    with the plain version beside it; (b) edge cases on four scenes:
+    axis-parallel directions, origins on box faces, t_max -1 and 0.5,
+    coincident triangles (the lowest id must win), leaves of spheres only;
+    (c) a batch where nothing walks.  Returns (cases, timing)."""
+    cases, timing = [], {}
+    fb = sah.build_bvh(o_scene_h).to(DEV)
+    sc = o_scene_h.to(DEV)
+    for key, rows, any_hit in (("flat_walk", rows_c, False),
+                               ("flat_walk@oracle_chunk_shadow", rows_a,
+                                True)):
+        args = flat_args(fb, sc, rows[:, 0:3], rows[:, 4:7], rows[:, 3],
+                         rows[:, 7])
+        name = "oracle_chunk_" + ("shadow_rays" if any_hit else "camera_rays")
+        for form in (False, True):
+            res, stats, _ = compare_flat(args, name, form)
+            cases.append(res)
+            if form != any_hit:
+                continue
+            R = int(rows.shape[0])
+            n_bytes, ops, traffic = flat_work(stats, R, form, sc.tri_idx)
+            t0 = time.time()
+            plain_ms = time_launches(
+                lambda: flat_walk_ref(*args, any_hit=form), flush,
+                repeats=2, warmup=0)
+            timing[key] = dict(
+                shape={"R": R, "walking_rays": res["walking_rays"],
+                       "any_hit": form, "n_nodes": fb.n_nodes,
+                       "max_steps": res["max_steps"],
+                       "mean_steps": round(res["mean_steps"], 3),
+                       "plain_iterations": res["plain_iterations"],
+                       "prims": stats["prims_tri"] + stats["prims_sph"],
+                       "least_MB": round(n_bytes / 1e6, 4),
+                       "traffic_MB": round(traffic / 1e6, 4)},
+                **time_both(lambda: flat_walk(*args, any_hit=form), flush,
+                            "flat_walk_kernel"),
+                plain_ms=plain_ms, plain_wall_s=round(time.time() - t0, 2),
+                bytes=n_bytes, flops=ops)
+    v, f = meshes.icosphere(subdiv=1)
+    f = np.concatenate([f, f[:12]])          # 12 faces twice, higher ids
+    twin = make_scene(v, f, np.zeros(len(f), np.int32),
+                      make_materials([dict(albedo=(0.5,) * 3)]),
+                      make_lights([]))
+    for name, sc_h in (("edge_cornell_mesh_4", o_scene_h),
+                       ("edge_cornell_spheres", cornell.cornell("spheres")),
+                       ("edge_coincident_triangles", twin),
+                       ("edge_sphere_only_leaves", sphere_grid_scene())):
+        fb_h = sah.build_bvh(sc_h)
+        fb_e, sc_e = fb_h.to(DEV), sc_h.to(DEV)
+        args = flat_args(fb_e, sc_e, *flat_edge_rays(fb_h, 3000, 37))
+        for form in (False, True):
+            res, _, _ = compare_flat(args, name, form)
+            assert res["hits"] > 0, f"flat_walk {name}: no hit"
+            cases.append(res)
+        if name in ("edge_cornell_spheres", "edge_sphere_only_leaves"):
+            assert res["prims_sph"] > 0, f"{name}: no sphere tested"
+    c = torch.from_numpy(v[f[:12]].mean(axis=1)).float()
+    fb_t = sah.build_bvh(twin).to(DEV)
+    args = flat_args(fb_t, twin.to(DEV), (c * 3.0).to(DEV),
+                     (-c / c.norm(dim=1, keepdim=True)).to(DEV),
+                     torch.zeros(12, device=DEV),
+                     torch.full((12,), 1e30, device=DEV))
+    res, _, (t, g, _, _) = compare_flat(args, "coincident_lowest_id", False)
+    assert bool((t < INF).all()) and g.tolist() == list(range(12)), \
+        "flat_walk coincident triangles: not the lowest id"
+    cases.append(res)
+    args = flat_args(fb, sc, rows_c[:, 0:3], rows_c[:, 4:7], rows_c[:, 3],
+                     torch.full_like(rows_c[:, 7], -1.0))
+    for form in (False, True):
+        res, _, _ = compare_flat(args, "nothing_walks", form)
+        assert res["max_steps"] == 1 and res["hits"] == 0
+        cases.append(res)
+    return cases, timing
 
 
 def phase_kernels(scene, cam, cb, cfg, key, pk):
@@ -1192,12 +1456,20 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
     cases_walk, timing_walk, n_over = check_packed_walk(
         scene, cb, pk, mid, mid_full, shadow_full, flush)
     timing.update(timing_walk)
+    cases_flat, timing_flat = check_flat_walk(o_scene_h, rows_c, rows_a,
+                                              flush)
+    timing.update(timing_flat)
     del flush
     k2_bitwise = all(c["bitwise"] for c in cases_k2)
     emit({"phase": "kernels",
           "checked": ["pair_ray_reduce", "pair_tile_isect", "pair_segmin",
                       "pair_tile_isect_dedup", "dense_closest",
-                      "dense_anyhit", "packed_walk"],
+                      "dense_anyhit", "packed_walk", "flat_walk"],
+          "flat_walk": {
+              "tolerance": "bitwise (raw 32-bit words), closest-hit and "
+                           "any-hit form, against the plain version on the "
+                           "card",
+              "cases": cases_flat},
           "packed_walk": {
               "tolerance": "bitwise (raw 32-bit words), closest-hit and "
                            "any-hit form, against the plain version on the "
@@ -1234,8 +1506,10 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
                              "oracle render of cornell mesh, packed_walk at "
                              f"the whole 4096-lane queue after {N_WARM} "
                              "steps (and its shadow batch) and at the first "
-                             "overflowing sub-batches of the 256² render "
-                             "(plain version: median of 2 calls)",
+                             "overflowing sub-batches of the 256² render, "
+                             "flat_walk at the first chunk of the oracle "
+                             "render of cornell mesh (plain versions of "
+                             "the walks: median of 2 calls)",
           "us_per_launch": {
               k: {"kernel": round(v["ms"] * 1e3, 2),
                   **({"trace": v["trace_us"], "trace_n": v["trace_n"],
@@ -1252,7 +1526,8 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
             "pair_tile_isect_dedup": max(c["max_abs_err"] for c in cases_k3),
             "dense_closest": max(c["max_abs_err"] for c in cases_dense),
             "dense_anyhit": max(c["max_abs_err_occ"] for c in cases_dense),
-            "packed_walk": max(c["max_abs_err"] for c in cases_walk)}
+            "packed_walk": max(c["max_abs_err"] for c in cases_walk),
+            "flat_walk": max(c["max_abs_err"] for c in cases_flat)}
     timing["launch_floor_us"] = floors["grid_of_pair_ray_reduce"]
     return timing, errs
 
@@ -1551,7 +1826,8 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
 # Every kernel wrapper of the package, for the forward / backward split of
 # the launch counts.
 ALL_KERNELS = (pair_ray_reduce, pair_tile_isect, pair_segmin,
-               pair_tile_isect_dedup, dense_closest, dense_anyhit, packed_walk)
+               pair_tile_isect_dedup, dense_closest, dense_anyhit, packed_walk,
+               flat_walk)
 
 
 def take_launches():
@@ -1945,6 +2221,190 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     return {"pair_ray_reduce": launches["pair_ray_reduce"]}, line, img
 
 
+def probe_size(cfg):
+    """[width, height] the autotuner probes a render config at: scaled to
+    about 512² where the image is larger."""
+    if cfg.n_pixels <= 512 * 512:
+        return [cfg.width, cfg.height]
+    scale = (cfg.n_pixels / (512 * 512)) ** 0.5
+    return [max(1, round(cfg.width / scale)),
+            max(1, round(cfg.height / scale))]
+
+
+def tune_timed(scene_h, cam_h, cfg):
+    """``cluster.autotune_for_render`` of big-1m as the command line's
+    ``--autotune`` runs it (queue 4096, no fallback attached), timed whole
+    and in its parts: the host cluster builds and the probe segments.
+    Returns (host ClusterBVH, seconds, parts)."""
+    real_build, real_probe = cluster.build_cluster_bvh, cluster._probe_segment
+    parts = {"builds": 0, "build_s": 0.0, "segments": 0, "probe_s": 0.0}
+
+    def build_spy(*a, **k):
+        t0 = time.time()
+        out = real_build(*a, **k)
+        parts["builds"] += 1
+        parts["build_s"] += time.time() - t0
+        return out
+
+    def probe_spy(*a, **k):
+        t0 = time.time()
+        out = real_probe(*a, **k)          # ends in a read to the host
+        parts["segments"] += 1
+        parts["probe_s"] += time.time() - t0
+        return out
+
+    cluster.build_cluster_bvh, cluster._probe_segment = build_spy, probe_spy
+    try:
+        sync()
+        t0 = time.time()
+        cb_t = cluster.autotune_for_render(
+            scene_h, cam_h, cfg, queue=4096, exact_fallback=False,
+            device=DEV)
+        sync()
+        tune_s = time.time() - t0
+    finally:
+        cluster.build_cluster_bvh = real_build
+        cluster._probe_segment = real_probe
+    return cb_t, tune_s, {k: round(v, 3) if isinstance(v, float) else v
+                          for k, v in parts.items()}
+
+
+def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
+    """The capacity autotuner on big-1m.  (a) At ``render_exact``'s cell
+    (256², where the default capacities overflow): tune with a 256² probe,
+    render on the tuned BVH tracking suspects, and where it still overflows
+    run the command line's verify-then-retry (attach the fallback, repair
+    the suspect pixels); the final image must be ``render_exact``'s
+    fallback render bit for bit (else 2e-4 / 2e-5 where tile and row test
+    round t apart).  Every tuned cap must cover the per-level maximum that
+    ``level_hit_counts`` measures on the first closest-hit batch of every
+    probe segment.
+    (b) The command line's ``--autotune`` at the headline: the 1024² config
+    (probed at 512²), one headline render on the tuned BVH, its ``run_s``
+    beside ``render_main``'s; at overflow 0 its image must be
+    ``render_main``'s bit for bit."""
+    key, kw = (0, 3), dict(queue=4096, device=DEV)
+    kernels = (pair_ray_reduce, packed_walk)
+    default = {"frontiers": list(cb.frontiers), "k_leaf": cb.k_leaf,
+               "pair_mults": list(cb.pair_mults)}
+
+    # (a) 256².
+    cfg_a = RenderConfig(width=256, height=256, spp=1, max_depth=4,
+                         rr_start=2, rr_prob=0.7)
+    cam_a_h = meshes.big_camera(256, 256)
+    cam_a = cam_a_h.to(DEV)
+    cb_h, tune_s, parts = tune_timed(scene_h, cam_a_h, cfg_a)
+    cb_a = cb_h.to(DEV)
+    # The first closest-hit batch of each of the probe's 8 segments (the
+    # probe's own steps: key (0, 7), a fresh queue at the segment's pixel).
+    ifn, ofn = _intersectors_counted("cluster", cb_a)
+    n_pix = cfg_a.n_pixels
+    level_max = []
+    for i in range(8):
+        probes, lo = [], (n_pix // 8) * i
+        with torch.no_grad():
+            wavefront._step(scene, cam_a, cfg_a, (0, 7), ifn, ofn,
+                            wavefront.init_queue(4096, n_pix, DEV), lo,
+                            n_pix - lo, 0, 1, ray_probe=probes)
+        ro, rd, t_max = probes[0]
+        live = t_max[:, 0] > 0
+        level_max.append([int(x) for x in cluster.level_hit_counts(
+            cb_a, ro[live], rd[live]).amax(0)])
+    level_all = [max(col) for col in zip(*level_max)]
+    for k in kernels:
+        k.launches = 0
+    sync()
+    t0 = time.time()
+    img1, nc1, ns1, ovf1, it1, sus1 = \
+        wavefront.render_wavefront_suspect_counts(scene, cam_a, cfg_a, key,
+                                                  cb_a, **kw)
+    sync()
+    run_s = {"render": round(time.time() - t0, 3)}
+    launches = {k.__name__: k.launches for k in kernels}
+    assert launches["pair_ray_reduce"] == 2 * 4 * it1, launches
+    final, repair = img1, None
+    if ovf1 > 0:
+        t0 = time.time()
+        cb_a_fb = cluster.attach_fallback(cb_a, scene_h)
+        run_s["attach_fallback"] = round(time.time() - t0, 3)
+        t0 = time.time()
+        final, ovf_r = wavefront.repair_suspect_pixels(
+            scene, cam_a, cfg_a, key, cb_a_fb, img1, sus1, **kw)
+        sync()
+        run_s["repair"] = round(time.time() - t0, 3)
+        repair = {"suspect_pixels": int(sus1.sum()),
+                  "overflow_repair_subset": ovf_r}
+        del cb_a_fb
+    differ = (final != img_fb).any(-1)
+    n_differ = int(differ.sum())
+    line = {"phase": "render_autotune", "part": "render_exact_cell",
+            "scene": "big-1m", "size": cfg_a.width, "spp": cfg_a.spp,
+            "max_depth": cfg_a.max_depth, "queue": 4096, "key": list(key),
+            "probe_size": probe_size(cfg_a),
+            "autotune_s": round(tune_s, 3), "autotune_parts": parts,
+            "tuned": {"frontiers": list(cb_a.frontiers),
+                      "k_leaf": cb_a.k_leaf,
+                      "pair_mults": list(cb_a.pair_mults)},
+            "default": default,
+            "level_hit_counts_max_first_closest_batch": level_max[0],
+            "level_hit_counts_max_first_closest_batch_of_each_segment":
+                level_max,
+            "overflow": ovf1, "steps_run": it1, "n_closest": nc1,
+            "n_shadow": ns1, "launches": launches, "run_s": run_s,
+            "repair": repair,
+            "equals_render_exact_fallback_bitwise": n_differ == 0,
+            "pixels_differ": n_differ,
+            "max_abs_diff": float((final - img_fb).abs().max()),
+            "mean_radiance": float(final.mean()),
+            "tolerance": "final image vs render_exact's fallback render "
+                         "bitwise, else rtol 2e-4 atol 2e-5; every cap >= "
+                         "the level's measured maximum over the first "
+                         "closest-hit batch of every probe segment"}
+    emit(line)
+    assert all(c >= m for c, m in zip(cb_a.frontiers, level_all)), \
+        f"a tuned cap below its measured need: {cb_a.frontiers} {level_all}"
+    assert bool(torch.isfinite(final).all())
+    if n_differ:
+        assert torch.allclose(final, img_fb, rtol=2e-4, atol=2e-5), \
+            "render_autotune: tuned image vs render_exact's fallback render"
+    del cb_a, img1, final, probes
+
+    # (b) 1024², probed at 512².
+    cam_h = meshes.big_camera(cfg.width, cfg.height)
+    cb_h, tune_s, parts = tune_timed(scene_h, cam_h, cfg)
+    cb_b = cb_h.to(DEV)
+    del cb_h
+    for k in kernels:
+        k.launches = 0
+    sync()
+    t0 = time.time()
+    img, nc, ns, ovf, it = wavefront.render_wavefront_counts(
+        scene, cam_h.to(DEV), cfg, key, cb_b, **kw)
+    sync()
+    run_s = time.time() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    equal = bool(torch.equal(img, img_main))
+    emit({"phase": "render_autotune", "part": "headline_autotune",
+          "scene": "big-1m", "size": cfg.width, "spp": cfg.spp,
+          "max_depth": cfg.max_depth, "queue": 4096, "key": list(key),
+          "probe_size": probe_size(cfg), "autotune_s": round(tune_s, 3),
+          "autotune_parts": parts,
+          "tuned": {"frontiers": list(cb_b.frontiers), "k_leaf": cb_b.k_leaf,
+                    "pair_mults": list(cb_b.pair_mults)},
+          "default": default, "overflow": ovf, "steps_run": it,
+          "n_closest": nc, "n_shadow": ns, "launches": launches,
+          "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
+          "run_s_over_render_main": round(run_s / main["run_s"], 4),
+          "image_equals_render_main_bitwise": equal,
+          "max_abs_diff": float((img - img_main).abs().max()),
+          "mean_radiance": float(img.mean())})
+    assert launches["pair_ray_reduce"] == 2 * 4 * it, launches
+    assert bool(torch.isfinite(img).all())
+    if ovf == 0:
+        assert equal, "render_autotune: at overflow 0 the tuned headline " \
+            "must be render_main's image bit for bit"
+
+
 def phase_render_split(scene, cam, cb, cfg, main, img_main):
     """The headline render through the two-kernel pair stage: bit-identical
     to ``render_main``'s image, timed beside it on the same host.  Returns
@@ -1987,107 +2447,136 @@ def phase_render_split(scene, cam, cb, cfg, main, img_main):
 
 
 def phase_render_oracle():
-    """The oracle renderer through the dense-sweep backend: small renders
-    held against the brute backend, the plain versions and the wavefront
-    renderer (on the brute and on the dense-sweep intersector), then the
-    full-size renders (512x512, spp 16, depth 4, the
-    command line's defaults).  Returns the launches of the dense kernels
-    on the full-size Cornell mesh render."""
-    kernels = (dense_closest, dense_anyhit)
+    """The oracle renderer through the dense-sweep backend (``"pallas"``)
+    and the flat BVH walk (``"bvh"``): small renders held against the brute
+    backend, the plain versions and the wavefront renderer (on the brute
+    and on the backend's intersector), then the full-size renders (512x512,
+    spp 16, depth 4, the command line's defaults).  Returns the launches of
+    the dense kernels and of the flat walk on the full-size Cornell mesh
+    renders."""
     scenes = {"cornell_mesh_4": cornell.cornell("mesh", mesh_subdiv=4),
               "cornell_spheres": cornell.cornell("spheres")}
     small = RenderConfig(width=64, height=64, spp=4, max_depth=3)
     full = RenderConfig(width=512, height=512, spp=16, max_depth=4)
     key = (0, 0)
-    out = []
-    launches = {}
-    for name, scene_h in scenes.items():
-        ps = PallasScene(scene_h)
-        cam_s = cornell.camera(small.width, small.height)
-        img_k = render(scene_h, cam_s, small, key, backend="pallas", bvh=ps,
-                       device=DEV)
-        img_p = render(scene_h, cam_s, small, key, backend="pallas", bvh=ps,
-                       device=DEV, use_kernels=False)
-        img_b = render(scene_h, cam_s, small, key, backend="brute", device=DEV)
-        # The wavefront renderer against the oracle renderer, each pair on
-        # ONE intersector, so that only the scheduling differs (two
-        # intersectors round t differently, and an ulp of t moves a
-        # specular path: that pair is held to the looser tolerance above).
-        img_wb = wavefront.render_wavefront(scene_h, cam_s, small, key, None,
-                                            queue=4096, backend="brute",
-                                            device=DEV)
-        img_wk = wavefront.render_wavefront(scene_h, cam_s, small, key, ps,
-                                            queue=4096, backend="pallas",
-                                            device=DEV)
-        assert bool(torch.isfinite(img_k).all())
-        assert bool(torch.equal(img_k, img_p)), \
-            f"{name}: image with kernels differs from the plain versions'"
-        assert torch.allclose(img_k, img_b, rtol=1e-3, atol=1e-3), \
-            f"{name}: dense-sweep backend vs brute backend"
-        assert torch.allclose(img_wb, img_b, rtol=2e-4, atol=2e-5), \
-            f"{name}: wavefront renderer vs oracle renderer (brute)"
-        assert torch.allclose(img_wk, img_k, rtol=2e-4, atol=2e-5), \
-            f"{name}: wavefront renderer vs oracle renderer (dense sweep)"
-        cam = cornell.camera(full.width, full.height)
-        scene, cam, ps = scene_h.to(DEV), cam.to(DEV), ps.to(DEV)
-        times = []
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(2):
-            # The launch counts of this path: zeroed just before one
-            # full-size render, read just after it.
-            for k in kernels:
-                k.launches = 0
-            sync()
-            t0 = time.time()
-            img = render(scene, cam, full, key, backend="pallas", bvh=ps,
-                         device=DEV)
-            sync()
-            times.append(time.time() - t0)
-        n_launch = {k.__name__: k.launches for k in kernels}
-        hits = full.max_depth + 1
-        shadow = scene.lights.count * full.ns_area_light
-        chunks = -(-full.n_pixels // ((1 << 17) // full.spp))
-        for kname, n in n_launch.items():
-            want = chunks * hits * (shadow if kname == "dense_anyhit" else 1)
-            assert n == want, f"{name}: {kname} launched {n} times, not {want}"
-        assert bool(torch.isfinite(img).all()), f"{name}: image not finite"
-        assert tuple(img.shape) == (full.height, full.width, 3)
-        mean = float(img.mean())
-        rays_cast = full.n_pixels * full.spp * hits * (1 + shadow)
-        run_s = min(times)
-        line = {"scene": name, "rows": int(ps.prims.shape[0]),
-                "n_prims": ps.n_prims, "size": full.width, "spp": full.spp,
-                "max_depth": full.max_depth, "key": list(key),
-                "small": {"size": small.width, "spp": small.spp,
-                          "max_depth": small.max_depth,
-                          "kernels_vs_plain_bitwise": True,
-                          "max_abs_diff_vs_brute":
-                              float((img_k - img_b).abs().max()),
-                          "max_abs_diff_wavefront_brute":
-                              float((img_wb - img_b).abs().max()),
-                          "max_abs_diff_wavefront_pallas":
-                              float((img_wk - img_k).abs().max()),
-                          "max_abs_diff_wavefront_brute_vs_oracle_pallas":
-                              float((img_wb - img_k).abs().max()),
-                          "tolerance": "pallas vs brute rtol 1e-3 atol 1e-3; "
-                                       "wavefront vs oracle on one "
-                                       "intersector rtol 2e-4 atol 2e-5"},
-                "run_s_all": [round(t, 3) for t in times],
-                "run_s": round(run_s, 3), "rays_cast": rays_cast,
-                "rays_cast_per_s": round(rays_cast / run_s, 1),
-                "launches": n_launch, "mean_radiance": mean,
-                "peak_mem_MB": round(torch.cuda.max_memory_allocated() / 1e6,
-                                     1)}
-        if name == "cornell_spheres":
-            line["anchor_mean_radiance"] = ORACLE_ANCHOR
-            line["vs_anchor"] = mean - ORACLE_ANCHOR
-            assert abs(mean - ORACLE_ANCHOR) <= 0.005 * ORACLE_ANCHOR, \
-                f"mean_radiance {mean} not within 0.5 % of {ORACLE_ANCHOR}"
-        else:
-            film.save("chip_smoke_cornell_mesh.png", img.cpu().numpy())
-            launches = n_launch
-        out.append(line)
-    emit({"phase": "render_oracle", "backend": "pallas", "renders": out})
+    launches, means, run_s_of = {}, {}, {}
+    for backend, kernels in (("pallas", (dense_closest, dense_anyhit)),
+                             ("bvh", (flat_walk,))):
+        out = []
+        for name, scene_h in scenes.items():
+            bvh = PallasScene(scene_h) if backend == "pallas" \
+                else sah.build_bvh(scene_h)
+            cam_s = cornell.camera(small.width, small.height)
+            img_k = render(scene_h, cam_s, small, key, backend=backend,
+                           bvh=bvh, device=DEV)
+            img_p = render(scene_h, cam_s, small, key, backend=backend,
+                           bvh=bvh, device=DEV, use_kernels=False)
+            img_b = render(scene_h, cam_s, small, key, backend="brute",
+                           device=DEV)
+            # The wavefront renderer against the oracle renderer, each pair
+            # on ONE intersector, so that only the scheduling differs (two
+            # intersectors round t differently, and an ulp of t moves a
+            # specular path: that pair is held to the looser tolerance).
+            img_wb = wavefront.render_wavefront(scene_h, cam_s, small, key,
+                                                None, queue=4096,
+                                                backend="brute", device=DEV)
+            img_wk = wavefront.render_wavefront(scene_h, cam_s, small, key,
+                                                bvh, queue=4096,
+                                                backend=backend, device=DEV)
+            assert bool(torch.isfinite(img_k).all())
+            assert bool(torch.equal(img_k, img_p)), \
+                f"{backend} {name}: image with kernels differs from the " \
+                "plain versions'"
+            assert torch.allclose(img_k, img_b, rtol=1e-3, atol=1e-3), \
+                f"{backend} {name}: backend vs brute backend"
+            assert torch.allclose(img_wb, img_b, rtol=2e-4, atol=2e-5), \
+                f"{name}: wavefront renderer vs oracle renderer (brute)"
+            assert torch.allclose(img_wk, img_k, rtol=2e-4, atol=2e-5), \
+                f"{backend} {name}: wavefront renderer vs oracle renderer"
+            cam = cornell.camera(full.width, full.height)
+            scene, cam, bvh = scene_h.to(DEV), cam.to(DEV), bvh.to(DEV)
+            times = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                # The launch counts of this path: zeroed just before one
+                # full-size render, read just after it.
+                for k in kernels:
+                    k.launches = 0
+                sync()
+                t0 = time.time()
+                img = render(scene, cam, full, key, backend=backend, bvh=bvh,
+                             device=DEV)
+                sync()
+                times.append(time.time() - t0)
+            n_launch = {k.__name__: k.launches for k in kernels}
+            hits = full.max_depth + 1
+            shadow = scene.lights.count * full.ns_area_light
+            chunks = -(-full.n_pixels // ((1 << 17) // full.spp))
+            for kname, n in n_launch.items():
+                want = chunks * hits * {"dense_closest": 1,
+                                        "dense_anyhit": shadow,
+                                        "flat_walk": 1 + shadow}[kname]
+                assert n == want, \
+                    f"{name}: {kname} launched {n} times, not {want}"
+            assert bool(torch.isfinite(img).all()), \
+                f"{backend} {name}: image not finite"
+            assert tuple(img.shape) == (full.height, full.width, 3)
+            mean = float(img.mean())
+            means[backend, name] = mean
+            rays_cast = full.n_pixels * full.spp * hits * (1 + shadow)
+            run_s = min(times)
+            run_s_of[backend, name] = run_s
+            line = {"scene": name, "size": full.width, "spp": full.spp,
+                    "max_depth": full.max_depth, "key": list(key),
+                    "small": {"size": small.width, "spp": small.spp,
+                              "max_depth": small.max_depth,
+                              "kernels_vs_plain_bitwise": True,
+                              "max_abs_diff_vs_brute":
+                                  float((img_k - img_b).abs().max()),
+                              "max_abs_diff_wavefront_brute":
+                                  float((img_wb - img_b).abs().max()),
+                              f"max_abs_diff_wavefront_{backend}":
+                                  float((img_wk - img_k).abs().max()),
+                              "max_abs_diff_wavefront_brute_vs_oracle_"
+                              f"{backend}": float((img_wb - img_k).abs().max()),
+                              "tolerance": f"{backend} vs brute rtol 1e-3 "
+                                           "atol 1e-3; wavefront vs oracle "
+                                           "on one intersector rtol 2e-4 "
+                                           "atol 2e-5"},
+                    "run_s_all": [round(t, 3) for t in times],
+                    "run_s": round(run_s, 3), "rays_cast": rays_cast,
+                    "rays_cast_per_s": round(rays_cast / run_s, 1),
+                    "launches": n_launch, "mean_radiance": mean,
+                    "peak_mem_MB": round(
+                        torch.cuda.max_memory_allocated() / 1e6, 1)}
+            if backend == "pallas":
+                line.update(rows=int(bvh.prims.shape[0]),
+                            n_prims=bvh.n_prims)
+            else:
+                line.update(
+                    n_nodes=bvh.n_nodes,
+                    run_s_pallas=round(run_s_of["pallas", name], 3),
+                    run_s_over_pallas=round(
+                        run_s / run_s_of["pallas", name], 4),
+                    mean_radiance_pallas=means["pallas", name],
+                    vs_pallas=mean - means["pallas", name])
+                assert abs(mean - means["pallas", name]) \
+                    <= 0.005 * means["pallas", name], \
+                    f"bvh {name}: mean_radiance {mean} not within 0.5 % of " \
+                    f"the pallas render's {means['pallas', name]}"
+            if name == "cornell_spheres":
+                line["anchor_mean_radiance"] = ORACLE_ANCHOR
+                line["vs_anchor"] = mean - ORACLE_ANCHOR
+                assert abs(mean - ORACLE_ANCHOR) <= 0.005 * ORACLE_ANCHOR, \
+                    f"{backend}: mean_radiance {mean} not within 0.5 % of " \
+                    f"{ORACLE_ANCHOR}"
+            else:
+                png = "chip_smoke_cornell_mesh.png" if backend == "pallas" \
+                    else "chip_smoke_cornell_mesh_bvh.png"
+                film.save(png, img.cpu().numpy())
+                launches.update(n_launch)
+            out.append(line)
+        emit({"phase": "render_oracle", "backend": backend, "renders": out})
     return launches
 
 
@@ -2347,10 +2836,7 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return
-    pk = phase_build(scene_h)
-    t0 = time.time()
-    cb_h = cluster.build_cluster_bvh(scene_h)
-    build_s = time.time() - t0
+    pk, cb_h, build_s = phase_build(scene_h)
     scene, cb = scene_h.to(DEV), cb_h.to(DEV)
     n_tris = scene_h.n_tris
     emit({"phase": "scene", "scene_build_s": round(t_scene, 2),
@@ -2375,10 +2861,12 @@ def main():
     phase_determinism(scene, cb)
     cb_fb, _, img_fb = phase_render_exact(scene, scene_h, cb, pk, small)
     phase_render_grad(scene, cb, cb_fb, img_fb)
-    del img_fb
-    del small, scene_h
+    del small
     launches, main_line, img_main = phase_render_main(scene, cam, cb, cfg,
                                                       build_s, n_tris)
+    phase_render_autotune(scene, scene_h, cb, cfg, main_line, img_main,
+                          img_fb)
+    del img_fb, scene_h
     launches.update(phase_render_fallback(scene, cam, cb_fb, cfg, main_line,
                                           img_main))
     del cb_fb
@@ -2409,7 +2897,10 @@ def main():
                          "tpu_pt/kernels/intersect.py:177"),
         "packed_walk": ("tpu_pt_torch/csrc/packed_walk.cu",
                         "tpu_pt/bvh/packed.py:252 (_traverse, an XLA "
-                        "while_loop; no pl.pallas_call)")}
+                        "while_loop; no pl.pallas_call)"),
+        "flat_walk": ("tpu_pt_torch/csrc/flat_walk.cu",
+                      "tpu_pt/bvh/flat.py:53 and :118 (intersect and "
+                      "occluded, XLA while_loops; no pl.pallas_call)")}
     def bound(tm):
         """(bound_ms, bound_by) of a timing entry's bytes and operations."""
         by_bytes = tm["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2433,10 +2924,11 @@ def main():
             row["trace_warm_us"] = tm["trace_warm_us"]
             row["trace_warm_n"] = tm["trace_warm_n"]
             row["launch_floor_us"] = timing["launch_floor_us"]
-        if name == "packed_walk":
-            # Timed at the whole 4096-lane queue; the same numbers for the
-            # other batches, and the rays' walks as the plain version
-            # counted them.
+        if name in ("packed_walk", "flat_walk"):
+            # Timed at the whole 4096-lane queue (the flat walk: at the
+            # oracle chunk's camera rays); the same numbers for the other
+            # batches, and the rays' walks as the plain version counted
+            # them.
             row["shape"] = tm["shape"]
             row["other_batches"] = {
                 k.split("@")[1]: {**{f: v[f] for f in ("ms", "trace_us",
@@ -2445,7 +2937,7 @@ def main():
                                      if f in v},
                                   **dict(zip(("bound_ms", "bound_by"),
                                              bound(v)))}
-                for k, v in timing.items() if k.startswith("packed_walk@")}
+                for k, v in timing.items() if k.startswith(name + "@")}
         rows.append(row)
     emit({"phase": "done", "total_s": round(time.time() - t_start, 1)})
     print(smi, flush=True)

@@ -1,0 +1,439 @@
+"""The BVH path that needs no native builder: the port's Python SAH builder
+(bvh/sah.py::build_bvh), core/aabb.py, the octant packing
+(bvh/packed.py::pack_bvh), native.build_packed_any and the cluster build's
+fallback, and the flat walk (bvh/flat.py, kernels/flat_walk.py, backend
+"bvh"), against tpu_pt and against the port's brute-force oracle.
+
+Tolerances: trees, tables and primitive ids exact (the same numpy
+arithmetic in both packages); hit mask and occlusion exact, hit t rtol 1e-5
+/ atol 1e-6 and prim agreement > 0.99 (tests/test_bvh.py:97-117); images
+rtol 2e-4 / atol 2e-5 against the JAX package, 1e-3 against another
+intersector.  The walk kernel itself runs only on the card (the ``gpu``
+case)."""
+
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_pt.bvh import cluster as jcl
+from tpu_pt.bvh import flat as jflat
+from tpu_pt.bvh import native as jnative
+from tpu_pt.bvh import packed as jpk
+from tpu_pt.bvh import sah as jsah
+from tpu_pt.config import RenderConfig as JConfig
+from tpu_pt.core import aabb as jaabb
+from tpu_pt.render.driver import render as jrender
+from tpu_pt.scene import cornell as jc
+from tpu_pt.scene import meshes as jm
+from tpu_pt.scene import types as jt
+from tpu_pt_torch import convert
+from tpu_pt_torch.bvh import cluster as tcl
+from tpu_pt_torch.bvh import flat as tflat
+from tpu_pt_torch.bvh import native as tnative
+from tpu_pt_torch.bvh import packed as tpk
+from tpu_pt_torch.bvh import sah as tsah
+from tpu_pt_torch.config import RenderConfig as TConfig
+from tpu_pt_torch.core import aabb as taabb
+from tpu_pt_torch.kernels import flat_walk as tfw
+from tpu_pt_torch.render import brute as tbrute
+from tpu_pt_torch.render.driver import render as trender
+from tpu_pt_torch.render.wavefront import (
+    render_wavefront_counts, render_wavefront_suspect_counts)
+
+from torch_port_util import T, camera_dict, rays, scene_dict
+
+SCENES = ("cornell", "mesh", "coincident", "spheres_only")
+
+
+def _jax_scene(name):
+    if name == "cornell":
+        return jc.cornell("spheres")
+    v, f = jm.icosphere(subdiv=2 if name == "mesh" else 1)
+    sph = {}
+    if name == "coincident":      # the first 12 faces twice, higher ids
+        f = np.concatenate([f, f[:12]])
+    if name == "spheres_only":    # 27 spheres: sphere-only leaves
+        g = np.stack(np.meshgrid(*[np.linspace(-1.5, 1.5, 3)] * 3), -1)
+        sph = dict(sph_center=g.reshape(-1, 3).astype(np.float32),
+                   sph_radius=[0.3 + 0.01 * i for i in range(27)],
+                   sph_mat=np.zeros(27, np.int32))
+        f = f[:2]
+    return jt.make_scene(v, f, np.zeros(len(f), np.int32),
+                         jt.make_materials([dict(albedo=(0.5,) * 3)]),
+                         jt.make_lights([]), **sph)
+
+
+@pytest.fixture(scope="module")
+def setups():
+    """name -> (JAX scene, JAX FlatBVH, port host scene, port FlatBVH)."""
+    out = {}
+    for name in SCENES:
+        sj = _jax_scene(name)
+        st = convert.scene_from_numpy(scene_dict(sj), "cpu")
+        out[name] = (sj, jsah.build_bvh(sj), st, tsah.build_bvh(st))
+    return out
+
+
+def _assert_flat_equal(bj, bt):
+    for f in jsah.FlatBVH._fields:
+        x, y = np.asarray(getattr(bj, f)), getattr(bt, f)
+        y = y.numpy() if torch.is_tensor(y) else y
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(y, x, err_msg=f)
+
+
+def _check_invariants(scene, bvh):
+    """tests/test_bvh.py::_check_invariants on the port's tree."""
+    lo, hi = tsah.prim_bounds(scene)
+    n = bvh.n_nodes
+    skip, start, count = bvh.skip, bvh.prim_start, bvh.prim_count
+    ids = bvh.prim_ids
+    assert sorted(ids.tolist()) == list(range(scene.n_prims))
+    leaf = count > 0
+    covered = np.zeros(scene.n_prims, bool)
+    for i in np.where(leaf)[0]:
+        seg = ids[start[i]:start[i] + count[i]]
+        assert not covered[seg].any()
+        covered[seg] = True
+        assert np.all(bvh.node_min[i] <= lo[seg].min(axis=0) + 1e-6)
+        assert np.all(bvh.node_max[i] >= hi[seg].max(axis=0) - 1e-6)
+    assert covered.all()
+    assert np.all(skip > np.arange(n)) and np.all(skip <= n)
+    for i in np.where(~leaf)[0]:
+        left, right = i + 1, skip[i + 1]
+        assert right < skip[i] if skip[i] < n else right <= n
+        for ch in (left, right):
+            assert np.all(bvh.node_min[i] <= bvh.node_min[ch] + 1e-6)
+            assert np.all(bvh.node_max[i] >= bvh.node_max[ch] - 1e-6)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_build_bvh_equals_jax_array_for_array(setups, name):
+    sj, bj, st, bt = setups[name]
+    assert bt.n_nodes == bj.n_nodes
+    _assert_flat_equal(bj, bt)
+    _check_invariants(st, bt)
+    dev = bt.to("cpu")
+    assert torch.is_tensor(dev.skip) and dev.skip.is_contiguous()
+    d = {f: np.asarray(getattr(bj, f)) for f in jsah.FlatBVH._fields}
+    _assert_flat_equal(bj, convert.flat_bvh_from_numpy(d, "cpu"))
+
+
+@pytest.mark.parametrize("leaf", [1, 8, 64])
+def test_build_bvh_equals_jax_at_other_leaf_sizes(leaf):
+    """Larger leaves and the split's tie paths (a 5k-triangle mesh)."""
+    sj = jm.big_scene(subdiv=3)
+    st = convert.scene_from_numpy(scene_dict(sj), "cpu")
+    _assert_flat_equal(jsah.build_bvh(sj, max_leaf=leaf),
+                       tsah.build_bvh(st, max_leaf=leaf))
+
+
+def test_sah_split_ties_and_degenerate_extent_equal_jax():
+    """Coincident centroids (zero extent: halves) and bins one side of
+    which is empty (stable argsort halves) split as in the JAX package."""
+    rs = np.random.RandomState(0)
+    lo = rs.uniform(-1, 1, (40, 3)).astype(np.float32)
+    hi = lo + rs.uniform(0, 0.2, (40, 3)).astype(np.float32)
+    cent = (lo + hi) * 0.5
+    ids = np.arange(40, dtype=np.int32)
+    same = np.repeat(cent[:1], 40, 0)                 # zero extent
+    two = cent.copy()
+    two[:20] = cent[0]                                # two distinct points
+    two[20:] = cent[1]
+    for c in (cent, same, two):
+        for got, want in zip(tsah._sah_split(ids, lo, hi, c),
+                             jsah._sah_split(ids, lo, hi, c)):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_aabb_matches_jax():
+    rs = np.random.RandomState(1)
+    ro, rd = rays(512, 2)
+    rd[::7, 0] = 0.0
+    rd[::11, 1] = -0.0
+    lo = rs.uniform(-1, 0, (512, 3)).astype(np.float32)
+    hi = lo + rs.uniform(0, 1, (512, 3)).astype(np.float32)
+    ro[::7, 0] = lo[::7, 0]                           # on a slab: 0 * inf
+    with np.errstate(divide="ignore"):
+        inv = (1.0 / rd).astype(np.float32)
+    t_min = np.zeros((512, 1), np.float32)
+    t_max = np.full((512, 1), 3.0, np.float32)
+    hj, nj = jaabb.slab_test(*(jnp.asarray(x) for x in
+                               (ro, inv, lo, hi, t_min, t_max)))
+    ht, nt = taabb.slab_test(*(T(x) for x in (ro, inv, lo, hi, t_min, t_max)))
+    np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+    assert 0 < ht.numpy().sum() < 512
+    uj = jaabb.union(lo, hi, lo - 1, hi - 2)
+    ut = taabb.union(T(lo), T(hi), T(lo - 1), T(hi - 2))
+    for a, b in zip(ut, uj):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_allclose(taabb.surface_area(T(lo), T(hi)).numpy(),
+                               np.asarray(jaabb.surface_area(lo, hi)),
+                               rtol=1e-6)
+
+
+def _edge_rays(bvh, n, seed):
+    """Seeded rays with the walk's edge cases mixed in: every other ray aims
+    at a random point of a random leaf box; axis-parallel directions
+    (components +0 and -0); origins ON a node box's face with the direction
+    inside that face's plane (0 * inf = NaN in the slab test); t_max -1
+    (leaves at the root) and 0.5."""
+    ro, rd = rays(n, seed)
+    rs = np.random.RandomState(seed + 1)
+    lo, hi = np.asarray(bvh.node_min), np.asarray(bvh.node_max)
+    leaves = np.flatnonzero(np.asarray(bvh.prim_count) > 0)
+    pick = leaves[rs.randint(0, len(leaves), n)]
+    aim = rs.uniform(lo[pick], np.maximum(hi[pick], lo[pick])) - ro
+    aim /= np.linalg.norm(aim, axis=1, keepdims=True)
+    rd[1::2] = aim[1::2]
+    axes = np.eye(3, dtype=np.float32)
+    for i in range(0, n, 7):
+        rd[i] = axes[i % 3] * (1 if i % 2 else -1)
+        if i % 4 == 0:
+            rd[i, (i + 1) % 3] = -0.0
+    for i in range(5, n, 13):
+        b = rs.randint(0, len(lo))
+        ro[i] = rs.uniform(lo[b], np.maximum(hi[b], lo[b]))
+        ax = i % 3
+        ro[i, ax] = lo[b, ax]
+        rd[i, ax] = 0.0
+        if np.linalg.norm(rd[i]) < 1e-3:             # was along that axis
+            rd[i, (ax + 1) % 3] = 1.0
+        rd[i] /= np.linalg.norm(rd[i])
+    t_min = np.zeros((n, 1), np.float32)
+    t_max = np.full((n, 1), 1e30, np.float32)
+    t_max[8::19] = 0.5
+    t_max[::17] = -1.0
+    return ro.astype(np.float32), rd.astype(np.float32), t_min, t_max
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_flat_intersect_matches_jax_and_brute(setups, name):
+    sj, bj, st, bt = setups[name]
+    btd = bt.to("cpu")
+    ro, rd, t_min, t_max = _edge_rays(bt, 1024, 3)
+    hj = jflat.intersect(bj, sj, *(jnp.asarray(x)
+                                   for x in (ro, rd, t_min, t_max)))
+    ht = tflat.intersect(btd, st, T(ro), T(rd), T(t_min), T(t_max))
+    hb = tbrute.intersect(st, T(ro), T(rd), T(t_min), T(t_max))
+    m = ht.hit.numpy()[:, 0]
+    assert 50 < m.sum() < len(m)
+    assert not m[::17].any()                          # t_max = -1
+    assert ht.prim.dtype == torch.int32
+    for ref in (hj, hb):
+        np.testing.assert_array_equal(ht.hit.numpy(), np.asarray(ref.hit))
+        np.testing.assert_allclose(ht.t.numpy()[m], np.asarray(ref.t)[m],
+                                   rtol=1e-5, atol=1e-6)
+        assert (ht.prim.numpy() == np.asarray(ref.prim))[m].mean() > 0.99
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_flat_occluded_matches_jax_and_brute(setups, name):
+    sj, bj, st, bt = setups[name]
+    ro, rd, _, t_max = _edge_rays(bt, 768, 4)
+    t_max = np.where(t_max > 1.0, 2.0, t_max).astype(np.float32)
+    oj = jflat.occluded(bj, sj, jnp.asarray(ro), jnp.asarray(rd),
+                        jnp.asarray(t_max))
+    ot = tflat.occluded(bt.to("cpu"), st, T(ro), T(rd), T(t_max))
+    assert ot.dtype == torch.bool and tuple(ot.shape) == (768, 1)
+    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
+    np.testing.assert_array_equal(
+        ot.numpy(), tbrute.occluded(st, T(ro), T(rd), T(t_max)).numpy())
+    assert 0 < int(ot.sum()) < 768
+
+
+def test_coincident_triangles_take_the_lowest_id(setups):
+    _, _, st, bt = setups["coincident"]
+    v, f = np.asarray(st.vertices), np.asarray(st.tri_idx)
+    c = v[f[:12]].mean(axis=1)
+    ro = (c * 3.0).astype(np.float32)
+    rd = (-c / np.linalg.norm(c, axis=1, keepdims=True)).astype(np.float32)
+    h = tflat.intersect(bt.to("cpu"), st, T(ro), T(rd), 0.0, 1e30)
+    assert bool(h.hit.all())
+    np.testing.assert_array_equal(h.prim.numpy(), np.arange(12))
+
+
+def test_walk_stats_dead_rays_and_refusals(setups):
+    """A ray with t_max < t_min fetches the root alone and reports (t_max,
+    prim 0, 0, 0); the wrapper's CPU path is the plain version; the any-hit
+    form tests no primitive after its first hit; bad operands raise."""
+    _, _, st, bt = setups["cornell"]
+    b = bt.to("cpu")
+    ro, rd, t_min, t_max = _edge_rays(bt, 512, 8)
+    args = (b.node_min, b.node_max, b.skip, b.prim_start, b.prim_count,
+            b.prim_ids, st.tri_idx, st.vertices, st.sph_center, st.sph_radius,
+            T(ro), T(rd), T(t_min[:, 0]), T(t_max[:, 0]), tsah.MAX_LEAF)
+    stats = {}
+    t, g, u, v = tfw.flat_walk_ref(*args, stats=stats)
+    dead = t_max[:, 0] < 0
+    assert (stats["steps"].numpy()[dead] == 1).all()
+    assert (t.numpy()[dead] == -1.0).all() and (g.numpy()[dead] == 0).all()
+    assert stats["iterations"] == int(stats["steps"].max())
+    assert stats["prims_tri"] > 0 and stats["prims_sph"] > 0
+    for a, b_ in zip(tfw.flat_walk(*args), (t, g, u, v)):
+        assert torch.equal(a, b_)
+    s_any = {}
+    occ = tfw.flat_walk_ref(*args, any_hit=True, stats=s_any)
+    assert torch.equal(occ, tfw.flat_walk(*args, any_hit=True))
+    assert s_any["prims_tri"] + s_any["prims_sph"] \
+        < stats["prims_tri"] + stats["prims_sph"]
+    assert torch.equal(occ, t < T(t_max[:, 0]))
+    with pytest.raises(TypeError, match="ro"):
+        tfw.flat_walk(*args[:10], T(ro).double(), *args[11:])
+    with pytest.raises(TypeError, match="skip"):
+        tfw.flat_walk(*args[:2], b.skip.long(), *args[3:])
+    with pytest.raises(ValueError, match="t_max"):
+        tfw.flat_walk(*args[:13], torch.ones((512, 1)), *args[14:])
+    with pytest.raises(ValueError, match="requires grad"):
+        tfw.flat_walk(*args[:10], T(ro).requires_grad_(), *args[11:])
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh", "spheres_only"])
+def test_pack_bvh_equals_jax(setups, name):
+    """Octant tables, primitive rows and gids of pack_bvh equal the JAX
+    package's bit for bit, and the packed walk over them agrees with the
+    flat walk."""
+    sj, bj, st, bt = setups[name]
+    pj = jpk.pack_bvh(bj, sj)
+    pt = tpk.pack_bvh(bt, st)
+    assert (pt.n_nodes, pt.n_tables, pt.max_leaf) == \
+        (pj.n_nodes, pj.n_tables, pj.max_leaf)
+    np.testing.assert_array_equal(pt.table.view(np.uint32),
+                                  np.asarray(pj.table).view(np.uint32))
+    np.testing.assert_array_equal(pt.prim_gid, np.asarray(pj.prim_gid))
+    np.testing.assert_array_equal(
+        tpk._subtree_sizes(bt.skip, bt.prim_count),
+        jpk._subtree_sizes(np.asarray(bj.skip), np.asarray(bj.prim_count)))
+    ro, rd = rays(512, 5)
+    hp = tpk.intersect(pt.to("cpu"), st, T(ro), T(rd), 0.0, 1e30)
+    hf = tflat.intersect(bt.to("cpu"), st, T(ro), T(rd), 0.0, 1e30)
+    assert torch.equal(hp.hit, hf.hit)
+
+
+def _no_native(monkeypatch):
+    """The native library unavailable in both packages (nothing in tpu_pt
+    is edited: its loader is monkeypatched)."""
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "lib_path",
+                        lambda: "/nonexistent/libbvh_missing.so")
+
+    def no_gxx(path):
+        raise RuntimeError("g++ failed building native/bvh_builder.cpp:\n"
+                           "g++: command not found")
+
+    monkeypatch.setattr(tnative, "_build", no_gxx)
+
+
+@pytest.mark.parametrize("name", ["cornell", "mesh"])
+def test_builds_without_the_native_library_equal_jax_fallbacks(
+        name, monkeypatch):
+    """Without g++ the port builds what the JAX package builds, with its
+    Python SAH builder: the cluster BVH and build_packed_any, array for
+    array, each with one warning naming the builder and the g++ error."""
+    _no_native(monkeypatch)
+    sj = _jax_scene(name)
+    st = convert.scene_from_numpy(scene_dict(sj), "cpu")
+    assert not tnative.available() and "g++" in tnative.load_error
+    assert tnative.build_leaves(st, 8) is None
+    assert tnative.build_packed(st) is None
+    with pytest.warns(tnative.BuilderFallbackWarning,
+                      match="Python SAH builder.*g\\+\\+ failed") as rec:
+        ct = tcl.build_cluster_bvh(st, tile=8, dense_start=4)
+    assert len(rec) == 1 and "cluster" in str(rec[0].message)
+    cj = jcl.build_cluster_bvh(sj, tile=8, dense_start=4)
+    assert ct.frontiers == cj.frontiers and ct.k_leaf == cj.k_leaf
+    assert ct.pair_mults == cj.pair_mults
+    for a, b in zip(ct.levels, cj.levels):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    np.testing.assert_array_equal(ct.tiles, np.asarray(cj.tiles))
+    np.testing.assert_array_equal(ct.tile_gid, np.asarray(cj.tile_gid))
+    with pytest.warns(tnative.BuilderFallbackWarning, match="packed") as rec:
+        pt = tnative.build_packed_any(st)
+    assert len(rec) == 1
+    pj = jnative.build_packed_any(sj)
+    np.testing.assert_array_equal(pt.table.view(np.uint32),
+                                  np.asarray(pj.table).view(np.uint32))
+    np.testing.assert_array_equal(pt.prim_gid, np.asarray(pj.prim_gid))
+    with pytest.warns(tnative.BuilderFallbackWarning):
+        fb = tcl.attach_fallback(ct, st).fallback
+    np.testing.assert_array_equal(fb.table, pt.table)
+
+
+def test_native_build_warns_nothing():
+    st = convert.scene_from_numpy(scene_dict(_jax_scene("cornell")), "cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tcl.build_cluster_bvh(st, tile=8)
+        tnative.build_packed_any(st)
+
+
+def test_oracle_render_bvh_matches_jax_and_brute(setups):
+    """The oracle renderer on backend "bvh" (tests/test_bvh.py:120-133
+    analogue): against the JAX package's render on the same tree, and
+    against the port's brute backend."""
+    sj, bj, st, bt = setups["cornell"]
+    kw = dict(width=16, height=16, spp=2, max_depth=3)
+    camj = jc.camera(16, 16)
+    camt = convert.camera_from_numpy(camera_dict(camj), "cpu")
+    img_j = jrender(sj, camj, JConfig(**kw), jax.random.key(2),
+                    backend="bvh", bvh=bj)
+    img_t = trender(st, camt, TConfig(**kw), (0, 2), backend="bvh", bvh=bt,
+                    device="cpu")
+    assert np.isfinite(img_t.numpy()).all() and img_t.numpy().mean() > 0.05
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=2e-4,
+                               atol=2e-5)
+    img_b = trender(st, camt, TConfig(**kw), (0, 2), backend="brute",
+                    device="cpu")
+    np.testing.assert_allclose(img_t.numpy(), img_b.numpy(), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_wavefront_bvh_matches_brute(setups):
+    """The wavefront renderer runs backend "bvh": exact, so no overflow,
+    and its image is the brute backend's within 2e-4 / 2e-5."""
+    _, _, st, bt = setups["cornell"]
+    cfg = TConfig(width=12, height=12, spp=2, max_depth=2)
+    cam = convert.camera_from_numpy(camera_dict(jc.camera(12, 12)), "cpu")
+    img, nc, ns, novf, steps = render_wavefront_counts(
+        st, cam, cfg, (0, 4), bt, queue=128, backend="bvh", device="cpu")
+    img_b, nc_b, ns_b, _, _ = render_wavefront_counts(
+        st, cam, cfg, (0, 4), None, queue=128, backend="brute", device="cpu")
+    assert novf == 0 and (nc, ns) == (nc_b, ns_b) and steps > 0
+    np.testing.assert_allclose(img.numpy(), img_b.numpy(), rtol=2e-4,
+                               atol=2e-5)
+    _, _, _, _, _, sus = render_wavefront_suspect_counts(
+        st, cam, cfg, (0, 4), bt, queue=128, backend="bvh", device="cpu")
+    assert not bool(sus.any())                        # exact: never suspect
+
+
+@pytest.mark.gpu
+def test_flat_walk_matches_plain_version_on_the_card(setups):
+    """Needs an NVIDIA GPU and nvcc: the flat walk kernel bit for bit
+    against its plain version, closest and any hit, on the edge rays of
+    every test scene and on a batch where nothing walks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n0 = tfw.flat_walk.launches
+    for name in SCENES:
+        _, _, st, bt = setups[name]
+        b, s = bt.to("cuda"), st.to("cuda")
+        ro, rd, t_min, t_max = _edge_rays(bt, 3000, 10)
+        for dead in (False, True):
+            if dead:
+                t_max = np.full_like(t_max, -1.0)
+            args = (b.node_min, b.node_max, b.skip, b.prim_start,
+                    b.prim_count, b.prim_ids, s.tri_idx, s.vertices,
+                    s.sph_center, s.sph_radius, T(ro).cuda(), T(rd).cuda(),
+                    T(t_min[:, 0]).cuda(), T(t_max[:, 0]).cuda(),
+                    tsah.MAX_LEAF)
+            for x, y in zip(tfw.flat_walk(*args), tfw.flat_walk_ref(*args)):
+                assert torch.equal(x, y), name
+            assert torch.equal(tfw.flat_walk(*args, any_hit=True),
+                               tfw.flat_walk_ref(*args, any_hit=True)), name
+    assert tfw.flat_walk.launches == n0 + 4 * len(SCENES)

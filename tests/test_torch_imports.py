@@ -26,11 +26,12 @@ def test_every_module_layout_name_is_present():
     for sub in ("core", "scene", "bvh", "render", "kernels", "diff"):
         assert f"tpu_pt_torch.{sub}" in names
     for mod in ("config", "convert", "core.vecmath", "core.intersect",
-                "core.camera", "core.sampling", "scene.types", "scene.meshes",
-                "scene.cornell", "bvh.sah", "bvh.native", "bvh.cluster",
-                "bvh.packed", "kernels.cluster_isect", "kernels.pair_scan",
+                "core.camera", "core.sampling", "core.aabb", "scene.types",
+                "scene.meshes", "scene.cornell", "bvh.sah", "bvh.native",
+                "bvh.cluster", "bvh.packed", "bvh.flat",
+                "kernels.cluster_isect", "kernels.pair_scan",
                 "kernels.pair_fused", "kernels.intersect",
-                "kernels.packed_walk", "render.envmap",
+                "kernels.packed_walk", "kernels.flat_walk", "render.envmap",
                 "render.bsdf", "render.lights", "render.brute",
                 "render.integrator", "render.driver", "render.wavefront",
                 "render.film", "diff.params", "diff.adjoint"):
@@ -105,7 +106,10 @@ def test_oracle_render_and_dense_scene_default_to_cuda_and_raise_without_a_card(
     ps = PallasScene(scene)
     cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1)
     cam = cornell.camera(8, 8)
-    for backend, bvh in (("brute", None), ("pallas", ps)):
+    from tpu_pt_torch.bvh.sah import build_bvh
+
+    for backend, bvh in (("brute", None), ("pallas", ps),
+                         ("bvh", build_bvh(scene))):
         with pytest.raises(RuntimeError, match="CUDA"):
             driver.render(scene, cam, cfg, (0, 0), backend=backend, bvh=bvh)
         img = driver.render(scene, cam, cfg, (0, 0), backend=backend, bvh=bvh,
@@ -179,11 +183,12 @@ def test_kernel_sources_are_all_declared_to_the_loader(tmp_path, monkeypatch):
     assert declared == {"pair_tile_isect_launch", "pair_tile_isect_dedup_launch",
                         "pair_segmin_launch", "pair_ray_reduce_launch",
                         "launch_floor_launch", "dense_closest_launch",
-                        "dense_anyhit_launch", "packed_walk_launch"}
+                        "dense_anyhit_launch", "packed_walk_launch",
+                        "flat_walk_launch"}
     assert {os.path.basename(p) for p in _build.sources()} == {
         "pair_tile_isect.cu", "pair_tile_isect_dedup.cu", "pair_segmin.cu",
         "pair_ray_reduce.cu", "launch_floor.cu", "dense_isect.cu",
-        "packed_walk.cu"}
+        "packed_walk.cu", "flat_walk.cu"}
     with open(_build.__file__) as fh:
         loader = fh.read()
     for name in declared:

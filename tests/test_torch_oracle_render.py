@@ -171,13 +171,15 @@ def test_radiance_is_keyed_by_ray_id_not_by_position():
 
 @pytest.mark.parametrize("backend", ["bvh", "packed", "nonsense"])
 def test_unknown_and_unported_backends_raise(backend):
-    """"bvh" is not ported and "nonsense" is no backend: both raise naming
-    the backends there are.  "packed" is a backend (the exact-repair walk):
-    asked for without its PackedBVH it raises saying so."""
+    """"nonsense" is no backend: it raises naming the backends there are.
+    "packed" (the exact-repair walk) and "bvh" (the flat walk) are
+    backends: asked for without their PackedBVH / FlatBVH they raise saying
+    so."""
     st = tc.cornell("spheres")
     cfg = TConfig(width=4, height=4, spp=1, max_depth=1)
-    match = "requires a PackedBVH" if backend == "packed" \
-        else "brute, pallas, cluster, packed"
+    match = {"packed": "requires a PackedBVH",
+             "bvh": "requires a FlatBVH"}.get(
+        backend, "brute, pallas, cluster, packed, bvh")
     with pytest.raises(ValueError, match=match):
         trender(st, tc.camera(4, 4), cfg, (0, 0), backend=backend,
                 device="cpu")
@@ -187,7 +189,7 @@ def test_unknown_and_unported_backends_raise(backend):
         tdriver._intersectors_suspect(backend)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "cluster", "packed"])
+@pytest.mark.parametrize("backend", ["pallas", "cluster", "packed", "bvh"])
 def test_backend_without_its_structure_raises(backend):
     st = tc.cornell("spheres")
     cfg = TConfig(width=4, height=4, spp=1, max_depth=1)

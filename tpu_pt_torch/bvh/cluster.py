@@ -34,8 +34,10 @@ and takes the walk's answer for them, so truncation costs time, never a
 hit.  The walk is launched on every such call (non-suspect rays get
 ``t_max = -1`` and leave at the root), so that no host read decides it.
 
-Only the compact traversal is here; everything runs under
-``torch.no_grad()`` semantics (no tensor requires grad).
+Only the compact traversal is here, and the capacity tooling that sizes
+its budgets from measured rays (``level_hit_counts``, ``autotune_*``);
+everything runs under ``torch.no_grad()`` semantics (no tensor requires
+grad).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from tpu_pt_torch.bvh import packed as packed_mod
+from tpu_pt_torch.bvh.sah import build_bvh
 from tpu_pt_torch.core.intersect import INF, as_col
 from tpu_pt_torch.kernels.cluster_isect import (
     B as PBLK, _mt_group, pair_rows as _pair_rows, pair_tile_isect,
@@ -241,12 +244,26 @@ def build_cluster_bvh(scene: Scene, tile: int = TILE,
                       pair_budget: int | None = None,
                       dense_start: int = 512,
                       pair_mults: Sequence[int] | None = None) -> ClusterBVH:
-    """Host build: SAH leaves (<= tile prims) from the native C++ builder ->
-    padded tile tensor + implicit 8-ary AABB pyramid (all numpy; upload
-    with ``.to(device)``).  ``scene`` holds host arrays."""
+    """Host build: SAH leaves (<= tile prims) from the native C++ builder
+    (where it cannot be built, from the Python SAH builder, with a
+    ``native.BuilderFallbackWarning``) -> padded tile tensor + implicit
+    8-ary AABB pyramid (all numpy; upload with ``.to(device)``).  ``scene``
+    holds host arrays."""
     from tpu_pt_torch.bvh import native
 
-    start, cnt, lo, hi, pid = native.build_leaves(scene, max_leaf=tile)
+    leaves = native.build_leaves(scene, max_leaf=tile)
+    if leaves is not None:
+        start, cnt, lo, hi, pid = leaves
+    else:
+        native.warn_fallback("the cluster BVH's leaves")
+        bvh = build_bvh(scene, max_leaf=tile)
+        count = np.asarray(bvh.prim_count)
+        leaf = np.flatnonzero(count > 0)
+        start = np.asarray(bvh.prim_start)[leaf]
+        cnt = count[leaf]
+        lo = np.asarray(bvh.node_min)[leaf]
+        hi = np.asarray(bvh.node_max)[leaf]
+        pid = np.asarray(bvh.prim_ids)
     C = len(start)
 
     # Tile tensor: (C, 12, tile) with zero padding (zero rows never hit:
@@ -921,12 +938,198 @@ def occluded(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
 def attach_fallback(cb: ClusterBVH, scene: Scene,
                     max_leaf: int = 4) -> ClusterBVH:
     """A copy of ``cb`` carrying the exact-retrace fallback: the packed BVH
-    of ``scene`` (host arrays), built by the native builder, on ``cb``'s
-    device.  Every traversal call then re-walks its suspect rays exactly,
-    so truncation can cost time, never a hit."""
+    of ``scene`` (host arrays), from ``native.build_packed_any``, on
+    ``cb``'s device.  Every traversal call then re-walks its suspect rays
+    exactly, so truncation can cost time, never a hit."""
     from tpu_pt_torch.bvh import native
 
-    pk = native.build_packed(scene, max_leaf=max_leaf)
+    pk = native.build_packed_any(scene, max_leaf=max_leaf)
     if torch.is_tensor(cb.tiles):
         pk = pk.to(cb.tiles.device)
     return cb._replace(fallback=pk)
+
+
+# ---------------------------------------------------------------------------
+# Capacity tooling: size the static budgets from measured ray populations.
+# ---------------------------------------------------------------------------
+
+
+def level_hit_counts(cb: ClusterBVH, ro, rd):
+    """(Q, n_levels) i32: how many node boxes of each level every ray truly
+    enters over [0, INF) (dense, no frontier cap).  That is the frontier
+    width the ray needs at that level (a child hit implies its parent hit),
+    so it sizes the capacity contract from data.  ``cb`` holds tensors on
+    the rays' device; wide levels are tested in chunks of 2,048 nodes."""
+    rd_inv = 1.0 / rd
+    Q = ro.shape[0]
+    t_min = torch.zeros((Q, 1), dtype=torch.float32, device=ro.device)
+    t_max = torch.full((Q, 1), INF, dtype=torch.float32, device=ro.device)
+    ro_c = tuple(ro[:, i:i + 1] for i in range(3))
+    ri_c = tuple(rd_inv[:, i:i + 1] for i in range(3))
+    counts = []
+    for lv in cb.levels:
+        tot = torch.zeros((Q,), dtype=torch.int64, device=ro.device)
+        for s in range(0, lv.shape[0], 2048):
+            blk = lv[s:s + 2048]
+            te = _slab_soa(tuple(blk[None, :, i] for i in range(3)),
+                           tuple(blk[None, :, 3 + i] for i in range(3)),
+                           ro_c, ri_c, t_min, t_max)
+            tot = tot + torch.sum(te < INF, dim=1)
+        counts.append(tot)
+    return torch.stack(counts, dim=1).to(torch.int32)
+
+
+def autotune_frontiers(scene: Scene, ro, rd, slack: float = 1.5,
+                       tile: int = TILE, dense_start: int = 512,
+                       pair_budget: int | None = None) -> ClusterBVH:
+    """A host ``ClusterBVH`` whose frontier caps are the measured per-level
+    hit counts of the sample rays ``ro``, ``rd`` (tensors, on the device the
+    counts run on) x ``slack``, and whose closest-hit pair multiplier is the
+    measured leaf maximum x ``slack`` (the flat pair budget is shared across
+    a batch, whose rays may all be coherent-high at once).  Prefer
+    :func:`autotune_for_render`, which probes the real wavefront
+    population."""
+    cb = build_cluster_bvh(scene, tile=tile, dense_start=dense_start)
+    counts = level_hit_counts(cb.to(ro.device), ro, rd).cpu().numpy()
+    caps = []
+    for l, lv in enumerate(cb.levels):
+        need = int(counts[:, l].max())
+        caps.append(int(min(lv.shape[0], max(8, round(need * slack)))))
+    max_leaf_hits = float(counts[:, -1].max())
+    leaf_mult = max(4, int(np.ceil(max_leaf_hits * slack)))
+    return build_cluster_bvh(scene, tile=tile, frontiers=tuple(caps),
+                             k_leaf=caps[-1], pair_budget=pair_budget,
+                             dense_start=dense_start,
+                             pair_mults=(8, 8, leaf_mult))
+
+
+def _probe_segment(probe_cb: ClusterBVH, scene, cam, cfg, key, ifn, ofn,
+                   Q: int, pix_lo: int, n_steps: int):
+    """``n_steps`` wavefront steps of a fresh queue from pixel ``pix_lo``
+    on, every traversal batch measured: returns (need (L,) i64, the maximum
+    per level of the candidates a ray needs before the cap; pairs (2,) i64,
+    the maximum strided-sub-batch pair total x the split, for the wide and
+    the narrow pair budget), read from the device once."""
+    from tpu_pt_torch.render import wavefront as W
+
+    dev = scene.vertices.device
+    n_pix = cfg.n_pixels
+    st = W.init_queue(Q, n_pix, dev)
+    need_max = torch.zeros((len(probe_cb.levels),), dtype=torch.int64,
+                           device=dev)
+    wide = narrow = torch.zeros((), dtype=torch.int64, device=dev)
+    for step_i in range(n_steps):
+        probes = []
+        st, _ = W._step(scene, cam, cfg, key, ifn, ofn, st, pix_lo,
+                        n_pix - pix_lo, 0, cfg.spp, ray_probe=probes)
+        for j, (ro, rd, t_max) in enumerate(probes):
+            collect = []
+            _, live, _ = _descend_compact(probe_cb, ro, 1.0 / rd,
+                                          torch.zeros_like(t_max), t_max,
+                                          collect=collect)
+            need_max = torch.maximum(
+                need_max, torch.stack([torch.max(n) for n, _ in collect]))
+            # The pair budgets apply per STRIDED sub-batch (SPLIT_CLOSEST /
+            # SPLIT_ANYHIT), so they are sized from the largest slice's pair
+            # sum.  Slot 0 (the wide budget, pair_mults[2]) takes the
+            # closest batches and the shadow batches of the wide prefix;
+            # slot 1 (the narrow any-hit budget, pair_mults[3]) the later
+            # shadow batches.
+            ks = _split_batches(live.shape[0],
+                                SPLIT_CLOSEST if j == 0 else SPLIT_ANYHIT)
+            per_ray = torch.max(torch.stack(
+                [torch.sum(live[i::ks]) for i in range(ks)])) * ks
+            if j == 0 or step_i < W.WIDE_PREFIX_STEPS:
+                wide = torch.maximum(wide, per_ray)
+            else:
+                narrow = torch.maximum(narrow, per_ray)
+    out = torch.cat([need_max, torch.stack([wide, narrow])]).cpu().numpy()
+    return out[:-2], out[-2:]
+
+
+def autotune_for_render(scene: Scene, cam, cfg, queue: int = 4096,
+                        segments: int = 8, warm_steps: int = 6,
+                        probe_steps: int = 10, slack: float = 1.3,
+                        tile: int = TILE, dense_start: int = 512,
+                        pair_budget: int | None = None,
+                        exact_fallback: bool = True,
+                        device="cuda") -> ClusterBVH:
+    """Size the capacity contract from the REAL wavefront population.
+
+    Runs the renderer's own step (``render/wavefront.py::_step``, key
+    ``(0, 7)``) for ``segments`` runs of ``warm_steps + probe_steps`` steps
+    from a fresh queue at strided pixel offsets, so the whole image
+    contributes, on a probe BVH with doubled caps (so the need measured is
+    not clipped by the caps being measured).  Every step is measured, the
+    first included: the first shadow wave is fully occupied and coherent,
+    later steps give the mixed-depth population.  It records per level the
+    largest candidate width a ray needs and the largest pair total of a
+    strided sub-batch, for the wide and the narrow budget, and builds the
+    host ``ClusterBVH`` with caps ``ceil(need x slack) + 2`` and pair
+    multipliers ``ceil(pairs x min(slack, 1.05) / Q)`` (at least 2), in
+    float64 on the host.  With ``exact_fallback`` it carries the packed
+    fallback, so a population outside the probed envelope costs time,
+    never a hit.
+
+    Above 512² the probe renders a scaled-down image of the same field of
+    view: a ray's frontier widths do not depend on the pixel count, and the
+    per-slice pair maxima are decorrelated at any resolution.  ``scene`` and
+    ``cam`` are host containers (or on ``device``); the probe runs on
+    ``device``."""
+    from tpu_pt_torch.render.driver import _intersectors_counted, _on_device
+
+    if cfg.n_pixels > 512 * 512:
+        scale = (cfg.n_pixels / (512 * 512)) ** 0.5
+        cfg = cfg.replace(width=max(1, round(cfg.width / scale)),
+                          height=max(1, round(cfg.height / scale)))
+    cb0 = build_cluster_bvh(scene, tile=tile, dense_start=dense_start)
+    wide_caps = tuple(min(lv.shape[0], 2 * c)
+                      for lv, c in zip(cb0.levels, cb0.frontiers))
+    probe_cb = build_cluster_bvh(
+        scene, tile=tile, dense_start=dense_start, frontiers=wide_caps,
+        k_leaf=wide_caps[-1],
+        pair_mults=(cb0.pair_mults[0], cb0.pair_mults[1],
+                    2 * cb0.pair_mults[2]))
+    _, scene_d, cam_d, probe_d = _on_device(device, scene, cam, probe_cb)
+    ifn, ofn = _intersectors_counted("cluster", probe_d)
+    n_pix = cfg.n_pixels
+    Q = min(queue, n_pix * cfg.spp)
+    need_max = np.zeros((len(probe_cb.levels),), np.int64)
+    pair_max = np.zeros((2,), np.int64)
+    with torch.no_grad():
+        for i in range(segments):
+            nm, pm = _probe_segment(probe_d, scene_d, cam_d, cfg, (0, 7),
+                                    ifn, ofn, Q, (n_pix // segments) * i,
+                                    warm_steps + probe_steps)
+            need_max = np.maximum(need_max, nm)
+            pair_max = np.maximum(pair_max, pm)
+
+    caps = tuple(
+        int(min(lv.shape[0], max(8, int(np.ceil(n * slack)) + 2)))
+        for lv, n in zip(probe_cb.levels, need_max))
+    # Pair budgets get a thinner margin than the caps: every budgeted pair
+    # slot is tile-tested, live or dead, and the exact fallback makes a thin
+    # margin safe.
+    pair_slack = min(slack, 1.05)
+    leaf_mult = max(2, int(np.ceil(pair_max[0] * pair_slack / Q)))
+    anyhit_mult = max(2, int(np.ceil(pair_max[1] * pair_slack / Q)))
+    tuned = build_cluster_bvh(
+        scene, tile=tile, dense_start=dense_start, frontiers=caps,
+        k_leaf=caps[-1], pair_budget=pair_budget,
+        pair_mults=(cb0.pair_mults[0], cb0.pair_mults[1], leaf_mult,
+                    anyhit_mult))
+    return attach_fallback(tuned, scene) if exact_fallback else tuned
+
+
+def autotune_for_camera(scene: Scene, cam, width: int, height: int,
+                        slack: float = 1.5, pair_budget: int | None = None,
+                        queue: int = 4096, device="cuda") -> ClusterBVH:
+    """:func:`autotune_for_render` at the standard render workload (spp 1,
+    4 bounces, Russian roulette from bounce 2 at 0.7) at the given size:
+    what the command line's ``--autotune`` runs."""
+    from tpu_pt_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=width, height=height, spp=1, max_depth=4,
+                       rr_start=2, rr_prob=0.7)
+    return autotune_for_render(scene, cam, cfg, queue=queue, slack=slack,
+                               pair_budget=pair_budget, device=device)

@@ -2,9 +2,12 @@
 at the repository root).
 
 The shared library is compiled with ``g++`` at first use into the package's
-ignored build directory (``tpu_pt_torch/_build/``).  If it cannot be built
-the call raises: there is no silent switch to another builder, which would
-change the tree.
+ignored build directory (``tpu_pt_torch/_build/``).  Where it cannot be
+built or loaded, ``build_leaves`` and ``build_packed`` return None and
+``load_error`` keeps why (``g++``'s own error text).  The callers then build
+with the Python SAH builder (``bvh/sah.py::build_bvh``), whose tree may
+differ from the native one, so the switch is never silent: each fallback
+taken emits one ``BuilderFallbackWarning`` that names the builder used.
 """
 
 from __future__ import annotations
@@ -13,10 +16,11 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import warnings
 
 import numpy as np
 
-from tpu_pt_torch.bvh.sah import prim_bounds
+from tpu_pt_torch.bvh.sah import build_bvh, prim_bounds
 from tpu_pt_torch.scene.types import Scene
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,6 +30,27 @@ _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 _FP = ctypes.POINTER(ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int)
 _lib = None
+load_error = None   # why the last attempt to build or load failed, if it did
+
+
+class BuilderFallbackWarning(UserWarning):
+    """A structure was built by the Python SAH builder because the native
+    library could not be built or loaded."""
+
+
+def warn_fallback(what: str) -> None:
+    """One warning for one fallback taken: ``what`` was built by the Python
+    SAH builder instead of the native one, and why."""
+    warnings.warn(
+        f"{what} built by the Python SAH builder (bvh/sah.py::build_bvh): "
+        f"the native builder is unavailable ({load_error}); the tree may "
+        "differ from the native builder's", BuilderFallbackWarning,
+        stacklevel=3)
+
+
+def available() -> bool:
+    """Whether the native library can be built (if need be) and loaded."""
+    return _load() is not None
 
 
 def lib_path() -> str:
@@ -46,12 +71,18 @@ def _build(path: str) -> None:
 
 
 def _load():
-    global _lib
+    """The loaded library, built first if its file is missing; None where
+    either fails (``load_error`` says why)."""
+    global _lib, load_error
     if _lib is None:
-        path = lib_path()
-        if not os.path.exists(path):
-            _build(path)
-        lib = ctypes.CDLL(path)
+        try:
+            path = lib_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
+        except (OSError, RuntimeError) as e:
+            load_error = str(e)
+            return None
         lib.bvh_build.restype = ctypes.c_void_p
         lib.bvh_build.argtypes = [_FP, _FP, ctypes.c_int, ctypes.c_int, _IP]
         lib.bvh_emit.restype = None
@@ -94,24 +125,27 @@ def _prim_rows(scene: Scene, pid: np.ndarray) -> np.ndarray:
     return rows
 
 
-def _build_tree(scene: Scene, max_leaf: int):
+def _build_tree(lib, scene: Scene, max_leaf: int):
     """Run the native SAH build over the scene's primitive bounds.  Returns
-    (library, handle, primitive count, node count); the handle is freed by
-    the one emit call that follows (``bvh_emit`` or ``bvh_emit_leaves``)."""
-    lib = _load()
+    (handle, primitive count, node count); the handle is freed by the one
+    emit call that follows (``bvh_emit`` or ``bvh_emit_leaves``)."""
     lo, hi = prim_bounds(scene)
     lo = np.ascontiguousarray(lo, np.float32)
     hi = np.ascontiguousarray(hi, np.float32)
     n_nodes = ctypes.c_int(0)
     handle = lib.bvh_build(lo.ctypes.data_as(_FP), hi.ctypes.data_as(_FP),
                            lo.shape[0], max_leaf, ctypes.byref(n_nodes))
-    return lib, handle, lo.shape[0], n_nodes.value
+    return handle, lo.shape[0], n_nodes.value
 
 
 def build_leaves(scene: Scene, max_leaf: int):
     """Native SAH build -> (start, count, lo, hi, prim_perm) leaf arrays in
-    DFS order (the cluster-BVH host build)."""
-    lib, handle, n, _ = _build_tree(scene, max_leaf)
+    DFS order (the cluster-BVH host build); None where the library cannot
+    be built or loaded."""
+    lib = _load()
+    if lib is None:
+        return None
+    handle, n, _ = _build_tree(lib, scene, max_leaf)
     n_leaves = lib.bvh_count_leaves(ctypes.c_void_p(handle))
     l_lo = np.empty((n_leaves, 3), np.float32)
     l_hi = np.empty((n_leaves, 3), np.float32)
@@ -127,14 +161,30 @@ def build_leaves(scene: Scene, max_leaf: int):
 
 def build_packed(scene: Scene, max_leaf: int = 4):
     """Native SAH build -> ``bvh.packed.PackedBVH`` (host numpy): the eight
-    octant-ordered node tables and the primitive rows in leaf order.  Raises
-    where the library cannot be built, as ``build_leaves`` does."""
+    octant-ordered node tables and the primitive rows in leaf order.  None
+    where the library cannot be built or loaded, as ``build_leaves``."""
     from tpu_pt_torch.bvh.packed import PackedBVH
 
-    lib, handle, n, n_nodes = _build_tree(scene, max_leaf)
+    lib = _load()
+    if lib is None:
+        return None
+    handle, n, n_nodes = _build_tree(lib, scene, max_leaf)
     nodes = np.empty((8, n_nodes, 8), np.float32)
     perm = np.empty((n,), np.int32)
     lib.bvh_emit(ctypes.c_void_p(handle), nodes.ctypes.data_as(_FP),
                  perm.ctypes.data_as(_IP))
     return PackedBVH.build(nodes=nodes, prims=_prim_rows(scene, perm),
                            prim_gid=perm, max_leaf=max_leaf)
+
+
+def build_packed_any(scene: Scene, max_leaf: int = 4):
+    """``build_packed``, or where the library is unavailable the Python
+    path ``packed.pack_bvh(sah.build_bvh(scene, max_leaf))``, with a
+    ``BuilderFallbackWarning``."""
+    out = build_packed(scene, max_leaf)
+    if out is not None:
+        return out
+    from tpu_pt_torch.bvh.packed import pack_bvh
+
+    warn_fallback("the packed BVH")
+    return pack_bvh(build_bvh(scene, max_leaf), scene, max_leaf)

@@ -14,8 +14,10 @@ primitive rows in leaf order.
 It is the exact fallback of the cluster BVH (``bvh/cluster.py::
 attach_fallback``) and a backend of its own (``"packed"`` in
 ``render/driver.py``).  The tables come from the native builder
-(``bvh/native.py::build_packed``).  The walk is ``kernels/packed_walk.py``:
-a CUDA kernel on the card, its plain version on the CPU.
+(``bvh/native.py::build_packed``) or, from a flat SAH tree, from
+``pack_bvh`` (``native.build_packed_any`` takes the second where the first
+cannot be built).  The walk is ``kernels/packed_walk.py``: a CUDA kernel on
+the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_pt_torch.bvh.native import _prim_rows
+from tpu_pt_torch.bvh.sah import FlatBVH
 from tpu_pt_torch.core.intersect import INF, as_col
 from tpu_pt_torch.kernels.packed_walk import (  # noqa: F401 (re-exported)
     _octant_of, _prim_row_test, packed_walk, packed_walk_ref)
@@ -78,6 +82,85 @@ class PackedBVH(NamedTuple):
         t = self.table[: self.prim_base, :8]
         t = t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
         return t.reshape(self.n_tables, self.n_nodes, 8)
+
+
+def _subtree_sizes(skip, prim_count):
+    """Node count of every subtree of the flat layout, O(N): children have
+    larger indices, so one pass from the last node up."""
+    n = len(skip)
+    size = np.ones(n, np.int64)
+    for i in range(n - 1, -1, -1):
+        if prim_count[i] == 0:
+            left = i + 1
+            right = skip[left]
+            size[i] = 1 + size[left] + size[right]
+    return size
+
+
+def _octant_tables(bvh: FlatBVH):
+    """The 8 octant-ordered node tables (8, N, 8) of a flat BVH (host
+    numpy): table k is the tree in the DFS order where, at each inner node,
+    the child whose centroid is lower along the node's widest axis comes
+    first, swapped where that axis' sign bit of k is set (a ray with that
+    direction sign meets the other child first)."""
+    node_min = np.asarray(bvh.node_min)
+    node_max = np.asarray(bvh.node_max)
+    skip = np.asarray(bvh.skip)
+    start = np.asarray(bvh.prim_start)
+    count = np.asarray(bvh.prim_count)
+    n = len(skip)
+    sizes = _subtree_sizes(skip, count)
+    wide_axis = np.argmax(node_max - node_min, axis=1)
+    cent_sum = node_min + node_max  # 2 x centroid
+
+    tables = np.empty((8, n, 8), np.float32)
+    for octant in range(8):
+        sign = (bool(octant & 1), bool(octant & 2), bool(octant & 4))
+        perm = np.empty(n, np.int64)
+        new_skip = np.empty(n, np.int32)
+        cursor = 0
+        stack = [(0, n)]
+        while stack:
+            old, skip_to = stack.pop()
+            new = cursor
+            cursor += 1
+            perm[new] = old
+            new_skip[new] = skip_to
+            if count[old] > 0:
+                continue
+            left = old + 1
+            right = skip[left]
+            axis = wide_axis[old]
+            first, second = (
+                (left, right)
+                if cent_sum[left][axis] <= cent_sum[right][axis]
+                else (right, left)
+            )
+            if sign[axis]:
+                first, second = second, first
+            stack.append((second, skip_to))
+            stack.append((first, new + 1 + sizes[first]))
+        t = tables[octant]
+        t[:, 0:3] = node_min[perm]
+        t[:, 3:6] = node_max[perm]
+        t[:, 6] = new_skip.view(np.float32)
+        meta = np.where(
+            count[perm] > 0,
+            (start[perm] | (count[perm] << 26)).astype(np.int32),
+            np.int32(-1),
+        )
+        t[:, 7] = meta.view(np.float32)
+    return tables
+
+
+def pack_bvh(bvh: FlatBVH, scene: Scene, max_leaf: int = 4) -> PackedBVH:
+    """A flat SAH tree (``bvh/sah.py::build_bvh``) of a host scene ->
+    ``PackedBVH`` (host numpy): its octant tables and the primitive rows in
+    leaf order."""
+    pid = np.asarray(bvh.prim_ids)
+    return PackedBVH.build(nodes=_octant_tables(bvh),
+                           prims=_prim_rows(scene, pid), prim_gid=pid,
+                           max_leaf=max_leaf)
 
 
 def _traverse(packed: PackedBVH, ro, rd, t_min, t_max, any_hit: bool,

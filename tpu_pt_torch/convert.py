@@ -1,8 +1,8 @@
-"""Carry scenes, cluster BVHs, packed BVHs, dense-sweep scenes, cameras and
-differentiable parameters across as plain dicts of numpy arrays (plus
-static ints / tuples) and rebuild the port's containers on a given device.
-The dict keys are the containers' field names; nothing here knows where
-the arrays came from."""
+"""Carry scenes, cluster BVHs, packed and flat BVHs, dense-sweep scenes,
+cameras and differentiable parameters across as plain dicts of numpy arrays
+(plus static ints / tuples) and rebuild the port's containers on a given
+device.  The dict keys are the containers' field names; nothing here knows
+where the arrays came from."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 
 from tpu_pt_torch.bvh.cluster import ClusterBVH, make_cluster_bvh
 from tpu_pt_torch.bvh.packed import PackedBVH
+from tpu_pt_torch.bvh.sah import FlatBVH
 from tpu_pt_torch.core.camera import Camera
 from tpu_pt_torch.diff.params import KEYS as PARAM_KEYS
 from tpu_pt_torch.kernels.intersect import PallasScene
@@ -72,6 +73,17 @@ def packed_bvh_from_numpy(d: dict, device="cuda") -> PackedBVH:
                      prim_gid=_np(d["prim_gid"], np.int32),
                      max_leaf=int(d["max_leaf"]), n_tables=int(d["n_tables"]),
                      n_nodes=int(d["n_nodes"])).to(device)
+
+
+def flat_bvh_from_numpy(d: dict, device="cuda") -> FlatBVH:
+    """d: ``node_min``, ``node_max`` ((N, 3) f32), ``skip``, ``prim_start``,
+    ``prim_count`` ((N,) i32) and ``prim_ids`` ((P,) i32)."""
+    f32, i32 = np.float32, np.int32
+    return FlatBVH(node_min=_np(d["node_min"], f32),
+                   node_max=_np(d["node_max"], f32), skip=_np(d["skip"], i32),
+                   prim_start=_np(d["prim_start"], i32),
+                   prim_count=_np(d["prim_count"], i32),
+                   prim_ids=_np(d["prim_ids"], i32)).to(device)
 
 
 def camera_from_numpy(d: dict, device="cuda") -> Camera:

@@ -114,6 +114,8 @@ def load(verbose_ptxas: bool = False):
         lib.dense_anyhit_launch.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.packed_walk_launch.restype = ci
         lib.packed_walk_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+        lib.flat_walk_launch.restype = ci
+        lib.flat_walk_launch.argtypes = [vp] * 19 + [ci] * 7 + [vp]
         _lib = lib
     return _lib
 

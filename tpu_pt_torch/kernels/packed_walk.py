@@ -140,9 +140,11 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
     every ray still walking, until none is.
 
     stats: when a dict is passed, it receives ``iterations`` (lockstep
-    iterations run), ``steps`` ((R,) node rows each ray fetched) and
+    iterations run), ``steps`` ((R,) node rows each ray fetched),
     ``rows_tri`` / ``rows_sph`` (triangle / sphere rows tested, counted as
-    the kernel tests them: the any-hit form stops at its first hit)."""
+    the kernel tests them: the any-hit form stops at its first hit) and
+    ``node_seen`` / ``row_seen`` ((n_tables * n_nodes,) / (P,) bool: the
+    node and primitive rows any ray fetched)."""
     _check(table, prim_gid, ro, rd, t_min, t_max, n_nodes, n_tables,
            max_leaf)
     R = ro.shape[0]
@@ -167,12 +169,17 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
     occ = torch.zeros((R, 1), dtype=torch.bool, device=dev)
     steps = torch.zeros((R,), dtype=torch.int64, device=dev)
     rows_tri = rows_sph = 0
+    if stats is not None:
+        node_seen = torch.zeros((prim_base,), dtype=torch.bool, device=dev)
+        row_seen = torch.zeros((n_prims,), dtype=torch.bool, device=dev)
     iterations = 0
     while bool(torch.any(cursor < n)):
         iterations += 1
         active = (cursor < n) & ~occ[:, 0]
         steps += active
         node = table[base + torch.where(active, cursor, 0)]
+        if stats is not None:
+            node_seen[(base + cursor)[active]] = True
         skip = node[:, 6].contiguous().view(torch.int32).long()
         meta = node[:, 7].contiguous().view(torch.int32)
 
@@ -204,6 +211,7 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
                 sph = row[:, 10] > 0.5
                 rows_sph += int(torch.sum(tested & sph))
                 rows_tri += int(torch.sum(tested & ~sph))
+                row_seen[slot[tested]] = True
             h, t, u, v = _prim_row_test(row, in_rng[:, None], ro, rd, t_min,
                                         best_t)
             gid = prim_gid[slot]
@@ -223,7 +231,8 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
         cursor = torch.where(active, nxt, torch.full_like(nxt, n))
     if stats is not None:
         stats.update(iterations=iterations, steps=steps, rows_tri=rows_tri,
-                     rows_sph=rows_sph)
+                     rows_sph=rows_sph, node_seen=node_seen,
+                     row_seen=row_seen)
     if any_hit:
         return occ[:, 0]
     return best_t[:, 0], best_slot, best_u[:, 0], best_v[:, 0]

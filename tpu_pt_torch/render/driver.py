@@ -20,18 +20,28 @@ from tpu_pt_torch.render import brute
 from tpu_pt_torch.render.integrator import render_chunk
 from tpu_pt_torch.scene.types import Scene
 
-BACKENDS = ("brute", "pallas", "cluster", "packed")
+BACKENDS = ("brute", "pallas", "cluster", "packed", "bvh")
 
 
 def _intersectors(backend: str, bvh=None, use_kernels: bool = True):
     """(intersect, occluded) closures of a backend: ``"brute"`` (the dense
     oracle, no structure), ``"pallas"`` (the dense-sweep kernels over a
     ``PallasScene``; the name is the JAX package's), ``"cluster"`` (a
-    ``ClusterBVH``) or ``"packed"`` (the per-ray walk over a
-    ``PackedBVH``).  ``use_kernels=False`` runs the plain PyTorch versions
-    of the backend's kernels."""
+    ``ClusterBVH``), ``"packed"`` (the per-ray walk over a ``PackedBVH``)
+    or ``"bvh"`` (the per-ray walk over a ``FlatBVH``).
+    ``use_kernels=False`` runs the plain PyTorch versions of the backend's
+    kernels."""
     if backend == "brute":
         return brute.intersect, brute.occluded
+    if backend == "bvh":
+        from tpu_pt_torch.bvh import flat
+
+        if bvh is None:
+            raise ValueError("backend='bvh' requires a FlatBVH")
+        return (
+            functools.partial(flat.intersect, bvh, use_kernels=use_kernels),
+            functools.partial(flat.occluded, bvh, use_kernels=use_kernels),
+        )
     if backend == "pallas":
         from tpu_pt_torch.kernels import intersect as dense
 

@@ -143,12 +143,20 @@ def _global_ray_id(ray_id, cfg: RenderConfig, pix_ids):
 def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
           st: QueueState, pix_lo, n_pix_local, spp_lo, spp_count,
           pix_stride: int = 1, shadow_narrow: bool = False,
-          track_suspects: bool = False, pix_ids=None):
+          track_suspects: bool = False, pix_ids=None,
+          ray_probe: list | None = None):
     """One wavefront iteration: respawn → intersect → shade/NEE → scatter.
     Returns (state, (n_closest, n_shadow, n_overflow)).  With
     ``track_suspects`` the intersectors are ``_intersectors_suspect``'s and
     the step raises the flag of every pixel whose live segment was suspect
-    in any of the step's traversals."""
+    in any of the step's traversals.
+
+    ray_probe: when a list is passed, every traversal's ray batch is
+    appended as (ro, rd, t_max (Q, 1)): entry 0 is the closest-hit batch,
+    the rest are the NEE shadow batches in light-then-sample order.  It is
+    the real mixed-depth population that the capacity autotuner
+    (``bvh/cluster.py::autotune_for_render``) sizes the budgets from; the
+    hook changes nothing else the step computes."""
     st = _respawn(cam, cfg, key, st, pix_lo, n_pix_local, spp_lo, spp_count,
                   pix_stride, pix_ids)
     (contrib, pixel, cont, ro_n, rd_n, beta_n, inc_n, sus_lane,
@@ -156,7 +164,7 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
         scene, cam, cfg, key, intersect_fn, occluded_fn,
         (st.ro, st.rd, st.beta, st.ray_id, st.depth, st.include_le,
          st.alive), pix_lo, n_pix_local, spp_lo, pix_stride, shadow_narrow,
-        track_suspects, pix_ids)
+        track_suspects, pix_ids, ray_probe)
 
     suspect = st.suspect
     if track_suspects:
@@ -214,10 +222,12 @@ def _untaped(traverse, scene, *rays, **kw):
 
 def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
                 occluded_fn, lanes, pix_lo, n_pix_local, spp_lo, pix_stride,
-                shadow_narrow, track_suspects=False, pix_ids=None):
+                shadow_narrow, track_suspects=False, pix_ids=None,
+                ray_probe=None):
     """Post-respawn step body.  Returns per-lane (contrib, pixel, cont,
     ro_next, rd_next, beta_next, include_le_next, suspect (i32, or None
-    when not tracked), n_closest, n_shadow, n_ovf)."""
+    when not tracked), n_closest, n_shadow, n_ovf).  ``ray_probe``: see
+    :func:`_step`."""
     ro0, rd0, beta0, ray_id, depth, include_le, alive0 = lanes
     Q = ro0.shape[0]
     dev = ro0.device
@@ -232,6 +242,8 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     t_max = torch.where(alive0, 1e30, -1.0).to(torch.float32)
     sus_lane = None
     scene_d = scene.detach()   # what the traversals see
+    if ray_probe is not None:
+        ray_probe.append((ro0, rd0, t_max))
     if track_suspects:
         hit, n_ovf, sus_c = _untaped(intersect_fn, scene_d, ro0, rd0, t_min,
                                      t_max)
@@ -284,6 +296,8 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
             # Masked lanes get a negative range: trivial miss, no pair work.
             sh_tmax = torch.where(mask, ls.dist * (1.0 - 1e-3),
                                   torch.full_like(ls.dist, -1.0))
+            if ray_probe is not None:
+                ray_probe.append((shadow_o, ls.wi, sh_tmax))
             if track_suspects:
                 occ, ovf_s, sus_s = _untaped(occluded_fn, scene_d, shadow_o,
                                              ls.wi, sh_tmax,
