@@ -66,6 +66,12 @@ against the brute-force oracle, and drives these paths at full width:
   scenes, that kernels and plain versions give the same loss and gradients
   bit for bit.
 
+The descent of every cluster traversal above fetches its child rows through
+the kernel ``fetch_rows`` (``csrc/fetch_rows.cu``), so every render launches
+it; ``fetch_probes`` runs the three ported fetch probes
+(``tpu_pt_torch/tools/microbench_*``: ``fetch_rows``, ``fetch_rows_t``,
+``take_along``) at the JAX tools' full shapes and at the real descent.
+
 It prints one JSON object per phase.  Any failed phase raises and the
 process exits non-zero.  Without a CUDA device it exits with code 2 before
 printing any result.
@@ -117,12 +123,20 @@ from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref  # noqa:
 from tpu_pt_torch.kernels.packed_walk import (  # noqa: E402
     packed_walk, packed_walk_ref)
 from tpu_pt_torch.kernels.flat_walk import flat_walk, flat_walk_ref  # noqa: E402
+from tpu_pt_torch.kernels.fetch import (  # noqa: E402
+    fetch_rows, fetch_rows_ref, fetch_rows_t, fetch_rows_t_ref)
+from tpu_pt_torch.kernels.take_along import (  # noqa: E402
+    take_along, take_along_form, take_along_ref)
 from tpu_pt_torch.render import brute, film, integrator, wavefront  # noqa: E402
 from tpu_pt_torch.render.driver import (  # noqa: E402
     _intersectors, _intersectors_counted, render)
 from tpu_pt_torch.scene import cornell, meshes  # noqa: E402
 from tpu_pt_torch.scene.types import (  # noqa: E402
     LIGHT_AREA, make_lights, make_materials, make_scene)
+from tpu_pt_torch.tools import _probe as probe  # noqa: E402
+from tpu_pt_torch.tools import microbench_dyngather as dyngather_tool  # noqa: E402
+from tpu_pt_torch.tools import microbench_fetch_kernel as fetch_tool  # noqa: E402
+from tpu_pt_torch.tools import microbench_vmem_gather as vmem_tool  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -163,6 +177,11 @@ N_WARM = 150
 
 RECORDED = dict(n_closest=1876297, n_shadow=910236, steps_run=459,
                 overflow=0, mean_radiance=0.21129)
+# The same render by this port, in every earlier smoke run of it on an H100:
+# the image rests on exact selections (bitwise kernels, an exact fetch), so
+# these are held exactly.
+PORT_RECORD = dict(n_closest=1877097, n_shadow=911322, steps_run=459,
+                   overflow=0, mean_radiance=0.211140438914299)
 
 
 def emit(obj):
@@ -1269,6 +1288,165 @@ def check_flat_walk(o_scene_h, rows_c, rows_a, flush):
     return cases, timing
 
 
+def compare_fetch(table, idx, clamp, label, form="fetch_rows"):
+    """fetch_rows (or fetch_rows_t) against its plain version on the card:
+    bitwise, no tolerance."""
+    if form == "fetch_rows_t":
+        out_k, out_r = fetch_rows_t(table, idx), fetch_rows_t_ref(table, idx)
+    else:
+        out_k = fetch_rows(table, idx, clamp=clamp)
+        out_r = fetch_rows_ref(table, idx, clamp=clamp)
+    sync()
+    res = {"label": label, "form": form, "P": int(idx.numel()),
+           "N": int(table.shape[0]), "W": int(table.shape[1]),
+           "idx_dtype": str(idx.dtype).replace("torch.", ""),
+           "idx_contiguous": idx.is_contiguous(), "clamp": clamp,
+           "table_has_inf": bool(torch.isinf(table.float()).any()),
+           "bitwise": probe.bitwise_equal(out_k, out_r),
+           "max_abs_err": max_abs_diff(out_k, out_r)}
+    assert res["bitwise"], f"{form} {label}: kernel differs from plain"
+    return res
+
+
+def compare_take(x, idx, dim, reps, label):
+    out_k, out_r = take_along(x, idx, dim, reps), take_along_ref(x, idx, dim,
+                                                                reps)
+    sync()
+    M, N = x.shape
+    res = {"label": label, "dim": dim, "M": M, "N": N, "reps": reps,
+           "dtype": str(x.dtype).replace("torch.", ""),
+           "form": take_along_form(M, N, dim),
+           "bitwise": probe.bitwise_equal(out_k, out_r),
+           "max_abs_err": max_abs_diff(out_k, out_r)}
+    assert res["bitwise"], f"take_along {label}: kernel differs from plain"
+    return res
+
+
+def fetch_edge_tables(seed):
+    """(label, table, idx) edge cases of the row fetch: indices below 0 and
+    past the end (clamped), a one-row table, P not a multiple of a block, a
+    table whose values are +/-inf, -0.0 and a NaN with a payload, W 512."""
+    rs = np.random.RandomState(seed)
+    bits = (rs.normal(size=(37, 64)).astype(np.float32).view(np.uint32)
+            >> 16).astype(np.uint16)
+    bits[0::5] = 0x7F80              # +inf
+    bits[2::5, 3:6] = 0xFF80         # -inf
+    bits[3, 7] = 0x8000              # -0.0
+    bits[4, 9] = 0x7FC1              # NaN with a payload
+    table = torch.from_numpy(bits.view(np.int16)).to(DEV).view(torch.bfloat16)
+    raw = torch.from_numpy(rs.randint(-40, 80, 1001)).to(DEV)
+    wide = probe.bf16_table(rs, 5, 512, DEV)
+    return (("out_of_range_and_negative_clamped_P1001", table, raw),
+            ("out_of_range_int32_clamped", table, raw.int()),
+            ("one_row_table", table[:1].clone(), raw[:3]),
+            ("w512_out_of_range_clamped", wide, raw[:129]))
+
+
+def check_fetch(cb, batches, flush):
+    """fetch_rows, fetch_rows_t and take_along against their plain versions
+    on the card, bitwise: (a) every child fetch of the descent for the real
+    batches (the level tables hold +/-inf in empty slots; int64 candidates
+    in the descent's own layout); (b) the three tools' full shapes, int32
+    indices; (c) edge cases.  Timed: fetch_rows at the descent's fetches of
+    the mid-render closest batch, beside what the descent ran before
+    (``table[clamp(cand)].float()``); fetch_rows_t at the tools' shapes,
+    beside torch's gather + cast + transpose; take_along at the dyngather
+    tool's (256, 128) f32 16-rep case and its largest, and at a shape whose
+    lines are too long for shared memory (one launch a rep), beside one
+    torch.gather a rep.  Returns (cases, timing)."""
+    cases, timing = {"fetch_rows": [], "fetch_rows_t": [],
+                     "take_along": []}, {}
+    for label, (ro, rd, t_max) in batches.items():
+        for level, table, cand in vmem_tool.descent_fetches(cb, ro, rd,
+                                                            t_max):
+            res = compare_fetch(table, cand, True, f"{label}_L{level}")
+            assert res["table_has_inf"], res
+            cases["fetch_rows"].append(res)
+            if label != "mid_render":
+                continue
+            N, W = table.shape
+            key = "fetch_rows" if level == len(cb.levels) - 1 else \
+                f"fetch_rows@descent_L{level}"
+            timing[key] = dict(
+                shape={"P": int(cand.numel()), "Q": int(cand.shape[0]),
+                       "cap": int(cand.shape[1]), "N": N, "W": W,
+                       "idx": "int64, the descent's column slice"},
+                **time_both(lambda: fetch_rows(table, cand, clamp=True),
+                            flush, "fetch_rows_kernel"),
+                plain_ms=time_launches(
+                    lambda: fetch_rows_ref(table, cand, clamp=True), flush),
+                library_ms=time_launches(
+                    lambda: table[torch.clamp(cand, 0, N - 1)].float(),
+                    flush),
+                bytes=probe.fetch_bytes(cand, N, W), flops=0)
+    rs = np.random.RandomState(1)
+    for case, per_ray, N in vmem_tool.SHAPES:
+        table = probe.bf16_table(rs, N, 64, DEV)
+        idx = probe.index(rs, N, (4096 * per_ray // 512 * 512,), DEV)
+        cases["fetch_rows"].append(compare_fetch(table, idx, False,
+                                                 f"tool_{case}"))
+        cases["fetch_rows_t"].append(compare_fetch(
+            table, idx, False, f"tool_{case}", form="fetch_rows_t"))
+        timing["fetch_rows_t" if case == "L2" else f"fetch_rows_t@tool_{case}"] \
+            = dict(shape={"P": int(idx.numel()), "N": N, "W": 64,
+                          "idx": "int32"},
+                   **time_both(lambda: fetch_rows_t(table, idx), flush,
+                               "fetch_rows_t_kernel"),
+                   plain_ms=time_launches(
+                       lambda: fetch_rows_t_ref(table, idx), flush),
+                   library_ms=time_launches(
+                       lambda: table[idx].float().t().contiguous(), flush),
+                   bytes=probe.fetch_bytes(idx, N, 64), flops=0)
+    grouped = probe.bf16_table(rs, 1864, 64, DEV).reshape(233, 512)
+    idx = probe.index(rs, 233, (4096 * 34 // 128 * 128,), DEV)
+    cases["fetch_rows"].append(compare_fetch(grouped, idx, False,
+                                             "tool_grouped_W512"))
+    for label, table, idx in fetch_edge_tables(7):
+        cases["fetch_rows"].append(compare_fetch(table, idx, True,
+                                                 "edge_" + label))
+        cases["fetch_rows_t"].append(compare_fetch(
+            table, torch.clamp(idx, 0, table.shape[0] - 1), False,
+            "edge_" + label, form="fetch_rows_t"))
+    for dim, M, N, reps, dtype in dyngather_tool.CASES:
+        x, ix = dyngather_tool.inputs(dim, M, N, dtype, 0, DEV)
+        cases["take_along"].append(compare_take(
+            x, ix, dim, reps, f"tool_dim{dim}_{M}x{N}"))
+    for dim, M, N, reps, dtype in ((1, 7, 33, 3, torch.bfloat16),
+                                   (0, 1, 1, 2, torch.int32),
+                                   (0, 300, 200, 5, torch.float32),
+                                   (0, 4096, 3, 2, torch.float32),
+                                   (1, 3, 5000, 4, torch.bfloat16)):
+        x, ix = dyngather_tool.inputs(dim, M, N, dtype, 5, DEV)
+        cases["take_along"].append(compare_take(x, ix, dim, reps,
+                                                f"edge_{M}x{N}_x{reps}"))
+    for key, (dim, M, N) in (("take_along", (0, 256, 128)),
+                             ("take_along@dim1_256x2048", (1, 256, 2048)),
+                             ("take_along@passes_dim1_64x8192",
+                              (1, 64, 8192))):
+        x, ix = dyngather_tool.inputs(dim, M, N, torch.float32, 0, DEV)
+        ixl = ix.long()
+
+        def library(x=x, ixl=ixl, dim=dim):
+            y = x
+            for _ in range(16):
+                y = torch.gather(y, dim, ixl)
+            return y
+
+        form = take_along_form(M, N, dim)
+        kern = (lambda x=x, ix=ix, dim=dim: take_along(x, ix, dim, 16))
+        timing[key] = dict(
+            shape={"M": M, "N": N, "dim": dim, "reps": 16,
+                   "dtype": "float32", "form": form},
+            **(time_both(kern, flush, "take_along_lines_kernel")
+               if form == "lines" else {"ms": time_launches(kern, flush)}),
+            plain_ms=time_launches(
+                lambda x=x, ix=ix, dim=dim: take_along_ref(x, ix, dim, 16),
+                flush),
+            library_ms=time_launches(library, flush),
+            bytes=M * N * (4 + 4 + 4), flops=0)
+    return cases, timing
+
+
 def phase_kernels(scene, cam, cb, cfg, key, pk):
     first, mid, shadow, mid_full, shadow_full = queue_batches(
         scene, cam, cb, cfg, key, 4096, n_warm=N_WARM)
@@ -1459,12 +1637,21 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
     cases_flat, timing_flat = check_flat_walk(o_scene_h, rows_c, rows_a,
                                               flush)
     timing.update(timing_flat)
+    cases_fetch, timing_fetch = check_fetch(
+        cb, {"first_wave": first, "mid_render": mid,
+             "mid_render_shadow_narrow": shadow}, flush)
+    timing.update(timing_fetch)
     del flush
     k2_bitwise = all(c["bitwise"] for c in cases_k2)
     emit({"phase": "kernels",
           "checked": ["pair_ray_reduce", "pair_tile_isect", "pair_segmin",
                       "pair_tile_isect_dedup", "dense_closest",
-                      "dense_anyhit", "packed_walk", "flat_walk"],
+                      "dense_anyhit", "packed_walk", "flat_walk",
+                      "fetch_rows", "fetch_rows_t", "take_along"],
+          "fetch_rows_fetch_rows_t_take_along": {
+              "tolerance": "bitwise (raw bits, NaN payloads included), "
+                           "against the plain versions on the card",
+              "cases": cases_fetch},
           "flat_walk": {
               "tolerance": "bitwise (raw 32-bit words), closest-hit and "
                            "any-hit form, against the plain version on the "
@@ -1509,7 +1696,15 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
                              "overflowing sub-batches of the 256² render, "
                              "flat_walk at the first chunk of the oracle "
                              "render of cornell mesh (plain versions of "
-                             "the walks: median of 2 calls)",
+                             "the walks: median of 2 calls), fetch_rows at "
+                             "the descent's two child fetches of the "
+                             "mid-render closest batch (library: "
+                             "table[clamp(cand)].float(), what the descent "
+                             "ran before), fetch_rows_t at the fetch tools' "
+                             "shapes, take_along at the dyngather tool's "
+                             "(256, 128) f32 and (256, 2048) f32 16-rep "
+                             "cases and at (64, 8192) f32 (library: one "
+                             "torch.gather a rep)",
           "us_per_launch": {
               k: {"kernel": round(v["ms"] * 1e3, 2),
                   **({"trace": v["trace_us"], "trace_n": v["trace_n"],
@@ -1517,7 +1712,10 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
                       "trace_warm_n": v["trace_warm_n"]}
                      if "trace_us" in v else {}),
                   **({"plain": round(v["plain_ms"] * 1e3, 2)}
-                     if "plain_ms" in v else {}), **v["shape"]}
+                     if "plain_ms" in v else {}),
+                  **({"library": round(v["library_ms"] * 1e3, 2)}
+                     if "library_ms" in v else {}),
+                  **v["shape"]}
               for k, v in timing.items()}})
     errs = {"pair_ray_reduce": max(c["max_abs_err"] for c in cases_fused),
             "pair_tile_isect": max(max(c["max_abs_err_t"], c["max_abs_err_uv"])
@@ -1527,13 +1725,44 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
             "dense_closest": max(c["max_abs_err"] for c in cases_dense),
             "dense_anyhit": max(c["max_abs_err_occ"] for c in cases_dense),
             "packed_walk": max(c["max_abs_err"] for c in cases_walk),
-            "flat_walk": max(c["max_abs_err"] for c in cases_flat)}
+            "flat_walk": max(c["max_abs_err"] for c in cases_flat),
+            **{k: max(c["max_abs_err"] for c in v)
+               for k, v in cases_fetch.items()}}
     timing["launch_floor_us"] = floors["grid_of_pair_ray_reduce"]
-    return timing, errs
+    return timing, errs, mid
 
 
 # --------------------------------------------------------------------------
-# Phase 4 — traversal against the brute-force oracle
+# Phase 4 — the ported fetch probes
+# --------------------------------------------------------------------------
+
+def phase_fetch_probes(cb, mid):
+    """The three ported fetch probes (``tpu_pt_torch/tools/``) through their
+    ``main()`` at the JAX tools' full shapes, on the card; the vmem-gather
+    probe's descent case on the mid-render closest batch.  Each prints its
+    own lines and raises where a kernel and its plain version differ.
+    Returns the launches of fetch_rows_t and take_along in this phase."""
+    kernels = (fetch_rows, fetch_rows_t, take_along)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.time()
+    lines = vmem_tool.main(["--device", "cuda"], descent=(cb, *mid))
+    lines += fetch_tool.main(["--device", "cuda"])
+    lines += dyngather_tool.main(["--device", "cuda"])
+    sync()
+    launches = {k.__name__: k.launches for k in kernels}
+    emit({"phase": "fetch_probes", "cases": len(lines),
+          "all_exact": all(ln["exact"] for ln in lines),
+          "wall_s": round(time.time() - t0, 2), "launches": launches,
+          "timing": "each case: a CUDA graph of 30 calls, best of three "
+                    "replays, kernel and torch counterpart"})
+    assert all(ln["exact"] and ln["timed"] for ln in lines)
+    assert all(launches.values()), launches
+    return {k: launches[k] for k in ("fetch_rows_t", "take_along")}
+
+
+# --------------------------------------------------------------------------
+# Phase 5 — traversal against the brute-force oracle
 # --------------------------------------------------------------------------
 
 def phase_traverse():
@@ -1629,7 +1858,7 @@ def phase_traverse():
 
 
 # --------------------------------------------------------------------------
-# Phases 5 and 6 — renders of the 1.3M-triangle scene
+# Phases 6 and 7 — renders of the 1.3M-triangle scene
 # --------------------------------------------------------------------------
 
 def counts_close(a, b, what):
@@ -1827,7 +2056,7 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
 # the launch counts.
 ALL_KERNELS = (pair_ray_reduce, pair_tile_isect, pair_segmin,
                pair_tile_isect_dedup, dense_closest, dense_anyhit, packed_walk,
-               flat_walk)
+               flat_walk, fetch_rows, fetch_rows_t, take_along)
 
 
 def take_launches():
@@ -1836,6 +2065,13 @@ def take_launches():
     for k in ALL_KERNELS:
         k.launches = 0
     return out
+
+
+def fetch_launches(cb, steps):
+    """The fetch_rows launches of a wavefront render of ``steps`` steps: one
+    for every level below the top, in each of the 2 x 4 traversal
+    sub-batches of a step."""
+    return (len(cb.levels) - 1) * 2 * 4 * steps
 
 
 def grad_step(adjoint, params, scene, cam, cfg, key, bvh, hint, **kw):
@@ -1943,6 +2179,8 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
         for name in ("pair_ray_reduce",) + (("packed_walk",) if walk else ()):
             assert r["launches_fwd"][name] == 2 * 4 * r["steps_run"], \
                 r["launches_fwd"]
+        assert r["launches_fwd"]["fetch_rows"] == fetch_launches(
+            cb, r["steps_run"]), r["launches_fwd"]
 
     step((0, 0))                                    # warm
     runs = []
@@ -1995,9 +2233,9 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
           "fd_albedo": {"material": m, "channel": 0, "eps": eps, "grad": g,
                         "central_difference": fd,
                         "rel_err": abs(g - fd) / abs(fd)},
-          "tolerance": "backward launches 0; pair_ray_reduce 8 x steps; "
-                       "grads finite; albedo grad vs central difference "
-                       "rtol 2e-2"})
+          "tolerance": "backward launches 0; pair_ray_reduce 8 x steps, "
+                       "fetch_rows 8 x fetch levels x steps; grads finite; "
+                       "albedo grad vs central difference rtol 2e-2"})
     for r in runs:
         check_launches(r, walk=False)
         assert all(bool(torch.isfinite(x).all())
@@ -2094,8 +2332,12 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
             "tolerance": "kernels vs plain and two calls bitwise; pallas vs "
                          "brute rtol 1e-3 atol 1e-3"}
         emit(entry)
-        assert n_k["pair_ray_reduce"] > 0 and \
-            n_p["pair_ray_reduce"] == n_k["pair_ray_reduce"], (n_k, n_p)
+        assert n_k["pair_ray_reduce"] > 0, n_k
+        # The plain versions of the second call launch nothing; a pyramid
+        # of one level fetches no children.
+        for name in ("pair_ray_reduce", "fetch_rows"):
+            assert n_p[name] == n_k[name], (n_k, n_p)
+        assert (n_k["fetch_rows"] > 0) == (len(cb_s.levels) > 1), n_k
         assert n_fwd["dense_closest"] > 0 and n_fwd["dense_anyhit"] > 0, n_fwd
         assert not any(n_bwd.values()), n_bwd
         assert entry["pallas_halves_equal_loss_and_grad"], \
@@ -2115,7 +2357,7 @@ def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
     launched on every traversal sub-batch all the same.  Returns its
     launches."""
     kernels = (packed_walk, pair_ray_reduce, pair_tile_isect, pair_segmin,
-               pair_tile_isect_dedup)
+               pair_tile_isect_dedup, fetch_rows)
     # The launch counts of this path: zeroed just before the render, read
     # just after it.
     for k in kernels:
@@ -2145,13 +2387,14 @@ def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
     # 459 steps x 2 traversals x 4 sub-batches, one walk each.
     assert launches["packed_walk"] == 2 * 4 * n_iter, launches
     assert launches["pair_ray_reduce"] == 2 * 4 * n_iter, launches
+    assert launches["fetch_rows"] == fetch_launches(cb_fb, n_iter), launches
     return {"packed_walk": launches["packed_walk"]}
 
 
 def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     key = (0, 3)
     kernels = (pair_ray_reduce, pair_tile_isect, pair_segmin,
-               pair_tile_isect_dedup, packed_walk)
+               pair_tile_isect_dedup, packed_walk, fetch_rows)
 
     def run():
         sync()
@@ -2176,7 +2419,10 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     # 2 traversals x 4 sub-batches a step, one launch each; the stage that
     # was asked for is the stage that ran.
     assert launches["pair_ray_reduce"] == 2 * 4 * n_iter, launches
-    assert not any(n for k, n in launches.items() if k != "pair_ray_reduce"), \
+    # Every child fetch of every descent went through the kernel.
+    assert launches["fetch_rows"] == fetch_launches(cb, n_iter), launches
+    assert not any(n for k, n in launches.items()
+                   if k not in ("pair_ray_reduce", "fetch_rows")), \
         launches          # no fallback attached: no walk
     assert bool(torch.isfinite(img).all()), "render_main: image not finite"
     assert tuple(img.shape) == (cfg.height, cfg.width, 3)
@@ -2203,7 +2449,12 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
                 "n_shadow": ns - RECORDED["n_shadow"],
                 "steps_run": n_iter - RECORDED["steps_run"],
                 "overflow": ovf - RECORDED["overflow"],
-                "mean_radiance": mean - RECORDED["mean_radiance"]}}
+                "mean_radiance": mean - RECORDED["mean_radiance"]},
+            "equals_port_record": {
+                k: v == PORT_RECORD[k] for k, v in (
+                    ("n_closest", nc), ("n_shadow", ns),
+                    ("steps_run", n_iter), ("overflow", ovf),
+                    ("mean_radiance", mean))}}
     emit(line)
     film.save("chip_smoke_big1m.png", img.cpu().numpy())
     assert abs(mean - RECORDED["mean_radiance"]) <= 0.01 * RECORDED["mean_radiance"], \
@@ -2218,7 +2469,10 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
         "wavefront.repair_suspect_pixels, phases render_exact and "
         "render_fallback)")
     assert n_iter == RECORDED["steps_run"], f"steps_run {n_iter}"
-    return {"pair_ray_reduce": launches["pair_ray_reduce"]}, line, img
+    assert all(line["equals_port_record"].values()), \
+        f"render_main moved from the port's record {PORT_RECORD}"
+    return {k: launches[k] for k in ("pair_ray_reduce", "fetch_rows")}, \
+        line, img
 
 
 def probe_size(cfg):
@@ -2284,7 +2538,7 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
     beside ``render_main``'s; at overflow 0 its image must be
     ``render_main``'s bit for bit."""
     key, kw = (0, 3), dict(queue=4096, device=DEV)
-    kernels = (pair_ray_reduce, packed_walk)
+    kernels = (pair_ray_reduce, packed_walk, fetch_rows)
     default = {"frontiers": list(cb.frontiers), "k_leaf": cb.k_leaf,
                "pair_mults": list(cb.pair_mults)}
 
@@ -2322,6 +2576,7 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
     run_s = {"render": round(time.time() - t0, 3)}
     launches = {k.__name__: k.launches for k in kernels}
     assert launches["pair_ray_reduce"] == 2 * 4 * it1, launches
+    assert launches["fetch_rows"] == fetch_launches(cb_a, it1), launches
     final, repair = img1, None
     if ovf1 > 0:
         t0 = time.time()
@@ -2399,6 +2654,7 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
           "max_abs_diff": float((img - img_main).abs().max()),
           "mean_radiance": float(img.mean())})
     assert launches["pair_ray_reduce"] == 2 * 4 * it, launches
+    assert launches["fetch_rows"] == fetch_launches(cb_b, it), launches
     assert bool(torch.isfinite(img).all())
     if ovf == 0:
         assert equal, "render_autotune: at overflow 0 the tuned headline " \
@@ -2410,7 +2666,7 @@ def phase_render_split(scene, cam, cb, cfg, main, img_main):
     to ``render_main``'s image, timed beside it on the same host.  Returns
     the launches of its kernels in one render."""
     kernels = (pair_tile_isect, pair_segmin, pair_ray_reduce,
-               pair_tile_isect_dedup)
+               pair_tile_isect_dedup, fetch_rows)
     times = []
     for _ in range(2):
         for k in kernels:
@@ -2443,6 +2699,7 @@ def phase_render_split(scene, cam, cb, cfg, main, img_main):
     assert launches["pair_segmin"] == 2 * 4 * n_iter, launches
     assert launches["pair_ray_reduce"] == 0, launches
     assert launches["pair_tile_isect_dedup"] == 0, launches
+    assert launches["fetch_rows"] == fetch_launches(cb, n_iter), launches
     return {k: launches[k] for k in ("pair_tile_isect", "pair_segmin")}
 
 
@@ -2584,7 +2841,7 @@ def phase_render_dedup(scene, cam, cb, cfg, main):
     """The headline render once through the cluster-major pair stage, held
     to this run's own ``render_main``.  Returns the launches of its kernel."""
     kernels = (pair_tile_isect_dedup, pair_tile_isect, pair_segmin,
-               pair_ray_reduce)
+               pair_ray_reduce, fetch_rows)
     for k in kernels:
         k.launches = 0
     sync()
@@ -2620,6 +2877,7 @@ def phase_render_dedup(scene, cam, cb, cfg, main):
     assert launches["pair_tile_isect_dedup"] == 2 * 4 * n_iter, launches
     assert launches["pair_tile_isect"] == 0 and launches["pair_segmin"] == 0 \
         and launches["pair_ray_reduce"] == 0, launches
+    assert launches["fetch_rows"] == fetch_launches(cb, n_iter), launches
     return {"pair_tile_isect_dedup": launches["pair_tile_isect_dedup"]}
 
 
@@ -2855,7 +3113,9 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return
-    timing, errs = phase_kernels(scene, cam, cb, cfg, (0, 3), pk)
+    timing, errs, mid = phase_kernels(scene, cam, cb, cfg, (0, 3), pk)
+    probe_launches = phase_fetch_probes(cb, mid)
+    del mid
     phase_traverse()
     small = phase_render_small(scene, cb)
     phase_determinism(scene, cb)
@@ -2879,6 +3139,7 @@ def main():
     if profile:
         phase_loop_pairs(scene, cam, cb, cfg, (0, 3))
     launches.update(phase_render_oracle())
+    launches.update(probe_launches)
 
     # file:line of the pl.pallas_call each kernel replaces.
     sources = {
@@ -2900,7 +3161,17 @@ def main():
                         "while_loop; no pl.pallas_call)"),
         "flat_walk": ("tpu_pt_torch/csrc/flat_walk.cu",
                       "tpu_pt/bvh/flat.py:53 and :118 (intersect and "
-                      "occluded, XLA while_loops; no pl.pallas_call)")}
+                      "occluded, XLA while_loops; no pl.pallas_call)"),
+        "fetch_rows": ("tpu_pt_torch/csrc/fetch_rows.cu",
+                       "tools/microbench_vmem_gather.py:74 (vmem_gather), "
+                       "tools/microbench_fetch_kernel.py:65 (onehot_fetch) "
+                       "and :130 (grouped_fetch)"),
+        "fetch_rows_t": ("tpu_pt_torch/csrc/fetch_rows.cu",
+                         "tools/microbench_fetch_kernel.py:98 "
+                         "(lane_gather_fetch)"),
+        "take_along": ("tpu_pt_torch/csrc/take_along.cu",
+                       "tools/microbench_dyngather.py:50 (run_case's "
+                       "kernel)")}
     def bound(tm):
         """(bound_ms, bound_by) of a timing entry's bytes and operations."""
         by_bytes = tm["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2917,27 +3188,29 @@ def main():
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": errs[name], "ms": tm["ms"],
                "plain_ms": tm["plain_ms"], "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None}
+               "bound_by": bound_by, "library_ms": tm.get("library_ms")}
         if "trace_us" in tm:
             row["trace_us"] = tm["trace_us"]
             row["trace_n"] = tm["trace_n"]
             row["trace_warm_us"] = tm["trace_warm_us"]
             row["trace_warm_n"] = tm["trace_warm_n"]
             row["launch_floor_us"] = timing["launch_floor_us"]
-        if name in ("packed_walk", "flat_walk"):
-            # Timed at the whole 4096-lane queue (the flat walk: at the
-            # oracle chunk's camera rays); the same numbers for the other
-            # batches, and the rays' walks as the plain version counted
-            # them.
+        if name in ("packed_walk", "flat_walk", "fetch_rows",
+                    "fetch_rows_t", "take_along"):
+            # The walks are timed at the whole 4096-lane queue (the flat
+            # walk: at the oracle chunk's camera rays), fetch_rows at the
+            # descent's last fetch; the same numbers for the other batches
+            # and shapes timed.
             row["shape"] = tm["shape"]
             row["other_batches"] = {
-                k.split("@")[1]: {**{f: v[f] for f in ("ms", "trace_us",
-                                                       "trace_warm_us",
-                                                       "plain_ms", "shape")
-                                     if f in v},
-                                  **dict(zip(("bound_ms", "bound_by"),
-                                             bound(v)))}
+                k.split("@")[1]: {**{f: v[f] for f in (
+                    "ms", "trace_us", "trace_warm_us", "plain_ms",
+                    "library_ms", "shape") if f in v},
+                    **dict(zip(("bound_ms", "bound_by"), bound(v)))}
                 for k, v in timing.items() if k.startswith(name + "@")}
+        if name in ("fetch_rows", "fetch_rows_t", "take_along"):
+            row["launches_counted_in"] = (
+                "render_main" if name == "fetch_rows" else "fetch_probes")
         rows.append(row)
     emit({"phase": "done", "total_s": round(time.time() - t_start, 1)})
     print(smi, flush=True)

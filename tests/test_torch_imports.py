@@ -23,7 +23,8 @@ def _submodules():
 
 def test_every_module_layout_name_is_present():
     names = set(_submodules())
-    for sub in ("core", "scene", "bvh", "render", "kernels", "diff"):
+    for sub in ("core", "scene", "bvh", "render", "kernels", "diff",
+                "tools"):
         assert f"tpu_pt_torch.{sub}" in names
     for mod in ("config", "convert", "core.vecmath", "core.intersect",
                 "core.camera", "core.sampling", "core.aabb", "scene.types",
@@ -31,7 +32,10 @@ def test_every_module_layout_name_is_present():
                 "bvh.cluster", "bvh.packed", "bvh.flat",
                 "kernels.cluster_isect", "kernels.pair_scan",
                 "kernels.pair_fused", "kernels.intersect",
-                "kernels.packed_walk", "kernels.flat_walk", "render.envmap",
+                "kernels.packed_walk", "kernels.flat_walk", "kernels.fetch",
+                "kernels.take_along", "tools.microbench_vmem_gather",
+                "tools.microbench_fetch_kernel", "tools.microbench_dyngather",
+                "render.envmap",
                 "render.bsdf", "render.lights", "render.brute",
                 "render.integrator", "render.driver", "render.wavefront",
                 "render.film", "diff.params", "diff.adjoint"):
@@ -184,11 +188,12 @@ def test_kernel_sources_are_all_declared_to_the_loader(tmp_path, monkeypatch):
                         "pair_segmin_launch", "pair_ray_reduce_launch",
                         "launch_floor_launch", "dense_closest_launch",
                         "dense_anyhit_launch", "packed_walk_launch",
-                        "flat_walk_launch"}
+                        "flat_walk_launch", "fetch_rows_launch",
+                        "fetch_rows_t_launch", "take_along_launch"}
     assert {os.path.basename(p) for p in _build.sources()} == {
         "pair_tile_isect.cu", "pair_tile_isect_dedup.cu", "pair_segmin.cu",
         "pair_ray_reduce.cu", "launch_floor.cu", "dense_isect.cu",
-        "packed_walk.cu", "flat_walk.cu"}
+        "packed_walk.cu", "flat_walk.cu", "fetch_rows.cu", "take_along.cu"}
     with open(_build.__file__) as fh:
         loader = fh.read()
     for name in declared:

@@ -9,7 +9,8 @@ AABB pyramid, traversed level-synchronously for a whole batch of rays.
      index tables; a child fetch is one contiguous block gather.
   3. **Sort-free compact descent**: a dense slab test of every ray against
      the top level, then per level a block gather of the live nodes'
-     children, a dense slab test and a 1-bit lane compaction.
+     children (``kernels.fetch.fetch_rows``), a dense slab test and a 1-bit
+     lane compaction.
   4. **Pair stage**: the live (ray, cluster) candidates are flattened to one
      ray-major pair list; every pair is tile-tested and the results are
      reduced per ray.  Exact: every live candidate is tested, no best-t
@@ -53,6 +54,7 @@ from tpu_pt_torch.core.intersect import INF, as_col
 from tpu_pt_torch.kernels.cluster_isect import (
     B as PBLK, _mt_group, pair_rows as _pair_rows, pair_tile_isect,
     pair_tile_isect_dedup, pair_tile_isect_dedup_ref, pair_tile_isect_ref)
+from tpu_pt_torch.kernels.fetch import fetch_rows, fetch_rows_ref
 from tpu_pt_torch.kernels.pair_fused import (
     pair_ray_reduce, pair_ray_reduce_ref)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref
@@ -408,14 +410,16 @@ def _slab_soa(blo, bhi, ro, rd_inv, t_min, t_max):
 
 
 def _descend_compact(cb: ClusterBVH, ro, rd_inv, t_min, t_max,
-                     collect: list | None = None):
+                     collect: list | None = None, use_kernels: bool = True):
     """Sort-free frontier descent.  Returns (cand (Q, K) i64 cluster ids,
     live (Q, K) bool, overflow (Q,) i64 live candidates truncated at any
     level).  Candidates are lane-compacted but UNORDERED by t — the compact
     traversal tests all of them, so order is irrelevant.
 
     collect: when a list is passed, one (needed (Q,), truncated (Q,)) pair
-    per level is appended (needed = live candidates BEFORE the cap)."""
+    per level is appended (needed = live candidates BEFORE the cap).
+    use_kernels: the child fetch goes through ``fetch_rows`` (on CUDA
+    tensors its kernel), else through its plain version."""
     Q = ro.shape[0]
     levels = cb.levels
     caps = cb.frontiers
@@ -437,11 +441,14 @@ def _descend_compact(cb: ClusterBVH, ro, rd_inv, t_min, t_max,
         # Field-major sibling rows from the bf16 outward-rounded table
         # (GATHER_BF16): a field slice of the gathered block keeps the 8
         # children minor.
-        child = cb.child16[l] if GATHER_BF16 else \
-            levels[l].reshape(-1, 8, 8).transpose(1, 2).reshape(-1, 64)
-        blk = child[torch.clamp(cand, 0, child.shape[0] - 1)]  # (Q, cap, 64)
+        if GATHER_BF16:
+            fetch = fetch_rows if use_kernels else fetch_rows_ref
+            blk = fetch(cb.child16[l], cand, clamp=True)    # (Q, cap, 64)
+        else:
+            child = levels[l].reshape(-1, 8, 8).transpose(1, 2).reshape(-1, 64)
+            blk = child[torch.clamp(cand, 0, child.shape[0] - 1)]
         K8 = cand.shape[1] * 8
-        blk = blk.float().reshape(Q, cand.shape[1], 8, 8)
+        blk = blk.reshape(Q, cand.shape[1], 8, 8)
 
         def field(f):
             return blk[:, :, f, :].reshape(Q, K8)
@@ -774,7 +781,8 @@ def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
     cand, live, ovf = _descend_compact(cb, ro, 1.0 / rd, t_min1[:, None],
-                                       t_max1[:, None])
+                                       t_max1[:, None],
+                                       use_kernels=use_kernels)
     budget = int(cb.pair_mults[2] * Q)
     rayP, cidP, dropped, cnt, right, lost = _flat_pairs(cand, live, Q, budget)
     n_ovf = torch.sum(ovf) + dropped
@@ -833,7 +841,8 @@ def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
     cand, live, ovf = _descend_compact(cb, ro, 1.0 / rd, t_min1[:, None],
-                                       t_max1[:, None])
+                                       t_max1[:, None],
+                                       use_kernels=use_kernels)
     # Any-hit pair budget: callers that KNOW the batch is a steady-state
     # shadow wave (the wavefront loop body after its wide warm-up prefix)
     # pass narrow=True for the pair_mults[3] budget (shadow batches are

@@ -116,6 +116,13 @@ def load(verbose_ptxas: bool = False):
         lib.packed_walk_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
         lib.flat_walk_launch.restype = ci
         lib.flat_walk_launch.argtypes = [vp] * 19 + [ci] * 7 + [vp]
+        lib.fetch_rows_launch.restype = ci
+        lib.fetch_rows_launch.argtypes = (
+            [vp] * 3 + [ci, ci, ctypes.c_longlong] + [ci] * 4 + [vp])
+        lib.fetch_rows_t_launch.restype = ci
+        lib.fetch_rows_t_launch.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+        lib.take_along_launch.restype = ci
+        lib.take_along_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp]
         _lib = lib
     return _lib
 
