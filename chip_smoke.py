@@ -66,9 +66,14 @@ against the brute-force oracle, and drives these paths at full width:
   scenes, that kernels and plain versions give the same loss and gradients
   bit for bit.
 
-The descent of every cluster traversal above fetches its child rows through
-the kernel ``fetch_rows`` (``csrc/fetch_rows.cu``), so every render launches
-it; ``fetch_probes`` runs the three ported fetch probes
+The descent of every cluster traversal above fetches its children's box
+fields through the kernel ``fetch_fields`` (``csrc/fetch_rows.cu``), so
+every render launches it, and never its twin ``fetch_rows`` (the row form,
+``_descend_compact(fetch="rows")``); the exact fallback's walk runs the
+window design of ``packed_walk`` (``csrc/packed_walk.cu``), never its twin
+(``design="thread"``).  The kernels phase holds each redesign bitwise
+against its plain version and against its twin and times the two inside
+this call.  ``fetch_probes`` runs the three ported fetch probes
 (``tpu_pt_torch/tools/microbench_*``: ``fetch_rows``, ``fetch_rows_t``,
 ``take_along``) at the JAX tools' full shapes and at the real descent.
 
@@ -121,10 +126,11 @@ from tpu_pt_torch.kernels.pair_fused import (  # noqa: E402
     pair_ray_reduce, pair_ray_reduce_checked, pair_ray_reduce_ref)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref  # noqa: E402
 from tpu_pt_torch.kernels.packed_walk import (  # noqa: E402
-    packed_walk, packed_walk_ref)
+    DESIGNS as WALK_DESIGNS, packed_walk, packed_walk_ref)
 from tpu_pt_torch.kernels.flat_walk import flat_walk, flat_walk_ref  # noqa: E402
 from tpu_pt_torch.kernels.fetch import (  # noqa: E402
-    fetch_rows, fetch_rows_ref, fetch_rows_t, fetch_rows_t_ref)
+    fetch_fields, fetch_fields_ref, fetch_rows, fetch_rows_ref, fetch_rows_t,
+    fetch_rows_t_ref)
 from tpu_pt_torch.kernels.take_along import (  # noqa: E402
     take_along, take_along_form, take_along_ref)
 from tpu_pt_torch.render import brute, film, integrator, wavefront  # noqa: E402
@@ -868,6 +874,11 @@ def time_launches(fn, flush, repeats=30, warmup=3):
     return statistics.median(times)
 
 
+# The device name of each design's kernel, for the profiler's records.
+WALK_KERNEL = {"window": "packed_walk_window_kernel",
+               "thread": "packed_walk_kernel"}
+
+
 def walk_args(pk, ro, rd, t_min, t_max):
     """Operands of the packed walk (t bounds as (R,) columns)."""
     return (pk.table, pk.prim_gid, ro.contiguous(), rd.contiguous(),
@@ -876,30 +887,47 @@ def walk_args(pk, ro, rd, t_min, t_max):
 
 
 def compare_walk(args, label, any_hit):
-    """packed_walk against packed_walk_ref, bitwise (the raw 32-bit words),
-    and the plain version's counts: lockstep iterations, node steps per ray
-    and rows tested (as the kernel tests them)."""
-    out_k = packed_walk(*args, any_hit=any_hit)
+    """packed_walk in both designs (window, thread) against packed_walk_ref
+    and against each other, bitwise (the raw 32-bit words), and the plain
+    version's counts: lockstep iterations, node steps, windows of node rows
+    and leaves per ray, rows tested (as the kernel tests them)."""
+    outs_k = {d: packed_walk(*args, any_hit=any_hit, design=d)
+              for d in WALK_DESIGNS}
     sync()
     stats = {}
     out_r = packed_walk_ref(*args, any_hit=any_hit, stats=stats)
-    outs_k = (out_k,) if any_hit else out_k
     outs_r = (out_r,) if any_hit else out_r
-    for a, b in zip(outs_k, outs_r):
-        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
+    form = "any hit" if any_hit else "closest"
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32)) \
             if a.dtype == torch.float32 else torch.equal(a, b)
-        assert same, f"packed_walk {label} ({'any hit' if any_hit else 'closest'}): " \
-            "kernel and plain version differ (must be bitwise)"
+
+    for d, out_k in outs_k.items():
+        for a, b in zip((out_k,) if any_hit else out_k, outs_r):
+            assert same(a, b), f"packed_walk {label} ({form}, design {d}): " \
+                "kernel and plain version differ (must be bitwise)"
+    window, thread = (outs_k[d] for d in ("window", "thread"))
+    assert all(same(a, b) for a, b in zip(
+        (window,) if any_hit else window, (thread,) if any_hit else thread)), \
+        f"packed_walk {label} ({form}): the two designs differ"
     t_max = args[5]
-    steps = stats["steps"]
+    steps, windows, leaves = (stats[k] for k in ("steps", "windows",
+                                                  "leaves"))
     res = {"case": label, "form": "any_hit" if any_hit else "closest",
            "rays": int(t_max.shape[0]),
            "walking_rays": int((t_max >= args[4]).sum()),
            "hits": int(out_r.sum()) if any_hit else int((out_r[0] < t_max).sum()),
-           "bitwise": True,
-           "max_abs_err": 0.0 if any_hit else max_abs_diff(out_k[0], out_r[0]),
+           "bitwise": True, "designs": list(WALK_DESIGNS),
+           "window_vs_thread_bitwise": True,
+           "max_abs_err": 0.0 if any_hit else max(
+               max_abs_diff(o[0], out_r[0]) for o in outs_k.values()),
            "plain_iterations": stats["iterations"],
            "max_steps": int(steps.max()), "mean_steps": float(steps.float().mean()),
+           "max_windows": int(windows.max()),
+           "mean_windows": float(windows.float().mean()),
+           "max_leaves": int(leaves.max()),
+           "mean_leaves": float(leaves.float().mean()),
            "rows_tri": stats["rows_tri"], "rows_sph": stats["rows_sph"]}
     return res, stats, out_r
 
@@ -1001,12 +1029,14 @@ def walk_edge_rays(pk, n, seed):
 
 
 def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
-    """The walk kernel against its plain version, bitwise, closest and any
-    hit: (a) the first overflowing closest-hit and shadow sub-batch of the
-    256² render (of each form that overflows there) as the retrace hands
-    them over (t_max = -1 where a ray is not suspect); (b) the whole 4,096-lane queue after N_WARM steps, and
-    its shadow batch; (c) edge cases.  Times the kernel and the plain
-    version on (a) and (b).  Returns (cases, timing)."""
+    """The walk kernel in both designs against its plain version and
+    against each other, bitwise, closest and any hit: (a) the first
+    overflowing closest-hit and shadow sub-batch of the 256² render (of each
+    form that overflows there) as the retrace hands them over (t_max = -1
+    where a ray is not suspect); (b) the whole 4,096-lane queue after
+    N_WARM steps, and its shadow batch; (c) edge cases.  Times the kernel and the plain
+    version on (a) and (b), the two designs one after the other on the
+    same operands.  Returns (cases, timing)."""
     cases, timing = [], {}
     got, n_over = overflow_batches(scene, cb)
     batches = []
@@ -1036,21 +1066,31 @@ def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
                                        "@overflow_closest",
                                    "overflow_any_hit_sub_batch":
                                        "@overflow_shadow"}[name]
+            shape = {"R": R, "walking_rays": res["walking_rays"],
+                     "any_hit": form, "max_steps": res["max_steps"],
+                     "mean_steps": round(res["mean_steps"], 3),
+                     "max_windows": res["max_windows"],
+                     "mean_windows": round(res["mean_windows"], 3),
+                     "max_leaves": res["max_leaves"],
+                     "mean_leaves": round(res["mean_leaves"], 3),
+                     "plain_iterations": res["plain_iterations"],
+                     "rows": stats["rows_tri"] + stats["rows_sph"],
+                     "least_MB": round(n_bytes / 1e6, 4),
+                     "traffic_MB": round(traffic / 1e6, 4)}
+            # Both designs on the same operands, one after the other.
             timing[key] = dict(
-                shape={"R": R, "walking_rays": res["walking_rays"],
-                       "any_hit": form, "max_steps": res["max_steps"],
-                       "mean_steps": round(res["mean_steps"], 3),
-                       "plain_iterations": res["plain_iterations"],
-                       "rows": stats["rows_tri"] + stats["rows_sph"],
-                       "least_MB": round(n_bytes / 1e6, 4),
-                       "traffic_MB": round(traffic / 1e6, 4)},
+                shape=shape,
                 **time_both(lambda: packed_walk(*args, any_hit=form), flush,
-                            "packed_walk_kernel"),
+                            WALK_KERNEL["window"]),
                 # The plain version ran on these operands just before.
                 plain_ms=time_launches(
                     lambda: packed_walk_ref(*args, any_hit=form), flush,
                     repeats=2, warmup=0),
                 bytes=n_bytes, flops=ops)
+            timing[key.replace("packed_walk", "packed_walk_thread", 1)] = \
+                dict(shape=shape, **time_both(
+                    lambda: packed_walk(*args, any_hit=form, design="thread"),
+                    flush, WALK_KERNEL["thread"]), bytes=n_bytes, flops=ops)
     # (c) Edge cases on the headline's table, on spheres and on coincident
     # triangles; a batch in which no ray is suspect (all leave at the root).
     v, f = meshes.icosphere(subdiv=1)
@@ -1088,10 +1128,13 @@ def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
         assert res["max_steps"] == 1 and res["hits"] == 0
         cases.append(res)
     n_bytes, ops, _ = walk_work(stats, int(ro.shape[0]), False)
-    timing["packed_walk@no_suspect"] = dict(
-        shape={"R": int(ro.shape[0]), "walking_rays": 0},
-        **time_both(lambda: packed_walk(*args), flush, "packed_walk_kernel"),
-        bytes=n_bytes, flops=ops)
+    for design in WALK_DESIGNS:
+        name = "packed_walk" if design == "window" else "packed_walk_thread"
+        timing[name + "@no_suspect"] = dict(
+            shape={"R": int(ro.shape[0]), "walking_rays": 0},
+            **time_both(lambda: packed_walk(*args, design=design), flush,
+                        WALK_KERNEL[design]),
+            bytes=n_bytes, flops=ops)
     return cases, timing, n_over
 
 
@@ -1308,6 +1351,29 @@ def compare_fetch(table, idx, clamp, label, form="fetch_rows"):
     return res
 
 
+def compare_fields(table, cand, label):
+    """fetch_fields against its plain version and against its twin on the
+    descent, fetch_rows rearranged into planes: bitwise, no tolerance."""
+    Q, K = cand.shape
+    out_k = fetch_fields(table, cand)
+    out_r = fetch_fields_ref(table, cand)
+    rows = fetch_rows(table, cand, clamp=True).reshape(Q, K, 8, 8)
+    twin = rows[:, :, :6].permute(2, 0, 1, 3).reshape(6, Q, K * 8)
+    sync()
+    res = {"label": label, "form": "fetch_fields", "Q": Q, "K": K,
+           "N": int(table.shape[0]),
+           "idx_dtype": str(cand.dtype).replace("torch.", ""),
+           "idx_contiguous": cand.is_contiguous(),
+           "table_has_inf": bool(torch.isinf(table.float()).any()),
+           "bitwise": probe.bitwise_equal(out_k, out_r),
+           "bitwise_vs_fetch_rows": probe.bitwise_equal(out_k, twin),
+           "max_abs_err": max_abs_diff(out_k, out_r)}
+    assert res["bitwise"], f"fetch_fields {label}: kernel differs from plain"
+    assert res["bitwise_vs_fetch_rows"], \
+        f"fetch_fields {label}: differs from fetch_rows rearranged"
+    return res
+
+
 def compare_take(x, idx, dim, reps, label):
     out_k, out_r = take_along(x, idx, dim, reps), take_along_ref(x, idx, dim,
                                                                 reps)
@@ -1343,18 +1409,21 @@ def fetch_edge_tables(seed):
 
 
 def check_fetch(cb, batches, flush):
-    """fetch_rows, fetch_rows_t and take_along against their plain versions
-    on the card, bitwise: (a) every child fetch of the descent for the real
-    batches (the level tables hold +/-inf in empty slots; int64 candidates
-    in the descent's own layout); (b) the three tools' full shapes, int32
-    indices; (c) edge cases.  Timed: fetch_rows at the descent's fetches of
-    the mid-render closest batch, beside what the descent ran before
-    (``table[clamp(cand)].float()``); fetch_rows_t at the tools' shapes,
+    """fetch_fields, fetch_rows, fetch_rows_t and take_along against their
+    plain versions on the card, bitwise (fetch_fields also against
+    fetch_rows rearranged): (a) every child fetch of the descent for the
+    real batches (the level tables hold +/-inf in empty slots; int64
+    candidates in the descent's own layout); (b) the three tools' full
+    shapes, int32 indices; (c) edge cases.  Timed: fetch_fields and
+    fetch_rows at the descent's fetches of the mid-render closest batch, one
+    after the other, with what the descent ran before the row kernel
+    (``table[clamp(cand)].float()``) and the row form's whole path
+    (fetch_rows and the six field copies); fetch_rows_t at the tools' shapes,
     beside torch's gather + cast + transpose; take_along at the dyngather
     tool's (256, 128) f32 16-rep case and its largest, and at a shape whose
     lines are too long for shared memory (one launch a rep), beside one
     torch.gather a rep.  Returns (cases, timing)."""
-    cases, timing = {"fetch_rows": [], "fetch_rows_t": [],
+    cases, timing = {"fetch_fields": [], "fetch_rows": [], "fetch_rows_t": [],
                      "take_along": []}, {}
     for label, (ro, rd, t_max) in batches.items():
         for level, table, cand in vmem_tool.descent_fetches(cb, ro, rd,
@@ -1362,12 +1431,28 @@ def check_fetch(cb, batches, flush):
             res = compare_fetch(table, cand, True, f"{label}_L{level}")
             assert res["table_has_inf"], res
             cases["fetch_rows"].append(res)
+            cases["fetch_fields"].append(compare_fields(
+                table, cand, f"{label}_L{level}"))
             if label != "mid_render":
                 continue
             N, W = table.shape
-            key = "fetch_rows" if level == len(cb.levels) - 1 else \
-                f"fetch_rows@descent_L{level}"
-            timing[key] = dict(
+            at = "" if level == len(cb.levels) - 1 else f"@descent_L{level}"
+            Q, K = cand.shape
+
+            def rows_path(table=table, cand=cand, Q=Q, K=K):
+                blk = fetch_rows(table, cand, clamp=True).reshape(Q, K, 8, 8)
+                return [blk[:, :, f, :].reshape(Q, K * 8) for f in range(6)]
+
+            timing["fetch_fields" + at] = dict(
+                shape={"P": int(cand.numel()), "Q": Q, "cap": K, "N": N,
+                       "fields": 6, "idx": "int64, the descent's column slice"},
+                **time_both(lambda: fetch_fields(table, cand), flush,
+                            "fetch_fields_kernel"),
+                plain_ms=time_launches(
+                    lambda: fetch_fields_ref(table, cand), flush),
+                twin_path_ms=time_launches(rows_path, flush),
+                bytes=probe.fields_bytes(cand, N, 6), flops=0)
+            timing["fetch_rows" + at] = dict(
                 shape={"P": int(cand.numel()), "Q": int(cand.shape[0]),
                        "cap": int(cand.shape[1]), "N": N, "W": W,
                        "idx": "int64, the descent's column slice"},
@@ -1404,6 +1489,16 @@ def check_fetch(cb, batches, flush):
     for label, table, idx in fetch_edge_tables(7):
         cases["fetch_rows"].append(compare_fetch(table, idx, True,
                                                  "edge_" + label))
+        if table.shape[1] == 64:
+            # (Q, K) candidates, contiguous and as a strided column slice.
+            K = 3 if idx.numel() % 7 else 7
+            cand = idx.reshape(-1, K)
+            buf = torch.zeros((cand.shape[0], K + 2), dtype=idx.dtype,
+                              device=DEV)
+            buf[:, 1:K + 1] = cand
+            for c, how in ((cand, ""), (buf[:, 1:K + 1], "_strided")):
+                cases["fetch_fields"].append(compare_fields(
+                    table, c, "edge_" + label + how))
         cases["fetch_rows_t"].append(compare_fetch(
             table, torch.clamp(idx, 0, table.shape[0] - 1), False,
             "edge_" + label, form="fetch_rows_t"))
@@ -1647,10 +1742,13 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
           "checked": ["pair_ray_reduce", "pair_tile_isect", "pair_segmin",
                       "pair_tile_isect_dedup", "dense_closest",
                       "dense_anyhit", "packed_walk", "flat_walk",
-                      "fetch_rows", "fetch_rows_t", "take_along"],
-          "fetch_rows_fetch_rows_t_take_along": {
+                      "fetch_fields", "fetch_rows", "fetch_rows_t",
+                      "take_along"],
+          "fetch_fields_fetch_rows_fetch_rows_t_take_along": {
               "tolerance": "bitwise (raw bits, NaN payloads included), "
-                           "against the plain versions on the card",
+                           "against the plain versions on the card; "
+                           "fetch_fields also against fetch_rows "
+                           "rearranged into planes",
               "cases": cases_fetch},
           "flat_walk": {
               "tolerance": "bitwise (raw 32-bit words), closest-hit and "
@@ -1659,8 +1757,9 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
               "cases": cases_flat},
           "packed_walk": {
               "tolerance": "bitwise (raw 32-bit words), closest-hit and "
-                           "any-hit form, against the plain version on the "
-                           "card",
+                           "any-hit form, both designs (window, thread) "
+                           "against the plain version and against each "
+                           "other on the card",
               "overflowing_sub_batches_of_the_256_render": n_over,
               "cases": cases_walk},
           "pair_ray_reduce": {
@@ -1694,13 +1793,17 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
                              f"the whole 4096-lane queue after {N_WARM} "
                              "steps (and its shadow batch) and at the first "
                              "overflowing sub-batches of the 256² render, "
+                             "its two designs one after the other, "
                              "flat_walk at the first chunk of the oracle "
                              "render of cornell mesh (plain versions of "
-                             "the walks: median of 2 calls), fetch_rows at "
-                             "the descent's two child fetches of the "
-                             "mid-render closest batch (library: "
+                             "the walks: median of 2 calls), fetch_fields "
+                             "and fetch_rows one after the other at the "
+                             "descent's two child fetches of the mid-render "
+                             "closest batch (fetch_rows' library: "
                              "table[clamp(cand)].float(), what the descent "
-                             "ran before), fetch_rows_t at the fetch tools' "
+                             "ran before it; fetch_fields' twin path: "
+                             "fetch_rows and the six field copies), "
+                             "fetch_rows_t at the fetch tools' "
                              "shapes, take_along at the dyngather tool's "
                              "(256, 128) f32 and (256, 2048) f32 16-rep "
                              "cases and at (64, 8192) f32 (library: one "
@@ -1715,6 +1818,8 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
                      if "plain_ms" in v else {}),
                   **({"library": round(v["library_ms"] * 1e3, 2)}
                      if "library_ms" in v else {}),
+                  **({"twin_path": round(v["twin_path_ms"] * 1e3, 2)}
+                     if "twin_path_ms" in v else {}),
                   **v["shape"]}
               for k, v in timing.items()}})
     errs = {"pair_ray_reduce": max(c["max_abs_err"] for c in cases_fused),
@@ -1741,16 +1846,17 @@ def phase_fetch_probes(cb, mid):
     ``main()`` at the JAX tools' full shapes, on the card; the vmem-gather
     probe's descent case on the mid-render closest batch.  Each prints its
     own lines and raises where a kernel and its plain version differ.
-    Returns the launches of fetch_rows_t and take_along in this phase."""
+    Returns the launches of fetch_rows, fetch_rows_t and take_along in this
+    phase (no full-width render launches fetch_rows since the descent
+    fetches fields)."""
     kernels = (fetch_rows, fetch_rows_t, take_along)
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.time()
     lines = vmem_tool.main(["--device", "cuda"], descent=(cb, *mid))
     lines += fetch_tool.main(["--device", "cuda"])
     lines += dyngather_tool.main(["--device", "cuda"])
     sync()
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_launches(kernels)
     emit({"phase": "fetch_probes", "cases": len(lines),
           "all_exact": all(ln["exact"] for ln in lines),
           "wall_s": round(time.time() - t0, 2), "launches": launches,
@@ -1758,7 +1864,7 @@ def phase_fetch_probes(cb, mid):
                     "replays, kernel and torch counterpart"})
     assert all(ln["exact"] and ln["timed"] for ln in lines)
     assert all(launches.values()), launches
-    return {k: launches[k] for k in ("fetch_rows_t", "take_along")}
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1981,7 +2087,7 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
 
     cluster._retrace_suspects_closest = spy("closest")
     cluster._retrace_suspects_anyhit = spy("any_hit")
-    packed_walk.launches = 0
+    zero_launches((packed_walk,))
     try:
         img2, nc2, ns2, ovf2, it2, sus2 = timed(
             "suspect_counts_fallback",
@@ -1991,9 +2097,12 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
         cluster._retrace_suspects_closest = real["closest"]
         cluster._retrace_suspects_anyhit = real["any_hit"]
     launches = packed_walk.launches
+    thread_launches = packed_walk.thread_launches
     repaired = {k: int(v) for k, v in repaired.items()}
     assert ovf2 > 0, "render_exact: the overflow is no longer reported"
     assert launches == 2 * 4 * it2, f"render_exact: {launches} walk launches"
+    assert thread_launches == 0, \
+        f"render_exact: {thread_launches} launches of the thread walk"
     assert sum(repaired.values()) > 0, repaired
     clean = ((sus1 == 0) & (sus2 == 0)).reshape(cfg.height, cfg.width)
     assert bool(torch.equal(img2[clean], img1[clean])), \
@@ -2011,9 +2120,13 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
         assert torch.allclose(rep, img2, rtol=2e-4, atol=2e-5), \
             "render_exact: repaired image vs the fallback render"
 
+    zero_launches((packed_walk,))
     pk_img, nc4, ns4, ovf4, it4 = timed(
         "packed", lambda: wavefront.render_wavefront_counts(
             scene, cam, cfg, key, pk, backend="packed", **kw))
+    packed_launches = read_launches((packed_walk,))
+    assert packed_launches["packed_walk"] > 0 \
+        and packed_launches["packed_walk_thread"] == 0, packed_launches
     assert ovf4 == 0, "render_exact: the packed backend reported overflow"
     assert torch.allclose(pk_img, img2, rtol=1e-3, atol=1e-3), \
         "render_exact: packed backend vs the fallback render"
@@ -2029,7 +2142,10 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
           "suspect_pixels_with_fallback": int(sus2.sum()),
           "suspect_pixels_in_either": int((~clean).sum()),
           "suspect_rays_repaired": repaired,
-          "packed_walk_launches": launches, "steps_run": [it1, it2, it4],
+          "packed_walk_launches": launches,
+          "packed_walk_thread_launches": thread_launches,
+          "packed_backend_launches": packed_launches,
+          "steps_run": [it1, it2, it4],
           "n_closest": [nc1, nc2, nc4], "n_shadow": [ns1, ns2, ns4],
           "run_s": run_s,
           "mean_radiance_before_repair": float(img1.mean()),
@@ -2056,22 +2172,44 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
 # the launch counts.
 ALL_KERNELS = (pair_ray_reduce, pair_tile_isect, pair_segmin,
                pair_tile_isect_dedup, dense_closest, dense_anyhit, packed_walk,
-               flat_walk, fetch_rows, fetch_rows_t, take_along)
+               flat_walk, fetch_fields, fetch_rows, fetch_rows_t, take_along)
+
+
+def zero_launches(kernels):
+    """Zero the launch counts of ``kernels`` (the walk's: both designs)."""
+    for k in kernels:
+        k.launches = 0
+    packed_walk.thread_launches = 0
+
+
+def read_launches(kernels):
+    """The launch counts of ``kernels`` by name; the walk's thread design
+    (its twin) as ``packed_walk_thread`` where the walk is among them."""
+    out = {k.__name__: k.launches for k in kernels}
+    if packed_walk in kernels:
+        out["packed_walk_thread"] = packed_walk.thread_launches
+    return out
 
 
 def take_launches():
     """The launch counts of every kernel since the last call; zeroes them."""
-    out = {k.__name__: k.launches for k in ALL_KERNELS}
-    for k in ALL_KERNELS:
-        k.launches = 0
+    out = read_launches(ALL_KERNELS)
+    zero_launches(ALL_KERNELS)
     return out
 
 
 def fetch_launches(cb, steps):
-    """The fetch_rows launches of a wavefront render of ``steps`` steps: one
-    for every level below the top, in each of the 2 x 4 traversal
+    """The fetch_fields launches of a wavefront render of ``steps`` steps:
+    one for every level below the top, in each of the 2 x 4 traversal
     sub-batches of a step."""
     return (len(cb.levels) - 1) * 2 * 4 * steps
+
+
+def check_fetch_launches(launches, cb, steps):
+    """Every child fetch of every descent went through fetch_fields, none
+    through its twin fetch_rows."""
+    assert launches["fetch_fields"] == fetch_launches(cb, steps), launches
+    assert launches["fetch_rows"] == 0, launches
 
 
 def grad_step(adjoint, params, scene, cam, cfg, key, bvh, hint, **kw):
@@ -2179,8 +2317,8 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
         for name in ("pair_ray_reduce",) + (("packed_walk",) if walk else ()):
             assert r["launches_fwd"][name] == 2 * 4 * r["steps_run"], \
                 r["launches_fwd"]
-        assert r["launches_fwd"]["fetch_rows"] == fetch_launches(
-            cb, r["steps_run"]), r["launches_fwd"]
+        assert r["launches_fwd"]["packed_walk_thread"] == 0, r["launches_fwd"]
+        check_fetch_launches(r["launches_fwd"], cb, r["steps_run"])
 
     step((0, 0))                                    # warm
     runs = []
@@ -2234,7 +2372,8 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
                         "central_difference": fd,
                         "rel_err": abs(g - fd) / abs(fd)},
           "tolerance": "backward launches 0; pair_ray_reduce 8 x steps, "
-                       "fetch_rows 8 x fetch levels x steps; grads finite; "
+                       "fetch_fields 8 x fetch levels x steps, fetch_rows 0; "
+                       "the window walk only; grads finite; "
                        "albedo grad vs central difference rtol 2e-2"})
     for r in runs:
         check_launches(r, walk=False)
@@ -2335,9 +2474,10 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
         assert n_k["pair_ray_reduce"] > 0, n_k
         # The plain versions of the second call launch nothing; a pyramid
         # of one level fetches no children.
-        for name in ("pair_ray_reduce", "fetch_rows"):
+        for name in ("pair_ray_reduce", "fetch_fields"):
             assert n_p[name] == n_k[name], (n_k, n_p)
-        assert (n_k["fetch_rows"] > 0) == (len(cb_s.levels) > 1), n_k
+        assert (n_k["fetch_fields"] > 0) == (len(cb_s.levels) > 1), n_k
+        assert n_k["fetch_rows"] == 0, n_k
         assert n_fwd["dense_closest"] > 0 and n_fwd["dense_anyhit"] > 0, n_fwd
         assert not any(n_bwd.values()), n_bwd
         assert entry["pallas_halves_equal_loss_and_grad"], \
@@ -2357,11 +2497,11 @@ def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
     launched on every traversal sub-batch all the same.  Returns its
     launches."""
     kernels = (packed_walk, pair_ray_reduce, pair_tile_isect, pair_segmin,
-               pair_tile_isect_dedup, fetch_rows)
+               pair_tile_isect_dedup, fetch_rows,
+               fetch_fields)
     # The launch counts of this path: zeroed just before the render, read
     # just after it.
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     sync()
     t0 = time.time()
     img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
@@ -2369,7 +2509,7 @@ def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
         device=DEV)
     sync()
     run_s = time.time() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_launches(kernels)
     emit({"phase": "render_fallback", "scene": "big-1m", "size": cfg.width,
           "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
           "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
@@ -2386,15 +2526,17 @@ def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
         "render_fallback: counts differ from render_main's"
     # 459 steps x 2 traversals x 4 sub-batches, one walk each.
     assert launches["packed_walk"] == 2 * 4 * n_iter, launches
+    assert launches["packed_walk_thread"] == 0, launches
     assert launches["pair_ray_reduce"] == 2 * 4 * n_iter, launches
-    assert launches["fetch_rows"] == fetch_launches(cb_fb, n_iter), launches
-    return {"packed_walk": launches["packed_walk"]}
+    check_fetch_launches(launches, cb_fb, n_iter)
+    return {k: launches[k] for k in ("packed_walk", "packed_walk_thread")}
 
 
 def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     key = (0, 3)
     kernels = (pair_ray_reduce, pair_tile_isect, pair_segmin,
-               pair_tile_isect_dedup, packed_walk, fetch_rows)
+               pair_tile_isect_dedup, packed_walk, fetch_rows,
+               fetch_fields)
 
     def run():
         sync()
@@ -2411,19 +2553,18 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
         if i == 2:
             # The launch counts of the main path: zeroed just before one
             # full-width render, read just after it.
-            for k in kernels:
-                k.launches = 0
+            zero_launches(kernels)
         (img, nc, ns, ovf, n_iter), dt = run()
         times.append(dt)
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_launches(kernels)
     # 2 traversals x 4 sub-batches a step, one launch each; the stage that
     # was asked for is the stage that ran.
     assert launches["pair_ray_reduce"] == 2 * 4 * n_iter, launches
     # Every child fetch of every descent went through the kernel.
-    assert launches["fetch_rows"] == fetch_launches(cb, n_iter), launches
+    check_fetch_launches(launches, cb, n_iter)
     assert not any(n for k, n in launches.items()
-                   if k not in ("pair_ray_reduce", "fetch_rows")), \
-        launches          # no fallback attached: no walk
+                   if k not in ("pair_ray_reduce", "fetch_fields")), \
+        launches          # no fallback attached: no walk; no row fetch
     assert bool(torch.isfinite(img).all()), "render_main: image not finite"
     assert tuple(img.shape) == (cfg.height, cfg.width, 3)
     mean = float(img.mean())
@@ -2471,7 +2612,7 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     assert n_iter == RECORDED["steps_run"], f"steps_run {n_iter}"
     assert all(line["equals_port_record"].values()), \
         f"render_main moved from the port's record {PORT_RECORD}"
-    return {k: launches[k] for k in ("pair_ray_reduce", "fetch_rows")}, \
+    return {k: launches[k] for k in ("pair_ray_reduce", "fetch_fields")}, \
         line, img
 
 
@@ -2538,7 +2679,8 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
     beside ``render_main``'s; at overflow 0 its image must be
     ``render_main``'s bit for bit."""
     key, kw = (0, 3), dict(queue=4096, device=DEV)
-    kernels = (pair_ray_reduce, packed_walk, fetch_rows)
+    kernels = (pair_ray_reduce, packed_walk, fetch_rows,
+               fetch_fields)
     default = {"frontiers": list(cb.frontiers), "k_leaf": cb.k_leaf,
                "pair_mults": list(cb.pair_mults)}
 
@@ -2565,8 +2707,7 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
         level_max.append([int(x) for x in cluster.level_hit_counts(
             cb_a, ro[live], rd[live]).amax(0)])
     level_all = [max(col) for col in zip(*level_max)]
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     sync()
     t0 = time.time()
     img1, nc1, ns1, ovf1, it1, sus1 = \
@@ -2574,9 +2715,9 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
                                                   cb_a, **kw)
     sync()
     run_s = {"render": round(time.time() - t0, 3)}
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_launches(kernels)
     assert launches["pair_ray_reduce"] == 2 * 4 * it1, launches
-    assert launches["fetch_rows"] == fetch_launches(cb_a, it1), launches
+    check_fetch_launches(launches, cb_a, it1)
     final, repair = img1, None
     if ovf1 > 0:
         t0 = time.time()
@@ -2629,15 +2770,14 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
     cb_h, tune_s, parts = tune_timed(scene_h, cam_h, cfg)
     cb_b = cb_h.to(DEV)
     del cb_h
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     sync()
     t0 = time.time()
     img, nc, ns, ovf, it = wavefront.render_wavefront_counts(
         scene, cam_h.to(DEV), cfg, key, cb_b, **kw)
     sync()
     run_s = time.time() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_launches(kernels)
     equal = bool(torch.equal(img, img_main))
     emit({"phase": "render_autotune", "part": "headline_autotune",
           "scene": "big-1m", "size": cfg.width, "spp": cfg.spp,
@@ -2654,7 +2794,7 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
           "max_abs_diff": float((img - img_main).abs().max()),
           "mean_radiance": float(img.mean())})
     assert launches["pair_ray_reduce"] == 2 * 4 * it, launches
-    assert launches["fetch_rows"] == fetch_launches(cb_b, it), launches
+    check_fetch_launches(launches, cb_b, it)
     assert bool(torch.isfinite(img).all())
     if ovf == 0:
         assert equal, "render_autotune: at overflow 0 the tuned headline " \
@@ -2666,11 +2806,11 @@ def phase_render_split(scene, cam, cb, cfg, main, img_main):
     to ``render_main``'s image, timed beside it on the same host.  Returns
     the launches of its kernels in one render."""
     kernels = (pair_tile_isect, pair_segmin, pair_ray_reduce,
-               pair_tile_isect_dedup, fetch_rows)
+               pair_tile_isect_dedup, fetch_rows,
+               fetch_fields)
     times = []
     for _ in range(2):
-        for k in kernels:
-            k.launches = 0
+        zero_launches(kernels)
         sync()
         t0 = time.time()
         img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
@@ -2678,7 +2818,7 @@ def phase_render_split(scene, cam, cb, cfg, main, img_main):
             device=DEV, pair_stage="split")
         sync()
         times.append(time.time() - t0)
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_launches(kernels)
     run_s = statistics.median(times)
     emit({"phase": "render_split", "scene": "big-1m", "size": cfg.width,
           "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
@@ -2699,7 +2839,7 @@ def phase_render_split(scene, cam, cb, cfg, main, img_main):
     assert launches["pair_segmin"] == 2 * 4 * n_iter, launches
     assert launches["pair_ray_reduce"] == 0, launches
     assert launches["pair_tile_isect_dedup"] == 0, launches
-    assert launches["fetch_rows"] == fetch_launches(cb, n_iter), launches
+    check_fetch_launches(launches, cb, n_iter)
     return {k: launches[k] for k in ("pair_tile_isect", "pair_segmin")}
 
 
@@ -2757,15 +2897,14 @@ def phase_render_oracle():
             for _ in range(2):
                 # The launch counts of this path: zeroed just before one
                 # full-size render, read just after it.
-                for k in kernels:
-                    k.launches = 0
+                zero_launches(kernels)
                 sync()
                 t0 = time.time()
                 img = render(scene, cam, full, key, backend=backend, bvh=bvh,
                              device=DEV)
                 sync()
                 times.append(time.time() - t0)
-            n_launch = {k.__name__: k.launches for k in kernels}
+            n_launch = read_launches(kernels)
             hits = full.max_depth + 1
             shadow = scene.lights.count * full.ns_area_light
             chunks = -(-full.n_pixels // ((1 << 17) // full.spp))
@@ -2841,9 +2980,9 @@ def phase_render_dedup(scene, cam, cb, cfg, main):
     """The headline render once through the cluster-major pair stage, held
     to this run's own ``render_main``.  Returns the launches of its kernel."""
     kernels = (pair_tile_isect_dedup, pair_tile_isect, pair_segmin,
-               pair_ray_reduce, fetch_rows)
-    for k in kernels:
-        k.launches = 0
+               pair_ray_reduce, fetch_rows,
+               fetch_fields)
+    zero_launches(kernels)
     sync()
     t0 = time.time()
     img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
@@ -2851,7 +2990,7 @@ def phase_render_dedup(scene, cam, cb, cfg, main):
         device=DEV, pair_stage="dedup")
     sync()
     run_s = time.time() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_launches(kernels)
     mean = float(img.mean())
     emit({"phase": "render_dedup", "scene": "big-1m", "size": cfg.width,
           "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
@@ -2877,19 +3016,33 @@ def phase_render_dedup(scene, cam, cb, cfg, main):
     assert launches["pair_tile_isect_dedup"] == 2 * 4 * n_iter, launches
     assert launches["pair_tile_isect"] == 0 and launches["pair_segmin"] == 0 \
         and launches["pair_ray_reduce"] == 0, launches
-    assert launches["fetch_rows"] == fetch_launches(cb, n_iter), launches
+    check_fetch_launches(launches, cb, n_iter)
     return {"pair_tile_isect_dedup": launches["pair_tile_isect_dedup"]}
 
 
 def phase_loop(scene, cam, cb, cfg, key, profile, pair_stage, n_warm=30,
-               n_steps=20):
+               n_steps=20, fetch="fields"):
     """Steady-state steps of the full-width loop with the given form of the
-    pair stage, timed on the host clock:
+    pair stage (and of the descent's child fetch: ``fetch="rows"`` patches
+    the row form into every descent), timed on the host clock:
     wall time per step and the part of it the host spends blocked in the
     loop condition's read of the device (``any(alive)``), which is where
     it waits for the step it queued.  With ``profile`` the same steps run
     once more under torch.profiler for the device's busy share and the
     kernels' own device time."""
+    real_descend = cluster._descend_compact
+    if fetch != "fields":
+        cluster._descend_compact = \
+            lambda *a, **k: real_descend(*a, **k, fetch=fetch)
+    try:
+        phase_loop_1(scene, cam, cb, cfg, key, profile, pair_stage, n_warm,
+                     n_steps, fetch)
+    finally:
+        cluster._descend_compact = real_descend
+
+
+def phase_loop_1(scene, cam, cb, cfg, key, profile, pair_stage, n_warm,
+                 n_steps, fetch):
     isect, occl = _intersectors_counted("cluster", cb, pair_stage=pair_stage)
     st = wavefront.init_queue(4096, cfg.n_pixels, DEV)
 
@@ -2915,7 +3068,8 @@ def phase_loop(scene, cam, cb, cfg, key, profile, pair_stage, n_warm=30,
         sync()
         wall = time.time() - t0
         wall_plain = wall
-        emit({"phase": "loop", "pair_stage": pair_stage, "steps": n_steps,
+        emit({"phase": "loop", "pair_stage": pair_stage, "fetch": fetch,
+              "steps": n_steps,
               "wall_ms_per_step": round(wall / n_steps * 1e3, 3),
               "host_read_ms_per_step": round(read_s / n_steps * 1e3, 3),
               "host_read_share": round(read_s / wall, 4)})
@@ -2943,8 +3097,10 @@ def phase_loop(scene, cam, cb, cfg, key, profile, pair_stage, n_warm=30,
     ours = {k: v for k, v in by_name.items()
             if any(part in k for part in (
                 "pair_major_kernel", "pair_tile_isect_kernel",
-                "pair_segmin_kernel", "pair_tile_isect_dedup_kernel"))}
-    emit({"phase": "profile", "pair_stage": pair_stage, "steps": n_steps,
+                "pair_segmin_kernel", "pair_tile_isect_dedup_kernel",
+                "fetch_fields_kernel", "fetch_rows_kernel"))}
+    emit({"phase": "profile", "pair_stage": pair_stage, "fetch": fetch,
+          "steps": n_steps,
           "wall_ms_per_step_profiled": round(wall / n_steps * 1e3, 3),
           "device_kernels_per_step": round(len(kern) / n_steps, 1),
           "device_busy_ms_per_step": round(dev_us / n_steps / 1e3, 3)
@@ -3136,6 +3292,9 @@ def main():
     launches.update(phase_render_dedup(scene, cam, cb, cfg, main_line))
     for pair_stage in ("fused", "split", "dedup"):
         phase_loop(scene, cam, cb, cfg, (0, 3), profile, pair_stage)
+    # The descent's row form (the twin of the field fetch) in the same
+    # loop: its kernels per step beside the field form's.
+    phase_loop(scene, cam, cb, cfg, (0, 3), profile, "fused", fetch="rows")
     if profile:
         phase_loop_pairs(scene, cam, cb, cfg, (0, 3))
     launches.update(phase_render_oracle())
@@ -3162,6 +3321,10 @@ def main():
         "flat_walk": ("tpu_pt_torch/csrc/flat_walk.cu",
                       "tpu_pt/bvh/flat.py:53 and :118 (intersect and "
                       "occluded, XLA while_loops; no pl.pallas_call)"),
+        "fetch_fields": ("tpu_pt_torch/csrc/fetch_rows.cu",
+                         "tools/microbench_vmem_gather.py:74 (vmem_gather: "
+                         "the fused descent's child fetch, here in the "
+                         "layout the port's descent reads)"),
         "fetch_rows": ("tpu_pt_torch/csrc/fetch_rows.cu",
                        "tools/microbench_vmem_gather.py:74 (vmem_gather), "
                        "tools/microbench_fetch_kernel.py:65 (onehot_fetch) "
@@ -3179,6 +3342,13 @@ def main():
         return (max(by_bytes, by_ops),
                 "bytes" if by_bytes >= by_ops else "operations")
 
+    def other_batches(name):
+        return {k.split("@")[1]: {**{f: v[f] for f in (
+                    "ms", "trace_us", "trace_warm_us", "plain_ms",
+                    "library_ms", "twin_path_ms", "shape") if f in v},
+                    **dict(zip(("bound_ms", "bound_by"), bound(v)))}
+                for k, v in timing.items() if k.startswith(name + "@")}
+
     rows = []
     for name, (src, replaces) in sources.items():
         assert launches[name] > 0, f"no full-width path launched {name}"
@@ -3195,22 +3365,31 @@ def main():
             row["trace_warm_us"] = tm["trace_warm_us"]
             row["trace_warm_n"] = tm["trace_warm_n"]
             row["launch_floor_us"] = timing["launch_floor_us"]
-        if name in ("packed_walk", "flat_walk", "fetch_rows",
+        if name in ("packed_walk", "flat_walk", "fetch_fields", "fetch_rows",
                     "fetch_rows_t", "take_along"):
             # The walks are timed at the whole 4096-lane queue (the flat
-            # walk: at the oracle chunk's camera rays), fetch_rows at the
-            # descent's last fetch; the same numbers for the other batches
-            # and shapes timed.
+            # walk: at the oracle chunk's camera rays), the descent's
+            # fetches at its last fetch; the same numbers for the other
+            # batches and shapes timed.
             row["shape"] = tm["shape"]
-            row["other_batches"] = {
-                k.split("@")[1]: {**{f: v[f] for f in (
-                    "ms", "trace_us", "trace_warm_us", "plain_ms",
-                    "library_ms", "shape") if f in v},
-                    **dict(zip(("bound_ms", "bound_by"), bound(v)))}
-                for k, v in timing.items() if k.startswith(name + "@")}
-        if name in ("fetch_rows", "fetch_rows_t", "take_along"):
+            row["other_batches"] = other_batches(name)
+        if name == "fetch_fields":
+            row["twin_path_ms"] = tm["twin_path_ms"]
+        if name == "packed_walk":
+            # The window design (the default, on every path); its twin, the
+            # thread design, timed on the same operands in this run and
+            # launched by no path.
+            twin = timing["packed_walk_thread"]
+            row["design"] = "window"
+            row["twin"] = {
+                "design": "thread", "launches": launches["packed_walk_thread"],
+                **{f: twin[f] for f in ("ms", "trace_us", "trace_n",
+                                         "trace_warm_us", "trace_warm_n")},
+                "other_batches": other_batches("packed_walk_thread")}
+        if name in ("fetch_fields", "fetch_rows", "fetch_rows_t",
+                    "take_along"):
             row["launches_counted_in"] = (
-                "render_main" if name == "fetch_rows" else "fetch_probes")
+                "render_main" if name == "fetch_fields" else "fetch_probes")
         rows.append(row)
     emit({"phase": "done", "total_s": round(time.time() - t_start, 1)})
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""The row fetch (``kernels/fetch.py``), the chained gather
+"""The row fetch and the descent's field fetch (``kernels/fetch.py``), the
+chained gather
 (``kernels/take_along.py``) and the ported fetch probes
 (``tpu_pt_torch/tools/``) against the JAX package's probes in ``tools/``,
 which are loaded by path: their Pallas kernels run in interpret mode here.
@@ -111,6 +112,47 @@ def test_fetch_rows_t_equals_lane_gather_fetch(jtools):
         jt, jnp.asarray(idx)), out)
 
 
+def test_fetch_fields_equals_vmem_gather_rearranged(jtools):
+    """The descent's field fetch is the row fetch with each row's words laid
+    out as planes: its plain version against the JAX probe's gather
+    (interpret mode), rearranged, on a table with +/-inf rows."""
+    rs = np.random.RandomState(8)
+    jt, tt = _both(_bf16_bits(rs, 233, 64, infs=True))
+    Q, K = 64, 8
+    idx = rs.randint(0, 233, Q * K).astype(np.int32)
+    rows = np.asarray(jtools["microbench_vmem_gather"].vmem_gather(
+        jt, jnp.asarray(idx)))
+    want = rows.reshape(Q, K, 8, 8)[:, :, :6].transpose(2, 0, 1, 3) \
+        .reshape(6, Q, K * 8)
+    out = tf.fetch_fields(tt, T(idx.reshape(Q, K)).long())
+    assert out.shape == (6, Q, K * 8) and np.isinf(out.numpy()).any()
+    _same_bits(want, out)
+    assert tf.fetch_fields.launches == 0
+
+
+@pytest.mark.parametrize("fields", [1, 6, 8])
+def test_fetch_fields_is_the_clamped_row_fetch_as_planes(fields):
+    """Every field count, int32 / int64 / strided candidates with indices
+    out of range: plane f of the result is word f of each clamped row, and
+    each plane is contiguous (the descent reads it as it is)."""
+    rs = np.random.RandomState(10 + fields)
+    bits = _bf16_bits(rs, 19, 64, infs=True)
+    _, tt = _both(bits)
+    want = (bits.astype(np.uint32) << 16).view(np.float32)
+    raw = rs.randint(-4, 25, (5, 3)).astype(np.int64)
+    buf = torch.zeros((5, 4), dtype=torch.int64)
+    buf[:, 1:] = T(raw)
+    for cand in (T(raw), T(raw).int(), buf[:, 1:]):
+        out = tf.fetch_fields(tt, cand, fields)
+        assert out.shape == (fields, 5, 24) and out.is_contiguous()
+        rows = want[np.clip(raw, 0, 18)].reshape(5, 3, 8, 8)
+        _same_bits(rows[:, :, :fields].transpose(2, 0, 1, 3)
+                   .reshape(fields, 5, 24), out)
+        assert out[0].is_contiguous()
+    empty = tf.fetch_fields(tt, torch.zeros((0, 3), dtype=torch.int64))
+    assert empty.shape == (6, 0, 24)
+
+
 def test_fetch_rows_clamp_index_types_and_shapes():
     """Under clamp every index lands in [0, N); int32 and int64 give the
     same rows; the result has idx's shape plus W, for a strided index
@@ -144,7 +186,20 @@ def test_fetch_wrappers_refuse_what_the_kernel_does_not_take():
         tf.fetch_rows(tt.float().requires_grad_(True).bfloat16(), idx)
     with pytest.raises(ValueError):
         tf.fetch_rows_t(tt, idx[None])
+    cand = idx.reshape(1, 3)
+    with pytest.raises(TypeError):
+        tf.fetch_fields(tt.float(), cand)
+    with pytest.raises(TypeError):
+        tf.fetch_fields(tt, cand.float())
+    with pytest.raises(ValueError, match=r"\(N, 64\)"):
+        tf.fetch_fields(torch.zeros((4, 128), dtype=torch.bfloat16), cand)
+    for fields in (0, 9):
+        with pytest.raises(ValueError, match="fields"):
+            tf.fetch_fields(tt, cand, fields)
+    with pytest.raises(ValueError, match=r"\(Q, K\)"):
+        tf.fetch_fields(tt, idx)
     assert tf.fetch_rows.launches == 0 and tf.fetch_rows_t.launches == 0
+    assert tf.fetch_fields.launches == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
@@ -183,23 +238,30 @@ def test_take_along_forms_and_refusals():
 
 
 def test_descend_compact_equals_jax_through_the_fetch(monkeypatch):
-    """The port's descent, whose child fetch now goes through fetch_rows,
-    against the reference's: cand, live and overflow exact, on a deep
-    pyramid with caps tight enough to truncate; every level's fetch is
-    made, with its clamp, and the plain version is what runs on the CPU."""
+    """The port's descent, whose child fetch goes through fetch_fields
+    (``fetch="fields"``, the default) or fetch_rows and a copy a field
+    (``fetch="rows"``), against the reference's: cand, live and overflow
+    exact in both forms, on a deep pyramid with caps tight enough to
+    truncate; every level's fetch is made by the form asked for, with its
+    clamp, and the plain version is what runs on the CPU."""
     scene = jc.cornell("mesh", mesh_subdiv=3)
     cj = jcl.build_cluster_bvh(scene, tile=16, dense_start=8,
                                frontiers=(2, 5, 8), k_leaf=10)
     ct = convert.cluster_bvh_from_numpy(bvh_dict(cj), "cpu")
     assert len(ct.levels) == 3
     seen = []
-    real = tcl.fetch_rows
+    real_rows, real_fields = tcl.fetch_rows, tcl.fetch_fields
 
-    def spy(table, idx, *, clamp=False):
-        seen.append((tuple(table.shape), idx.dtype, clamp))
-        return real(table, idx, clamp=clamp)
+    def spy_rows(table, idx, *, clamp=False):
+        seen.append(("rows", tuple(table.shape), idx.dtype, clamp))
+        return real_rows(table, idx, clamp=clamp)
 
-    monkeypatch.setattr(tcl, "fetch_rows", spy)
+    def spy_fields(table, cand, fields=6):
+        seen.append(("fields", tuple(table.shape), cand.dtype, fields))
+        return real_fields(table, cand, fields)
+
+    monkeypatch.setattr(tcl, "fetch_rows", spy_rows)
+    monkeypatch.setattr(tcl, "fetch_fields", spy_fields)
     Q = 512
     ro, rd = rays(Q, 5)
     ro = ro * 0.3
@@ -208,15 +270,21 @@ def test_descend_compact_equals_jax_through_the_fetch(monkeypatch):
     c1, l1, o1 = jcl._descend_compact(
         jax.tree.map(jnp.asarray, cj), jnp.asarray(ro),
         1.0 / jnp.asarray(rd), jnp.asarray(tmin), jnp.asarray(tmax))
-    c2, l2, o2 = tcl._descend_compact(ct, T(ro), 1.0 / T(rd), T(tmin),
-                                      T(tmax))
-    np.testing.assert_array_equal(np.asarray(c1), c2.numpy())
-    np.testing.assert_array_equal(np.asarray(l1), l2.numpy())
-    np.testing.assert_array_equal(np.asarray(o1), o2.numpy())
-    assert int(o2.sum()) > 0 and bool(l2.any())
-    assert seen == [(tuple(ct.child16[l].shape), torch.int64, True)
-                    for l in (1, 2)]
-    assert tf.fetch_rows.launches == 0
+    for fetch in ("fields", "rows"):
+        seen.clear()
+        c2, l2, o2 = tcl._descend_compact(ct, T(ro), 1.0 / T(rd), T(tmin),
+                                          T(tmax), fetch=fetch)
+        np.testing.assert_array_equal(np.asarray(c1), c2.numpy())
+        np.testing.assert_array_equal(np.asarray(l1), l2.numpy())
+        np.testing.assert_array_equal(np.asarray(o1), o2.numpy())
+        assert int(o2.sum()) > 0 and bool(l2.any())
+        last = {"fields": 6, "rows": True}[fetch]
+        assert seen == [(fetch, tuple(ct.child16[l].shape), torch.int64,
+                         last) for l in (1, 2)]
+    with pytest.raises(ValueError, match="fetch"):
+        tcl._descend_compact(ct, T(ro), 1.0 / T(rd), T(tmin), T(tmax),
+                             fetch="gather")
+    assert tf.fetch_rows.launches == 0 and tf.fetch_fields.launches == 0
 
 
 def test_ported_tools_run_on_the_cpu_at_a_small_size(capsys):
@@ -240,7 +308,9 @@ def test_ported_tools_run_on_the_cpu_at_a_small_size(capsys):
 def test_fetch_and_take_along_kernels_match_plain_versions_on_the_card():
     """Needs an NVIDIA GPU and nvcc: fetch_rows (int32 and int64, strided,
     with and without clamp, W 64 and 512, a table with infinities, one row,
-    P not a multiple of a block), fetch_rows_t and take_along (both forms,
+    P not a multiple of a block), fetch_fields (1, 6 and 8 fields, indices
+    out of range, strided; also against fetch_rows rearranged),
+    fetch_rows_t and take_along (both forms,
     the longest line the lines form takes, three types, both dims) bit for
     bit against their plain versions."""
     if not torch.cuda.is_available():
@@ -248,7 +318,7 @@ def test_fetch_and_take_along_kernels_match_plain_versions_on_the_card():
     dev = torch.device("cuda")
     rs = np.random.RandomState(9)
     n0 = (tf.fetch_rows.launches, tf.fetch_rows_t.launches,
-          tta.take_along.launches)
+          tta.take_along.launches, tf.fetch_fields.launches)
     for n, w, p in ((233, 64, 1000), (1864, 64, 4097), (1, 64, 3),
                     (233, 512, 777)):
         tt = torch.from_numpy(_bf16_bits(rs, n, w, infs=True).view(
@@ -268,6 +338,22 @@ def test_fetch_and_take_along_kernels_match_plain_versions_on_the_card():
         a = tf.fetch_rows_t(tt, ok.int())
         assert torch.equal(a.view(torch.int32), tf.fetch_rows_t_ref(
             tt, ok.int()).view(torch.int32))
+        if w == 64:
+            # The field fetch against its plain version and against the row
+            # fetch rearranged (its twin on the descent).
+            cand = buf[:, 1:5].clone()
+            cand[:, 0] = raw
+            for c in (cand, cand.int(), buf[:, 1:5]):
+                for fields in (1, 6, 8):
+                    a = tf.fetch_fields(tt, c, fields)
+                    b = tf.fetch_fields_ref(tt, c, fields)
+                    assert torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+                rows = tf.fetch_rows(tt, c, clamp=True).reshape(p, 4, 8, 8)
+                assert torch.equal(
+                    tf.fetch_fields(tt, c).view(torch.int32),
+                    rows[:, :, :6].permute(2, 0, 1, 3).reshape(
+                        6, p, 32).view(torch.int32))
     for dim, M, N, reps, dtype in ((0, 256, 128, 16, torch.float32),
                                    (1, 7, 33, 3, torch.bfloat16),
                                    (1, 256, 512, 4, torch.int32),
@@ -279,6 +365,7 @@ def test_fetch_and_take_along_kernels_match_plain_versions_on_the_card():
             x, idx, dim, reps)
         assert a.dtype == b.dtype and torch.equal(a, b), (dim, M, N, dtype)
     torch.cuda.synchronize()
-    assert tf.fetch_rows.launches - n0[0] == 4 * 7
+    assert tf.fetch_rows.launches - n0[0] == 4 * 7 + 3 * 3
+    assert tf.fetch_fields.launches - n0[3] == 3 * 3 * (3 + 1)
     assert tf.fetch_rows_t.launches - n0[1] == 4
     assert tta.take_along.launches - n0[2] == 1 + 1 + 1 + 1 + 1 + 4

@@ -1,6 +1,8 @@
 """The packed BVH of the port (bvh/packed.py, bvh/native.py::build_packed,
 kernels/packed_walk.py, backend "packed") against tpu_pt.bvh.packed and
-tpu_pt.bvh.native, and against the port's brute-force oracle.
+tpu_pt.bvh.native, and against the port's brute-force oracle; the window
+design of the walk kernel through a per-ray emulation of it, against the
+plain walk bit for bit.
 
 Tolerances: tables, primitive ids per slot and hit masks exact (both
 packages build with the same C++ source); hit t rtol/atol 1e-6 with prim
@@ -24,6 +26,7 @@ from tpu_pt.scene import types as jt
 from tpu_pt_torch import convert
 from tpu_pt_torch.bvh import native as tnative
 from tpu_pt_torch.bvh import packed as tpk
+from tpu_pt_torch.bvh import sah as tsah
 from tpu_pt_torch.config import RenderConfig as TConfig
 from tpu_pt_torch.kernels import packed_walk as tpw
 from tpu_pt_torch.render import brute as tbrute
@@ -317,14 +320,189 @@ def test_wavefront_packed_matches_jax(setups):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("builder", ["native", "pack_bvh"])
+@pytest.mark.parametrize("name", ["mesh", "spheres", "coincident"])
+def test_octant_tables_skip_forward_past_the_subtree(name, builder):
+    """Every octant table is in preorder with skip just past the node's
+    subtree: cursor < skip <= n for every node, an inner node's first child
+    right after it, and its subtree [i, skip) closed (every skip inside it
+    lands inside it or at its end).  The window design rests on this: the
+    cursor only moves forward."""
+    _, st = _scenes(name)
+    pt = tnative.build_packed(st) if builder == "native" else \
+        tpk.pack_bvh(tsah.build_bvh(st), st)
+    n = pt.n_nodes
+    rows = pt.node_rows()
+    assert rows.shape[0] == 8
+    i = np.arange(n)
+    for k in range(pt.n_tables):
+        skip = rows[k, :, 6].view(np.int32).astype(np.int64)
+        meta = rows[k, :, 7].view(np.int32)
+        assert (i < skip).all() and (skip <= n).all(), (k, name, builder)
+        assert skip[0] == n
+        inner = np.flatnonzero(meta < 0)
+        # The left child's subtree ends where the right child starts, and
+        # the right child's ends where the parent's does.
+        right = skip[inner + 1]
+        assert (right < skip[inner]).all() and (skip[right] == skip[inner]).all()
+        assert ((meta >= 0) == (skip == i + 1)).all()
+
+
+def _emulate_window_walk(pt, ro, rd, t_min, t_max, any_hit):
+    """The window design of csrc/packed_walk.cu, one ray at a time: a
+    window of WINDOW node rows loaded at the cursor, each row's slab entry
+    and exit computed as one lane does, the walk resolved inside the window
+    in order under the current best t, a leaf's rows tested together under
+    the best t at the leaf (the port's row test) and reduced by (t, gid,
+    row).  Returns the walk's outputs and, per ray, the windows it loaded,
+    the nodes it resolved and the leaves it entered."""
+    W = tpw.WINDOW
+    table = pt.table.numpy()
+    gid = pt.prim_gid.numpy()
+    n, base_p = pt.n_nodes, pt.prim_base
+    n_prims = gid.shape[0]
+    R = ro.shape[0]
+    out_t = t_max.copy()
+    out_slot = np.zeros(R, np.int32)
+    out_u = np.zeros(R, np.float32)
+    out_v = np.zeros(R, np.float32)
+    occ = np.zeros(R, bool)
+    windows = np.zeros(R, np.int64)
+    steps = np.zeros(R, np.int64)
+    leaves = np.zeros(R, np.int64)
+    one = np.float32(1.0)
+    for r in range(R):
+        o, d = ro[r], rd[r]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = one / d
+        octant = int(d[0] < 0) + 2 * int(d[1] < 0) + 4 * int(d[2] < 0)
+        nodes = table[(octant % pt.n_tables) * n:][:n]
+        best_t, best_g = np.float32(t_max[r]), 2**31 - 1
+        cursor = 0
+        while cursor < n and not occ[r]:
+            base = cursor
+            windows[r] += 1
+            w = nodes[base:base + W]
+            with np.errstate(invalid="ignore", over="ignore"):
+                lo = (w[:, 0:3] - o) * inv
+                hi = (w[:, 3:6] - o) * inv
+            near = np.minimum(lo, hi)
+            far = np.maximum(lo, hi)
+            near[np.isnan(near)] = -np.inf
+            far[np.isnan(far)] = np.inf
+            t_near = np.maximum(np.maximum(np.maximum(near[:, 0], near[:, 1]),
+                                           near[:, 2]), t_min[r])
+            t_far_slab = np.minimum(np.minimum(far[:, 0], far[:, 1]),
+                                    far[:, 2])
+            skip = w[:, 6].view(np.int32)
+            meta = w[:, 7].view(np.int32)
+            while cursor < n and cursor - base < W:
+                j = cursor - base
+                steps[r] += 1
+                hit_bb = t_near[j] <= np.fmin(t_far_slab[j], best_t)
+                if hit_bb and meta[j] >= 0:
+                    leaves[r] += 1
+                    start = int(meta[j]) & ((1 << 26) - 1)
+                    cnt = min(int(meta[j]) >> 26 & 63, pt.max_leaf)
+                    slots = np.clip(start + np.arange(cnt), 0, n_prims - 1)
+                    h, t, u, v = tpk._prim_row_test(
+                        torch.from_numpy(table[base_p + slots]),
+                        torch.ones((cnt, 1), dtype=torch.bool),
+                        torch.from_numpy(np.tile(o, (cnt, 1))),
+                        torch.from_numpy(np.tile(d, (cnt, 1))),
+                        torch.full((cnt, 1), float(t_min[r])),
+                        torch.full((cnt, 1), float(best_t)))
+                    h, t = h.numpy()[:, 0], t.numpy()[:, 0]
+                    g = gid[slots]
+                    cand = h & ((t < best_t) | ((t == best_t) & (g < best_g)))
+                    if any_hit and cand.any():
+                        occ[r] = True
+                        break
+                    if cand.any():
+                        k = np.flatnonzero(cand)
+                        k = k[np.lexsort((k, g[k], t[k]))[0]]
+                        best_t, best_g = t[k], int(g[k])
+                        out_slot[r] = slots[k]
+                        out_u[r], out_v[r] = u.numpy()[k, 0], v.numpy()[k, 0]
+                cursor = cursor + 1 if (hit_bb and meta[j] < 0) else \
+                    int(skip[j])
+        out_t[r] = best_t
+    return (occ if any_hit else (out_t, out_slot, out_u, out_v)), \
+        windows, steps, leaves
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("name", ["spheres", "coincident"])
+def test_window_walk_emulation_equals_the_plain_walk(setups, name, any_hit):
+    """The window design's claim, on edge rays: resolving the walk inside a
+    window of node rows under the current best t, and reducing a leaf's
+    rows tested together under the best t at the leaf, gives the plain
+    walk's outputs bit for bit, through the nodes and leaves the plain walk
+    steps through, no more; a ray loads no more windows than the walk has
+    node steps, and as many as the plain walk's count of them."""
+    _, _, st, _ = setups[name]
+    pt = tnative.build_packed(st).to("cpu")
+    ro, rd, t_min, t_max = _edge_rays(pt, 300, 12)
+    t_min, t_max = t_min[:, 0], t_max[:, 0]
+    stats = {}
+    want = tpw.packed_walk_ref(pt.table, pt.prim_gid, T(ro), T(rd), T(t_min),
+                               T(t_max), pt.n_nodes, pt.n_tables, pt.max_leaf,
+                               any_hit=any_hit, stats=stats)
+    got, windows, steps_w, leaves_w = _emulate_window_walk(
+        pt, ro, rd, t_min, t_max, any_hit)
+    for a, b in zip((got,) if any_hit else got, (want,) if any_hit else want):
+        b = b.numpy()
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.int32) if a.dtype ==
+                                      np.float32 else a,
+                                      b.view(np.int32) if b.dtype ==
+                                      np.float32 else b)
+    hits = got.sum() if any_hit else (got[0] < t_max).sum()
+    assert 20 < hits < 300
+    steps = stats["steps"].numpy()
+    np.testing.assert_array_equal(windows, stats["windows"].numpy())
+    np.testing.assert_array_equal(steps_w, steps)
+    np.testing.assert_array_equal(leaves_w, stats["leaves"].numpy())
+    assert (windows <= steps).all() and (windows >= 1).all()
+    assert windows.sum() < steps.sum()
+    assert (stats["leaves"].numpy() <= steps).all()
+
+
+def test_walk_design_is_validated_and_both_run_the_plain_walk_on_the_cpu(
+        setups):
+    _, _, st, pt = setups["spheres"]
+    ro, rd, t_min, t_max = _edge_rays(pt, 256, 13)
+    args = (pt.table, pt.prim_gid, T(ro), T(rd), T(t_min[:, 0]),
+            T(t_max[:, 0]), pt.n_nodes, pt.n_tables, pt.max_leaf)
+    n0 = (tpw.packed_walk.launches, tpw.packed_walk.thread_launches)
+    want = tpw.packed_walk_ref(*args)
+    for design in tpw.DESIGNS:
+        for a, b in zip(tpw.packed_walk(*args, design=design), want):
+            assert torch.equal(a, b), design
+        assert torch.equal(tpw.packed_walk(*args, any_hit=True, design=design),
+                           tpw.packed_walk_ref(*args, any_hit=True))
+        h = tpk.intersect(pt, st, T(ro), T(rd), T(t_min), T(t_max),
+                          design=design)
+        assert torch.equal(h.t, tpk.intersect(pt, st, T(ro), T(rd), T(t_min),
+                                              T(t_max)).t)
+        tpk.occluded(pt, st, T(ro), T(rd), T(t_max), design=design)
+    assert (tpw.packed_walk.launches, tpw.packed_walk.thread_launches) == n0
+    for bad in ("warp", "Window", None):
+        with pytest.raises(ValueError, match="design"):
+            tpw.packed_walk(*args, design=bad)
+        with pytest.raises(ValueError, match="design"):
+            tpk.occluded(pt, st, T(ro), T(rd), T(t_max), design=bad)
+
+
 @pytest.mark.gpu
 def test_packed_walk_matches_plain_version_on_the_card():
-    """Needs an NVIDIA GPU and nvcc: the walk kernel bit for bit against its
-    plain version, closest and any hit, on the edge rays of three scenes;
-    a batch where every ray leaves at the root; the wrapper's refusals."""
+    """Needs an NVIDIA GPU and nvcc: the walk kernel in both designs bit for
+    bit against its plain version and against each other, closest and any
+    hit, on the edge rays of three scenes; a batch where every ray leaves
+    at the root; the wrapper's refusals."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    n0 = tpw.packed_walk.launches
+    n0 = (tpw.packed_walk.launches, tpw.packed_walk.thread_launches)
     for name in ("mesh", "spheres", "coincident"):
         _, st = _scenes(name)
         pt = tnative.build_packed(st).to("cuda")
@@ -335,11 +513,19 @@ def test_packed_walk_matches_plain_version_on_the_card():
             args = (pt.table, pt.prim_gid, T(ro).cuda(), T(rd).cuda(),
                     T(t_min[:, 0]).cuda(), T(t_max[:, 0]).cuda(), pt.n_nodes,
                     pt.n_tables, pt.max_leaf)
-            for a, b in zip(tpw.packed_walk(*args), tpw.packed_walk_ref(*args)):
-                assert torch.equal(a, b), name
-            assert torch.equal(tpw.packed_walk(*args, any_hit=True),
-                               tpw.packed_walk_ref(*args, any_hit=True)), name
-    assert tpw.packed_walk.launches == n0 + 12
+            want = tpw.packed_walk_ref(*args)
+            occ = tpw.packed_walk_ref(*args, any_hit=True)
+            for design in tpw.DESIGNS:
+                for a, b in zip(tpw.packed_walk(*args, design=design), want):
+                    assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                                       else a, b.view(torch.int32)
+                                       if b.is_floating_point() else b), \
+                        (name, design)
+                assert torch.equal(tpw.packed_walk(*args, any_hit=True,
+                                                   design=design), occ), \
+                    (name, design)
+    assert (tpw.packed_walk.launches - n0[0],
+            tpw.packed_walk.thread_launches - n0[1]) == (12, 12)
     with pytest.raises(ValueError):                   # strided view refused
         tpw.packed_walk(args[0], args[1],
                         torch.zeros((3000, 6), device="cuda")[:, :3],

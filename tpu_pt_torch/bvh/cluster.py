@@ -9,8 +9,8 @@ AABB pyramid, traversed level-synchronously for a whole batch of rays.
      index tables; a child fetch is one contiguous block gather.
   3. **Sort-free compact descent**: a dense slab test of every ray against
      the top level, then per level a block gather of the live nodes'
-     children (``kernels.fetch.fetch_rows``), a dense slab test and a 1-bit
-     lane compaction.
+     children (``kernels.fetch.fetch_fields``: their box fields as planes),
+     a dense slab test and a 1-bit lane compaction.
   4. **Pair stage**: the live (ray, cluster) candidates are flattened to one
      ray-major pair list; every pair is tile-tested and the results are
      reduced per ray.  Exact: every live candidate is tested, no best-t
@@ -54,7 +54,8 @@ from tpu_pt_torch.core.intersect import INF, as_col
 from tpu_pt_torch.kernels.cluster_isect import (
     B as PBLK, _mt_group, pair_rows as _pair_rows, pair_tile_isect,
     pair_tile_isect_dedup, pair_tile_isect_dedup_ref, pair_tile_isect_ref)
-from tpu_pt_torch.kernels.fetch import fetch_rows, fetch_rows_ref
+from tpu_pt_torch.kernels.fetch import (
+    fetch_fields, fetch_fields_ref, fetch_rows, fetch_rows_ref)
 from tpu_pt_torch.kernels.pair_fused import (
     pair_ray_reduce, pair_ray_reduce_ref)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref
@@ -409,8 +410,14 @@ def _slab_soa(blo, bhi, ro, rd_inv, t_min, t_max):
                        torch.full_like(t0, INF))
 
 
+# Forms of the descent's child fetch (the ``fetch`` keyword of
+# ``_descend_compact``).
+FETCH_FORMS = ("fields", "rows")
+
+
 def _descend_compact(cb: ClusterBVH, ro, rd_inv, t_min, t_max,
-                     collect: list | None = None, use_kernels: bool = True):
+                     collect: list | None = None, use_kernels: bool = True,
+                     fetch: str = "fields"):
     """Sort-free frontier descent.  Returns (cand (Q, K) i64 cluster ids,
     live (Q, K) bool, overflow (Q,) i64 live candidates truncated at any
     level).  Candidates are lane-compacted but UNORDERED by t — the compact
@@ -418,8 +425,17 @@ def _descend_compact(cb: ClusterBVH, ro, rd_inv, t_min, t_max,
 
     collect: when a list is passed, one (needed (Q,), truncated (Q,)) pair
     per level is appended (needed = live candidates BEFORE the cap).
-    use_kernels: the child fetch goes through ``fetch_rows`` (on CUDA
-    tensors its kernel), else through its plain version."""
+    use_kernels: the child fetch goes through its kernel's wrapper (on CUDA
+    tensors the kernel), else through its plain version.
+    fetch: ``"fields"`` (the default) fetches the six box fields of the
+    children as (Q, K * 8) planes (``fetch_fields``), which the slab test
+    reads as they are; ``"rows"`` fetches whole (Q, K, 64) rows
+    (``fetch_rows``) and copies each field out of them.  The two give the
+    same cand, live and overflow.  With ``GATHER_BF16`` off, the f32 tables
+    are gathered by indexing, whatever ``fetch`` says."""
+    if fetch not in FETCH_FORMS:
+        raise ValueError(f"unknown fetch {fetch!r}: expected one of "
+                         f"{', '.join(FETCH_FORMS)}")
     Q = ro.shape[0]
     levels = cb.levels
     caps = cb.frontiers
@@ -438,24 +454,24 @@ def _descend_compact(cb: ClusterBVH, ro, rd_inv, t_min, t_max,
 
     eight = torch.arange(8, device=ro.device)
     for l in range(1, len(levels)):
-        # Field-major sibling rows from the bf16 outward-rounded table
-        # (GATHER_BF16): a field slice of the gathered block keeps the 8
-        # children minor.
-        if GATHER_BF16:
-            fetch = fetch_rows if use_kernels else fetch_rows_ref
-            blk = fetch(cb.child16[l], cand, clamp=True)    # (Q, cap, 64)
-        else:
-            child = levels[l].reshape(-1, 8, 8).transpose(1, 2).reshape(-1, 64)
-            blk = child[torch.clamp(cand, 0, child.shape[0] - 1)]
         K8 = cand.shape[1] * 8
-        blk = blk.reshape(Q, cand.shape[1], 8, 8)
-
-        def field(f):
-            return blk[:, :, f, :].reshape(Q, K8)
-
-        tc = _slab_soa((field(0), field(1), field(2)),
-                       (field(3), field(4), field(5)),
-                       ro_c, ri_c, t_min, t_max)            # (Q, cap*8)
+        # Field-major sibling rows from the bf16 outward-rounded table
+        # (GATHER_BF16): field f of the 8 children is word f of a row.
+        if GATHER_BF16 and fetch == "fields":
+            fetch_k = fetch_fields if use_kernels else fetch_fields_ref
+            planes = fetch_k(cb.child16[l], cand, 6).unbind(0)  # (Q, cap*8)
+        else:
+            if GATHER_BF16:
+                fetch_k = fetch_rows if use_kernels else fetch_rows_ref
+                blk = fetch_k(cb.child16[l], cand, clamp=True)  # (Q, cap, 64)
+            else:
+                child = levels[l].reshape(-1, 8, 8).transpose(1, 2) \
+                    .reshape(-1, 64)
+                blk = child[torch.clamp(cand, 0, child.shape[0] - 1)]
+            blk = blk.reshape(Q, cand.shape[1], 8, 8)
+            planes = tuple(blk[:, :, f, :].reshape(Q, K8) for f in range(6))
+        tc = _slab_soa(planes[0:3], planes[3:6], ro_c, ri_c, t_min,
+                       t_max)                               # (Q, cap*8)
         live_c = (tc < INF) & live[:, :, None].expand(
             live.shape + (8,)).reshape(Q, K8)
         cidx = (cand[:, :, None] * 8 + eight).reshape(Q, K8)

@@ -17,7 +17,8 @@ attach_fallback``) and a backend of its own (``"packed"`` in
 (``bvh/native.py::build_packed``) or, from a flat SAH tree, from
 ``pack_bvh`` (``native.build_packed_any`` takes the second where the first
 cannot be built).  The walk is ``kernels/packed_walk.py``: a CUDA kernel on
-the card, its plain version on the CPU.
+the card (the window design, or with ``design="thread"`` its twin), its
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -164,17 +165,19 @@ def pack_bvh(bvh: FlatBVH, scene: Scene, max_leaf: int = 4) -> PackedBVH:
 
 
 def _traverse(packed: PackedBVH, ro, rd, t_min, t_max, any_hit: bool,
-              use_kernels: bool = True):
+              use_kernels: bool = True, design: str = "window"):
     """The walk for rays ro, rd (R, 3) over [t_min, t_max] ((R, 1) each):
-    the kernel (``packed_walk``, which takes CPU tensors to its plain
-    version) or, with ``use_kernels=False``, the plain version on any
-    device.  Returns (best_t (R, 1), slot (R,) i32, u (R, 1), v (R, 1)), or
-    with ``any_hit`` occ (R, 1)."""
-    walk = packed_walk if use_kernels else packed_walk_ref
-    out = walk(packed.table, packed.prim_gid, ro.contiguous(),
-               rd.contiguous(), t_min[:, 0].contiguous(),
-               t_max[:, 0].contiguous(), packed.n_nodes, packed.n_tables,
-               packed.max_leaf, any_hit=any_hit)
+    the kernel of ``design`` (``packed_walk``, which takes CPU tensors to
+    its plain version) or, with ``use_kernels=False``, the plain version on
+    any device.  Returns (best_t (R, 1), slot (R,) i32, u (R, 1), v (R, 1)),
+    or with ``any_hit`` occ (R, 1)."""
+    args = (packed.table, packed.prim_gid, ro.contiguous(), rd.contiguous(),
+            t_min[:, 0].contiguous(), t_max[:, 0].contiguous(),
+            packed.n_nodes, packed.n_tables, packed.max_leaf)
+    if use_kernels:
+        out = packed_walk(*args, any_hit=any_hit, design=design)
+    else:
+        out = packed_walk_ref(*args, any_hit=any_hit)
     if any_hit:
         return out[:, None]
     t, slot, u, v = out
@@ -182,14 +185,15 @@ def _traverse(packed: PackedBVH, ro, rd, t_min, t_max, any_hit: bool,
 
 
 def intersect(packed: PackedBVH, scene: Scene, ro, rd, t_min, t_max,
-              use_kernels: bool = True) -> Hit:
+              use_kernels: bool = True, design: str = "window") -> Hit:
     """Nearest hit of each ray: ``found`` where the walk's best t is below
-    t_max (strict); lowest primitive id at equal t."""
+    t_max (strict); lowest primitive id at equal t.  ``design`` names the
+    walk kernel's design (``kernels.packed_walk.DESIGNS``)."""
     R = ro.shape[0]
     t_min = as_col(t_min, R, ro.device)
     t_max = as_col(t_max, R, ro.device)
     best_t, slot, u, v = _traverse(packed, ro, rd, t_min, t_max, False,
-                                   use_kernels)
+                                   use_kernels, design)
     found = best_t < t_max
     return Hit(hit=found,
                t=torch.where(found, best_t, torch.full_like(best_t, INF)),
@@ -197,9 +201,9 @@ def intersect(packed: PackedBVH, scene: Scene, ro, rd, t_min, t_max,
 
 
 def occluded(packed: PackedBVH, scene: Scene, ro, rd, t_max,
-             use_kernels: bool = True):
+             use_kernels: bool = True, design: str = "window"):
     """Any-hit test over [0, t_max]: (R, 1) bool."""
     R = ro.shape[0]
     t_min = torch.zeros((R, 1), dtype=torch.float32, device=ro.device)
     return _traverse(packed, ro, rd, t_min, as_col(t_max, R, ro.device),
-                     True, use_kernels)
+                     True, use_kernels, design)

@@ -1,7 +1,10 @@
-// fetch_rows / fetch_rows_t: fetch rows of a bf16 table by index, as f32.
+// fetch_rows / fetch_rows_t / fetch_fields: fetch rows of a bf16 table by
+// index, as f32.
 //
 //   fetch_rows:   out[p, f] = float(table[row(idx[p]), f])   out (P, W)
 //   fetch_rows_t: out[f, p] = float(table[row(idx[p]), f])   out (W, P)
+//   fetch_fields: out[f, p, c] = float(table[clamp(idx[p]), 8 f + c])
+//                 out (F, P, 8), W = 64, f < F <= 8
 //
 // Replaces the TPU probes of the fused descent's child-row fetch, which are
 // all this one gather: tools/microbench_vmem_gather.py::vmem_gather (:74,
@@ -33,6 +36,27 @@
 // no load ever leaves the table.  The index may be int32 or int64 and is
 // read as a (rows, K) array whose rows lie idx_stride elements apart, so
 // the descent's column slice of its compaction buffer is read where it is.
+//
+// fetch_fields is the descent's fetch since the row form's redesign: the
+// layout the descent consumes.  A row of the descent's sibling table
+// (bvh/cluster.py: child16, 64 bf16) is eight 16-byte words, word f holding
+// field f (min.x, ..., max.z, then two words of padding) of the 8 children;
+// the descent's slab test reads each field of all (ray, child) lanes as one
+// (Q, K * 8) plane.  fetch_rows wrote (Q, K, 64) rows and the descent then
+// copied each of the six field slices out (a stride-64 view), six copy
+// kernels a level, and wrote the two padding words nobody reads.  Here one
+// thread takes one candidate row: it loads its index once (neighbouring
+// threads, neighbouring indices) and issues its F 16-byte word loads
+// together before any store (F loads in flight, one dependent chain: index,
+// then row).  Row p's word f goes to plane f at p * 8 floats, so a warp's
+// 32 rows fill 1 KB of each plane.  Written by the thread that loaded it,
+// that is two 16-byte stores a lane 32 bytes apart: every store instruction
+// touches each of its 32 sectors by half.  So the lanes trade halves with
+// shuffles instead, and each store instruction writes 512 contiguous bytes
+// (lane l: half l & 1 of row l / 2, then of row 16 + l / 2), full
+// sectors only (PERF.md has both designs' times on the headline's descent).
+// Nothing else is written.  Bound: bytes (the index,
+// F * 16 bytes of each named row, F * 32 bytes out a row).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,6 +66,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileP = 64;   // fetch_rows_t: indices a block
 constexpr int kTileF = 64;   // fetch_rows_t: fields a block
+constexpr int kFieldThreads = 128;   // fetch_fields: rows a block
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename I>
 __device__ __forceinline__ long long row_of(I i, int n, int clamp) {
@@ -117,6 +143,48 @@ __global__ void __launch_bounds__(kThreads) fetch_rows_t_kernel(
     out[(long long)(f0 + f) * P + p0 + j] = tile[j][f];
 }
 
+// One thread per candidate row, its F field words loaded first; then, per
+// plane, two stores a warp of 512 contiguous bytes each: lane l stores half
+// (l & 1) of row (s * 16 + l / 2) of its warp's 32, taken from that row's
+// lane with shuffles.
+template <typename I>
+__global__ void __launch_bounds__(kFieldThreads) fetch_fields_kernel(
+    const uint4* __restrict__ table, const I* __restrict__ idx,
+    float4* __restrict__ out, int P, int K, long long idx_stride, int n,
+    int fields) {
+  const int p = blockIdx.x * kFieldThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int p_warp = p - lane;              // the warp's first row
+  if (p_warp >= P) return;                  // the whole warp
+  long long r = 0;
+  if (p < P) {
+    const int q = p / K;
+    r = row_of(__ldg(idx + (long long)q * idx_stride + (p - q * K)), n, 1);
+  }
+  uint4 w[8];
+#pragma unroll
+  for (int f = 0; f < 8; ++f)
+    if (f < fields)
+      w[f] = p < P ? __ldg(table + r * 8 + f) : make_uint4(0, 0, 0, 0);
+  const int half = lane & 1;
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    if (f >= fields) break;
+    float4* o = out + ((long long)f * P + p_warp) * 2;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int src = s * 16 + (lane >> 1);
+      const uint32_t x = __shfl_sync(kFull, w[f].x, src);
+      const uint32_t y = __shfl_sync(kFull, w[f].y, src);
+      const uint32_t z = __shfl_sync(kFull, w[f].z, src);
+      const uint32_t v = __shfl_sync(kFull, w[f].w, src);
+      const uint32_t a = half ? z : x, b = half ? v : y;
+      if (p_warp + src < P)
+        o[s * 32 + lane] = make_float4(lo16(a), hi16(a), lo16(b), hi16(b));
+    }
+  }
+}
+
 }  // namespace
 
 // table: (N, W) bf16 bits, 16-byte aligned, W a multiple of 64; idx: rows
@@ -160,5 +228,29 @@ extern "C" int fetch_rows_t_launch(const void* table, const void* idx,
   else
     fetch_rows_t_kernel<int><<<grid, kThreads, 0, s>>>(
         (const uint4*)table, (const int*)idx, (float*)out, P, W / 8, N);
+  return (int)cudaGetLastError();
+}
+
+// table: (N, 64) bf16 bits, 16-byte aligned; idx: rows of K indices
+// idx_stride elements apart, P = rows x K in all, clamped into [0, N);
+// idx64: int64 indices (else int32); out: (fields, P, 8) f32, 16-byte
+// aligned, 1 <= fields <= 8.  Returns cudaGetLastError().
+extern "C" int fetch_fields_launch(const void* table, const void* idx,
+                                   void* out, int P, int K,
+                                   long long idx_stride, int N, int fields,
+                                   int idx64, void* stream) {
+  if (P <= 0 || K <= 0 || N <= 0 || fields < 1 || fields > 8 ||
+      (long long)P * fields * 2 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((P + kFieldThreads - 1) / kFieldThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (idx64)
+    fetch_fields_kernel<long long><<<grid, kFieldThreads, 0, s>>>(
+        (const uint4*)table, (const long long*)idx, (float4*)out, P, K,
+        idx_stride, N, fields);
+  else
+    fetch_fields_kernel<int><<<grid, kFieldThreads, 0, s>>>(
+        (const uint4*)table, (const int*)idx, (float4*)out, P, K, idx_stride,
+        N, fields);
   return (int)cudaGetLastError();
 }

@@ -114,11 +114,16 @@ def load(verbose_ptxas: bool = False):
         lib.dense_anyhit_launch.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.packed_walk_launch.restype = ci
         lib.packed_walk_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+        lib.packed_walk_window_launch.restype = ci
+        lib.packed_walk_window_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
         lib.flat_walk_launch.restype = ci
         lib.flat_walk_launch.argtypes = [vp] * 19 + [ci] * 7 + [vp]
         lib.fetch_rows_launch.restype = ci
         lib.fetch_rows_launch.argtypes = (
             [vp] * 3 + [ci, ci, ctypes.c_longlong] + [ci] * 4 + [vp])
+        lib.fetch_fields_launch.restype = ci
+        lib.fetch_fields_launch.argtypes = (
+            [vp] * 3 + [ci, ci, ctypes.c_longlong] + [ci] * 3 + [vp])
         lib.fetch_rows_t_launch.restype = ci
         lib.fetch_rows_t_launch.argtypes = [vp] * 3 + [ci] * 4 + [vp]
         lib.take_along_launch.restype = ci

@@ -3,7 +3,11 @@ fetch, and the kernel behind the ported fetch probes (``tools/``).
 
 ``fetch_rows(table, idx, clamp=...)`` returns ``table[idx].float()``, shape
 ``idx.shape + (W,)``; ``fetch_rows_t(table, idx)`` the same rows
-field-major, ``(W, P)``.  Counterparts of the TPU probes
+field-major, ``(W, P)``; ``fetch_fields(table, cand, fields)`` the first
+``fields`` 8-wide words of each clamped row of a (N, 64) table as planes,
+``(fields, Q, K * 8)``: the layout the cluster descent's slab test reads
+(``bvh/cluster.py::_descend_compact``, whose ``fetch="rows"`` twin is
+``fetch_rows`` and a copy a field).  Counterparts of the TPU probes
 ``tools/microbench_vmem_gather.py::vmem_gather`` and
 ``tools/microbench_fetch_kernel.py::onehot_fetch`` / ``grouped_fetch``
 (the row-major form) and ``::lane_gather_fetch`` (field-major), which
@@ -13,7 +17,8 @@ NaN); the descent's tables hold +/-inf in empty child slots, and the
 kernel here gathers, exact on every bit pattern.
 
 CUDA tensors go to the kernel (``csrc/fetch_rows.cu``) or raise; CPU
-tensors to the plain versions ``fetch_rows_ref`` / ``fetch_rows_t_ref``.
+tensors to the plain versions ``fetch_rows_ref`` / ``fetch_rows_t_ref`` /
+``fetch_fields_ref``.
 Neither takes part in autograd (``_build.refuse_grad``).
 """
 
@@ -124,5 +129,61 @@ def fetch_rows_t(table, idx):
     return out
 
 
+def _check_fields(table, cand, fields):
+    _check("fetch_fields", table, cand)
+    if table.shape[1] != 64:
+        raise ValueError(f"fetch_fields: table must be (N, 64), got "
+                         f"{tuple(table.shape)}")
+    if cand.dim() != 2:
+        raise ValueError(f"fetch_fields: cand must be (Q, K), got "
+                         f"{tuple(cand.shape)}")
+    if not 1 <= int(fields) <= 8:
+        raise ValueError(f"fetch_fields: fields must lie in [1, 8], got "
+                         f"{fields}")
+
+
+def fetch_fields_ref(table, cand, fields: int = 6):
+    """Plain version of :func:`fetch_fields`: the clamped row fetch, its
+    first ``fields`` words moved to the front as planes."""
+    _check_fields(table, cand, fields)
+    Q, K = cand.shape
+    rows = fetch_rows_ref(table, cand, clamp=True).reshape(Q, K, 8, 8)
+    return rows[:, :, :fields].permute(2, 0, 1, 3).reshape(fields, Q, K * 8)
+
+
+def fetch_fields(table, cand, fields: int = 6):
+    """``out[f, q, k * 8 + c] = float(table[clamp(cand[q, k]), f * 8 + c])``
+    for ``f < fields``: table (N, 64) bf16, cand (Q, K) int32 or int64
+    (clamped into [0, N)), the result (fields, Q, K * 8) f32, so that
+    ``out[f]`` is a contiguous plane.  ``cand`` is read in place when its
+    last dimension is contiguous (the descent's column slice of its
+    compaction buffer); otherwise it is copied once."""
+    if table.device.type == "cpu":
+        return fetch_fields_ref(table, cand, fields)
+    _check_fields(table, cand, fields)
+    _build.check_cuda_input("table", table, torch.bfloat16)
+    if table.data_ptr() % 16:
+        raise ValueError("fetch_fields: table must be 16-byte aligned")
+    N = table.shape[0]
+    Q, K = cand.shape
+    out = torch.empty((int(fields), Q, K * 8), dtype=torch.float32,
+                      device=table.device)
+    P = Q * K
+    if P == 0:
+        return out
+    if K > 1 and cand.stride(1) != 1:
+        cand = cand.contiguous()
+    stride = cand.stride(0) if Q > 1 else K
+    err = _build.load().fetch_fields_launch(
+        table.data_ptr(), cand.data_ptr(), out.data_ptr(), P, K, stride, N,
+        int(fields), int(cand.dtype == torch.int64),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    fetch_fields.launches += 1
+    if err != 0:
+        raise RuntimeError(f"fetch_fields: CUDA launch error {err}")
+    return out
+
+
 fetch_rows.launches = 0     # kernel launches made by this process
 fetch_rows_t.launches = 0
+fetch_fields.launches = 0

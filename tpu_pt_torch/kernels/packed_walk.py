@@ -35,6 +35,14 @@ from tpu_pt_torch.core.intersect import INF
 from tpu_pt_torch.kernels import _build
 
 _GID_NONE = 2**31 - 1   # best gid before any hit
+WINDOW = 32             # node rows a window of the window design
+DESIGNS = ("window", "thread")
+
+
+def _check_design(design: str) -> None:
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}: expected one of "
+                         f"{', '.join(DESIGNS)}")
 
 
 def _octant_of(rd):
@@ -134,13 +142,17 @@ def _check(table, prim_gid, ro, rd, t_min, t_max, n_nodes, n_tables,
 
 def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
                     n_tables: int, max_leaf: int, any_hit: bool = False,
-                    stats: dict | None = None):
+                    stats: dict | None = None, window: int = WINDOW):
     """Plain PyTorch version of :func:`packed_walk`: the lockstep walk of
     ``tpu_pt/bvh/packed.py::_traverse``, one iteration per node step of
     every ray still walking, until none is.
 
     stats: when a dict is passed, it receives ``iterations`` (lockstep
     iterations run), ``steps`` ((R,) node rows each ray fetched),
+    ``windows`` ((R,) windows of ``window`` node rows, ``WINDOW`` in the
+    kernel, that a window walk loads for each ray: one where the walk
+    starts, and one each time the cursor leaves the last), ``leaves`` ((R,)
+    leaves each ray entered),
     ``rows_tri`` / ``rows_sph`` (triangle / sphere rows tested, counted as
     the kernel tests them: the any-hit form stops at its first hit) and
     ``node_seen`` / ``row_seen`` ((n_tables * n_nodes,) / (P,) bool: the
@@ -168,6 +180,9 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
     best_v = torch.zeros((R, 1), dtype=torch.float32, device=dev)
     occ = torch.zeros((R, 1), dtype=torch.bool, device=dev)
     steps = torch.zeros((R,), dtype=torch.int64, device=dev)
+    windows = torch.zeros_like(steps)
+    leaves = torch.zeros_like(steps)
+    window_base = torch.full_like(steps, -window)
     rows_tri = rows_sph = 0
     if stats is not None:
         node_seen = torch.zeros((prim_base,), dtype=torch.bool, device=dev)
@@ -177,6 +192,9 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
         iterations += 1
         active = (cursor < n) & ~occ[:, 0]
         steps += active
+        opens = active & (cursor >= window_base + window)
+        windows += opens
+        window_base = torch.where(opens, cursor, window_base)
         node = table[base + torch.where(active, cursor, 0)]
         if stats is not None:
             node_seen[(base + cursor)[active]] = True
@@ -202,6 +220,7 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
         start = (meta & ((1 << 26) - 1)).long()
         cnt = (meta >> 26) & 63                      # logical shift
         test_leaf = hit_bb & is_leaf
+        leaves += test_leaf
         for k in range(max_leaf):
             in_rng = test_leaf & (k < cnt)
             slot = torch.clamp(start + k, 0, n_prims - 1)
@@ -230,7 +249,8 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
         nxt = torch.where(descend, cursor + 1, skip)
         cursor = torch.where(active, nxt, torch.full_like(nxt, n))
     if stats is not None:
-        stats.update(iterations=iterations, steps=steps, rows_tri=rows_tri,
+        stats.update(iterations=iterations, steps=steps, windows=windows,
+                     leaves=leaves, rows_tri=rows_tri,
                      rows_sph=rows_sph, node_seen=node_seen,
                      row_seen=row_seen)
     if any_hit:
@@ -239,7 +259,8 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
 
 
 def packed_walk(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
-                n_tables: int, max_leaf: int, any_hit: bool = False):
+                n_tables: int, max_leaf: int, any_hit: bool = False,
+                design: str = "window"):
     """table: (n_tables * n_nodes + P, 16) f32; prim_gid: (P,) i32; ro, rd:
     (R, 3) f32; t_min, t_max: (R,) f32.  A ray whose ``t_max < t_min``
     leaves at the root.
@@ -251,8 +272,13 @@ def packed_walk(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
     lowest primitive id at equal t.  With ``any_hit`` returns (R,) bool: a
     row hit within [t_min, t_max].
 
-    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
-    version."""
+    design: ``"window"`` (a warp a ray, 32 node rows a round trip; its
+    launches are counted in ``packed_walk.launches``) or ``"thread"`` (a
+    thread a ray; ``packed_walk.thread_launches``), the same bits.
+
+    CUDA tensors go to the kernel of that design (or raise); CPU tensors to
+    the plain version, whatever the design."""
+    _check_design(design)
     if not table.is_cuda:
         return packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes,
                                n_tables, max_leaf, any_hit)
@@ -276,15 +302,23 @@ def packed_walk(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
         outs = (out_t.data_ptr(), out_s.data_ptr(), out_u.data_ptr(),
                 out_v.data_ptr(), 0)
     if R > 0:
-        err = _build.load().packed_walk_launch(
+        lib = _build.load()
+        launch = lib.packed_walk_window_launch if design == "window" \
+            else lib.packed_walk_launch
+        err = launch(
             table.data_ptr(), prim_gid.data_ptr(), ro.data_ptr(),
             rd.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), *outs, R,
             int(n_nodes), int(n_tables), prim_gid.shape[0], int(max_leaf),
             int(bool(any_hit)), torch.cuda.current_stream(dev).cuda_stream)
-        packed_walk.launches += 1
+        if design == "window":
+            packed_walk.launches += 1
+        else:
+            packed_walk.thread_launches += 1
         if err != 0:
-            raise RuntimeError(f"packed_walk: CUDA launch error {err}")
+            raise RuntimeError(f"packed_walk ({design}): CUDA launch error "
+                               f"{err}")
     return occ if any_hit else (out_t, out_s, out_u, out_v)
 
 
-packed_walk.launches = 0   # kernel launches made by this process
+packed_walk.launches = 0          # window-design launches of this process
+packed_walk.thread_launches = 0   # thread-design launches of this process

@@ -107,3 +107,13 @@ def fetch_bytes(idx, n_rows: int, width: int) -> int:
     distinct = int(torch.unique(torch.clamp(idx, 0, n_rows - 1)).numel())
     return idx.numel() * (idx.element_size() + width * 4) \
         + distinct * width * 2
+
+
+def fields_bytes(cand, n_rows: int, fields: int) -> int:
+    """Bytes the descent's field fetch (``fetch_fields``) must move: each
+    index read once, each of its ``fields`` 8-wide words written once as f32
+    (32 bytes), and those words of each table row an index names read once
+    (16 bytes each)."""
+    distinct = int(torch.unique(torch.clamp(cand, 0, n_rows - 1)).numel())
+    return cand.numel() * (cand.element_size() + fields * 32) \
+        + distinct * fields * 16

@@ -14,7 +14,8 @@ numpy), the kernel ``fetch_rows`` runs against torch's gather + cast,
 each level of one traversal sub-batch (Q = 1,024 rays, sub-batch 0 of the
 first camera wave of big-1m at 1024², key (0, 3)), with the int64
 candidates where the descent holds them and clamped as it clamps them,
-against what the descent ran before, ``table[clamp(cand)].float()``.  Each
+against what the descent ran before the kernel,
+``table[clamp(cand)].float()``.  Each
 case is checked bit for bit against the plain version and prints one JSON
 line: the two times (a CUDA graph of 30 calls, best of three replays) and
 their rates over the bytes the fetch must move.
@@ -37,7 +38,8 @@ SHAPES = (("L1", 34, 233), ("L2", 59, 1864))   # (case, rows a ray, N)
 def descent_fetches(cb, ro, rd, t_max):
     """(level, table, cand) of every child fetch that the cluster descent
     makes for these rays (t_max (Q, 1)), with ``cand`` as the descent holds
-    it."""
+    it: caught in its row form (``fetch="rows"``); the default form,
+    ``fetch_fields``, fetches from the same operands."""
     from tpu_pt_torch.bvh import cluster
 
     got = []
@@ -51,7 +53,8 @@ def descent_fetches(cb, ro, rd, t_max):
     try:
         with torch.no_grad():
             cluster._descend_compact(
-                cb, ro, 1.0 / rd, torch.zeros_like(t_max), t_max)
+                cb, ro, 1.0 / rd, torch.zeros_like(t_max), t_max,
+                fetch="rows")
     finally:
         cluster.fetch_rows = real
     return got
