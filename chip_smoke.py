@@ -71,9 +71,13 @@ fields through the kernel ``fetch_fields`` (``csrc/fetch_rows.cu``), so
 every render launches it, and never its twin ``fetch_rows`` (the row form,
 ``_descend_compact(fetch="rows")``); the exact fallback's walk runs the
 window design of ``packed_walk`` (``csrc/packed_walk.cu``), never its twin
-(``design="thread"``).  The kernels phase holds each redesign bitwise
-against its plain version and against its twin and times the two inside
-this call.  ``fetch_probes`` runs the three ported fetch probes
+(``design="thread"``); the oracle's ``"bvh"`` renders run the row design of
+``flat_walk`` (``csrc/flat_walk.cu``), never its twin (``design="thread"``).
+The kernels phase holds each redesign bitwise against its plain version
+and against its twin and times the two inside this call; ``render_oracle``
+also renders the Cornell mesh once through each design of the flat walk,
+under the profiler, and sums the durations and the bounds of its 320
+walks.  ``fetch_probes`` runs the three ported fetch probes
 (``tpu_pt_torch/tools/microbench_*``: ``fetch_rows``, ``fetch_rows_t``,
 ``take_along``) at the JAX tools' full shapes and at the real descent.
 
@@ -111,7 +115,7 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke.py needs a CUDA device; none is available\n")
     sys.exit(2)
 
-from tpu_pt_torch.bvh import cluster, native, packed, sah  # noqa: E402
+from tpu_pt_torch.bvh import cluster, flat, native, packed, sah  # noqa: E402
 from tpu_pt_torch.config import RenderConfig  # noqa: E402
 from tpu_pt_torch.core.camera import Camera, generate_rays, pixel_xy  # noqa: E402
 from tpu_pt_torch.core.intersect import INF  # noqa: E402
@@ -127,7 +131,9 @@ from tpu_pt_torch.kernels.pair_fused import (  # noqa: E402
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref  # noqa: E402
 from tpu_pt_torch.kernels.packed_walk import (  # noqa: E402
     DESIGNS as WALK_DESIGNS, packed_walk, packed_walk_ref)
-from tpu_pt_torch.kernels.flat_walk import flat_walk, flat_walk_ref  # noqa: E402
+from tpu_pt_torch.kernels.flat_walk import (  # noqa: E402
+    DESIGNS as FLAT_DESIGNS, flat_walk, flat_walk_counts, flat_walk_ref,
+    rows_kernel_attrs)
 from tpu_pt_torch.kernels.fetch import (  # noqa: E402
     fetch_fields, fetch_fields_ref, fetch_rows, fetch_rows_ref, fetch_rows_t,
     fetch_rows_t_ref)
@@ -135,11 +141,12 @@ from tpu_pt_torch.kernels.take_along import (  # noqa: E402
     take_along, take_along_form, take_along_ref)
 from tpu_pt_torch.render import brute, film, integrator, wavefront  # noqa: E402
 from tpu_pt_torch.render.driver import (  # noqa: E402
-    _intersectors, _intersectors_counted, render)
+    _intersectors, _intersectors_counted, _render_chunks, render)
 from tpu_pt_torch.scene import cornell, meshes  # noqa: E402
 from tpu_pt_torch.scene.types import (  # noqa: E402
     LIGHT_AREA, make_lights, make_materials, make_scene)
 from tpu_pt_torch.tools import _probe as probe  # noqa: E402
+from tpu_pt_torch.tools import flat_chains  # noqa: E402
 from tpu_pt_torch.tools import microbench_dyngather as dyngather_tool  # noqa: E402
 from tpu_pt_torch.tools import microbench_fetch_kernel as fetch_tool  # noqa: E402
 from tpu_pt_torch.tools import microbench_vmem_gather as vmem_tool  # noqa: E402
@@ -165,10 +172,12 @@ OPS_CLOSEST, OPS_ANYHIT = 3, 1
 # forms); a ray 6 (three reciprocals, three sign tests for its octant).
 OPS_NODE, OPS_WALK_RAY = 38, 6
 # csrc/flat_walk.cu: a node step as OPS_NODE (its leaf test is count > 0);
-# a triangle tested costs OPS_TRI_ROW, 6 for its two edges and 4 for the
-# take-over test (t <, t ==, t < 1e30, id <), a sphere OPS_SPH_ROW + 4; a
-# ray 3 (its reciprocals).
+# a ray 3 (its reciprocals).  The thread walk's triangle tested costs
+# OPS_TRI_ROW, 6 for its two edges and 4 for the take-over test (t <, t ==,
+# t < 1e30, id <), a sphere OPS_SPH_ROW + 4.  The row walk reads the edges
+# made (the primitive rows), so its triangle costs OPS_TRI_ROW + 4.
 OPS_FLAT_TRI, OPS_FLAT_SPH, OPS_FLAT_RAY = OPS_TRI_ROW + 10, OPS_SPH_ROW + 4, 3
+OPS_ROWS_TRI, OPS_ROWS_SPH = OPS_TRI_ROW + 4, OPS_SPH_ROW + 4
 
 # mean_radiance of cornell("spheres") at 512x512, spp 16, depth 4, key 0,
 # backend "brute", rendered by the JAX package's oracle renderer on a CPU:
@@ -1148,53 +1157,87 @@ def flat_args(fb, sc, ro, rd, t_min, t_max):
             sah.MAX_LEAF)
 
 
-def compare_flat(args, label, any_hit):
-    """flat_walk against flat_walk_ref, bitwise (the raw 32-bit words), and
-    the plain version's counts: lockstep iterations, node steps per ray and
-    primitives tested (as the kernel tests them)."""
-    out_k = flat_walk(*args, any_hit=any_hit)
+# The device name of each design's kernel, for the profiler's records (the
+# row walk's STATS form is never profiled).
+FLAT_KERNEL = {"rows": "flat_walk_rows_kernel", "thread": "flat_walk_kernel"}
+
+
+def compare_flat(args, rows, label, any_hit):
+    """flat_walk in both designs (rows, thread) against flat_walk_ref and
+    against each other, bitwise (the raw 32-bit words), and the plain
+    version's counts: lockstep iterations, node steps, leaves and
+    primitives per ray (as the kernel tests them), the lane efficiency of
+    warps of 32 rays in launch order, the longest chains of round trips."""
+    outs_k = {d: flat_walk(*args, any_hit=any_hit, design=d, rows=rows)
+              for d in FLAT_DESIGNS}
     sync()
     stats = {}
     out_r = flat_walk_ref(*args, any_hit=any_hit, stats=stats)
-    outs_k = (out_k,) if any_hit else out_k
     outs_r = (out_r,) if any_hit else out_r
-    for a, b in zip(outs_k, outs_r):
-        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
+    form = "any hit" if any_hit else "closest"
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32)) \
             if a.dtype == torch.float32 else torch.equal(a, b)
-        assert same, f"flat_walk {label} ({'any hit' if any_hit else 'closest'}): " \
-            "kernel and plain version differ (must be bitwise)"
+
+    for d, out_k in outs_k.items():
+        for a, b in zip((out_k,) if any_hit else out_k, outs_r):
+            assert same(a, b), f"flat_walk {label} ({form}, design {d}): " \
+                "kernel and plain version differ (must be bitwise)"
+    r_out, t_out = (outs_k[d] for d in ("rows", "thread"))
+    assert all(same(a, b) for a, b in zip(
+        (r_out,) if any_hit else r_out, (t_out,) if any_hit else t_out)), \
+        f"flat_walk {label} ({form}): the two designs differ"
     t_min, t_max = args[12], args[13]
-    steps = stats["steps"]
+    steps, leaves, prims = (stats[k] for k in ("steps", "leaves", "prims"))
     res = {"case": label, "form": "any_hit" if any_hit else "closest",
            "rays": int(t_max.shape[0]),
            "walking_rays": int((t_max >= t_min).sum()),
            "hits": int(out_r.sum()) if any_hit else int((out_r[0] < t_max).sum()),
-           "bitwise": True,
-           "max_abs_err": 0.0 if any_hit else max_abs_diff(out_k[0], out_r[0]),
+           "bitwise": True, "designs": list(FLAT_DESIGNS),
+           "rows_vs_thread_bitwise": True,
+           "max_abs_err": 0.0 if any_hit else max(
+               max_abs_diff(o[0], out_r[0]) for o in outs_k.values()),
            "plain_iterations": stats["iterations"],
            "max_steps": int(steps.max()), "mean_steps": float(steps.float().mean()),
+           "lane_efficiency": round(flat_chains.lane_efficiency(steps), 4),
+           "max_leaves": int(leaves.max()),
+           "mean_leaves": float(leaves.float().mean()),
+           "max_chain_thread": int((steps + 3 * prims).max()),
+           "max_chain_rows": int((steps + leaves).max()),
            "prims_tri": stats["prims_tri"], "prims_sph": stats["prims_sph"]}
     return res, stats, out_r
 
 
-def flat_work(stats, R, any_hit, tri_idx):
-    """Bytes and FP32 operations the flat walk must spend on these rays.
-    Bytes: each input it needs read once (every node any ray fetched, 36
-    bytes: box, skip, start, count; every primitive any ray tested, its
-    4-byte id in ``prim_ids`` and, for a triangle, 12 bytes of indices and
-    its distinct vertices, 12 bytes each, for a sphere 16 bytes of centre
-    and radius; per ray 32 bytes in) and each output written once (16 bytes
-    a ray, 1 for any hit).  Operations as counted in OPS_NODE and
-    OPS_FLAT_*, per node step and primitive tested.  Also the traffic of
-    the walk as it runs: 36 bytes a node step, 52 a triangle and 20 a
-    sphere tested."""
+def flat_work(stats, R, any_hit, tri_idx, design):
+    """Bytes and FP32 operations the flat walk of ``design`` must spend on
+    these rays, and the traffic of the walk as it runs (every node step and
+    primitive test reading its bytes again).  Both designs: per ray 32
+    bytes in and 16 out (1 for any hit); operations per node step OPS_NODE,
+    per ray OPS_FLAT_RAY.
+
+    ``"thread"`` reads the arrays: a node 36 bytes (box, skip, start,
+    count); a primitive its 4-byte id in ``prim_ids`` and, for a triangle,
+    12 bytes of indices and its distinct vertices, 12 bytes each, for a
+    sphere 16 bytes of centre and radius (traffic: 52 a triangle, 20 a
+    sphere); OPS_FLAT_TRI / OPS_FLAT_SPH a primitive (the triangle forms
+    its edges).  ``"rows"`` reads the row tables: a node row 32 bytes, a
+    primitive row 48 bytes and its 4-byte id in ``prim_gid`` (traffic: 48
+    a primitive; the id is read on a tie and at the end);
+    OPS_ROWS_TRI / OPS_ROWS_SPH a primitive (its edges are in its row)."""
     steps = int(stats["steps"].sum())
     tri, sph = stats["prims_tri"], stats["prims_sph"]
     seen = stats["prim_seen"]
+    ray_io = R * (32 + (1 if any_hit else 16))
+    if design == "rows":
+        n_bytes = (int(stats["node_seen"].sum()) * 32 + int(seen.sum()) * 52
+                   + ray_io)
+        ops = (steps * OPS_NODE + tri * OPS_ROWS_TRI + sph * OPS_ROWS_SPH
+               + R * OPS_FLAT_RAY)
+        return n_bytes, ops, steps * 32 + (tri + sph) * 48 + ray_io
     T = int(tri_idx.shape[0])
     tris = torch.nonzero(seen[:T]).reshape(-1)
     n_vert = int(tri_idx[tris].unique().numel())
-    ray_io = R * (32 + (1 if any_hit else 16))
     n_bytes = (int(stats["node_seen"].sum()) * 36 + int(seen.sum()) * 4
                + int(tris.numel()) * 12 + n_vert * 12
                + int(seen[T:].sum()) * 16 + ray_io)
@@ -1253,47 +1296,87 @@ def sphere_grid_scene():
                       sph_mat=np.zeros(27, np.int32))
 
 
-def check_flat_walk(o_scene_h, rows_c, rows_a, flush):
-    """The flat walk kernel against its plain version, bitwise, closest and
-    any hit: (a) the first chunk of the full-size oracle render of
-    ``o_scene_h`` (its camera rays and their shadow rays, R = 131,072), timed
-    with the plain version beside it; (b) edge cases on four scenes:
-    axis-parallel directions, origins on box faces, t_max -1 and 0.5,
-    coincident triangles (the lowest id must win), leaves of spheres only;
-    (c) a batch where nothing walks.  Returns (cases, timing)."""
+def check_flat_walk(o_scene_h, o_cam, o_cfg, rows_c, rows_a, flush):
+    """The flat walk kernel in both designs (rows, thread) against its
+    plain version and against each other, bitwise, closest and any hit:
+    (a) walk batches of the full-size oracle render of ``o_scene_h`` (R =
+    131,072): its first chunk's camera rays and their shadow rays (the
+    direct-lighting batches ``oracle_chunk_rays`` takes), chunk 12's camera
+    rays (the mesh) and chunk 0's first bounce, closest and shadow (the
+    whole integrator), each timed in both designs one after the other (the
+    chunk-0 batches also in the plain version);
+    (b) edge cases on four scenes: axis-parallel directions, origins on box
+    faces, t_max -1 and 0.5, coincident triangles (the lowest id must win),
+    leaves of spheres only; (c) a batch where nothing walks.  Returns
+    (cases, timing)."""
     cases, timing = [], {}
     fb = sah.build_bvh(o_scene_h).to(DEV)
     sc = o_scene_h.to(DEV)
-    for key, rows, any_hit in (("flat_walk", rows_c, False),
-                               ("flat_walk@oracle_chunk_shadow", rows_a,
-                                True)):
-        args = flat_args(fb, sc, rows[:, 0:3], rows[:, 4:7], rows[:, 3],
-                         rows[:, 7])
-        name = "oracle_chunk_" + ("shadow_rays" if any_hit else "camera_rays")
+    rows = flat.row_tables(fb, sc)
+    later = {}
+    for chunk, picks in ((0, ("closest_1", "shadow_1")), (12, ("closest_0",))):
+        for name, ro, rd, t_min, t_max, any_hit in flat_chains.chunk_batches(
+                sc, o_cam, o_cfg, (0, 0), fb, chunk):
+            if name in picks:
+                later[chunk, name] = (ro, rd, t_min, t_max, any_hit)
+    batches = [("flat_walk", "oracle_chunk_camera_rays", rows_c[:, 0:3],
+                rows_c[:, 4:7], rows_c[:, 3], rows_c[:, 7], False),
+               ("flat_walk@oracle_chunk_shadow", "oracle_chunk_shadow_rays",
+                rows_a[:, 0:3], rows_a[:, 4:7], rows_a[:, 3], rows_a[:, 7],
+                True),
+               ("flat_walk@chunk12_camera", "chunk12_camera_rays",
+                *later[12, "closest_0"]),
+               ("flat_walk@bounce_closest", "chunk0_bounce1_closest",
+                *later[0, "closest_1"]),
+               ("flat_walk@bounce_shadow", "chunk0_bounce1_shadow",
+                *later[0, "shadow_1"])]
+    del later
+    for key, name, ro, rd, t_min, t_max, any_hit in batches:
+        args = flat_args(fb, sc, ro, rd, t_min, t_max)
         for form in (False, True):
-            res, stats, _ = compare_flat(args, name, form)
+            res, stats, _ = compare_flat(args, rows, name, form)
             cases.append(res)
             if form != any_hit:
                 continue
-            R = int(rows.shape[0])
-            n_bytes, ops, traffic = flat_work(stats, R, form, sc.tri_idx)
-            t0 = time.time()
-            plain_ms = time_launches(
-                lambda: flat_walk_ref(*args, any_hit=form), flush,
-                repeats=2, warmup=0)
-            timing[key] = dict(
-                shape={"R": R, "walking_rays": res["walking_rays"],
-                       "any_hit": form, "n_nodes": fb.n_nodes,
-                       "max_steps": res["max_steps"],
-                       "mean_steps": round(res["mean_steps"], 3),
-                       "plain_iterations": res["plain_iterations"],
-                       "prims": stats["prims_tri"] + stats["prims_sph"],
-                       "least_MB": round(n_bytes / 1e6, 4),
-                       "traffic_MB": round(traffic / 1e6, 4)},
-                **time_both(lambda: flat_walk(*args, any_hit=form), flush,
-                            "flat_walk_kernel"),
-                plain_ms=plain_ms, plain_wall_s=round(time.time() - t0, 2),
-                bytes=n_bytes, flops=ops)
+            R = int(ro.shape[0])
+            work = {d: flat_work(stats, R, form, sc.tri_idx, d)
+                    for d in FLAT_DESIGNS}
+            shape = {"R": R, "walking_rays": res["walking_rays"],
+                     "any_hit": form, "n_nodes": fb.n_nodes,
+                     **{k: res[k] for k in (
+                         "max_steps", "lane_efficiency", "max_leaves",
+                         "max_chain_thread", "max_chain_rows")},
+                     "mean_steps": round(res["mean_steps"], 3),
+                     "mean_leaves": round(res["mean_leaves"], 3),
+                     "plain_iterations": res["plain_iterations"],
+                     "prims": stats["prims_tri"] + stats["prims_sph"]}
+            # The batch's longest ray (most node steps + leaves) walked
+            # alone, in each design: how much of the batch's time is the
+            # chain of that one ray.
+            top = int(torch.argmax(stats["steps"] + stats["leaves"]))
+            one = flat_args(fb, sc, *(x[top:top + 1] for x in args[10:14]))
+            for d in FLAT_DESIGNS:
+                shape[f"longest_ray_{d}_us"] = trace_launches(
+                    lambda: flat_walk(*one, any_hit=form, design=d,
+                                      rows=rows), flush, FLAT_KERNEL[d])[0]
+            # Both designs on the same operands, one after the other, each
+            # with its own least bytes and operations.
+            for d in FLAT_DESIGNS:
+                n_bytes, ops, traffic = work[d]
+                timing[key if d == "rows" else key.replace(
+                    "flat_walk", "flat_walk_thread", 1)] = dict(
+                    shape=dict(shape, least_MB=round(n_bytes / 1e6, 4),
+                               traffic_MB=round(traffic / 1e6, 4)),
+                    **time_both(lambda: flat_walk(*args, any_hit=form,
+                                                  design=d, rows=rows),
+                                flush, FLAT_KERNEL[d]),
+                    bytes=n_bytes, flops=ops)
+            if key in ("flat_walk", "flat_walk@oracle_chunk_shadow"):
+                # The plain version (the gather form) ran on these operands
+                # just before: timed on the chunk-0 batches, as before.
+                timing[key]["plain_ms"] = time_launches(
+                    lambda: flat_walk_ref(*args, any_hit=form), flush,
+                    repeats=2, warmup=0)
     v, f = meshes.icosphere(subdiv=1)
     f = np.concatenate([f, f[:12]])          # 12 faces twice, higher ids
     twin = make_scene(v, f, np.zeros(len(f), np.int32),
@@ -1307,25 +1390,27 @@ def check_flat_walk(o_scene_h, rows_c, rows_a, flush):
         fb_e, sc_e = fb_h.to(DEV), sc_h.to(DEV)
         args = flat_args(fb_e, sc_e, *flat_edge_rays(fb_h, 3000, 37))
         for form in (False, True):
-            res, _, _ = compare_flat(args, name, form)
+            res, _, _ = compare_flat(args, flat.row_tables(fb_e, sc_e), name,
+                                     form)
             assert res["hits"] > 0, f"flat_walk {name}: no hit"
             cases.append(res)
         if name in ("edge_cornell_spheres", "edge_sphere_only_leaves"):
             assert res["prims_sph"] > 0, f"{name}: no sphere tested"
     c = torch.from_numpy(v[f[:12]].mean(axis=1)).float()
-    fb_t = sah.build_bvh(twin).to(DEV)
-    args = flat_args(fb_t, twin.to(DEV), (c * 3.0).to(DEV),
+    fb_t, twin_d = sah.build_bvh(twin).to(DEV), twin.to(DEV)
+    args = flat_args(fb_t, twin_d, (c * 3.0).to(DEV),
                      (-c / c.norm(dim=1, keepdim=True)).to(DEV),
                      torch.zeros(12, device=DEV),
                      torch.full((12,), 1e30, device=DEV))
-    res, _, (t, g, _, _) = compare_flat(args, "coincident_lowest_id", False)
+    res, _, (t, g, _, _) = compare_flat(
+        args, flat.row_tables(fb_t, twin_d), "coincident_lowest_id", False)
     assert bool((t < INF).all()) and g.tolist() == list(range(12)), \
         "flat_walk coincident triangles: not the lowest id"
     cases.append(res)
     args = flat_args(fb, sc, rows_c[:, 0:3], rows_c[:, 4:7], rows_c[:, 3],
                      torch.full_like(rows_c[:, 7], -1.0))
     for form in (False, True):
-        res, _, _ = compare_flat(args, "nothing_walks", form)
+        res, _, _ = compare_flat(args, rows, "nothing_walks", form)
         assert res["max_steps"] == 1 and res["hits"] == 0
         cases.append(res)
     return cases, timing
@@ -1699,8 +1784,9 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
     o_scene_h = dense_scenes["cornell_mesh_4"]
     o_cfg = RenderConfig(width=512, height=512, spp=16, max_depth=4)
     ps = PallasScene(o_scene_h).to(DEV)
-    rows_c, rows_a = oracle_chunk_rays(
-        o_scene_h.to(DEV), cornell.camera(512, 512).to(DEV), ps, o_cfg, (0, 0))
+    o_cam = cornell.camera(512, 512).to(DEV)
+    rows_c, rows_a = oracle_chunk_rays(o_scene_h.to(DEV), o_cam, ps, o_cfg,
+                                       (0, 0))
     res, _ = compare_dense(rows_c, ps.prims, "oracle_chunk_camera_rays")
     cases_dense.append(res)
     res, _ = compare_dense(rows_a, ps.prims, "oracle_chunk_shadow_rays")
@@ -1729,8 +1815,8 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
     cases_walk, timing_walk, n_over = check_packed_walk(
         scene, cb, pk, mid, mid_full, shadow_full, flush)
     timing.update(timing_walk)
-    cases_flat, timing_flat = check_flat_walk(o_scene_h, rows_c, rows_a,
-                                              flush)
+    cases_flat, timing_flat = check_flat_walk(
+        o_scene_h, o_cam, o_cfg, rows_c, rows_a, flush)
     timing.update(timing_flat)
     cases_fetch, timing_fetch = check_fetch(
         cb, {"first_wave": first, "mid_render": mid,
@@ -1752,9 +1838,13 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
               "cases": cases_fetch},
           "flat_walk": {
               "tolerance": "bitwise (raw 32-bit words), closest-hit and "
-                           "any-hit form, against the plain version on the "
-                           "card",
+                           "any-hit form, both designs (rows, thread) "
+                           "against the plain version and against each "
+                           "other on the card",
               "cases": cases_flat},
+          "flat_walk_rows_kernel": {
+              form: rows_kernel_attrs(any_hit)
+              for form, any_hit in (("closest", False), ("any_hit", True))},
           "packed_walk": {
               "tolerance": "bitwise (raw 32-bit words), closest-hit and "
                            "any-hit form, both designs (window, thread) "
@@ -1795,8 +1885,12 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
                              "overflowing sub-batches of the 256² render, "
                              "its two designs one after the other, "
                              "flat_walk at the first chunk of the oracle "
-                             "render of cornell mesh (plain versions of "
-                             "the walks: median of 2 calls), fetch_fields "
+                             "render of cornell mesh (camera rays and their "
+                             "shadow rays), at chunk 12's camera rays and "
+                             "at chunk 0's first bounce (closest, shadow), "
+                             "its two designs one after the other (plain "
+                             "versions of the walks: median of 2 calls), "
+                             "fetch_fields "
                              "and fetch_rows one after the other at the "
                              "descent's two child fetches of the mid-render "
                              "closest batch (fetch_rows' library: "
@@ -2176,18 +2270,21 @@ ALL_KERNELS = (pair_ray_reduce, pair_tile_isect, pair_segmin,
 
 
 def zero_launches(kernels):
-    """Zero the launch counts of ``kernels`` (the walk's: both designs)."""
+    """Zero the launch counts of ``kernels`` (the walks': both designs)."""
     for k in kernels:
         k.launches = 0
     packed_walk.thread_launches = 0
+    flat_walk.thread_launches = 0
 
 
 def read_launches(kernels):
-    """The launch counts of ``kernels`` by name; the walk's thread design
-    (its twin) as ``packed_walk_thread`` where the walk is among them."""
+    """The launch counts of ``kernels`` by name; a walk's thread design
+    (its twin) as ``packed_walk_thread`` / ``flat_walk_thread`` where the
+    walk is among them."""
     out = {k.__name__: k.launches for k in kernels}
-    if packed_walk in kernels:
-        out["packed_walk_thread"] = packed_walk.thread_launches
+    for walk in (packed_walk, flat_walk):
+        if walk in kernels:
+            out[walk.__name__ + "_thread"] = walk.thread_launches
     return out
 
 
@@ -2843,20 +2940,149 @@ def phase_render_split(scene, cam, cb, cfg, main, img_main):
     return {k: launches[k] for k in ("pair_tile_isect", "pair_segmin")}
 
 
-def phase_render_oracle():
+def kernel_us_in(fn, name_part):
+    """fn() under torch.profiler (device activity only), and the durations
+    in microseconds of the kernels whose name contains ``name_part``, read
+    from the raw trace records (no per-op bookkeeping: a render launches
+    some hundred thousand kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+    us = [e.duration_ns() / 1e3 for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA and name_part in e.name()]
+    return out, us
+
+
+def walks_traced(scene, cam, cfg, key, isect, occl, pix_chunk, design):
+    """The oracle render through ``isect`` / ``occl`` with each chunk run
+    under torch.profiler on its own (a whole render's hundred thousand
+    kernel records lose one now and then): the durations in microseconds
+    of every walk kernel of ``design`` it launched.  A chunk whose trace
+    lacks one of the walks it launched is run again (the same rays, the
+    same result), up to three times, and the phase fails if none holds
+    them all.  Returns (image, durations, chunks run again); the launch
+    counts of the walk then hold the accepted runs only."""
+    from tpu_pt_torch.render import driver as driver_mod
+
+    real = driver_mod.render_chunk
+    counter = "launches" if design == "rows" else "thread_launches"
+    us, retraced, launched = [], 0, 0
+
+    def traced(*a, **k):
+        nonlocal retraced, launched
+        for attempt in range(3):
+            before = getattr(flat_walk, counter)
+            out, got = kernel_us_in(lambda: real(*a, **k), FLAT_KERNEL[design])
+            n_c = getattr(flat_walk, counter) - before
+            if len(got) == n_c:
+                break
+        assert len(got) == n_c, \
+            f"bvh {design}: {len(got)} walk kernels traced of {n_c} in a chunk"
+        retraced += attempt
+        launched += n_c
+        us.extend(got)
+        return out
+
+    driver_mod.render_chunk = traced
+    try:
+        img = _render_chunks(scene, cam, cfg, key, isect, occl, pix_chunk)
+    finally:
+        driver_mod.render_chunk = real
+    setattr(flat_walk, counter, launched)
+    return img, us, retraced
+
+
+def flat_render_walks(scene, cam, cfg, key, fb, img, fp32_ops_per_s):
+    """The walks of one full-size oracle render through backend "bvh", in
+    each design: (a) the render once with every walk batch also counted by
+    the row walk's STATS form (flat_walk_counts): the bound of each batch
+    in each design as flat_work counts it, summed, with the batches' steps,
+    lane efficiency and longest chains; (b) the render under torch.profiler
+    in each design (the twin through ``render/driver.py``'s private
+    ``design`` keyword), chunk by chunk (:func:`walks_traced`): the summed
+    durations of its walk kernels, which must be every walk of the render,
+    and the image, which must be ``img`` bit for bit."""
+    from tpu_pt_torch.core.intersect import as_col
+
+    pix_chunk = (1 << 17) // cfg.spp
+    rows = flat.row_tables(fb, scene)
+    isect, occl = _intersectors("bvh", fb)
+    batches = []
+
+    def counted(walk, any_hit):
+        def call(scene_d, ro, rd, *t):
+            R = ro.shape[0]
+            t_min = torch.zeros((R, 1), device=DEV) if any_hit \
+                else as_col(t[0], R, DEV)
+            st = flat_walk_counts(*flat_args(fb, scene, ro, rd, t_min,
+                                             as_col(t[-1], R, DEV)),
+                                  any_hit=any_hit, rows=rows)
+            bound_us = {}
+            for d in FLAT_DESIGNS:
+                n_bytes, ops, _ = flat_work(st, R, any_hit, scene.tri_idx, d)
+                bound_us[d] = max(n_bytes / HBM_BYTES_PER_S,
+                                  ops / fp32_ops_per_s) * 1e6
+            steps, leaves, prims = st["steps"], st["leaves"], st["prims"]
+            batches.append(dict(
+                any_hit=any_hit, bound_us=bound_us,
+                max_steps=int(steps.max()),
+                lane_efficiency=flat_chains.lane_efficiency(steps),
+                max_chain_thread=int((steps + 3 * prims).max()),
+                max_chain_rows=int((steps + leaves).max())))
+            return walk(scene_d, ro, rd, *t)
+        return call
+
+    img_c = _render_chunks(scene, cam, cfg, key, counted(isect, False),
+                           counted(occl, True), pix_chunk)
+    assert torch.equal(img_c, img), "bvh: the counted render differs"
+    n = len(batches)
+    out = {"batches": n,
+           "max_steps_max": max(b["max_steps"] for b in batches),
+           "lane_efficiency_min": min(b["lane_efficiency"] for b in batches),
+           "lane_efficiency_mean": sum(b["lane_efficiency"]
+                                       for b in batches) / n,
+           "max_chain_thread_sum": sum(b["max_chain_thread"]
+                                       for b in batches),
+           "max_chain_rows_sum": sum(b["max_chain_rows"] for b in batches)}
+    for design in FLAT_DESIGNS:
+        isect, occl = _intersectors("bvh", fb, design=design)
+        zero_launches((flat_walk,))
+        img_d, us, retraced = walks_traced(scene, cam, cfg, key, isect, occl,
+                                           pix_chunk, design)
+        launched = read_launches((flat_walk,))
+        other = "flat_walk" if design == "thread" else "flat_walk_thread"
+        assert launched[other] == 0 and len(us) == n, \
+            f"bvh {design}: {len(us)} walks traced of {n}, {launched}"
+        assert torch.equal(img_d, img), \
+            f"bvh {design}: image differs from the render's"
+        bound = sum(b["bound_us"][design] for b in batches)
+        out[design] = {"walk_us_sum": sum(us), "walk_us_max": max(us),
+                       "trace_n": len(us), "chunks_retraced": retraced,
+                       "launches": launched, "bound_us_sum": bound,
+                       "share_of_bound": bound / sum(us)}
+    out["rows_over_thread"] = \
+        out["rows"]["walk_us_sum"] / out["thread"]["walk_us_sum"]
+    return out
+
+
+def phase_render_oracle(fp32_ops_per_s):
     """The oracle renderer through the dense-sweep backend (``"pallas"``)
     and the flat BVH walk (``"bvh"``): small renders held against the brute
     backend, the plain versions and the wavefront renderer (on the brute
     and on the backend's intersector), then the full-size renders (512x512,
-    spp 16, depth 4, the command line's defaults).  Returns the launches of
-    the dense kernels and of the flat walk on the full-size Cornell mesh
-    renders."""
+    spp 16, depth 4, the command line's defaults); on the Cornell mesh the
+    "bvh" render's walks in both designs (``flat_render_walks``).  Returns
+    the launches of the dense kernels and of the flat walk on the full-size
+    Cornell mesh renders, and the walks' sums."""
     scenes = {"cornell_mesh_4": cornell.cornell("mesh", mesh_subdiv=4),
               "cornell_spheres": cornell.cornell("spheres")}
     small = RenderConfig(width=64, height=64, spp=4, max_depth=3)
     full = RenderConfig(width=512, height=512, spp=16, max_depth=4)
     key = (0, 0)
-    launches, means, run_s_of = {}, {}, {}
+    launches, means, run_s_of, walks = {}, {}, {}, None
     for backend, kernels in (("pallas", (dense_closest, dense_anyhit)),
                              ("bvh", (flat_walk,))):
         out = []
@@ -2911,7 +3137,8 @@ def phase_render_oracle():
             for kname, n in n_launch.items():
                 want = chunks * hits * {"dense_closest": 1,
                                         "dense_anyhit": shadow,
-                                        "flat_walk": 1 + shadow}[kname]
+                                        "flat_walk": 1 + shadow,
+                                        "flat_walk_thread": 0}[kname]
                 assert n == want, \
                     f"{name}: {kname} launched {n} times, not {want}"
             assert bool(torch.isfinite(img).all()), \
@@ -2971,9 +3198,13 @@ def phase_render_oracle():
                     else "chip_smoke_cornell_mesh_bvh.png"
                 film.save(png, img.cpu().numpy())
                 launches.update(n_launch)
+                if backend == "bvh":
+                    walks = flat_render_walks(scene, cam, full, key, bvh, img,
+                                              fp32_ops_per_s)
+                    line["walks_per_design"] = walks
             out.append(line)
         emit({"phase": "render_oracle", "backend": backend, "renders": out})
-    return launches
+    return launches, walks
 
 
 def phase_render_dedup(scene, cam, cb, cfg, main):
@@ -3297,7 +3528,8 @@ def main():
     phase_loop(scene, cam, cb, cfg, (0, 3), profile, "fused", fetch="rows")
     if profile:
         phase_loop_pairs(scene, cam, cb, cfg, (0, 3))
-    launches.update(phase_render_oracle())
+    oracle_launches, flat_walks = phase_render_oracle(fp32_ops_per_s)
+    launches.update(oracle_launches)
     launches.update(probe_launches)
 
     # file:line of the pl.pallas_call each kernel replaces.
@@ -3375,17 +3607,22 @@ def main():
             row["other_batches"] = other_batches(name)
         if name == "fetch_fields":
             row["twin_path_ms"] = tm["twin_path_ms"]
-        if name == "packed_walk":
-            # The window design (the default, on every path); its twin, the
+        if name in ("packed_walk", "flat_walk"):
+            # The redesign (the default, on every path); its twin, the
             # thread design, timed on the same operands in this run and
             # launched by no path.
-            twin = timing["packed_walk_thread"]
-            row["design"] = "window"
+            twin = timing[name + "_thread"]
+            row["design"] = "window" if name == "packed_walk" else "rows"
             row["twin"] = {
-                "design": "thread", "launches": launches["packed_walk_thread"],
+                "design": "thread", "launches": launches[name + "_thread"],
                 **{f: twin[f] for f in ("ms", "trace_us", "trace_n",
                                          "trace_warm_us", "trace_warm_n")},
-                "other_batches": other_batches("packed_walk_thread")}
+                **dict(zip(("bound_ms", "bound_by"), bound(twin))),
+                "other_batches": other_batches(name + "_thread")}
+        if name == "flat_walk":
+            # The walks of one whole oracle render of the Cornell mesh, in
+            # each design: summed trace durations and summed bounds.
+            row["render_walks"] = flat_walks
         if name in ("fetch_fields", "fetch_rows", "fetch_rows_t",
                     "take_along"):
             row["launches_counted_in"] = (

@@ -8,8 +8,10 @@ Tolerances: trees, tables and primitive ids exact (the same numpy
 arithmetic in both packages); hit mask and occlusion exact, hit t rtol 1e-5
 / atol 1e-6 and prim agreement > 0.99 (tests/test_bvh.py:97-117); images
 rtol 2e-4 / atol 2e-5 against the JAX package, 1e-3 against another
-intersector.  The walk kernel itself runs only on the card (the ``gpu``
-case)."""
+intersector.  The walk's two designs (the row walk over
+``bvh/flat.py::row_tables``, the thread walk over the arrays) share one
+plain version, held bit for bit to itself across the two forms it reads;
+the kernels themselves run only on the card (the ``gpu`` case)."""
 
 import warnings
 
@@ -40,9 +42,11 @@ from tpu_pt_torch.config import RenderConfig as TConfig
 from tpu_pt_torch.core import aabb as taabb
 from tpu_pt_torch.kernels import flat_walk as tfw
 from tpu_pt_torch.render import brute as tbrute
+from tpu_pt_torch.render import driver as tdriver
 from tpu_pt_torch.render.driver import render as trender
 from tpu_pt_torch.render.wavefront import (
     render_wavefront_counts, render_wavefront_suspect_counts)
+from tpu_pt_torch.tools import flat_chains
 
 from torch_port_util import T, camera_dict, rays, scene_dict
 
@@ -219,8 +223,15 @@ def test_flat_intersect_matches_jax_and_brute(setups, name):
     ro, rd, t_min, t_max = _edge_rays(bt, 1024, 3)
     hj = jflat.intersect(bj, sj, *(jnp.asarray(x)
                                    for x in (ro, rd, t_min, t_max)))
-    ht = tflat.intersect(btd, st, T(ro), T(rd), T(t_min), T(t_max))
+    ht = tflat.intersect(btd, st, T(ro), T(rd), T(t_min), T(t_max),
+                         rows=tflat.row_tables(btd, st))
     hb = tbrute.intersect(st, T(ro), T(rd), T(t_min), T(t_max))
+    # The row walk's tables (the default design), and the thread walk's
+    # gather form: the same bits.
+    h_thread = tflat.intersect(btd, st, T(ro), T(rd), T(t_min), T(t_max),
+                               design="thread")
+    for a, b in zip(ht, h_thread):
+        assert torch.equal(a, b)
     m = ht.hit.numpy()[:, 0]
     assert 50 < m.sum() < len(m)
     assert not m[::17].any()                          # t_max = -1
@@ -239,7 +250,10 @@ def test_flat_occluded_matches_jax_and_brute(setups, name):
     t_max = np.where(t_max > 1.0, 2.0, t_max).astype(np.float32)
     oj = jflat.occluded(bj, sj, jnp.asarray(ro), jnp.asarray(rd),
                         jnp.asarray(t_max))
-    ot = tflat.occluded(bt.to("cpu"), st, T(ro), T(rd), T(t_max))
+    ot = tflat.occluded(bt.to("cpu"), st, T(ro), T(rd), T(t_max),
+                        rows=tflat.row_tables(bt.to("cpu"), st))
+    assert torch.equal(ot, tflat.occluded(bt.to("cpu"), st, T(ro), T(rd),
+                                          T(t_max), design="thread"))
     assert ot.dtype == torch.bool and tuple(ot.shape) == (768, 1)
     np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
     np.testing.assert_array_equal(
@@ -412,17 +426,235 @@ def test_wavefront_bvh_matches_brute(setups):
     assert not bool(sus.any())                        # exact: never suspect
 
 
+@pytest.mark.parametrize("name", SCENES)
+def test_build_bvh_tables_skip_forward_and_leaves_skip_to_the_next_node(
+        setups, name):
+    """The row walk's two facts about a preorder table: every skip points
+    forward inside the table, and a leaf's skip is its own index + 1."""
+    _, _, _, bt = setups[name]
+    n = bt.n_nodes
+    idx = np.arange(n)
+    assert np.all(bt.skip > idx) and np.all(bt.skip <= n)
+    leaf = bt.prim_count > 0
+    assert leaf.any() and np.all(bt.skip[leaf] == idx[leaf] + 1)
+    tflat.check_preorder(bt.skip, bt.prim_count)          # does not raise
+
+
+def test_row_tables_raise_on_a_table_the_row_walk_cannot_take(setups):
+    _, _, st, bt = setups["cornell"]
+    inner = int(np.flatnonzero(bt.prim_count == 0)[1])
+    leaf = int(np.flatnonzero(bt.prim_count > 0)[0])
+    for i, value, match in ((inner, inner, "is not in"),
+                            (inner, bt.n_nodes + 1, "is not in"),
+                            (leaf, leaf + 2, "not its index"),
+                            (leaf, bt.n_nodes, "not its index")):
+        skip = bt.skip.copy()
+        skip[i] = value
+        with pytest.raises(ValueError, match=match):
+            tflat.row_tables(bt._replace(skip=skip), st)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_row_tables_hold_the_arrays_bits(setups, name):
+    """Node rows are the box, link (skip or prim_start) and count bits;
+    primitive rows are v0, v1 - v0, v2 - v0 (one f32 rounding each), the
+    material bits and type 0, or a sphere's centre, radius, material bits
+    and type 1, in prim_ids order with the ids beside them."""
+    _, _, st, bt = setups[name]
+    rows = tflat.row_tables(bt.to("cpu"), st)
+    nr = rows.node_rows.numpy()
+    assert nr.shape == (bt.n_nodes, 8) and nr.dtype == np.float32
+    bits = nr.view(np.int32)
+    np.testing.assert_array_equal(bits[:, 0:3], bt.node_min.view(np.int32))
+    np.testing.assert_array_equal(bits[:, 3:6], bt.node_max.view(np.int32))
+    leaf = bt.prim_count > 0
+    np.testing.assert_array_equal(
+        bits[:, 6], np.where(leaf, bt.prim_start, bt.skip))
+    np.testing.assert_array_equal(bits[:, 7], bt.prim_count)
+    v, ti = np.asarray(st.vertices), np.asarray(st.tri_idx)
+    T_ = ti.shape[0]
+    g = bt.prim_ids
+    np.testing.assert_array_equal(rows.prim_gid.numpy(), g)
+    pr = rows.prim_rows.numpy()
+    assert pr.shape == (len(g), 16)
+    tri = g < T_
+    v0 = v[ti[g[tri], 0]]
+    want = np.concatenate([v0, v[ti[g[tri], 1]] - v0, v[ti[g[tri], 2]] - v0],
+                          axis=1)
+    np.testing.assert_array_equal(pr[tri, 0:9].view(np.int32),
+                                  want.view(np.int32))
+    np.testing.assert_array_equal(pr[tri, 9].view(np.int32),
+                                  np.asarray(st.tri_mat)[g[tri]])
+    np.testing.assert_array_equal(pr[tri, 10], 0.0)
+    s_id = g[~tri] - T_
+    np.testing.assert_array_equal(pr[~tri, 0:3],
+                                  np.asarray(st.sph_center)[s_id])
+    np.testing.assert_array_equal(pr[~tri, 3],
+                                  np.asarray(st.sph_radius)[s_id])
+    np.testing.assert_array_equal(pr[~tri, 10], 1.0)
+    if name in ("cornell", "spheres_only"):
+        assert (~tri).any()
+
+
+def _walk_args(b, st, ro, rd, t_min, t_max):
+    return (b.node_min, b.node_max, b.skip, b.prim_start, b.prim_count,
+            b.prim_ids, st.tri_idx, st.vertices, st.sph_center, st.sph_radius,
+            T(ro), T(rd), T(t_min[:, 0]), T(t_max[:, 0]), tsah.MAX_LEAF)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_row_form_of_the_plain_walk_equals_the_gather_form(setups, name):
+    """The plain walk over the row tables gives the gather form's bits and
+    counts (the same nodes, leaves and primitives), closest and any hit, on
+    the edge rays.  (Against the JAX package: the two tests above, whose
+    port side walks the row tables.)"""
+    _, _, st, bt = setups[name]
+    b = bt.to("cpu")
+    rows = tflat.row_tables(b, st)
+    ro, rd, t_min, t_max = _edge_rays(bt, 512, 12)
+    args = _walk_args(b, st, ro, rd, t_min, t_max)
+    for any_hit in (False, True):
+        s_g, s_r = {}, {}
+        out_g = tfw.flat_walk_ref(*args, any_hit=any_hit, stats=s_g)
+        out_r = tfw.flat_walk_ref(*args, any_hit=any_hit, stats=s_r,
+                                  rows=rows)
+        for x, y in zip((out_g,) if any_hit else out_g,
+                        (out_r,) if any_hit else out_r):
+            assert torch.equal(x.view(torch.int32) if x.is_floating_point()
+                               else x, y.view(torch.int32)
+                               if y.is_floating_point() else y)
+        for k in ("steps", "leaves", "prims", "node_seen", "prim_seen"):
+            assert torch.equal(s_g[k], s_r[k]), k
+        assert (s_g["prims_tri"], s_g["prims_sph"], s_g["iterations"]) == \
+            (s_r["prims_tri"], s_r["prims_sph"], s_r["iterations"])
+        assert int(s_r["leaves"].sum()) > 0
+        assert torch.equal(s_r["prims"].sum(),
+                           torch.tensor(s_r["prims_tri"] + s_r["prims_sph"]))
+
+
+def test_row_walk_takes_the_lowest_id_of_coincident_triangles(setups):
+    _, _, st, bt = setups["coincident"]
+    v, f = np.asarray(st.vertices), np.asarray(st.tri_idx)
+    c = v[f[:12]].mean(axis=1)
+    ro = (c * 3.0).astype(np.float32)
+    rd = (-c / np.linalg.norm(c, axis=1, keepdims=True)).astype(np.float32)
+    b = bt.to("cpu")
+    h = tflat.intersect(b, st, T(ro), T(rd), 0.0, 1e30,
+                        rows=tflat.row_tables(b, st))
+    assert bool(h.hit.all())
+    np.testing.assert_array_equal(h.prim.numpy(), np.arange(12))
+
+
+def test_walk_design_is_validated_and_both_run_the_plain_walk_on_the_cpu(
+        setups):
+    """design= is checked by every entry (the wrapper, flat.intersect /
+    occluded / intersectors, render.driver's closures); on CPU tensors both
+    designs run the plain version, launch nothing, and the counts wrapper
+    returns its statistics."""
+    _, _, st, bt = setups["cornell"]
+    b = bt.to("cpu")
+    rows = tflat.row_tables(b, st)
+    ro, rd, t_min, t_max = _edge_rays(bt, 256, 14)
+    args = _walk_args(b, st, ro, rd, t_min, t_max)
+    with pytest.raises(ValueError, match="unknown design"):
+        tfw.flat_walk(*args, design="window")
+    for call in (lambda: tflat.intersect(b, st, T(ro), T(rd), 0.0, 1e30,
+                                         design="warp"),
+                 lambda: tflat.occluded(b, st, T(ro), T(rd), 1.0,
+                                        design="warp"),
+                 lambda: tflat.intersectors(b, design="warp"),
+                 lambda: tdriver._intersectors("bvh", b, design="warp")):
+        with pytest.raises(ValueError, match="unknown design"):
+            call()
+    n0 = (tfw.flat_walk.launches, tfw.flat_walk.thread_launches,
+          tfw.flat_walk_counts.launches)
+    want = tfw.flat_walk_ref(*args)
+    for design in tfw.DESIGNS:
+        for r in (rows, None):
+            for x, y in zip(tfw.flat_walk(*args, design=design, rows=r),
+                            want):
+                assert torch.equal(x, y), design
+    stats = {}
+    occ = tfw.flat_walk_ref(*args, any_hit=True, stats=stats)
+    got = tfw.flat_walk_counts(*args, any_hit=True, rows=rows)
+    assert torch.equal(got["out"], occ)
+    for k in ("steps", "leaves", "prims", "node_seen", "prim_seen"):
+        assert torch.equal(got[k], stats[k]), k
+    assert (tfw.flat_walk.launches, tfw.flat_walk.thread_launches,
+            tfw.flat_walk_counts.launches) == n0
+    with pytest.raises(ValueError, match="node_rows"):
+        tfw.flat_walk(*args, rows=rows._replace(
+            node_rows=rows.node_rows[:, :6]))
+    with pytest.raises(TypeError, match="prim_gid"):
+        tfw.flat_walk(*args, rows=rows._replace(
+            prim_gid=rows.prim_gid.long()))
+
+
+def test_intersectors_build_the_row_tables_once_per_scene(setups,
+                                                          monkeypatch):
+    """A renderer hands every call a detached view of one scene: the row
+    tables are built at the first call only, and again for other arrays or
+    arrays changed in place."""
+    _, _, st, bt = setups["cornell"]
+    b = bt.to("cpu")
+    built = []
+    real = tflat.row_tables
+    monkeypatch.setattr(tflat, "row_tables",
+                        lambda *a: built.append(1) or real(*a))
+    isect, occl = tdriver._intersectors("bvh", b)
+    ro, rd = rays(64, 15)
+    for _ in range(3):
+        isect(st.detach(), T(ro), T(rd), 0.0, 1e30)
+        occl(st.detach(), T(ro), T(rd), 1.0)
+    assert len(built) == 1
+    moved = st._replace(vertices=st.vertices + 0.0)
+    h = isect(moved, T(ro), T(rd), 0.0, 1e30)
+    assert len(built) == 2
+    moved.vertices.mul_(1.0)                # same memory, a new version
+    isect(moved.detach(), T(ro), T(rd), 0.0, 1e30)
+    assert len(built) == 3
+    isect_t, _ = tdriver._intersectors("bvh", b, design="thread")
+    isect_p, _ = tdriver._intersectors("bvh", b, use_kernels=False)
+    for other in (isect_t, isect_p):
+        assert torch.equal(other(st, T(ro), T(rd), 0.0, 1e30).t, h.t)
+    assert len(built) == 3
+
+
+def test_flat_chains_counts_a_small_render():
+    """tools/flat_chains at 8² spp 2 on the Cornell box with a coarse
+    mesh: ten batches (closest and shadow per depth), a row walk's chain
+    never longer than the thread walk's, and the lane efficiency of a warp
+    of equal rays is 1."""
+    lines = flat_chains.main(["--device", "cpu", "--size", "8", "--spp",
+                              "2", "--mesh-subdiv", "1"])
+    assert [ln["batch"] for ln in lines] == [
+        f"{kind}_{d}" for d in range(5) for kind in ("closest", "shadow")]
+    for ln in lines:
+        assert ln["rays"] == 128 and 0 < ln["lane_efficiency"] <= 1
+        assert ln["chain_rows"]["max"] <= ln["chain_thread"]["max"]
+        assert ln["steps"]["max"] <= ln["chain_rows"]["max"]
+    assert flat_chains.lane_efficiency(torch.full((64,), 7)) == 1.0
+    steps = torch.zeros(32, dtype=torch.long)
+    steps[0] = 10
+    assert flat_chains.lane_efficiency(steps) == 10 / 320
+
+
 @pytest.mark.gpu
 def test_flat_walk_matches_plain_version_on_the_card(setups):
-    """Needs an NVIDIA GPU and nvcc: the flat walk kernel bit for bit
-    against its plain version, closest and any hit, on the edge rays of
-    every test scene and on a batch where nothing walks."""
+    """Needs an NVIDIA GPU and nvcc: both designs of the flat walk kernel
+    bit for bit against their plain version and against each other,
+    closest and any hit, on the edge rays of every test scene and on a
+    batch where nothing walks, with each design's launches counted; and the
+    row walk's STATS form against the plain walk's statistics."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     n0 = tfw.flat_walk.launches
+    t0 = tfw.flat_walk.thread_launches
+    c0 = tfw.flat_walk_counts.launches
     for name in SCENES:
         _, _, st, bt = setups[name]
         b, s = bt.to("cuda"), st.to("cuda")
+        rows = tflat.row_tables(b, s)
         ro, rd, t_min, t_max = _edge_rays(bt, 3000, 10)
         for dead in (False, True):
             if dead:
@@ -432,8 +664,25 @@ def test_flat_walk_matches_plain_version_on_the_card(setups):
                     s.sph_center, s.sph_radius, T(ro).cuda(), T(rd).cuda(),
                     T(t_min[:, 0]).cuda(), T(t_max[:, 0]).cuda(),
                     tsah.MAX_LEAF)
-            for x, y in zip(tfw.flat_walk(*args), tfw.flat_walk_ref(*args)):
-                assert torch.equal(x, y), name
-            assert torch.equal(tfw.flat_walk(*args, any_hit=True),
-                               tfw.flat_walk_ref(*args, any_hit=True)), name
+            for any_hit in (False, True):
+                want = tfw.flat_walk_ref(*args, any_hit=any_hit)
+                for design in tfw.DESIGNS:
+                    got = tfw.flat_walk(*args, any_hit=any_hit,
+                                        design=design, rows=rows)
+                    for x, y in zip((got,) if any_hit else got,
+                                    (want,) if any_hit else want):
+                        assert torch.equal(x, y), (name, design, any_hit)
+            stats = {}
+            tfw.flat_walk_ref(*args, stats=stats)
+            got = tfw.flat_walk_counts(*args, rows=rows)
+            for k in ("steps", "leaves", "prims", "node_seen", "prim_seen"):
+                assert torch.equal(got[k], stats[k]), (name, k)
+        with pytest.raises(ValueError, match="row tables"):
+            tfw.flat_walk(*args)
+        with pytest.raises(ValueError, match="row tables"):
+            tflat.intersect(b, s, T(ro).cuda(), T(rd).cuda(), 0.0, 1e30)
     assert tfw.flat_walk.launches == n0 + 4 * len(SCENES)
+    assert tfw.flat_walk.thread_launches == t0 + 4 * len(SCENES)
+    assert tfw.flat_walk_counts.launches == c0 + 2 * len(SCENES)
+    attrs = tfw.rows_kernel_attrs(False)
+    assert attrs["registers"] > 0 and attrs["blocks_per_sm"] > 0

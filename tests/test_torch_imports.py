@@ -35,7 +35,7 @@ def test_every_module_layout_name_is_present():
                 "kernels.packed_walk", "kernels.flat_walk", "kernels.fetch",
                 "kernels.take_along", "tools.microbench_vmem_gather",
                 "tools.microbench_fetch_kernel", "tools.microbench_dyngather",
-                "tools.walk_windows",
+                "tools.walk_windows", "tools.flat_chains",
                 "render.envmap",
                 "render.bsdf", "render.lights", "render.brute",
                 "render.integrator", "render.driver", "render.wavefront",
@@ -190,6 +190,7 @@ def test_kernel_sources_are_all_declared_to_the_loader(tmp_path, monkeypatch):
                         "launch_floor_launch", "dense_closest_launch",
                         "dense_anyhit_launch", "packed_walk_launch",
                         "packed_walk_window_launch", "flat_walk_launch",
+                        "flat_walk_rows_launch", "flat_walk_rows_attrs",
                         "fetch_rows_launch", "fetch_rows_t_launch",
                         "fetch_fields_launch", "take_along_launch"}
     assert {os.path.basename(p) for p in _build.sources()} == {

@@ -61,10 +61,6 @@ using namespace pair_isect;
 
 constexpr int kThreads = 64;  // rays a block of the thread walk
 
-__device__ __forceinline__ float nan_to(float x, float to) {
-  return x != x ? to : x;
-}
-
 // Ray r with its reciprocal direction; its octant picks its node table.
 struct WalkRay {
   Ray ray;
@@ -114,19 +110,6 @@ __device__ __forceinline__ Node load_node(const float4* __restrict__ nodes,
   nd.skip = __float_as_int(b.z);
   nd.meta = __float_as_int(b.w);
   return nd;
-}
-
-// Primitive row `slot`: v0, e1, e2, then material bits (unused) and type.
-__device__ __forceinline__ Prim load_prim(const float4* __restrict__ prims,
-                                          int slot) {
-  const float4* row = prims + (size_t)slot * 4;
-  const float4 p0 = __ldg(row), p1 = __ldg(row + 1), p2 = __ldg(row + 2);
-  Prim p;
-  p.v0x = p0.x; p.v0y = p0.y; p.v0z = p0.z;
-  p.e1x = p0.w; p.e1y = p1.x; p.e1z = p1.y;
-  p.e2x = p1.z; p.e2y = p1.w; p.e2z = p2.x;
-  p.typ = p2.z;
-  return p;
 }
 
 template <bool ANY>

@@ -1,7 +1,8 @@
 // Device functions shared by the ray/primitive kernels of this library
 // (pair_tile_isect.cu, pair_tile_isect_dedup.cu, pair_ray_reduce.cu,
-// pair_segmin.cu, dense_isect.cu, packed_walk.cu): the Möller–Trumbore /
-// sphere test of one ray against one primitive, the block reduce of the
+// pair_segmin.cu, dense_isect.cu, packed_walk.cu, flat_walk.cu): the
+// Möller–Trumbore / sphere test of one ray against one primitive, the
+// walks' primitive-row load and NaN map, the block reduce of the
 // pair-tile kernel, the (t, gid) combine of the per-ray reduces, and the
 // warp-per-pair kernels' tile loads and warp reduce.
 //
@@ -106,6 +107,27 @@ struct Prim {
 struct Ray {
   float ox, oy, oz, dx, dy, dz, t_min, t_max;
 };
+
+// x, or `to` where x is NaN: the walks' slab test maps a NaN near to -inf
+// and a NaN far to +inf (core/aabb.py::slab_test).
+__device__ __forceinline__ float nan_to(float x, float to) {
+  return x != x ? to : x;
+}
+
+// Primitive row `slot` of a (P, 16) f32 table in bvh/packed.py's row
+// format: v0, e1, e2, then material bits (not loaded: unused) and type.
+// Three 16-byte loads; the table must be 16-byte aligned.
+__device__ __forceinline__ Prim load_prim(const float4* __restrict__ prims,
+                                          int slot) {
+  const float4* row = prims + (size_t)slot * 4;
+  const float4 p0 = __ldg(row), p1 = __ldg(row + 1), p2 = __ldg(row + 2);
+  Prim p;
+  p.v0x = p0.x; p.v0y = p0.y; p.v0z = p0.z;
+  p.e1x = p0.w; p.e1y = p1.x; p.e1z = p1.y;
+  p.e2x = p1.z; p.e2y = p1.w; p.e2z = p2.x;
+  p.typ = p2.z;
+  return p;
+}
 
 // Lane `lane` of tile `cid` of a (C, 12, L) tile array: rows 0-9 (rows 10
 // and 11 are padding and are not fetched).  Neighbouring lanes read

@@ -118,6 +118,11 @@ def load(verbose_ptxas: bool = False):
         lib.packed_walk_window_launch.argtypes = [vp] * 11 + [ci] * 6 + [vp]
         lib.flat_walk_launch.restype = ci
         lib.flat_walk_launch.argtypes = [vp] * 19 + [ci] * 7 + [vp]
+        lib.flat_walk_rows_launch.restype = ci
+        lib.flat_walk_rows_launch.argtypes = [vp] * 15 + [ci] * 6 + [vp]
+        lib.flat_walk_rows_attrs.restype = ci
+        lib.flat_walk_rows_attrs.argtypes = [ci, ci] + [
+            ctypes.POINTER(ci)] * 3
         lib.fetch_rows_launch.restype = ci
         lib.fetch_rows_launch.argtypes = (
             [vp] * 3 + [ci, ci, ctypes.c_longlong] + [ci] * 4 + [vp])

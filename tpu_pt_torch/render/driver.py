@@ -23,12 +23,14 @@ from tpu_pt_torch.scene.types import Scene
 BACKENDS = ("brute", "pallas", "cluster", "packed", "bvh")
 
 
-def _intersectors(backend: str, bvh=None, use_kernels: bool = True):
+def _intersectors(backend: str, bvh=None, use_kernels: bool = True,
+                  design: str = "rows"):
     """(intersect, occluded) closures of a backend: ``"brute"`` (the dense
     oracle, no structure), ``"pallas"`` (the dense-sweep kernels over a
     ``PallasScene``; the name is the JAX package's), ``"cluster"`` (a
     ``ClusterBVH``), ``"packed"`` (the per-ray walk over a ``PackedBVH``)
-    or ``"bvh"`` (the per-ray walk over a ``FlatBVH``).
+    or ``"bvh"`` (the per-ray walk over a ``FlatBVH``; ``design`` is its
+    walk's, ``kernels/flat_walk.py``, and no other backend reads it).
     ``use_kernels=False`` runs the plain PyTorch versions of the backend's
     kernels."""
     if backend == "brute":
@@ -38,10 +40,7 @@ def _intersectors(backend: str, bvh=None, use_kernels: bool = True):
 
         if bvh is None:
             raise ValueError("backend='bvh' requires a FlatBVH")
-        return (
-            functools.partial(flat.intersect, bvh, use_kernels=use_kernels),
-            functools.partial(flat.occluded, bvh, use_kernels=use_kernels),
-        )
+        return flat.intersectors(bvh, use_kernels, design)
     if backend == "pallas":
         from tpu_pt_torch.kernels import intersect as dense
 
@@ -180,16 +179,25 @@ def render(scene: Scene, cam, cfg: RenderConfig, key, backend: str = "brute",
     once and the others take ``(1 << 17) // spp`` pixels a chunk.  A tail
     chunk is padded by re-rendering the last pixel."""
     device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
-    isect, occl = _intersectors(backend, bvh, use_kernels)
-    n_pix = cfg.n_pixels
     if pix_chunk is None:
         if backend == "brute":
             budget = 1 << 22  # ray × prim pairs resident at once
             pix_chunk = max(1, budget // max(1, cfg.spp * scene.n_prims))
         else:
             pix_chunk = max(1, (1 << 17) // cfg.spp)
-        pix_chunk = min(pix_chunk, n_pix)
+        pix_chunk = min(pix_chunk, cfg.n_pixels)
+    return _render_chunks(scene, cam, cfg, key,
+                          *_intersectors(backend, bvh, use_kernels),
+                          pix_chunk)
 
+
+@torch.no_grad()
+def _render_chunks(scene: Scene, cam, cfg: RenderConfig, key, isect, occl,
+                   pix_chunk: int):
+    """``render``'s loop over chunks of ``pix_chunk`` whole pixels on the
+    device of ``scene`` (and ``cam``), through the intersectors given."""
+    device = scene.vertices.device
+    n_pix = cfg.n_pixels
     img = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
     spp_ids = torch.arange(cfg.spp, device=device).repeat(pix_chunk)
     for start in range(0, n_pix, pix_chunk):
