@@ -54,6 +54,21 @@ against the brute-force oracle, and drives these paths at full width:
   the fallback attached: the walk kernel (``packed_walk``) is launched on
   every traversal sub-batch, and the image must equal ``render_main``'s bit
   for bit;
+- the device builds: ``build_device`` builds big-1m's LBVH
+  (``lbvh.build_lbvh``) and its Morton-chunk cluster BVH
+  (``cluster.build_cluster_device``) on the card, times them beside the
+  host builds, checks their invariants and holds each equal, array by
+  array, to the same build on the CPU; ``render_lbvh`` renders the
+  headline through the packed walk on the LBVH (counts and mean beside
+  ``render_main``'s; the 256² cell against ``render_exact``'s packed
+  render; both walk designs bitwise against the plain walk on a camera and
+  a bounce batch, timed beside the SAH packed BVH); ``render_device``
+  renders it through the fused pair stage on the device cluster build
+  (``render_main``'s image at overflow 0, else the command line's repair,
+  held to it); ``render_atrium`` renders the atrium
+  (``meshes.atrium_scene``, two area lights) on the autotuned BVH and on
+  the device cluster build, each repaired where it overflows, and holds
+  the two images to each other;
 - ``determinism``: the same scene at 128², spp 4, rendered twice; the two
   images must be the same bits (several samples of a pixel are in flight in
   one step, and the accumulate adds them in one fixed order);
@@ -115,7 +130,7 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke.py needs a CUDA device; none is available\n")
     sys.exit(2)
 
-from tpu_pt_torch.bvh import cluster, flat, native, packed, sah  # noqa: E402
+from tpu_pt_torch.bvh import cluster, flat, lbvh, native, packed, sah  # noqa: E402
 from tpu_pt_torch.config import RenderConfig  # noqa: E402
 from tpu_pt_torch.core.camera import Camera, generate_rays, pixel_xy  # noqa: E402
 from tpu_pt_torch.core.intersect import INF  # noqa: E402
@@ -262,7 +277,8 @@ def phase_build(scene_h):
     and the cluster BVH of the headline scene, built on the host; both must
     come from the native builder.  Then the Python SAH builder and its
     octant packing on the two Cornell scenes of the oracle.  Returns (the
-    packed BVH on the card, the host cluster BVH, its build seconds)."""
+    packed BVH on the card, the host cluster BVH, its build seconds, the
+    packed BVH's build seconds)."""
     t0 = time.time()
     lib = native._load()
     t_bvh = time.time() - t0
@@ -309,7 +325,7 @@ def phase_build(scene_h):
     assert pk_by == "native" and cb_by == "native", \
         f"big-1m not built by the native builder: packed {pk_by}, " \
         f"cluster {cb_by}"
-    return pk.to(DEV), cb_h, build_s
+    return pk.to(DEV), cb_h, build_s, t_pk
 
 
 # --------------------------------------------------------------------------
@@ -2134,13 +2150,44 @@ def phase_determinism(scene, cb):
     assert equal, "determinism: two spp 4 renders differ"
 
 
+# Suspect rays the exact fallback's walk re-traced in the last call of
+# with_repair_count, per form.
+REPAIRED = {"closest": 0, "any_hit": 0}
+
+
+def with_repair_count(fn, *a, **kw):
+    """fn(*a, **kw), counting on the device the suspect rays that every
+    retrace of the cluster traversal hands to the exact fallback
+    (``REPAIRED``, per form)."""
+    real = {"closest": cluster._retrace_suspects_closest,
+            "any_hit": cluster._retrace_suspects_anyhit}
+    counts = {k: torch.zeros((), dtype=torch.int64, device=DEV)
+              for k in real}
+
+    def spy(form):
+        def run(cb_, ro, rd, t_min1, t_max1, suspect, *a, **k):
+            counts[form] += suspect.sum()
+            return real[form](cb_, ro, rd, t_min1, t_max1, suspect, *a, **k)
+        return run
+
+    cluster._retrace_suspects_closest = spy("closest")
+    cluster._retrace_suspects_anyhit = spy("any_hit")
+    try:
+        return fn(*a, **kw)
+    finally:
+        cluster._retrace_suspects_closest = real["closest"]
+        cluster._retrace_suspects_anyhit = real["any_hit"]
+        REPAIRED.update({k: int(v) for k, v in counts.items()})
+
+
 def phase_render_exact(scene, scene_h, cb, pk, small):
     """The command line's flow of exact repair (tpu_pt/cli.py:175-235) on
     ``render_small``'s render, where the default capacities overflow:
     (1) a render that flags suspect pixels, (2) ``attach_fallback`` and the
     same render on it, (3) the repair of only step 1's suspect pixels,
     (4) the render on the packed walk alone.  Returns the cluster BVH with
-    the fallback attached and the walk's launches in step 2."""
+    the fallback attached, the walk's launches in step 2, step 2's image
+    and step 4's (the packed backend's)."""
     cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4,
                        rr_start=2, rr_prob=0.7)
     cam = meshes.big_camera(256, 256).to(DEV)
@@ -2167,32 +2214,14 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
     t0 = time.time()
     cb_fb = cluster.attach_fallback(cb, scene_h)
     attach_s = time.time() - t0
-    # Suspect rays the walk repairs, per form, counted on the device.
-    real = {"closest": cluster._retrace_suspects_closest,
-            "any_hit": cluster._retrace_suspects_anyhit}
-    repaired = {k: torch.zeros((), dtype=torch.int64, device=DEV)
-                for k in real}
-
-    def spy(form):
-        def run(cb_, ro, rd, t_min1, t_max1, suspect, *a, **k):
-            repaired[form] += suspect.sum()
-            return real[form](cb_, ro, rd, t_min1, t_max1, suspect, *a, **k)
-        return run
-
-    cluster._retrace_suspects_closest = spy("closest")
-    cluster._retrace_suspects_anyhit = spy("any_hit")
     zero_launches((packed_walk,))
-    try:
-        img2, nc2, ns2, ovf2, it2, sus2 = timed(
-            "suspect_counts_fallback",
-            lambda: wavefront.render_wavefront_suspect_counts(
-                scene, cam, cfg, key, cb_fb, **kw))
-    finally:
-        cluster._retrace_suspects_closest = real["closest"]
-        cluster._retrace_suspects_anyhit = real["any_hit"]
+    img2, nc2, ns2, ovf2, it2, sus2 = timed(
+        "suspect_counts_fallback",
+        lambda: with_repair_count(wavefront.render_wavefront_suspect_counts,
+                                  scene, cam, cfg, key, cb_fb, **kw))
+    repaired = REPAIRED.copy()
     launches = packed_walk.launches
     thread_launches = packed_walk.thread_launches
-    repaired = {k: int(v) for k, v in repaired.items()}
     assert ovf2 > 0, "render_exact: the overflow is no longer reported"
     assert launches == 2 * 4 * it2, f"render_exact: {launches} walk launches"
     assert thread_launches == 0, \
@@ -2255,7 +2284,7 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
                        "(else rtol 2e-4 atol 2e-5 where the two "
                        "intersectors round t differently); packed backend "
                        "rtol 1e-3 atol 1e-3, counts within 0.1 %"})
-    return cb_fb, launches, img2
+    return cb_fb, launches, img2, pk_img
 
 
 # --------------------------------------------------------------------------
@@ -2295,17 +2324,19 @@ def take_launches():
     return out
 
 
-def fetch_launches(cb, steps):
+def fetch_launches(cb, steps, traversals=2):
     """The fetch_fields launches of a wavefront render of ``steps`` steps:
-    one for every level below the top, in each of the 2 x 4 traversal
-    sub-batches of a step."""
-    return (len(cb.levels) - 1) * 2 * 4 * steps
+    one for every level below the top, in each of the 4 sub-batches of the
+    ``traversals`` traversals of a step (the closest hit and a shadow ray
+    per light)."""
+    return (len(cb.levels) - 1) * traversals * 4 * steps
 
 
-def check_fetch_launches(launches, cb, steps):
+def check_fetch_launches(launches, cb, steps, traversals=2):
     """Every child fetch of every descent went through fetch_fields, none
     through its twin fetch_rows."""
-    assert launches["fetch_fields"] == fetch_launches(cb, steps), launches
+    assert launches["fetch_fields"] == fetch_launches(cb, steps, traversals), \
+        launches
     assert launches["fetch_rows"] == 0, launches
 
 
@@ -3422,6 +3453,567 @@ def phase_loop_pairs(scene, cam, cb, cfg, key, n_warm=30, n_steps=10):
           "matched_launch_by_launch": matched, "forms": forms})
 
 
+# --------------------------------------------------------------------------
+# The device builds: the LBVH and the Morton-chunk cluster build
+# --------------------------------------------------------------------------
+
+def timed_sync(fn):
+    """(fn(), seconds), the device synchronised before and after."""
+    sync()
+    t0 = time.time()
+    out = fn()
+    sync()
+    return out, time.time() - t0
+
+
+def lbvh_invariants(lb, p):
+    """tests/test_lbvh.py:48-69 on an LBVH of p primitives: 2p-1 nodes, p
+    leaves naming every sorted slot once, a permutation for prim_gid, skip
+    pointers in (i, 2p-1], a root box around every node."""
+    nodes = lb.node_rows()[0]
+    meta = nodes[:, 7].view(np.int32)
+    skip = nodes[:, 6].view(np.int32)
+    leaf = meta >= 0
+    ids = np.arange(2 * p - 1)
+    checks = {
+        "n_nodes": lb.n_nodes == 2 * p - 1 == nodes.shape[0],
+        "leaves": int(leaf.sum()) == p,
+        "slots_once": np.array_equal(
+            np.sort(meta[leaf] & ((1 << 26) - 1)), np.arange(p)),
+        "prim_gid_permutation": np.array_equal(
+            np.sort(lb.prim_gid.cpu().numpy()), np.arange(p)),
+        "skip_forward": bool((skip > ids).all() and (skip <= 2 * p - 1).all()),
+        "root_box_holds_all": bool(
+            (nodes[0, 0:3] <= nodes[:, 0:3] + 1e-5).all()
+            and (nodes[0, 3:6] >= nodes[:, 3:6] - 1e-5).all())}
+    return checks
+
+
+def cluster_build_checks(cb, p):
+    """A cluster build's lanes: live lanes (a non-zero row) first in every
+    tile, every gid on exactly one live lane, and ``tile_gid`` ascending
+    over each tile's live lanes (``pair_ray_reduce``'s build invariant)."""
+    L = cb.tiles.shape[2]
+    live = cb.tiles.abs().sum(1) > 0
+    gid = cb.tile_gid.long()
+    prefix = bool(torch.equal(live, torch.arange(L, device=live.device)[None]
+                              < live.sum(1, keepdim=True)))
+    return {"live_lanes_first": prefix,
+            "every_gid_once": bool(
+                (torch.bincount(gid[live], minlength=p) == 1).all())
+            and int(live.sum()) == p,
+            "tile_gid_ascending": bool(
+                ((gid[:, 1:] > gid[:, :-1]) | ~live[:, 1:]).all())}
+
+
+def builds_equal(a, b):
+    """Array by array, bit for bit, and the static fields: two LBVHs
+    (``PackedBVH``) or two cluster builds."""
+    def same(x, y):
+        x, y = x.cpu(), y.cpu()
+        return x.dtype == y.dtype and x.shape == y.shape and bool(
+            torch.equal(x.view(torch.int16), y.view(torch.int16)))
+    if isinstance(a, packed.PackedBVH):
+        return {"table": same(a.table, b.table),
+                "prim_gid": same(a.prim_gid, b.prim_gid),
+                "static": (a.n_nodes, a.n_tables, a.max_leaf)
+                == (b.n_nodes, b.n_tables, b.max_leaf)}
+    return {"levels": all(same(x, y) for x, y in zip(a.levels, b.levels))
+            and len(a.levels) == len(b.levels),
+            "levels16": all(same(x, y) for x, y in zip(a.levels16,
+                                                       b.levels16)),
+            "tiles": same(a.tiles, b.tiles),
+            "tile_gid": same(a.tile_gid, b.tile_gid),
+            "static": (a.frontiers, a.k_leaf, a.pair_budget, a.pair_mults)
+            == (b.frontiers, b.k_leaf, b.pair_budget, b.pair_mults)}
+
+
+def cluster_shape(cb):
+    return {"n_clusters": cb.n_clusters,
+            "level_sizes": [int(lv.shape[0]) for lv in cb.levels],
+            "frontiers": list(cb.frontiers), "k_leaf": cb.k_leaf,
+            "pair_budget": cb.pair_budget, "pair_mults": list(cb.pair_mults)}
+
+
+def without_spheres(scene):
+    """``scene`` with no spheres.  big-1m's one sphere is ``make_scene``'s
+    placeholder (radius 0 at 1e8): it stretches the scene box until every
+    triangle's Morton code is 0, so the builds sort equal keys.  Without
+    it the codes spread over the mesh's own box."""
+    return scene._replace(sph_center=scene.sph_center[:0],
+                          sph_radius=scene.sph_radius[:0],
+                          sph_mat=scene.sph_mat[:0])
+
+
+def distinct_codes(lo, hi):
+    """How many distinct Morton codes the centroids of boxes lo, hi get."""
+    codes = lbvh.morton_codes((lo + hi) * 0.5, lo.amin(0), hi.amax(0))
+    return int(torch.unique(codes).numel())
+
+
+def device_builds(scene_h, scene):
+    """``lbvh.build_lbvh`` and ``cluster.build_cluster_device`` of
+    ``scene`` (on the card; ``scene_h`` its host arrays), each timed on its
+    first call and on a warm one; the LBVH's invariants, the cluster
+    build's lanes, and both equal, array by array, to the same functions
+    run on the CPU (timed).  Returns (record, LBVH, cluster build)."""
+    p = scene_h.n_prims
+    lb, lb_first = timed_sync(lambda: lbvh.build_lbvh(scene, device=DEV))
+    lb, lb_warm = timed_sync(lambda: lbvh.build_lbvh(scene, device=DEV))
+    cd, cd_first = timed_sync(
+        lambda: cluster.build_cluster_device(scene, device=DEV))
+    cd, cd_warm = timed_sync(
+        lambda: cluster.build_cluster_device(scene, device=DEV))
+    assert lb.table.device.type == "cuda" and cd.tiles.device.type == "cuda"
+    inv = lbvh_invariants(lb, p)
+    lanes = cluster_build_checks(cd, p)
+    t0 = time.time()
+    lb_c = lbvh.build_lbvh(scene_h, device="cpu")
+    cpu_lb_s = time.time() - t0
+    t0 = time.time()
+    cd_c = cluster.build_cluster_device(scene_h, device="cpu")
+    cpu_cd_s = time.time() - t0
+    eq_lb, eq_cd = builds_equal(lb, lb_c), builds_equal(cd, cd_c)
+    del lb_c, cd_c
+    rec = {"n_prims": p,
+           "distinct_morton_codes": distinct_codes(*sah.prim_bounds(scene)),
+           "lbvh_build_s": {"first": round(lb_first, 4),
+                            "warm": round(lb_warm, 4)},
+           "device_cluster_build_s": {"first": round(cd_first, 4),
+                                      "warm": round(cd_warm, 4)},
+           "cpu_builds_s": {"lbvh": round(cpu_lb_s, 2),
+                            "cluster_device": round(cpu_cd_s, 2)},
+           "lbvh": {"n_nodes": lb.n_nodes, "n_tables": lb.n_tables,
+                    "max_leaf": lb.max_leaf,
+                    "table_MB": round(lb.table.numel() * 4 / 1e6, 1),
+                    "invariants": inv, "equals_cpu_build": eq_lb},
+           "cluster_device": {**cluster_shape(cd), "lanes": lanes,
+                              "equals_cpu_build": eq_cd}}
+    assert lb.n_nodes == 2 * p - 1, (lb.n_nodes, p)
+    assert all(inv.values()), inv
+    assert all(lanes.values()), lanes
+    assert all(eq_lb.values()) and all(eq_cd.values()), (eq_lb, eq_cd)
+    return rec, lb, cd
+
+
+def random_boxes_arrays(n, seed):
+    """``lbvh.build_lbvh_arrays`` on n random boxes made from ``seed`` (in
+    [-1, 1]^3, sides up to 0.01: codes nearly all distinct), on the card
+    (first and warm call) and on the CPU: the invariants and the two
+    builds equal bit for bit."""
+    rs = np.random.RandomState(seed)
+    lo = rs.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    hi = lo + rs.uniform(0.0, 0.01, (n, 3)).astype(np.float32)
+    lo_h, hi_h = torch.from_numpy(lo), torch.from_numpy(hi)
+    lo_d, hi_d = lo_h.to(DEV), hi_h.to(DEV)
+    _, first = timed_sync(lambda: lbvh.build_lbvh_arrays(lo_d, hi_d))
+    (nodes, perm), warm = timed_sync(
+        lambda: lbvh.build_lbvh_arrays(lo_d, hi_d))
+    t0 = time.time()
+    nodes_c, perm_c = lbvh.build_lbvh_arrays(lo_h, hi_h)
+    cpu_s = time.time() - t0
+    inv = lbvh_invariants(packed.PackedBVH(
+        table=nodes[0].cpu(), prim_gid=perm.cpu(), max_leaf=1, n_tables=1,
+        n_nodes=nodes.shape[1]), n)
+    eq = {"nodes": bool(torch.equal(nodes.cpu().view(torch.int32),
+                                    nodes_c.view(torch.int32))),
+          "perm": bool(torch.equal(perm.cpu(), perm_c))}
+    rec = {"n_prims": n, "seed": seed,
+           "distinct_morton_codes": distinct_codes(lo_d, hi_d),
+           "build_lbvh_arrays_s": {"first": round(first, 4),
+                                   "warm": round(warm, 4)},
+           "cpu_s": round(cpu_s, 2), "invariants": inv,
+           "equals_cpu_build": eq}
+    assert all(inv.values()), inv
+    assert all(eq.values()), eq
+    return rec
+
+
+def phase_build_device(scene_h, scene, host_s):
+    """The device builds of big-1m on the card (the scene already there),
+    beside the host builds of ``build`` (``device_builds``).  Every
+    triangle of big-1m gets Morton code 0 (``without_spheres``), so the
+    same checks and times are taken on inputs whose codes are real: big-1m
+    without its placeholder sphere, the Cornell box with spheres, and
+    1,310,722 random boxes (``random_boxes_arrays``).  Returns big-1m's
+    two builds."""
+    rec, lb, cd = device_builds(scene_h, scene)
+    real = {}
+    for name, sh in (("big-1m_without_placeholder", without_spheres(scene_h)),
+                     ("cornell_spheres", cornell.cornell("spheres"))):
+        real[name] = device_builds(sh, sh.to(DEV))[0]
+        assert real[name]["distinct_morton_codes"] > 1, (name, real[name])
+    real["random_boxes"] = random_boxes_arrays(scene_h.n_prims - 1, 11)
+    assert real["random_boxes"]["distinct_morton_codes"] > 1
+    emit({"phase": "build_device", "scene": "big-1m", **rec,
+          "host_builds_s": host_s, "real_codes": real,
+          "tolerance": "invariants of tests/test_lbvh.py:48-69; the card's "
+                       "builds torch.equal to the CPU's, array by array, "
+                       "on big-1m (all codes 0) and on three inputs whose "
+                       "codes are real"})
+    return lb, cd
+
+
+def lbvh_batches(scene, cam, lb, cfg, key, queue, n_warm):
+    """Two walk batches of the headline on the LBVH, from the queue after
+    ``n_warm`` steps (the packed backend walks the whole queue at once):
+    its camera rays (the lanes spawned this step; the rest get t_max = -1
+    and leave at the root) and its bounces (the other live lanes), each
+    with the shadow rays of the step, masked the same way.  name -> (ro,
+    rd, t_max (Q,), shadow (ro, rd, t_max (Q,)))."""
+    isect, occl_c = _intersectors_counted("packed", lb)
+    caught = []
+
+    def occl(scene, ro, rd, t_max, narrow=False):
+        caught[:] = [ro, rd, t_max[:, 0]]
+        return occl_c(scene, ro, rd, t_max, narrow=narrow)
+
+    st = wavefront.init_queue(queue, cfg.n_pixels, DEV)
+    with torch.no_grad():
+        for i in range(n_warm + 1):
+            if i == n_warm:
+                nxt = wavefront._respawn(cam, cfg, key, st, 0, cfg.n_pixels,
+                                         0, cfg.spp)
+            st, _ = wavefront._step(scene, cam, cfg, key, isect, occl, st, 0,
+                                    cfg.n_pixels, 0, cfg.spp)
+    alive = nxt.alive[:, 0]
+    out = {}
+    for name, lanes in (("camera", alive & (nxt.depth == 0)),
+                        ("bounce", alive & (nxt.depth > 0))):
+        def masked(t):
+            return torch.where(lanes, t, -1.0).contiguous()
+        out[name] = (nxt.ro.contiguous(), nxt.rd.contiguous(),
+                     masked(torch.full_like(nxt.rd[:, 0], 1e30)),
+                     (caught[0].contiguous(), caught[1].contiguous(),
+                      masked(caught[2])))
+    return out
+
+
+def phase_render_lbvh(scene, cam, cfg, lb, pk, main, img_main, img_packed,
+                      fp32_ops_per_s):
+    """The headline (1024², spp 1, depth 4, queue 4096, key (0, 3)) through
+    the packed backend on the LBVH (one walk a traversal: the closest hit
+    and the shadow ray of each step); its counts and mean beside
+    ``render_main``'s.  Then the LBVH at ``render_exact``'s 256² cell
+    against that phase's ``"packed"`` render on the SAH packed BVH (the
+    same row test), and the walk in both designs bitwise against the plain
+    walk on a camera and a bounce batch of the headline, closest and any
+    hit, timed beside the SAH packed BVH on the same rays.  Returns the
+    launches."""
+    key = (0, 3)
+    kernels = (packed_walk, pair_ray_reduce, fetch_fields, fetch_rows)
+    zero_launches(kernels)
+    (img, nc, ns, ovf, it), run_s = timed_sync(
+        lambda: wavefront.render_wavefront_counts(
+            scene, cam, cfg, key, lb, queue=4096, backend="packed",
+            device=DEV))
+    launches = read_launches(kernels)
+    traversals = 1 + scene.lights.count * cfg.ns_area_light
+    diff = (img - img_main).abs().amax(-1)
+    mean = float(img.mean())
+
+    # render_exact's cell, the same walk over two BVHs.
+    cfg_s = RenderConfig(width=256, height=256, spp=1, max_depth=4,
+                         rr_start=2, rr_prob=0.7)
+    img_s, *counts_s = wavefront.render_wavefront_counts(
+        scene, meshes.big_camera(256, 256).to(DEV), cfg_s, key, lb,
+        queue=4096, backend="packed", device=DEV)
+    differ_s = (img_s != img_packed).any(-1)
+
+    # The walk on two batches: both designs against the plain walk.
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
+    batches = lbvh_batches(scene, cam, lb, cfg, key, 4096, N_WARM)
+    cases, timing = [], {}
+    for name, (ro, rd, t_max, shadow) in batches.items():
+        for form in (False, True):
+            src = shadow if form else (ro, rd, t_max)
+            for bvh_name, bvh in (("lbvh", lb), ("sah_packed", pk)):
+                args = walk_args(bvh, src[0], src[1],
+                                 torch.zeros_like(src[2]), src[2])
+                res, stats, _ = compare_walk(args, f"{name}_{bvh_name}", form)
+                R = int(src[2].shape[0])
+                n_bytes, ops, _ = walk_work(stats, R, form)
+                by_b = n_bytes / HBM_BYTES_PER_S * 1e3
+                by_o = ops / fp32_ops_per_s * 1e3
+                res["bound_ms"] = max(by_b, by_o)
+                res["bound_by"] = "bytes" if by_b >= by_o else "operations"
+                for design in WALK_DESIGNS:
+                    res[f"trace_us_{design}"], res[f"trace_n_{design}"] = \
+                        trace_launches(lambda: packed_walk(
+                            *args, any_hit=form, design=design), flush,
+                            WALK_KERNEL[design])
+                if bvh_name == "lbvh":
+                    assert res["bitwise"] and res["window_vs_thread_bitwise"]
+                cases.append(res)
+    del flush
+    emit({"phase": "render_lbvh", "scene": "big-1m", "size": cfg.width,
+          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
+          "key": list(key), "backend": "packed", "bvh": "lbvh (1 table, "
+          "1 primitive a leaf)", "n_nodes": lb.n_nodes,
+          "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
+          "run_s_over_render_main": round(run_s / main["run_s"], 4),
+          "steps_run": it, "steps_run_render_main": main["steps_run"],
+          "overflow": ovf, "n_closest": nc, "n_shadow": ns,
+          "n_closest_render_main": main["n_closest"],
+          "n_shadow_render_main": main["n_shadow"],
+          "mean_radiance": mean,
+          "mean_radiance_render_main": main["mean_radiance"],
+          "rays_per_s": round((nc + ns) / run_s, 1),
+          "launches": launches, "traversals_per_step": traversals,
+          "max_abs_diff_vs_render_main": float(diff.max()),
+          "pixels_over_1e-3_vs_render_main": int((diff > 1e-3).sum()),
+          "exact_cell": {"size": 256, "counts": counts_s,
+                         "max_abs_diff_vs_render_exact_packed": float(
+                             (img_s - img_packed).abs().max()),
+                         "pixels_differ": int(differ_s.sum()),
+                         "mean_radiance": float(img_s.mean())},
+          "walks": cases,
+          "tolerance": "counts within 0.5 % and mean within 1 % of "
+                       "render_main's (tile test and row test are two "
+                       "intersectors: pixel differences printed, no limit); "
+                       "the 256² LBVH render vs render_exact's packed render "
+                       "rtol 1e-3 atol 1e-3; both walk designs bitwise the "
+                       "plain walk and each other"})
+    assert bool(torch.isfinite(img).all())
+    assert tuple(img.shape) == (cfg.height, cfg.width, 3)
+    assert ovf == 0, "render_lbvh: the packed walk reported overflow"
+    assert launches["packed_walk"] == traversals * it, launches
+    assert launches["packed_walk_thread"] == 0, launches
+    assert launches["pair_ray_reduce"] == launches["fetch_fields"] == 0
+    for k, got in (("n_closest", nc), ("n_shadow", ns)):
+        assert abs(got - main[k]) <= 0.005 * main[k], (k, got, main[k])
+    assert abs(mean - main["mean_radiance"]) <= 0.01 * main["mean_radiance"]
+    assert torch.allclose(img_s, img_packed, rtol=1e-3, atol=1e-3), \
+        "render_lbvh: the 256² LBVH render vs render_exact's packed render"
+    return {"packed_walk": launches["packed_walk"]}
+
+
+def phase_render_device(scene, cam, cfg, cd, pk, main, img_main):
+    """The headline through the fused pair stage on ``build_cluster_device``
+    (the command line's ``--bvh lbvh`` on the cluster backend), in the
+    command line's flow (``render_repaired``; ``pk`` is the fallback
+    ``attach_fallback`` would build).  At overflow 0 the image, counts and
+    steps must be ``render_main``'s; else every pixel that was not suspect
+    must be ``render_main``'s bit for bit, the repaired ones too or within
+    2e-4 / 2e-5.  Then the fused stage against the split stage, bitwise, on
+    three traversal batches of this build.  Returns the launches."""
+    key = (0, 3)
+    final, sus, rec = render_repaired(scene, cam, cfg, key, cd, pk)
+    ovf, it = rec["overflow"], rec["steps_run"]
+    clean = (sus == 0).reshape(cfg.height, cfg.width)
+    differ = (final != img_main).any(-1)
+    n_differ = int(differ.sum())
+
+    # The fused and the split stage on three traversal batches.
+    first, mid, shadow, _, _ = queue_batches(scene, cam, cd, cfg, key, 4096,
+                                             N_WARM)
+    stages = {}
+    for name, (ro, rd, t_max) in (("first_wave", first), ("mid_render", mid)):
+        t_min = torch.zeros_like(t_max)
+        h = {s: cluster.intersect(cd, scene, ro, rd, t_min, t_max,
+                                  pair_stage=s) for s in ("fused", "split")}
+        stages[name] = all(bool(torch.equal(getattr(h["fused"], f),
+                                            getattr(h["split"], f)))
+                           for f in ("hit", "t", "prim", "u", "v"))
+    ro, rd, t_max = shadow
+    stages["mid_render_shadow_narrow"] = bool(torch.equal(*(
+        cluster.occluded_counted(cd, scene, ro, rd, t_max, narrow=True,
+                                 pair_stage=s)[0]
+        for s in ("fused", "split"))))
+    emit({"phase": "render_device", "scene": "big-1m", "size": cfg.width,
+          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
+          "key": list(key), "pair_stage": "fused",
+          "bvh": "build_cluster_device (Morton chunks, split_tau 0.5, "
+                 "cap_scale 1.35)", **cluster_shape(cd), **rec,
+          "run_s_render_main": main["run_s"],
+          "run_s_over_render_main": round(rec["run_s"] / main["run_s"], 4),
+          "image_equals_render_main_bitwise": n_differ == 0,
+          "pixels_differ_from_render_main": n_differ,
+          "max_abs_diff_vs_render_main": float(
+              (final - img_main).abs().max()),
+          "fused_equals_split_bitwise": stages,
+          "tolerance": "overflow 0: image torch.equal to render_main's, "
+                       "counts and steps equal; else after the repair every "
+                       "pixel that was not suspect bitwise, the rest rtol "
+                       "2e-4 atol 2e-5; fused vs split bitwise"})
+    assert rec["launches"]["pair_ray_reduce"] == 2 * 4 * it, rec
+    assert all(stages.values()), stages
+    assert bool(torch.isfinite(final).all())
+    if ovf == 0:
+        assert n_differ == 0, "render_device: image differs from render_main"
+        assert (rec["n_closest"], rec["n_shadow"], it) == (
+            main["n_closest"], main["n_shadow"], main["steps_run"]), \
+            "render_device: counts"
+    else:
+        assert not bool((differ & clean).any()), \
+            "render_device: a pixel that was not suspect differs"
+        assert torch.allclose(final, img_main, rtol=2e-4, atol=2e-5), \
+            "render_device: repaired image vs render_main"
+    return {k: rec["launches"][k] for k in ("pair_ray_reduce",
+                                            "fetch_fields")}
+
+
+def render_repaired(scene, cam, cfg, key, cb, fallback):
+    """The command line's render (tpu_pt/cli.py:175-235): one render that
+    counts and flags suspect pixels; where it overflowed, the fallback
+    attached (``fallback``: a packed BVH on the card) and the suspect
+    pixels rendered again.  Returns (final image, suspect flags, record)."""
+    kw = dict(queue=4096, device=DEV)
+    kernels = (pair_ray_reduce, pair_tile_isect, pair_segmin,
+               pair_tile_isect_dedup, packed_walk, fetch_rows, fetch_fields)
+    zero_launches(kernels)
+    (img, nc, ns, ovf, it, sus), run_s = timed_sync(
+        lambda: wavefront.render_wavefront_suspect_counts(
+            scene, cam, cfg, key, cb, **kw))
+    rec = {"overflow": ovf, "steps_run": it, "n_closest": nc,
+           "n_shadow": ns, "mean_radiance": float(img.mean()),
+           "run_s": round(run_s, 3), "rays_per_s": round((nc + ns) / run_s, 1),
+           "launches": read_launches(kernels),
+           "suspect_pixels": int(sus.sum())}
+    # The fused stage on every traversal sub-batch (the closest hit and a
+    # shadow ray per light, 4 sub-batches each), no other pair stage, no
+    # walk (no fallback attached yet).
+    traversals = 1 + scene.lights.count * cfg.ns_area_light
+    assert rec["launches"]["pair_ray_reduce"] == traversals * 4 * it, rec
+    check_fetch_launches(rec["launches"], cb, it, traversals)
+    assert not any(rec["launches"][k] for k in (
+        "pair_tile_isect", "pair_segmin", "pair_tile_isect_dedup",
+        "packed_walk", "packed_walk_thread")), rec
+    if ovf == 0:
+        return img, sus, rec
+    (final, ovf_r), repair_s = timed_sync(
+        lambda: with_repair_count(wavefront.repair_suspect_pixels, scene,
+                                  cam, cfg, key, cb._replace(
+                                      fallback=fallback), img, sus, **kw))
+    rec.update(suspect_rays_repaired=REPAIRED.copy(),
+               overflow_repair_subset=ovf_r,
+               mean_radiance_final=float(final.mean()),
+               repair_run_s=round(repair_s, 3))
+    return final, sus, rec
+
+
+def differing_pixels(img, ref, sus, n=12):
+    """How many pixels of ``img`` differ from ``ref``, how many of them are
+    suspect and how many lie outside rtol 2e-4 / atol 2e-5, the largest
+    difference, and the first ``n`` of them: id, suspect flag, both
+    values."""
+    differ = (img != ref).any(-1).reshape(-1)
+    ids = torch.nonzero(differ).reshape(-1)
+    flat, rflat = img.reshape(-1, 3), ref.reshape(-1, 3)
+    close = torch.isclose(flat, rflat, rtol=2e-4, atol=2e-5).all(-1)
+    return {"pixels": int(ids.numel()),
+            "suspect_among_them": int(sus.reshape(-1)[ids].sum()),
+            "outside_2e-4_2e-5": int((~close).sum()),
+            "max_abs_diff": float((img - ref).abs().max()),
+            "first": [[int(i), int(sus.reshape(-1)[i]),
+                       [round(float(x), 6) for x in flat[i]],
+                       [round(float(x), 6) for x in rflat[i]]]
+                      for i in ids[:n]]}
+
+
+# The share of the atrium's pixels that may lie outside rtol 2e-4 / atol
+# 2e-5 between two renders whose walks differ only in the packed walk's tie
+# rule at coplanar faces: 0.01%, 104 pixels at 1024^2.  That rule flips 6
+# of 20,000 rays aimed up at the beams of the reduced atrium (0.03%), and
+# most paths never meet a coplanar pair.
+ATRIUM_FEW = 1e-4
+
+
+def phase_render_atrium():
+    """The atrium (``meshes.atrium_scene``, about 1M triangles, two area
+    lights) at 1024², spp 1, depth 4, RR from 2 at 0.7, queue 4096, key
+    (0, 3): (a) on the BVH of the command line's ``--autotune``
+    (``autotune_for_render`` probed at 512²), (b) on
+    ``build_cluster_device``; each through the command line's flow (one
+    render flagging suspects, the exact fallback attached and the suspect
+    pixels repaired where it overflowed).  The two final images must be
+    equal bit for bit where both are at overflow 0; else every pixel
+    suspect in neither render must be, the pixels outside rtol 2e-4 / atol
+    2e-5 at most ``ATRIUM_FEW`` of the image, and all of them repaired by
+    the fallback's walk: the walk culls boxes against its running best t
+    and can keep another primitive at equal t on coplanar faces
+    (``tests/test_torch_packed.py::test_walk_on_coplanar_faces_matches_the_
+    reference_not_always_brute``), so a repaired path may diverge.  The
+    packed walk's render of the same scene (no capacity to overflow) holds
+    both final images to the same share.  Returns the launches of (b)'s
+    render."""
+    t0 = time.time()
+    scene_h = meshes.atrium_scene()
+    scene_s = time.time() - t0
+    scene = scene_h.to(DEV)
+    cfg = RenderConfig(width=1024, height=1024, spp=1, max_depth=4,
+                       rr_start=2, rr_prob=0.7)
+    cam_h = meshes.atrium_camera(1024, 1024)
+    cam, key = cam_h.to(DEV), (0, 3)
+    t0 = time.time()
+    pk = native.build_packed_any(scene_h).to(DEV)
+    pk_s = time.time() - t0
+    (img_p, *counts_p), packed_s = timed_sync(
+        lambda: wavefront.render_wavefront_counts(
+            scene, cam, cfg, key, pk, queue=4096, backend="packed",
+            device=DEV))
+    cb_h, tune_s, parts = tune_timed(scene_h, cam_h, cfg)
+    cb_a = cb_h.to(DEV)
+    del cb_h
+    img_a, sus_a, rec_a = render_repaired(scene, cam, cfg, key, cb_a, pk)
+    del cb_a
+    cd, build_s = timed_sync(lambda: cluster.build_cluster_device(scene,
+                                                                  device=DEV))
+    img_b, sus_b, rec_b = render_repaired(scene, cam, cfg, key, cd, pk)
+    differ = (img_a != img_b).any(-1)
+    both_exact = rec_a["overflow"] == 0 and rec_b["overflow"] == 0
+    walked = ((sus_a != 0) | (sus_b != 0)).reshape(differ.shape)
+    close = torch.isclose(img_a, img_b, rtol=2e-4, atol=2e-5).all(-1)
+    few = int(ATRIUM_FEW * cfg.width * cfg.height)
+    vs_p = {"autotune": differing_pixels(img_a, img_p, sus_a),
+            "device_build": differing_pixels(img_b, img_p, sus_b)}
+    emit({"phase": "render_atrium", "scene": "atrium",
+          "tris": scene_h.n_tris, "lights": int(scene_h.lights.count),
+          "scene_build_s": round(scene_s, 2), "size": cfg.width,
+          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
+          "key": list(key),
+          "autotune": {"autotune_s": round(tune_s, 3),
+                       "autotune_parts": parts,
+                       "probe_size": probe_size(cfg), **rec_a,
+                       "vs_packed": vs_p["autotune"]},
+          "device_build": {"device_cluster_build_s": round(build_s, 4),
+                           **cluster_shape(cd), **rec_b,
+                           "vs_packed": vs_p["device_build"]},
+          "packed": {"packed_build_s": round(pk_s, 2), "n_nodes": pk.n_nodes,
+                     "run_s": round(packed_s, 3), "counts": counts_p,
+                     "mean_radiance": float(img_p.mean())},
+          "autotune_equals_device_build_bitwise": int(differ.sum()) == 0,
+          "autotune_vs_device_build": differing_pixels(img_a, img_b,
+                                                       sus_a | sus_b),
+          "differ_where_neither_render_walked": int((differ & ~walked).sum()),
+          "within_2e-4_2e-5": bool(close.all()),
+          "pixels_outside_2e-4_2e-5": int((~close).sum()),
+          "pixels_outside_2e-4_2e-5_walked": int((~close & walked).sum()),
+          "limit_outside_2e-4_2e-5": few,
+          "tolerance": "the two final images torch.equal where both renders "
+                       "are at overflow 0; else torch.equal on every pixel "
+                       "suspect in neither render (both took every hit from "
+                       "the pair stage), and at most 0.01% of the image "
+                       "outside rtol 2e-4 atol 2e-5, every such pixel "
+                       "repaired by the fallback's walk; each final image "
+                       "against the packed walk's render: at most 0.01% of "
+                       "the image outside rtol 2e-4 atol 2e-5"})
+    assert bool(torch.isfinite(img_a).all() and torch.isfinite(img_b).all())
+    assert float(img_a.mean()) > 0.0
+    if both_exact:
+        assert not bool(differ.any()), \
+            "render_atrium: the two exact renders differ"
+    assert not bool((differ & ~walked).any()), \
+        "render_atrium: a pixel suspect in neither render differs"
+    assert int((~close).sum()) <= few, \
+        "render_atrium: too many pixels outside 2e-4 / 2e-5"
+    for name, d in vs_p.items():
+        assert d["outside_2e-4_2e-5"] <= few, \
+            f"render_atrium: {name} vs packed: {d['outside_2e-4_2e-5']}"
+    return {k: rec_b["launches"][k] for k in ("pair_ray_reduce",
+                                              "fetch_fields")}
+
+
 def phase_paired(scene, cam, cb, cfg, n):
     """The headline render through the fused and the split pair stage
     (``render_main``'s and ``render_split``'s), after one warm-up of each, n
@@ -3481,7 +4073,7 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return
-    pk, cb_h, build_s = phase_build(scene_h)
+    pk, cb_h, build_s, pk_s = phase_build(scene_h)
     scene, cb = scene_h.to(DEV), cb_h.to(DEV)
     n_tris = scene_h.n_tris
     emit({"phase": "scene", "scene_build_s": round(t_scene, 2),
@@ -3500,17 +4092,30 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return
+    lb, cd = phase_build_device(scene_h, scene, {
+        "cluster_build_s": round(build_s, 2),
+        "packed_build_s": round(pk_s, 2)})
     timing, errs, mid = phase_kernels(scene, cam, cb, cfg, (0, 3), pk)
     probe_launches = phase_fetch_probes(cb, mid)
     del mid
     phase_traverse()
     small = phase_render_small(scene, cb)
     phase_determinism(scene, cb)
-    cb_fb, _, img_fb = phase_render_exact(scene, scene_h, cb, pk, small)
+    cb_fb, _, img_fb, img_packed = phase_render_exact(scene, scene_h, cb, pk,
+                                                      small)
     phase_render_grad(scene, cb, cb_fb, img_fb)
     del small
     launches, main_line, img_main = phase_render_main(scene, cam, cb, cfg,
                                                       build_s, n_tris)
+    # The device builds' paths, each with its launch counts zeroed just
+    # before its render and read just after.
+    by_path = {
+        "render_lbvh": phase_render_lbvh(scene, cam, cfg, lb, pk, main_line,
+                                         img_main, img_packed,
+                                         fp32_ops_per_s),
+        "render_device": phase_render_device(scene, cam, cfg, cd, pk,
+                                             main_line, img_main)}
+    del lb, cd, img_packed
     phase_render_autotune(scene, scene_h, cb, cfg, main_line, img_main,
                           img_fb)
     del img_fb, scene_h
@@ -3531,6 +4136,8 @@ def main():
     oracle_launches, flat_walks = phase_render_oracle(fp32_ops_per_s)
     launches.update(oracle_launches)
     launches.update(probe_launches)
+    del scene, cb, pk
+    by_path["render_atrium"] = phase_render_atrium()
 
     # file:line of the pl.pallas_call each kernel replaces.
     sources = {
@@ -3627,6 +4234,11 @@ def main():
                     "take_along"):
             row["launches_counted_in"] = (
                 "render_main" if name == "fetch_fields" else "fetch_probes")
+        if name in ("pair_ray_reduce", "fetch_fields", "packed_walk"):
+            # Its launches in one render of each device build's path.
+            row["launches_by_path"] = {
+                path: got[name] for path, got in by_path.items()
+                if name in got}
         rows.append(row)
     emit({"phase": "done", "total_s": round(time.time() - t_start, 1)})
     print(smi, flush=True)

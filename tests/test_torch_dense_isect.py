@@ -14,7 +14,7 @@ from tpu_pt.bvh.native import _prim_rows as j_prim_rows
 from tpu_pt.kernels import intersect as jki
 from tpu_pt.scene import cornell as jc
 from tpu_pt_torch import convert
-from tpu_pt_torch.bvh.native import _prim_rows as t_prim_rows
+from tpu_pt_torch.bvh.native import prim_rows as t_prim_rows
 from tpu_pt_torch.core.intersect import INF
 from tpu_pt_torch.kernels import intersect as tki
 from tpu_pt_torch.render import brute as tbrute

@@ -92,7 +92,7 @@ def _assert_flat_equal(bj, bt):
 
 def _check_invariants(scene, bvh):
     """tests/test_bvh.py::_check_invariants on the port's tree."""
-    lo, hi = tsah.prim_bounds(scene)
+    lo, hi = (x.numpy() for x in tsah.prim_bounds(scene))
     n = bvh.n_nodes
     skip, start, count = bvh.skip, bvh.prim_start, bvh.prim_count
     ids = bvh.prim_ids

@@ -29,7 +29,7 @@ def test_every_module_layout_name_is_present():
     for mod in ("config", "convert", "core.vecmath", "core.intersect",
                 "core.camera", "core.sampling", "core.aabb", "scene.types",
                 "scene.meshes", "scene.cornell", "bvh.sah", "bvh.native",
-                "bvh.cluster", "bvh.packed", "bvh.flat",
+                "bvh.cluster", "bvh.packed", "bvh.flat", "bvh.lbvh",
                 "kernels.cluster_isect", "kernels.pair_scan",
                 "kernels.pair_fused", "kernels.intersect",
                 "kernels.packed_walk", "kernels.flat_walk", "kernels.fetch",
@@ -94,6 +94,15 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     img = wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=64,
                                      device="cpu")
     assert tuple(img.shape) == (8, 8, 3)
+    # The device builds: on the card by default, on the CPU when asked.
+    from tpu_pt_torch.bvh import lbvh
+
+    for build in (lbvh.build_lbvh, cluster.build_cluster_device):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(scene)
+    assert lbvh.build_lbvh(scene, device="cpu").table.device.type == "cpu"
+    cd = cluster.build_cluster_device(scene, device="cpu")
+    assert cd.tiles.device.type == "cpu" and cd.top_soa is not None
 
 
 def test_oracle_render_and_dense_scene_default_to_cuda_and_raise_without_a_card():

@@ -530,3 +530,50 @@ def test_packed_walk_matches_plain_version_on_the_card():
         tpw.packed_walk(args[0], args[1],
                         torch.zeros((3000, 6), device="cuda")[:, :3],
                         *args[3:])
+
+
+def test_walk_on_coplanar_faces_matches_the_reference_not_always_brute():
+    """The atrium's crossing ceiling beams put coplanar faces of different
+    ids at the same t.  The walk culls a box whose slab entry rounds above
+    its running best t, so there it can keep another primitive than brute
+    force (a higher id at equal t, or a farther hit); the JAX package's
+    walk does the same, ray for ray, and the cluster traversal, which tests
+    every candidate, agrees with brute force.  Prints how many rays the
+    walk keeps apart from brute force."""
+    from tpu_pt_torch.bvh import cluster as tcl
+
+    sj = jm.atrium_scene(col_rad=16, col_ny=6)
+    st = convert.scene_from_numpy(scene_dict(sj), "cpu")
+    pj = jnative.build_packed(sj)
+    pt = convert.packed_bvh_from_numpy(packed_dict(pj), "cpu")
+    cb = tcl.build_cluster_bvh(st).to("cpu")
+    rs = np.random.RandomState(0)
+    R = 20000
+    ro = rs.uniform([-11, 0.5, -4.5], [11, 8.0, 4.5], (R, 3)).astype(np.float32)
+    rd = rs.normal(size=(R, 3))
+    rd[:, 1] = np.abs(rd[:, 1]) * 2                     # up, to the beams
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    t_min, t_max = np.zeros((R, 1), np.float32), np.full((R, 1), 1e30,
+                                                           np.float32)
+    args = tuple(T(x) for x in (ro, rd, t_min, t_max))
+    h_w = tpk.intersect(pt, st.to("cpu"), *args)
+    h_c = tcl.intersect(cb, st.to("cpu"), *args)
+    h_j = jpk.intersect(pj, sj, *(jnp.asarray(x) for x in (ro, rd, t_min,
+                                                             t_max)))
+    np.testing.assert_array_equal(h_w.hit.numpy(), np.asarray(h_j.hit))
+    np.testing.assert_array_equal(h_w.prim.numpy(), np.asarray(h_j.prim))
+    np.testing.assert_allclose(h_w.t.numpy(), np.asarray(h_j.t), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(h_c.hit, h_w.hit)
+    apart = torch.nonzero(h_c.hit[:, 0] & ((h_w.prim != h_c.prim)
+                                          | (h_w.t != h_c.t)[:, 0]))
+    apart = apart.reshape(-1)
+    h_b = tbrute.intersect(st.to("cpu"), *(a[apart] for a in args))
+    assert bool(h_b.hit.all())
+    for f in ("prim", "t", "u", "v"):
+        assert torch.equal(getattr(h_c, f)[apart], getattr(h_b, f)), f
+    assert bool((h_w.t[apart] >= h_b.t).all())
+    equal_t = int((h_w.t[apart] == h_b.t).sum())
+    print(f"coplanar faces: {apart.numel()} of {R} rays kept apart from "
+          f"brute force by the walk ({equal_t} at equal t, "
+          f"{apart.numel() - equal_t} farther)")

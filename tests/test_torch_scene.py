@@ -31,6 +31,29 @@ def test_big_scene_equal():
     assert b.n_tris == a.n_tris and b.n_prims == a.n_prims
 
 
+@pytest.mark.parametrize("col_rad,col_ny", [(16, 6), (12, 9)])
+def test_atrium_scene_equal(col_rad, col_ny):
+    """The atrium at reduced column resolution (the full scene has
+    1,044,772 triangles): every array equal."""
+    a = jm.atrium_scene(col_rad=col_rad, col_ny=col_ny)
+    b = tm.atrium_scene(col_rad=col_rad, col_ny=col_ny)
+    assert_tree_equal(a, b)
+    assert b.n_tris == a.n_tris and b.lights.count == 2
+
+
+@pytest.mark.parametrize("fn,args", [("_grid_quad", ((0, 1, 2), (3, 0, 0),
+                                                     (0, 0, 2), 5, 3)),
+                                     ("_column", (1.0, -2.0, 0.4, 0.5, 4.6,
+                                                  24, 7)),
+                                     ("_box", ((-1, 0, -2), (1, 0.5, 2)))])
+def test_atrium_parts_equal(fn, args):
+    va, fa = getattr(jm, fn)(*args)
+    vb, fb = getattr(tm, fn)(*args)
+    np.testing.assert_array_equal(np.asarray(va), vb)
+    np.testing.assert_array_equal(np.asarray(fa), fb)
+    assert vb.dtype == np.float32 and fb.dtype == np.int32
+
+
 @pytest.mark.parametrize("fn,args", [("icosphere", (3,)),
                                      ("displaced_sphere", (4,))])
 def test_mesh_primitives_equal(fn, args):
@@ -40,10 +63,12 @@ def test_mesh_primitives_equal(fn, args):
     np.testing.assert_array_equal(np.asarray(fa), fb)
 
 
-@pytest.mark.parametrize("which", ["cornell", "big"])
+@pytest.mark.parametrize("which", ["cornell", "big", "atrium"])
 def test_cameras_equal(which):
-    a = jc.camera(24, 16) if which == "cornell" else jm.big_camera(32, 24)
-    b = tc.camera(24, 16) if which == "cornell" else tm.big_camera(32, 24)
+    a, b = {"cornell": (jc.camera(24, 16), tc.camera(24, 16)),
+            "big": (jm.big_camera(32, 24), tm.big_camera(32, 24)),
+            "atrium": (jm.atrium_camera(32, 24),
+                       tm.atrium_camera(32, 24))}[which]
     assert_tree_equal(a, b)
     # Rays through the same screen points agree.
     xy = np.random.RandomState(0).rand(256, 2).astype(np.float32)

@@ -167,3 +167,71 @@ def test_queue_bookkeeping_matches_jax():
                                atol=1e-6)
     np.testing.assert_array_equal(np.asarray(sj.ro), st.ro.numpy())
     np.testing.assert_array_equal(np.asarray(sj.beta), st.beta.numpy())
+
+
+def _debug_calls():
+    """Every rendering entry point that takes a RenderConfig, called on a
+    tiny Cornell render with the given config (on the CPU)."""
+    from tpu_pt_torch.diff import adjoint, params
+    from tpu_pt_torch.render import driver
+
+    scene = tc.cornell("spheres")
+    cb = tcl.build_cluster_bvh(scene)
+    cam = tc.camera(4, 4)
+    p = {k: np.asarray(v) for k, v in params.split(scene)[0].items()}
+    target = np.zeros((16, 3), np.float32)
+    img = torch.zeros((4, 4, 3))
+    sus = torch.ones((16,), dtype=torch.int32)
+    kw = dict(queue=16, device="cpu")
+    sc, camc, cbc = scene.to("cpu"), cam.to("cpu"), cb.to("cpu")
+    return {
+        "render_wavefront": lambda cfg: twf.render_wavefront(
+            scene, cam, cfg, (0, 1), cb, **kw),
+        "render_wavefront_counts": lambda cfg: twf.render_wavefront_counts(
+            scene, cam, cfg, (0, 1), cb, **kw),
+        "render_wavefront_suspect_counts": lambda cfg:
+            twf.render_wavefront_suspect_counts(scene, cam, cfg, (0, 1), cb,
+                                                **kw),
+        "repair_suspect_pixels": lambda cfg: twf.repair_suspect_pixels(
+            scene, cam, cfg, (0, 1), cb, img, sus, **kw),
+        "wavefront_accum": lambda cfg: twf.wavefront_accum(
+            sc, camc, cfg, (0, 1), cbc, 16, "cluster", 0, 16),
+        "driver.render": lambda cfg: driver.render(scene, cam, cfg, (0, 1),
+                                                   device="cpu"),
+        "render_flat": lambda cfg: adjoint.render_flat(scene, cam, cfg,
+                                                       (0, 1), device="cpu"),
+        "render_grad": lambda cfg: adjoint.render_grad(
+            p, scene, cam, cfg, (0, 1), target, device="cpu"),
+        "loss_and_grad": lambda cfg: adjoint.loss_and_grad(
+            p, scene, cam, cfg, (0, 1), target, device="cpu"),
+        "wavefront_loss": lambda cfg: adjoint.wavefront_loss(
+            convert.params_from_numpy(p, "cpu"), sc, camc, cfg, (0, 1),
+            torch.from_numpy(target), cbc, queue=16),
+        "loss_and_grad_wavefront": lambda cfg:
+            adjoint.loss_and_grad_wavefront(p, scene, cam, cfg, (0, 1),
+                                            target, cb, **kw),
+    }
+
+
+ENTRY_POINTS = ("render_wavefront", "render_wavefront_counts",
+                "render_wavefront_suspect_counts", "repair_suspect_pixels",
+                "wavefront_accum", "driver.render", "render_flat",
+                "render_grad", "loss_and_grad", "wavefront_loss",
+                "loss_and_grad_wavefront")
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_debug_checks_raise_at_every_rendering_entry_point(entry):
+    """The sanitizer is not ported: ``debug_checks=True`` raises, naming
+    where it is planned, and ``False`` renders as before."""
+    calls = _debug_calls()
+    assert tuple(calls) == ENTRY_POINTS
+    call = calls[entry]
+    cfg = TConfig(width=4, height=4, spp=1, max_depth=1)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        call(cfg.replace(debug_checks=True))
+    out = call(cfg)
+    first = out[0] if isinstance(out, tuple) else out
+    assert bool(torch.isfinite(first).all())
+    assert TConfig.from_json(cfg.replace(debug_checks=True).to_json()) \
+        .debug_checks is True

@@ -35,6 +35,11 @@ and takes the walk's answer for them, so truncation costs time, never a
 hit.  The walk is launched on every such call (non-suspect rays get
 ``t_max = -1`` and leave at the root), so that no host read decides it.
 
+Two builds make the structure: ``build_cluster_bvh`` on the host (SAH
+leaves from the native builder, numpy), and ``build_cluster_device``,
+torch ops on the card (Morton-ordered chunks, refined by SAH window
+splits, under wider default caps: ``cap_scale``).
+
 Only the compact traversal is here, and the capacity tooling that sizes
 its budgets from measured rays (``level_hit_counts``, ``autotune_*``);
 everything runs under ``torch.no_grad()`` semantics (no tensor requires
@@ -48,8 +53,10 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from tpu_pt_torch.bvh import packed as packed_mod
-from tpu_pt_torch.bvh.sah import build_bvh
+from tpu_pt_torch.bvh import native, packed as packed_mod
+from tpu_pt_torch.bvh.lbvh import morton_codes
+from tpu_pt_torch.bvh.sah import build_bvh, prim_bounds
+from tpu_pt_torch.config import resolve_device
 from tpu_pt_torch.core.intersect import INF, as_col
 from tpu_pt_torch.kernels.cluster_isect import (
     B as PBLK, _mt_group, pair_rows as _pair_rows, pair_tile_isect,
@@ -202,25 +209,12 @@ def make_cluster_bvh(levels, tiles, tile_gid, frontiers, k_leaf: int,
                       tuple(levels16))
 
 
-def _prim_lane_rows(scene: Scene, pid: np.ndarray) -> np.ndarray:
-    """(len(pid), 12) packed rows for the tile tensor (before transpose)."""
-    v = np.asarray(scene.vertices)
-    ti = np.asarray(scene.tri_idx)
-    sc = np.asarray(scene.sph_center)
-    sr = np.asarray(scene.sph_radius)
-    n_tris = ti.shape[0]
-    rows = np.zeros((len(pid), 12), np.float32)
-    is_tri = pid < n_tris
-    tg = pid[is_tri]
-    v0 = v[ti[tg, 0]]
-    rows[is_tri, 0:3] = v0
-    rows[is_tri, 3:6] = v[ti[tg, 1]] - v0
-    rows[is_tri, 6:9] = v[ti[tg, 2]] - v0
-    sg = pid[~is_tri] - n_tris
-    rows[~is_tri, 0:3] = sc[sg]
-    rows[~is_tri, 3] = sr[sg]
-    rows[~is_tri, 9] = 1.0
-    return rows
+def _prim_lane_rows(scene: Scene, pid) -> torch.Tensor:
+    """(len(pid), 12) packed rows for the tile tensor (before transpose):
+    ``native.prim_rows`` without its material column, so the type moves to
+    column 9."""
+    r = native.prim_rows(scene, pid)
+    return torch.cat([r[:, :9], r[:, 10:13]], 1)
 
 
 def default_frontiers(level_sizes: Sequence[int]):
@@ -252,8 +246,6 @@ def build_cluster_bvh(scene: Scene, tile: int = TILE,
     ``native.BuilderFallbackWarning``) -> padded tile tensor + implicit
     8-ary AABB pyramid (all numpy; upload with ``.to(device)``).  ``scene``
     holds host arrays."""
-    from tpu_pt_torch.bvh import native
-
     leaves = native.build_leaves(scene, max_leaf=tile)
     if leaves is not None:
         start, cnt, lo, hi, pid = leaves
@@ -273,7 +265,7 @@ def build_cluster_bvh(scene: Scene, tile: int = TILE,
     # zero edges => det 0 for triangles, radius 0 for spheres).  Lanes are
     # sorted by gid within each cluster so "first lane at min t" — the rule
     # the pair kernel uses — IS the lowest-gid tie-break.
-    rows_all = _prim_lane_rows(scene, pid)  # (P, 12) in leaf order
+    rows_all = _prim_lane_rows(scene, pid).numpy()  # (P, 12), leaf order
     rows = np.zeros((C, tile, 12), np.float32)
     gid = np.zeros((C, tile), np.int32)
     for c in range(C):
@@ -289,12 +281,8 @@ def build_cluster_bvh(scene: Scene, tile: int = TILE,
     # The top level is tested DENSELY against every ray, so it can be
     # hundreds of nodes wide — every level it replaces removes a block
     # gather + compaction step.
-    n_levels = 1
-    top = C
-    while top > dense_start:
-        top = -(-top // 8)
-        n_levels += 1
-    sizes = [top * 8 ** l for l in range(n_levels)]  # top-first
+    sizes = _ladder_sizes(C, dense_start)
+    n_levels = len(sizes)
 
     bot = np.zeros((sizes[-1], 8), np.float32)
     bot[:, 0:3] = np.inf
@@ -320,6 +308,221 @@ def build_cluster_bvh(scene: Scene, tile: int = TILE,
     return make_cluster_bvh(
         levels, tiles, gid, tuple(frontiers), int(k_leaf), int(pair_budget),
         pair_mults=tuple(pair_mults) if pair_mults is not None else (8, 8, 6))
+
+
+def _ladder_sizes(C: int, dense_start: int):
+    """Row counts of the implicit 8-ary pyramid over C clusters, top-first:
+    the top level is the first of C, C/8, C/64, ... (rounded up) at most
+    ``dense_start`` wide, and each level below has 8x its rows."""
+    n_levels = 1
+    top = C
+    while top > dense_start:
+        top = -(-top // 8)
+        n_levels += 1
+    return [top * 8 ** l for l in range(n_levels)]
+
+
+def _levels16_t(levels):
+    """``_levels16`` on tensors: the bf16 outward-rounded copies of the
+    level tables as ``torch.bfloat16`` (N, 8) tensors on the levels'
+    device, the same bits.  The f32 words are read as int64 so that no
+    sign bit smears into the bf16 half."""
+    def trunc(x):
+        return (x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) >> 16
+
+    def val(h):
+        w = h << 16
+        return torch.where(w >= 1 << 31, w - (1 << 32), w).to(
+            torch.int32).view(torch.float32)
+
+    out = []
+    for lv in levels:
+        lo, hi = lv[:, 0:3].contiguous(), lv[:, 3:6].contiguous()
+        h_lo = trunc(lo)
+        h_lo = (h_lo + (val(h_lo) > lo).to(torch.int64)) & 0xFFFF
+        h_hi = trunc(hi)
+        h_hi = (h_hi + (val(h_hi) < hi).to(torch.int64)) & 0xFFFF
+        row = torch.zeros((lv.shape[0], 8), dtype=torch.int64,
+                          device=lv.device)
+        row[:, 0:3] = h_lo
+        row[:, 3:6] = h_hi
+        row = torch.where(row >= 1 << 15, row - (1 << 16), row)
+        out.append(row.to(torch.int16).view(torch.bfloat16))
+    return out
+
+
+def _sah_costs(live, lo_f, hi_f, C: int, tile: int):
+    """The exact 1-D SAH cost of every internal cut of each of C windows
+    and of the unsplit window: ((C, tile-1) areaL*nL + areaR*nR, (C,)
+    area*n), from prefix / suffix box scans, in the reference's order of
+    operations (each product and sum rounded once)."""
+    lo_w = lo_f.reshape(C, tile, 3)
+    hi_w = hi_f.reshape(C, tile, 3)
+    pre_lo = torch.cummin(lo_w, dim=1).values
+    pre_hi = torch.cummax(hi_w, dim=1).values
+    suf_lo = torch.cummin(lo_w.flip(1), dim=1).values.flip(1)
+    suf_hi = torch.cummax(hi_w.flip(1), dim=1).values.flip(1)
+
+    def _area(l, h):
+        d = torch.clamp_min(h - l, 0.0)
+        return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                      + d[..., 2] * d[..., 0])
+
+    n_w = torch.sum(live.reshape(C, tile), dim=1)           # live a window
+    i_cut = torch.arange(1, tile, device=lo_f.device)
+    nL = torch.minimum(i_cut[None, :], n_w[:, None]).to(torch.float32)
+    nR = n_w[:, None].to(torch.float32) - nL
+    # Cut at i: left = lanes [0, i) (prefix index i-1), right = [i, tile).
+    cost = (_area(pre_lo[:, :-1], pre_hi[:, :-1]) * nL
+            + _area(suf_lo[:, 1:], suf_hi[:, 1:]) * nR)
+    return cost, _area(pre_lo[:, -1], pre_hi[:, -1]) * n_w.to(torch.float32)
+
+
+def _sah_split_round(rows, gid_f, live, lo_f, hi_f, C: int, tile: int,
+                     split_tau: float):
+    """One SAH-swept window-split round of the device cluster build.
+
+    Each of the C current chunks (lanes filled from 0) is a window: every
+    internal cut is costed (``_sah_costs``) and the window splits into
+    chunk slots 2w / 2w+1 iff its best cut costs less than ``split_tau`` x
+    the unsplit cost.  An unsplit window leaves slot 2w+1 empty (an
+    inverted box, never a candidate).  Returns the arrays at 2C chunks and
+    2C."""
+    dev = lo_f.device
+    cost, whole = _sah_costs(live, lo_f, hi_f, C, tile)
+    best_cost, best = torch.min(cost, dim=1)   # the first minimum, as argmin
+    cut = torch.where(best_cost < split_tau * whole, best + 1, tile)
+
+    o = torch.arange(tile, device=dev)[None, :]
+    right = o >= cut[:, None]
+    chunk = 2 * torch.arange(C, device=dev)[:, None] + right.to(torch.int64)
+    lane = o - torch.where(right, cut[:, None], 0)
+    slot = (chunk * tile + lane).reshape(-1)                # unique slots
+    C2 = 2 * C
+
+    def spread(x, fill):
+        out = torch.full((C2 * tile,) + tuple(x.shape[1:]), fill,
+                         dtype=x.dtype, device=dev)
+        out[slot] = x
+        return out
+
+    return (spread(rows, 0.0), spread(gid_f, 0), spread(live, False),
+            spread(lo_f, float("inf")), spread(hi_f, float("-inf")), C2)
+
+
+def _morton_chunks(scene: Scene, tile: int):
+    """The device build's input before refinement, from a tensor scene:
+    the primitives in Morton order (a stable sort of their centroids'
+    codes) as (C*tile, 12) tile rows, gids, live flags and bounds, padded
+    to C = ceil(P / tile) chunks (padding: zero rows, gid 0, dead, an
+    inverted box).  Returns (rows, gid_f, live, lo_f, hi_f, C)."""
+    lo, hi = prim_bounds(scene)
+    P = lo.shape[0]
+    cent = (lo + hi) * 0.5
+    codes = morton_codes(cent, torch.amin(lo, 0), torch.amax(hi, 0))
+    og = torch.sort(codes, stable=True).indices
+    rows = _prim_lane_rows(scene, og)
+    dev = rows.device
+
+    C = -(-P // tile)
+    pad = C * tile - P
+    inf = float("inf")
+    return (torch.cat([rows, rows.new_zeros((pad, 12))]),
+            torch.cat([og, og.new_zeros((pad,))]),
+            torch.arange(C * tile, device=dev) < P,
+            torch.cat([lo[og], lo.new_full((pad, 3), inf)]),
+            torch.cat([hi[og], hi.new_full((pad, 3), -inf)]), C)
+
+
+@torch.no_grad()
+def build_cluster_device(scene: Scene, tile: int = TILE,
+                         frontiers: Sequence[int] | None = None,
+                         k_leaf: int | None = None,
+                         pair_budget: int | None = None,
+                         dense_start: int = 512,
+                         cap_scale: float = 1.35,
+                         split_tau: float | None = 0.5,
+                         split_rounds: int = 1,
+                         device="cuda") -> ClusterBVH:
+    """Device cluster build: primitives Morton-sorted by centroid and
+    chopped into consecutive ``tile``-wide chunks, whose boxes form the
+    pyramid; torch ops on ``device`` (the card by default; raises without
+    one unless ``device="cpu"``), no host build.  Returns the
+    ``ClusterBVH`` on ``device`` with its descent tables filled.  Cluster
+    quality is below the host SAH build (Morton chunks overlap more), which
+    costs traversal time, not correctness: the same capacity contract.
+
+    ``split_tau``: SAH window refinement.  Each ``tile``-wide window is
+    swept for its best internal cut (exact 1-D SAH over every cut) and
+    splits into two chunks iff that cut's cost, areaL*nL + areaR*nR, is
+    below ``split_tau`` x the unsplit cost; ``split_rounds`` rounds, each
+    doubling the chunk slots (an unsplit window leaves an empty slot).
+    ``None`` turns it off (plain chunking).
+
+    ``cap_scale`` and ``split_tau`` are coupled.  Morton chunks need wider
+    frontiers than SAH clusters, so the default caps are the geometric
+    model's times ``cap_scale`` (1.35), computed on the PRE-split ladder:
+    with refinement on, half the slots of every level are empty, so the
+    n^(1/3) model runs on the level sizes shifted right by
+    ``split_rounds``.  With ``split_tau=None`` the same 1.35 scales the
+    caps of the plain chunking's full ladder.  The pair multipliers are
+    ``(8, 8, ceil(6 * cap_scale), ceil(4 * cap_scale))``, (8, 8, 9, 6) at
+    the default."""
+    scene = scene.to(resolve_device(device))
+    rows, gid_f, live, lo_f, hi_f, C = _morton_chunks(scene, tile)
+    dev = rows.device
+    inf = float("inf")
+
+    if split_tau is not None:
+        for _ in range(max(1, int(split_rounds))):
+            rows, gid_f, live, lo_f, hi_f, C = _sah_split_round(
+                rows, gid_f, live, lo_f, hi_f, C, tile, split_tau)
+
+    # Lanes sorted by gid within each cluster, padding last: the first lane
+    # at the least t is then the lowest gid, the tie rule of the pair stage
+    # (``pair_ray_reduce`` relies on it).
+    gid = gid_f.reshape(C, tile)
+    live_w = live.reshape(C, tile)
+    key = torch.where(live_w, gid, 2 ** 31 - 1)
+    lane_o = torch.sort(key, dim=1, stable=True).indices
+    gid = torch.where(torch.gather(live_w, 1, lane_o),
+                      torch.gather(gid, 1, lane_o), 0).to(torch.int32)
+    rows = torch.gather(rows.reshape(C, tile, 12), 1,
+                        lane_o[:, :, None].expand(C, tile, 12))
+    tiles = rows.transpose(1, 2).contiguous()
+
+    sizes = _ladder_sizes(C, dense_start)
+    pad_c = sizes[-1] - C
+    cur_lo = torch.cat([torch.amin(lo_f.reshape(C, tile, 3), 1),
+                        lo_f.new_full((pad_c, 3), inf)])
+    cur_hi = torch.cat([torch.amax(hi_f.reshape(C, tile, 3), 1),
+                        hi_f.new_full((pad_c, 3), -inf)])
+    levels = []
+    for li in range(len(sizes)):
+        levels.insert(0, torch.cat(
+            [cur_lo, cur_hi, cur_lo.new_zeros((cur_lo.shape[0], 2))], 1))
+        if li < len(sizes) - 1:
+            cur_lo = torch.amin(cur_lo.reshape(-1, 8, 3), 1)
+            cur_hi = torch.amax(cur_hi.reshape(-1, 8, 3), 1)
+
+    if frontiers is None or k_leaf is None:
+        sz = [lv.shape[0] for lv in levels]
+        eff = sz if split_tau is None else \
+            [max(1, s >> int(split_rounds)) for s in sz]
+        df, dk = default_frontiers(eff)
+        df = tuple(min(s, int(np.ceil(c * cap_scale)))
+                   for s, c in zip(sz, df))
+        dk = min(sz[-1], int(np.ceil(dk * cap_scale)))
+        frontiers = tuple(frontiers) if frontiers is not None else df
+        k_leaf = int(k_leaf) if k_leaf is not None else dk
+    if len(frontiers) != len(levels):
+        raise ValueError(f"{len(frontiers)} frontier caps {tuple(frontiers)} "
+                         f"for {len(levels)} levels {sizes}")
+    pair_budget = pair_budget or min(k_leaf, 4)
+    mults = (8, 8, int(np.ceil(6 * cap_scale)), int(np.ceil(4 * cap_scale)))
+    return ClusterBVH(tuple(levels), tiles, gid, tuple(frontiers),
+                      int(k_leaf), int(pair_budget), mults,
+                      tuple(_levels16_t(levels))).to(dev)
 
 
 # ---------------------------------------------------------------------------

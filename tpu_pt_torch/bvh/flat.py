@@ -19,7 +19,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from tpu_pt_torch.bvh.native import _prim_rows
+from tpu_pt_torch.bvh.native import prim_rows
 from tpu_pt_torch.bvh.sah import MAX_LEAF, FlatBVH
 from tpu_pt_torch.core.intersect import INF, as_col
 from tpu_pt_torch.kernels.flat_walk import (FlatRows, _check_design,
@@ -60,7 +60,7 @@ def row_tables(bvh: FlatBVH, scene: Scene) -> FlatRows:
     """The row walk's tables of ``bvh`` over ``scene`` (``FlatRows``), on
     the device of ``bvh``'s arrays: node rows [min.xyz, max.xyz, link,
     count] (link: skip for an inner node, prim_start for a leaf) and the
-    packed primitive rows (``native._prim_rows``) in ``prim_ids`` slot
+    packed primitive rows (``native.prim_rows``) in ``prim_ids`` slot
     order, with the ids beside them.  Raises where the table breaks
     :func:`check_preorder`.  Bits are copied, never computed, except a
     triangle's edges v1 - v0 and v2 - v0 (one f32 rounding each, as the
@@ -78,7 +78,7 @@ def row_tables(bvh: FlatBVH, scene: Scene) -> FlatRows:
                               for f in _PRIM_FIELDS})
     pid = _host(bvh.prim_ids).astype(np.int32)
     return FlatRows(node_rows=torch.from_numpy(np.ascontiguousarray(nodes)),
-                    prim_rows=torch.from_numpy(_prim_rows(host, pid)),
+                    prim_rows=prim_rows(host, pid),
                     prim_gid=torch.from_numpy(pid.copy())).to(dev)
 
 

@@ -19,9 +19,10 @@ import subprocess
 import warnings
 
 import numpy as np
+import torch
 
 from tpu_pt_torch.bvh.sah import build_bvh, prim_bounds
-from tpu_pt_torch.scene.types import Scene
+from tpu_pt_torch.scene.types import Scene, as_tensor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG), "native", "bvh_builder.cpp")
@@ -96,31 +97,32 @@ def _load():
     return _lib
 
 
-def _prim_rows(scene: Scene, pid: np.ndarray) -> np.ndarray:
-    """Packed 16-wide primitive rows for the primitives ``pid`` of a host
-    scene: triangle ``[v0, e1, e2, mat bits, 0, pad]``, sphere
-    ``[centre, r, 0 0, 0 0 0, mat bits, 1.0, pad]``.  Column 9 holds the
-    int32 material id's BIT PATTERN viewed as f32 (often a denormal): it is
-    carried, never computed on.  Column 10 is the type."""
-    v = np.asarray(scene.vertices)
-    ti = np.asarray(scene.tri_idx)
-    tm = np.asarray(scene.tri_mat)
-    sc = np.asarray(scene.sph_center)
-    sr = np.asarray(scene.sph_radius)
-    sm = np.asarray(scene.sph_mat)
+def prim_rows(scene: Scene, pid) -> torch.Tensor:
+    """Packed 16-wide primitive rows for the primitives ``pid``: triangle
+    ``[v0, e1, e2, mat bits, 0, pad]``, sphere ``[centre, r, 0 0, 0 0 0, mat
+    bits, 1.0, pad]``.  Column 9 holds the int32 material id's BIT PATTERN
+    viewed as f32 (often a denormal): it is carried, never computed on.
+    Column 10 is the type.  On the device of the scene's tensors, or on the
+    CPU where it holds host arrays (``.numpy()`` them)."""
+    v = as_tensor(scene.vertices).detach()
+    ti = as_tensor(scene.tri_idx).long()
+    pid = torch.as_tensor(pid, device=v.device).long()
     n_tris = ti.shape[0]
-    rows = np.zeros((len(pid), 16), np.float32)
+    rows = torch.zeros((pid.shape[0], 16), dtype=torch.float32,
+                       device=v.device)
     is_tri = pid < n_tris
     tg = pid[is_tri]
     v0 = v[ti[tg, 0]]
     rows[is_tri, 0:3] = v0
     rows[is_tri, 3:6] = v[ti[tg, 1]] - v0
     rows[is_tri, 6:9] = v[ti[tg, 2]] - v0
-    rows[is_tri, 9] = tm[tg].astype(np.int32).view(np.float32)
+    rows[is_tri, 9] = as_tensor(scene.tri_mat)[tg].to(
+        torch.int32).view(torch.float32)
     sg = pid[~is_tri] - n_tris
-    rows[~is_tri, 0:3] = sc[sg]
-    rows[~is_tri, 3] = sr[sg]
-    rows[~is_tri, 9] = sm[sg].astype(np.int32).view(np.float32)
+    rows[~is_tri, 0:3] = as_tensor(scene.sph_center).detach()[sg]
+    rows[~is_tri, 3] = as_tensor(scene.sph_radius).detach()[sg]
+    rows[~is_tri, 9] = as_tensor(scene.sph_mat)[sg].to(
+        torch.int32).view(torch.float32)
     rows[~is_tri, 10] = 1.0
     return rows
 
@@ -129,9 +131,7 @@ def _build_tree(lib, scene: Scene, max_leaf: int):
     """Run the native SAH build over the scene's primitive bounds.  Returns
     (handle, primitive count, node count); the handle is freed by the one
     emit call that follows (``bvh_emit`` or ``bvh_emit_leaves``)."""
-    lo, hi = prim_bounds(scene)
-    lo = np.ascontiguousarray(lo, np.float32)
-    hi = np.ascontiguousarray(hi, np.float32)
+    lo, hi = (x.numpy() for x in prim_bounds(scene))
     n_nodes = ctypes.c_int(0)
     handle = lib.bvh_build(lo.ctypes.data_as(_FP), hi.ctypes.data_as(_FP),
                            lo.shape[0], max_leaf, ctypes.byref(n_nodes))
@@ -173,7 +173,7 @@ def build_packed(scene: Scene, max_leaf: int = 4):
     perm = np.empty((n,), np.int32)
     lib.bvh_emit(ctypes.c_void_p(handle), nodes.ctypes.data_as(_FP),
                  perm.ctypes.data_as(_IP))
-    return PackedBVH.build(nodes=nodes, prims=_prim_rows(scene, perm),
+    return PackedBVH.build(nodes=nodes, prims=prim_rows(scene, perm).numpy(),
                            prim_gid=perm, max_leaf=max_leaf)
 
 

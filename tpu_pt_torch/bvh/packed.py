@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_pt_torch.bvh.native import _prim_rows
+from tpu_pt_torch.bvh.native import prim_rows
 from tpu_pt_torch.bvh.sah import FlatBVH
 from tpu_pt_torch.core.intersect import INF, as_col
 from tpu_pt_torch.kernels.packed_walk import (  # noqa: F401 (re-exported)
@@ -160,7 +160,7 @@ def pack_bvh(bvh: FlatBVH, scene: Scene, max_leaf: int = 4) -> PackedBVH:
     leaf order."""
     pid = np.asarray(bvh.prim_ids)
     return PackedBVH.build(nodes=_octant_tables(bvh),
-                           prims=_prim_rows(scene, pid), prim_gid=pid,
+                           prims=prim_rows(scene, pid).numpy(), prim_gid=pid,
                            max_leaf=max_leaf)
 
 

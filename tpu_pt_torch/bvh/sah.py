@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_pt_torch.scene.types import Scene
+from tpu_pt_torch.scene.types import Scene, as_tensor
 
 MAX_LEAF = 4
 N_BINS = 16
@@ -56,18 +56,16 @@ class FlatBVH(NamedTuple):
 
 
 def prim_bounds(scene: Scene):
-    """(P, 3) mins/maxs for the combined triangle+sphere index space
-    (numpy; ``scene`` holds host arrays)."""
-    v = np.asarray(scene.vertices)
-    ti = np.asarray(scene.tri_idx)
+    """(lo, hi) (P, 3) f32 bounds of the primitives, triangles then spheres,
+    for the combined index space: tensors on the device of the scene's
+    tensors, or on the CPU where it holds host arrays (``.numpy()`` them)."""
+    v, ti = as_tensor(scene.vertices), as_tensor(scene.tri_idx).long()
     p0, p1, p2 = v[ti[:, 0]], v[ti[:, 1]], v[ti[:, 2]]
-    tri_min = np.minimum(np.minimum(p0, p1), p2)
-    tri_max = np.maximum(np.maximum(p0, p1), p2)
-    c = np.asarray(scene.sph_center)
-    r = np.asarray(scene.sph_radius)[:, None]
-    lo = np.concatenate([tri_min, c - r], axis=0)
-    hi = np.concatenate([tri_max, c + r], axis=0)
-    return lo.astype(np.float32), hi.astype(np.float32)
+    c = as_tensor(scene.sph_center)
+    r = as_tensor(scene.sph_radius)[:, None]
+    lo = torch.cat([torch.minimum(torch.minimum(p0, p1), p2), c - r])
+    hi = torch.cat([torch.maximum(torch.maximum(p0, p1), p2), c + r])
+    return lo.detach().float(), hi.detach().float()
 
 
 def _sah_split(ids, lo, hi, cent):
@@ -123,7 +121,7 @@ def build_bvh(scene: Scene, max_leaf: int = MAX_LEAF) -> FlatBVH:
     left one emits the left subtree contiguously at parent + 1.  An inner
     node's skip is patched once its subtree is emitted (a "patch" item
     below its children on the stack); a leaf's skip is its index + 1."""
-    lo, hi = prim_bounds(scene)
+    lo, hi = (x.numpy() for x in prim_bounds(scene))
     n = lo.shape[0]
     cent = (lo + hi) * 0.5
     prim_perm = np.empty(n, dtype=np.int32)

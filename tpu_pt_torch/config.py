@@ -1,9 +1,12 @@
-"""Render configuration: a frozen dataclass of plain Python values."""
+"""Render configuration (a frozen dataclass of plain Python values) and the
+checks every entry point makes of it and of the device it is asked for."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,7 +24,7 @@ class RenderConfig:
     spp_chunk: int = 4               # spp rendered per device pass (memory knob)
     dtype: str = "float32"
     eps: float = 1e-4                # shadow/secondary ray offset
-    debug_checks: bool = False       # accepted for config parity; not read yet
+    debug_checks: bool = False       # the sanitizer: not ported, True raises
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
@@ -36,3 +39,25 @@ class RenderConfig:
     @classmethod
     def from_json(cls, s: str) -> "RenderConfig":
         return cls(**json.loads(s))
+
+
+def refuse_debug_checks(cfg: RenderConfig) -> None:
+    """Raise on ``cfg.debug_checks``: the reference runs its sanitizer on
+    it, and this package has none yet, so every rendering entry point
+    refuses the flag rather than render without the checks."""
+    if cfg.debug_checks:
+        raise NotImplementedError(
+            "RenderConfig(debug_checks=True): the sanitizer is not ported "
+            "yet (ROADMAP.md queue 1 item 5); render with debug_checks=False")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  The package runs on the card by
+    default: asking for CUDA where there is none raises, it never falls
+    back to the host."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "tpu_pt_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the host")
+    return device

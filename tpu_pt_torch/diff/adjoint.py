@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_pt_torch.config import RenderConfig
+from tpu_pt_torch.config import RenderConfig, refuse_debug_checks
 from tpu_pt_torch.diff.params import merge
 from tpu_pt_torch.render.driver import _intersectors, _on_device
 from tpu_pt_torch.render.integrator import render_chunk
@@ -41,6 +41,7 @@ from tpu_pt_torch.scene.types import Scene
 
 def _render_flat(scene: Scene, cam, cfg: RenderConfig, key, backend, bvh,
                  use_kernels):
+    refuse_debug_checks(cfg)
     isect, occl = _intersectors(backend, bvh, use_kernels)
     dev = scene.vertices.device
     pixel_ids = torch.arange(cfg.n_pixels, device=dev).repeat_interleave(

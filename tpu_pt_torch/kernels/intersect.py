@@ -12,7 +12,7 @@ of ``csrc/dense_isect.cu`` (which replace the Pallas kernels
 ``closest_ref`` / ``anyhit_ref``, the plain PyTorch versions, for CPU
 tensors.  The choice follows the tensors' device and nothing else.
 
-Primitive rows ((P, 16) f32, P % 128 == 0, see ``bvh/native.py::_prim_rows``):
+Primitive rows ((P, 16) f32, P % 128 == 0, see ``bvh/native.py::prim_rows``):
   tri:    [v0, e1, e2, mat bits, 0 (type), pad]
   sphere: [centre, r, 0 0, 0 0 0, mat bits, 1 (type), pad]
 Column 9 is a bit pattern and is never read here; all-zero rows are padding
@@ -232,9 +232,9 @@ class PallasScene:
 
     def __init__(self, scene: Scene = None, *, prims=None, n_prims=None):
         if scene is not None:
-            from tpu_pt_torch.bvh.native import _prim_rows
+            from tpu_pt_torch.bvh.native import prim_rows
 
-            rows = _prim_rows(scene, np.arange(scene.n_prims, dtype=np.int32))
+            rows = prim_rows(scene, np.arange(scene.n_prims)).cpu().numpy()
             p = rows.shape[0]
             prims = np.zeros((-(-p // TBLK) * TBLK, 16), np.float32)
             prims[:p] = rows

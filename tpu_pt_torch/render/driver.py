@@ -15,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from tpu_pt_torch.config import RenderConfig
+from tpu_pt_torch.config import (RenderConfig, refuse_debug_checks,
+                                 resolve_device)
 from tpu_pt_torch.render import brute
 from tpu_pt_torch.render.integrator import render_chunk
 from tpu_pt_torch.scene.types import Scene
@@ -158,11 +159,7 @@ def _intersectors_suspect(backend: str, bvh=None, use_kernels: bool = True,
 def _on_device(device, scene, cam, bvh):
     """Resolve the entry points' ``device`` argument and move the inputs.
     Raises when a CUDA device is asked for and none is present."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "tpu_pt_torch renders on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the host")
+    device = resolve_device(device)
     return (device, scene.to(device), cam.to(device),
             bvh.to(device) if bvh is not None else None)
 
@@ -178,6 +175,7 @@ def render(scene: Scene, cam, cfg: RenderConfig, key, backend: str = "brute",
     the brute backend keeps ``1 << 22`` ray × primitive pairs resident at
     once and the others take ``(1 << 17) // spp`` pixels a chunk.  A tail
     chunk is padded by re-rendering the last pixel."""
+    refuse_debug_checks(cfg)
     device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
     if pix_chunk is None:
         if backend == "brute":

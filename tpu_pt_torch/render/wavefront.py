@@ -40,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from tpu_pt_torch.config import RenderConfig
+from tpu_pt_torch.config import RenderConfig, refuse_debug_checks
 from tpu_pt_torch.core.camera import generate_rays, pixel_xy
 from tpu_pt_torch.core.sampling import draws_lane
 from tpu_pt_torch.core.vecmath import dot, make_coord_space, to_local, to_world
@@ -400,7 +400,9 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     With ``with_counts`` also returns (n_closest, n_shadow, n_overflow,
     steps_run) as device scalars / int; with ``with_suspects`` the
     (n_pix_local,) i32 suspect flags follow; with ``with_done`` the last
-    item is a bool: no lane alive and every sample spawned."""
+    item is a bool: no lane alive and every sample spawned.
+    ``cfg.debug_checks`` raises (no sanitizer yet)."""
+    refuse_debug_checks(cfg)
     spp_count = spp_count or cfg.spp
     pick = _intersectors_suspect if with_suspects else _intersectors_counted
     intersect_fn, occluded_fn = pick(backend, bvh, use_kernels, pair_stage)
@@ -518,6 +520,7 @@ def repair_suspect_pixels(scene: Scene, cam, cfg: RenderConfig, key,
     padded to the next power of two, at least 16, by repeating the first
     suspect pixel; the repeats fill accumulator rows of their own and are
     dropped at the splice."""
+    refuse_debug_checks(cfg)
     device, scene, cam, bvh_exact = _on_device(device, scene, cam, bvh_exact)
     sus = torch.nonzero(torch.as_tensor(suspect_flags).reshape(-1).to(
         device)).reshape(-1)

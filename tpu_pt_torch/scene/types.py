@@ -30,6 +30,12 @@ LIGHT_ENV = 5  # environment map (uniform-sphere NEE; radiance from Scene.env_ma
 LIGHT_SPOT = 6  # spot: position + normal(=axis) + hard cone, cos(half-angle) in edge_x[0]
 
 
+def as_tensor(x):
+    """``x`` if it is a tensor, else a CPU tensor over the host array."""
+    return x if torch.is_tensor(x) else torch.from_numpy(
+        np.ascontiguousarray(x))
+
+
 def _to_tensors(nt, device):
     """NamedTuple of numpy arrays / tensors / nested NamedTuples -> the same
     container holding tensors on ``device`` (dtypes kept)."""
@@ -40,7 +46,7 @@ def _to_tensors(nt, device):
         elif torch.is_tensor(x):
             out.append(x.to(device))
         else:
-            out.append(torch.from_numpy(np.ascontiguousarray(x)).to(device))
+            out.append(as_tensor(x).to(device))
     return type(nt)(*out)
 
 
