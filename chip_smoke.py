@@ -66,9 +66,18 @@ against the brute-force oracle, and drives these paths at full width:
   renders it through the fused pair stage on the device cluster build
   (``render_main``'s image at overflow 0, else the command line's repair,
   held to it); ``render_atrium`` renders the atrium
-  (``meshes.atrium_scene``, two area lights) on the autotuned BVH and on
-  the device cluster build, each repaired where it overflows, and holds
-  the two images to each other;
+  (``meshes.atrium_scene``, two area lights) at 512² on the autotuned BVH
+  and on the device cluster build, each repaired where it overflows, and
+  holds the two images to each other;
+- ``cli``: the command line (``tpu_pt_torch.cli.main``, in-process, its
+  launches counted): the headline through ``render big-1m`` (the PNG byte
+  for byte ``render_main``'s image), the repair flow at 256² (the PNG
+  ``render_exact``'s repaired image), ``--checkpoint`` (stopped at the
+  first overflowing chunk, resumed on the fallback; bitwise the
+  progressive render, and an interrupted run resumed the same bits),
+  big-1m loaded from a COLLADA file and lit by an EXR sky (``-e``),
+  ``--backend bvh`` / ``wavefront``, ``visualize-bvh``, ``dump-bvh``, and
+  the sanitizer (``render_wavefront_checked``) on the 256² cell;
 - ``determinism``: the same scene at 128², spp 4, rendered twice; the two
   images must be the same bits (several samples of a pixel are in flight in
   one step, and the accumulate adds them in one fixed order);
@@ -96,8 +105,9 @@ walks.  ``fetch_probes`` runs the three ported fetch probes
 (``tpu_pt_torch/tools/microbench_*``: ``fetch_rows``, ``fetch_rows_t``,
 ``take_along``) at the JAX tools' full shapes and at the real descent.
 
-It prints one JSON object per phase.  Any failed phase raises and the
-process exits non-zero.  Without a CUDA device it exits with code 2 before
+It prints one JSON object per phase (``done``: the total and each phase's
+seconds, ``phase_s``).  Any failed phase raises and the process exits
+non-zero.  Without a CUDA device it exits with code 2 before
 printing any result.
 
 The last line of standard output is
@@ -115,11 +125,16 @@ for a kernel that does nothing.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -130,6 +145,7 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke.py needs a CUDA device; none is available\n")
     sys.exit(2)
 
+from tpu_pt_torch import cli as port_cli  # noqa: E402
 from tpu_pt_torch.bvh import cluster, flat, lbvh, native, packed, sah  # noqa: E402
 from tpu_pt_torch.config import RenderConfig  # noqa: E402
 from tpu_pt_torch.core.camera import Camera, generate_rays, pixel_xy  # noqa: E402
@@ -155,11 +171,13 @@ from tpu_pt_torch.kernels.fetch import (  # noqa: E402
 from tpu_pt_torch.kernels.take_along import (  # noqa: E402
     take_along, take_along_form, take_along_ref)
 from tpu_pt_torch.render import brute, film, integrator, wavefront  # noqa: E402
+from tpu_pt_torch.render.envmap import gradient_sky, load_envmap  # noqa: E402
+from tpu_pt_torch.render.progressive import render_progressive  # noqa: E402
 from tpu_pt_torch.render.driver import (  # noqa: E402
     _intersectors, _intersectors_counted, _render_chunks, render)
-from tpu_pt_torch.scene import cornell, meshes  # noqa: E402
+from tpu_pt_torch.scene import collada, cornell, exr, meshes, obj  # noqa: E402
 from tpu_pt_torch.scene.types import (  # noqa: E402
-    LIGHT_AREA, make_lights, make_materials, make_scene)
+    LIGHT_AREA, MAT_DIFFUSE, make_lights, make_materials, make_scene)
 from tpu_pt_torch.tools import _probe as probe  # noqa: E402
 from tpu_pt_torch.tools import flat_chains  # noqa: E402
 from tpu_pt_torch.tools import microbench_dyngather as dyngather_tool  # noqa: E402
@@ -2186,8 +2204,9 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
     (1) a render that flags suspect pixels, (2) ``attach_fallback`` and the
     same render on it, (3) the repair of only step 1's suspect pixels,
     (4) the render on the packed walk alone.  Returns the cluster BVH with
-    the fallback attached, the walk's launches in step 2, step 2's image
-    and step 4's (the packed backend's)."""
+    the fallback attached, the walk's launches in step 2, step 2's image,
+    step 4's (the packed backend's), step 3's repaired image and its count
+    of suspect pixels."""
     cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4,
                        rr_start=2, rr_prob=0.7)
     cam = meshes.big_camera(256, 256).to(DEV)
@@ -2284,7 +2303,7 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
                        "(else rtol 2e-4 atol 2e-5 where the two "
                        "intersectors round t differently); packed backend "
                        "rtol 1e-3 atol 1e-3, counts within 0.1 %"})
-    return cb_fb, launches, img2, pk_img
+    return cb_fb, launches, img2, pk_img, rep, int(sus1.sum())
 
 
 # --------------------------------------------------------------------------
@@ -3913,7 +3932,7 @@ def differing_pixels(img, ref, sus, n=12):
 
 # The share of the atrium's pixels that may lie outside rtol 2e-4 / atol
 # 2e-5 between two renders whose walks differ only in the packed walk's tie
-# rule at coplanar faces: 0.01%, 104 pixels at 1024^2.  That rule flips 6
+# rule at coplanar faces: 0.01%, 26 pixels at 512^2.  That rule flips 6
 # of 20,000 rays aimed up at the beams of the reduced atrium (0.03%), and
 # most paths never meet a coplanar pair.
 ATRIUM_FEW = 1e-4
@@ -3921,8 +3940,9 @@ ATRIUM_FEW = 1e-4
 
 def phase_render_atrium():
     """The atrium (``meshes.atrium_scene``, about 1M triangles, two area
-    lights) at 1024², spp 1, depth 4, RR from 2 at 0.7, queue 4096, key
-    (0, 3): (a) on the BVH of the command line's ``--autotune``
+    lights) at 512² (the headline's 1024² cut to a quarter of the pixels
+    to make room for the command line's phase), spp 1, depth 4, RR from 2
+    at 0.7, queue 4096, key (0, 3): (a) on the BVH of the command line's ``--autotune``
     (``autotune_for_render`` probed at 512²), (b) on
     ``build_cluster_device``; each through the command line's flow (one
     render flagging suspects, the exact fallback attached and the suspect
@@ -3941,9 +3961,9 @@ def phase_render_atrium():
     scene_h = meshes.atrium_scene()
     scene_s = time.time() - t0
     scene = scene_h.to(DEV)
-    cfg = RenderConfig(width=1024, height=1024, spp=1, max_depth=4,
+    cfg = RenderConfig(width=512, height=512, spp=1, max_depth=4,
                        rr_start=2, rr_prob=0.7)
-    cam_h = meshes.atrium_camera(1024, 1024)
+    cam_h = meshes.atrium_camera(512, 512)
     cam, key = cam_h.to(DEV), (0, 3)
     t0 = time.time()
     pk = native.build_packed_any(scene_h).to(DEV)
@@ -4014,6 +4034,396 @@ def phase_render_atrium():
                                               "fetch_fields")}
 
 
+# --------------------------------------------------------------------------
+# The command line (tpu_pt_torch.cli), driven in-process
+# --------------------------------------------------------------------------
+
+def run_cli(argv):
+    """``cli.main(argv)`` with its standard output and error captured ->
+    (its last JSON line, its standard error, seconds, the launches of every
+    kernel: zeroed just before the call, read just after), the device
+    synchronised before and after."""
+    out, err = io.StringIO(), io.StringIO()
+    sync()
+    zero_launches(ALL_KERNELS)
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = port_cli.main(argv)
+    sync()
+    dt = time.time() - t0
+    launches = read_launches(ALL_KERNELS)
+    assert rc == 0, f"cli {argv}: exit {rc}\n{err.getvalue()}"
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{")]
+    return (lines[-1] if lines else None), err.getvalue(), dt, launches
+
+
+def png_bytes(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def same_png(path, img):
+    """Whether the PNG at ``path`` is byte for byte ``film.save`` of the
+    image ``img`` (a tensor or array)."""
+    ref = path + ".ref.png"
+    film.save(ref, img.cpu().numpy() if torch.is_tensor(img) else img)
+    return png_bytes(path) == png_bytes(ref)
+
+
+def floats_text(a, fmt="%.9g"):
+    return " ".join(fmt % x for x in np.asarray(a).reshape(-1).tolist())
+
+
+def write_dae(path, scene_h, cam, hfov):
+    """A host scene of area lights and diffuse triangles, no spheres, as a
+    COLLADA document the port's loader reads back: one geometry for each
+    run of triangles of one material (each run's vertices a range of their
+    own, in order), each bound to a lambert effect of its albedo; each
+    LIGHT_AREA row an <extra> area light on a node whose matrix carries its
+    edges' directions and centre; the camera ``cam`` (its c2w columns and
+    origin) with an xfov of ``hfov`` degrees.  Floats at %.9g: float32
+    values read back exactly."""
+    v = np.asarray(scene_h.vertices)
+    tri, mat = np.asarray(scene_h.tri_idx), np.asarray(scene_h.tri_mat)
+    cuts = [0] + [int(i) + 1 for i in np.flatnonzero(np.diff(mat))] \
+        + [len(mat)]
+    albedo = np.asarray(scene_h.materials.albedo)
+    assert (np.asarray(scene_h.materials.kind) == MAT_DIFFUSE).all()
+    fx = "".join(
+        f'<effect id="fx{m}"><profile_COMMON><technique sid="c"><lambert>'
+        f'<diffuse><color>{floats_text(albedo[m])} 1</color></diffuse>'
+        f'</lambert></technique></profile_COMMON></effect>'
+        for m in range(len(albedo)))
+    mats = "".join(f'<material id="m{m}"><instance_effect url="#fx{m}"/>'
+                   f'</material>' for m in range(len(albedo)))
+    geoms, nodes, v_next = [], [], 0
+    for g, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+        t = tri[a:b]
+        lo, hi = int(t.min()), int(t.max()) + 1
+        assert lo == v_next, "each run's vertices must follow the last's"
+        v_next = hi
+        geoms.append(
+            f'<geometry id="g{g}"><mesh><source id="g{g}-p"><float_array '
+            f'id="g{g}-a" count="{3 * (hi - lo)}">{floats_text(v[lo:hi])}'
+            f'</float_array></source><vertices id="g{g}-v"><input '
+            f'semantic="POSITION" source="#g{g}-p"/></vertices><triangles '
+            f'material="s" count="{b - a}"><input semantic="VERTEX" '
+            f'source="#g{g}-v" offset="0"/><p>'
+            f'{" ".join(map(str, (t - lo).reshape(-1).tolist()))}</p>'
+            f'</triangles></mesh></geometry>')
+        nodes.append(
+            f'<node id="n{g}"><instance_geometry url="#g{g}"><bind_material>'
+            f'<technique_common><instance_material symbol="s" '
+            f'target="#m{int(mat[a])}"/></technique_common></bind_material>'
+            f'</instance_geometry></node>')
+    assert v_next == len(v)
+    lights = scene_h.lights
+    lib_l = []
+    for i in range(lights.count):
+        assert int(lights.kind[i]) == LIGHT_AREA
+        ex, ey = np.asarray(lights.edge_x[i]), np.asarray(lights.edge_y[i])
+        m = np.eye(4)
+        m[:3, 0] = ex / np.linalg.norm(ex)
+        m[:3, 1] = ey / np.linalg.norm(ey)
+        m[:3, 2] = -np.asarray(lights.normal[i])
+        m[:3, 3] = np.asarray(lights.position[i]) + 0.5 * ex + 0.5 * ey
+        lib_l.append(
+            f'<light id="l{i}"><extra><technique profile="ext"><area>'
+            f'<size_x>{np.linalg.norm(ex):.9g}</size_x><size_y>'
+            f'{np.linalg.norm(ey):.9g}</size_y><color>'
+            f'{floats_text(lights.radiance[i])}</color></area></technique>'
+            f'</extra></light>')
+        nodes.append(f'<node id="ln{i}"><matrix>{floats_text(m)}</matrix>'
+                     f'<instance_light url="#l{i}"/></node>')
+    m = np.eye(4)
+    m[:3, :3] = np.asarray(cam.c2w)
+    m[:3, 3] = np.asarray(cam.origin)
+    nodes.append(f'<node id="cam"><matrix>{floats_text(m)}</matrix>'
+                 f'<instance_camera url="#c"/></node>')
+    doc = (
+        '<?xml version="1.0" encoding="utf-8"?><COLLADA xmlns='
+        '"http://www.collada.org/2005/11/COLLADASchema" version="1.4.1">'
+        f'<library_effects>{fx}</library_effects>'
+        f'<library_materials>{mats}</library_materials>'
+        f'<library_geometries>{"".join(geoms)}</library_geometries>'
+        '<library_cameras><camera id="c"><optics><technique_common>'
+        f'<perspective><xfov>{hfov}</xfov></perspective></technique_common>'
+        '</optics></camera></library_cameras>'
+        f'<library_lights>{"".join(lib_l)}</library_lights>'
+        '<library_visual_scenes><visual_scene id="s">'
+        f'{"".join(nodes)}</visual_scene></library_visual_scenes>'
+        '</COLLADA>')
+    with open(path, "w") as fh:
+        fh.write(doc)
+
+
+def write_obj(path, scene_h):
+    """The triangles of a host scene as a Wavefront OBJ: its vertices at
+    %.9g, one ``usemtl m<id>`` before each run of triangles of one
+    material, 1-based faces.  ``obj.load`` gives material m<id> the row
+    id + 1 (row 0 is its default)."""
+    tri, mat = np.asarray(scene_h.tri_idx) + 1, np.asarray(scene_h.tri_mat)
+    lines = [f"v {floats_text(p)}" for p in np.asarray(scene_h.vertices)]
+    for t, m in zip(tri.tolist(), mat.tolist()):
+        if len(lines) == len(scene_h.vertices) or m != last:
+            lines.append(f"usemtl m{m}")
+            last = m
+        lines.append("f %d %d %d" % tuple(t))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def phase_cli(scene_h, img_main, main_line, img_rep, sus_pixels):
+    """The port's command line (``tpu_pt_torch.cli.main``), in-process so
+    that its launches are counted, in a scratch directory of the checkout:
+    (a) ``render big-1m`` at the headline's settings: the PNG byte for byte
+    ``render_main``'s image, the JSON line's overflow 0 and mean_radiance
+    ``render_main``'s to 5 places, 3,672 / 7,344 launches; (b) the same at
+    256², where the default caps overflow: the suspect pixels named on
+    standard error, the PNG ``render_exact``'s repaired image, the window
+    walk launched and its thread twin not; (c) ``--checkpoint`` at 256²,
+    spp 2, ``--chunk-spp 1``: the first chunk overflows, the run stops,
+    attaches the fallback and resumes; the image (read from the
+    checkpoint) bitwise ``render_progressive`` on the fallback-attached BVH
+    with no checkpoint, and a run interrupted after its first chunk and
+    resumed the same bits; (d) big-1m (its triangles, materials, light and
+    ``big_camera``'s look-at) written as COLLADA and rendered with ``-e``
+    on an EXR of ``gradient_sky`` at 512², spp 1: the loaded vertices,
+    tri_idx and tri_mat the source's, the EXR read back bitwise, the image
+    finite and any overflow repaired; (e) ``--backend bvh`` and
+    ``--backend wavefront`` on the Cornell spheres (the flat row walk, the
+    packed window walk; neither thread twin), ``visualize-bvh big-1m`` and
+    ``dump-bvh cornell-mesh``; (f) the sanitizer
+    (``render_wavefront_checked``) on the 256² cell bitwise
+    ``render_wavefront(fast=False)``'s image, and raising on a NaN vertex.
+    big-1m's host scene is built once: the command line's builtin returns
+    ``scene_h``.  Returns the launches of (a) and (b)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=".")
+    big_scene = meshes.big_scene
+    meshes.big_scene = lambda subdiv=8, **kw: \
+        scene_h if subdiv == 8 and not kw else big_scene(subdiv, **kw)
+    parts, by_path = {}, {}
+    try:
+        # (a) The headline through the command line.
+        base = ["render", "big-1m", "-s", "1", "-m", "4", "--queue", "4096",
+                "--seed", "3"]
+        out_a = os.path.join(work, "a.png")
+        line, err, dt, launches = run_cli(base + ["-r", "1024", "1024",
+                                                  "-f", out_a])
+        mean_np = round(float(img_main.cpu().numpy().mean()), 5)
+        parts["a"] = {"json": line, "wall_s": round(dt, 3),
+                      "launches": launches,
+                      "png_equals_render_main": same_png(out_a, img_main),
+                      "render_main_run_s": main_line["run_s"],
+                      "mean_radiance_render_main_5": round(
+                          main_line["mean_radiance"], 5)}
+        emit({"phase": "cli", "part": "a", **parts["a"]})
+        assert parts["a"]["png_equals_render_main"], "cli (a): PNG"
+        assert line["overflow"] == 0 and line["mean_radiance"] == mean_np \
+            == parts["a"]["mean_radiance_render_main_5"], line
+        assert launches["pair_ray_reduce"] == 3672 \
+            and launches["fetch_fields"] == 7344, launches
+        assert not any(n for k, n in launches.items()
+                       if k not in ("pair_ray_reduce", "fetch_fields")), \
+            launches
+        by_path["cli"] = {k: n for k, n in launches.items() if n}
+
+        # (b) The repair flow at 256².
+        out_b = os.path.join(work, "b.png")
+        line, err, dt, launches = run_cli(base + ["-r", "256", "256", "-f",
+                                                  out_b])
+        parts["b"] = {"json": line, "wall_s": round(dt, 3),
+                      "stderr": err.strip().splitlines(),
+                      "launches": launches,
+                      "png_equals_render_exact_repaired": same_png(
+                          out_b, img_rep)}
+        emit({"phase": "cli", "part": "b", **parts["b"]})
+        assert f"repairing {sus_pixels} suspect pixels" in err, err
+        assert parts["b"]["png_equals_render_exact_repaired"], "cli (b): PNG"
+        assert launches["packed_walk"] > 0 \
+            and launches["packed_walk_thread"] == 0, launches
+        by_path["cli_repair"] = {k: n for k, n in launches.items() if n}
+
+        # (c) Progressive, stopped at the first overflowing chunk, resumed
+        # on the fallback-attached BVH.
+        ck = os.path.join(work, "state.npz")
+        out_c = os.path.join(work, "c.png")
+        line, err, dt, launches_c = run_cli(base[:2] + [
+            "-s", "2", "-m", "4", "--queue", "4096", "--seed", "3", "-r",
+            "256", "256", "--chunk-spp", "1", "--checkpoint", ck, "-f",
+            out_c])
+        first_ovf = int(re.search(r"note: (\d+) BVH candidates overflowed",
+                                  err).group(1))
+        cfg = RenderConfig(width=256, height=256, spp=2, max_depth=4)
+        scene, cam = scene_h.to(DEV), meshes.big_camera(256, 256).to(DEV)
+        cb_fb = cluster.attach_fallback(cluster.build_cluster_bvh(scene_h),
+                                        scene_h).to(DEV)
+        kw = dict(chunk_spp=1, queue=4096, backend="cluster", device=DEV)
+        ref = render_progressive(scene, cam, cfg, (0, 3), cb_fb, **kw)
+        got = np.load(ck)["accum"].reshape(256, 256, 3) / 2
+
+        class Stop(Exception):
+            pass
+
+        def stop(spp_done, preview):
+            raise Stop()
+
+        ck2 = os.path.join(work, "interrupted.npz")
+        try:
+            render_progressive(scene, cam, cfg, (0, 3), cb_fb,
+                               checkpoint=ck2, on_chunk=stop,
+                               overflow_is_exact=True, **kw)
+        except Stop:
+            pass
+        spp_saved = int(np.load(ck2)["spp_done"])
+        resumed = render_progressive(scene, cam, cfg, (0, 3), cb_fb,
+                                     checkpoint=ck2, overflow_is_exact=True,
+                                     **kw)
+        parts["c"] = {"json": line, "wall_s": round(dt, 3),
+                      "stderr": err.strip().splitlines(),
+                      "first_chunk_overflow": first_ovf,
+                      "launches": launches_c,
+                      "image_equals_progressive_on_fallback_bitwise":
+                          bool(np.array_equal(got, ref)),
+                      "png_equals_it": same_png(out_c, ref),
+                      "interrupted_after_spp": spp_saved,
+                      "resumed_equals_bitwise": bool(
+                          np.array_equal(resumed, ref))}
+        emit({"phase": "cli", "part": "c", **parts["c"]})
+        assert first_ovf > 0 and "exact fallback attached" in err, err
+        assert err.count("progress:") == 2, err   # both chunks on the retry
+        assert spp_saved == 1
+        assert parts["c"]["image_equals_progressive_on_fallback_bitwise"] \
+            and parts["c"]["png_equals_it"] \
+            and parts["c"]["resumed_equals_bitwise"], parts["c"]
+        del cb_fb
+
+        # (d) big-1m as a COLLADA file, lit by an EXR sky as well.
+        dae = os.path.join(work, "big1m.dae")
+        sky_path = os.path.join(work, "sky.exr")
+        src = without_spheres(scene_h)
+        t0 = time.time()
+        write_dae(dae, src, meshes.big_camera(512, 512), 55.0)
+        sky = gradient_sky(h=256, w=512)
+        exr.write_exr(sky_path, sky)
+        write_s = time.time() - t0
+        loaded, load_s = [], []
+        load = collada.load
+
+        def load_spy(path):
+            t0 = time.time()
+            out = load(path)
+            load_s.append(time.time() - t0)
+            loaded.append(out[0])
+            return out
+
+        collada.load = load_spy
+        try:
+            out_d = os.path.join(work, "d.png")
+            line, err, dt, launches = run_cli([
+                "render", dae, "-e", sky_path, "-r", "512", "512", "-s", "1",
+                "-m", "4", "--queue", "4096", "--seed", "3", "-f", out_d])
+        finally:
+            collada.load = load
+        sc = loaded[0]
+        same = {f: bool(np.array_equal(np.asarray(getattr(sc, f)),
+                                       np.asarray(getattr(src, f))))
+                for f in ("vertices", "tri_idx", "tri_mat")}
+        same["lights"] = all(np.array_equal(x, y)
+                             for x, y in zip(sc.lights, src.lights))
+        parts["d"] = {"json": line, "wall_s": round(dt, 3),
+                      "write_s": round(write_s, 2),
+                      "dae_MB": round(os.path.getsize(dae) / 1e6, 1),
+                      "load_s": round(load_s[0], 2), "tris": sc.n_tris,
+                      "lights": int(sc.lights.count),
+                      "seconds": line["seconds"],
+                      "primary_rays_per_s": line["primary_rays_per_s"],
+                      "overflow": line["overflow"],
+                      "repaired": "exact retry done" in err,
+                      "arrays_equal_source": same,
+                      "exr_reads_back_bitwise": bool(np.array_equal(
+                          load_envmap(sky_path), sky)),
+                      "stderr": err.strip().splitlines(),
+                      "launches": launches}
+        # The OBJ loader on the same triangles (host only, no render).
+        path = os.path.join(work, "big1m.obj")
+        t0 = time.time()
+        write_obj(path, src)
+        parts["d"]["obj_write_s"] = round(time.time() - t0, 2)
+        t0 = time.time()
+        so, _ = obj.load(path)
+        parts["d"]["obj_load_s"] = round(time.time() - t0, 2)
+        parts["d"]["obj_arrays_equal_source"] = {
+            "vertices": bool(np.array_equal(so.vertices, src.vertices)),
+            "tri_idx": bool(np.array_equal(so.tri_idx, src.tri_idx)),
+            "tri_mat": bool(np.array_equal(so.tri_mat, src.tri_mat + 1))}
+        emit({"phase": "cli", "part": "d", **parts["d"]})
+        assert all(same.values()) and sc.n_tris == 1310722, same
+        assert all(parts["d"]["obj_arrays_equal_source"].values()), parts["d"]
+        assert parts["d"]["exr_reads_back_bitwise"]
+        assert 0.0 < line["mean_radiance"] < 1e3   # finite, lit
+        if "overflowed static budgets" in err:
+            assert parts["d"]["repaired"], err
+        # (e) The other backends and commands.
+        for backend, walk in (("bvh", flat_walk), ("wavefront", packed_walk)):
+            out_e = os.path.join(work, f"e_{backend}.png")
+            line, err, dt, launches = run_cli([
+                "render", "cornell-spheres", "--backend", backend, "-r",
+                "128", "128", "-s", "4", "-f", out_e])
+            name = walk.__name__
+            parts["e_" + backend] = {"json": line, "wall_s": round(dt, 3),
+                                     "launches": launches}
+            emit({"phase": "cli", "part": "e_" + backend,
+                  **parts["e_" + backend]})
+            assert launches[name] > 0 and launches[name + "_thread"] == 0, \
+                launches
+            assert 0.3 < line["mean_radiance"] < 0.7, line
+            by_path["cli_" + backend] = {k: n for k, n in launches.items()
+                                         if n}
+        line, err, dt, _ = run_cli(["visualize-bvh", "big-1m", "-r", "256",
+                                    "256", "-f",
+                                    os.path.join(work, "heat.png")])
+        dump, _, dump_s, _ = run_cli(["dump-bvh", "cornell-mesh"])
+        parts["e_tools"] = {"visualize_bvh": line,
+                            "visualize_bvh_s": round(dt, 3),
+                            "dump_bvh": dump, "dump_bvh_s": round(dump_s, 3)}
+        emit({"phase": "cli", "part": "e_tools", **parts["e_tools"]})
+        assert line["max_visits"] > line["mean_visits"] > 1, line
+        assert dump["prims"] == cornell.cornell("mesh").n_prims, dump
+
+        # (f) The sanitizer on the 256² cell.
+        cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4)
+        cb = cluster.build_cluster_bvh(scene_h).to(DEV)
+        kw = dict(queue=4096, device=DEV)
+        checked, checked_s = timed_sync(
+            lambda: wavefront.render_wavefront_checked(scene, cam, cfg,
+                                                       (0, 3), cb, **kw))
+        plain, plain_s = timed_sync(
+            lambda: wavefront.render_wavefront(scene, cam, cfg, (0, 3), cb,
+                                               fast=False, **kw))
+        bad = scene._replace(vertices=scene.vertices.clone())
+        bad.vertices[7, 1] = float("nan")
+        try:
+            wavefront.render_wavefront_checked(bad, cam, cfg, (0, 3), cb,
+                                               **kw)
+            raised = None
+        except wavefront.CheckError as e:
+            raised = str(e)
+        parts["f"] = {"checked_equals_render_bitwise": bool(
+                          torch.equal(checked, plain)),
+                      "checked_s": round(checked_s, 3),
+                      "render_fast_false_s": round(plain_s, 3),
+                      "nan_vertex_raises": raised}
+        emit({"phase": "cli", "part": "f", **parts["f"]})
+        assert parts["f"]["checked_equals_render_bitwise"]
+        assert raised == "scene.vertices has non-finite values", raised
+    finally:
+        meshes.big_scene = big_scene
+        shutil.rmtree(work, ignore_errors=True)
+    return by_path
+
+
 def phase_paired(scene, cam, cb, cfg, n):
     """The headline render through the fused and the split pair stage
     (``render_main``'s and ``render_split``'s), after one warm-up of each, n
@@ -4061,6 +4471,14 @@ def main():
     determinism_only = "--determinism" in args
     t_start = time.time()
     smi, fp32_ops_per_s = phase_device()
+    phase_s = {}
+
+    def run(name, fn, *a, **kw):
+        """fn(*a, **kw), its seconds kept under ``name`` in phase_s."""
+        t0 = time.time()
+        out = fn(*a, **kw)
+        phase_s[name] = round(time.time() - t0, 1)
+        return out
 
     t0 = time.time()
     scene_h = meshes.big_scene(subdiv=8)
@@ -4073,7 +4491,7 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return
-    pk, cb_h, build_s, pk_s = phase_build(scene_h)
+    pk, cb_h, build_s, pk_s = run("build", phase_build, scene_h)
     scene, cb = scene_h.to(DEV), cb_h.to(DEV)
     n_tris = scene_h.n_tris
     emit({"phase": "scene", "scene_build_s": round(t_scene, 2),
@@ -4092,52 +4510,61 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return
-    lb, cd = phase_build_device(scene_h, scene, {
+    lb, cd = run("build_device", phase_build_device, scene_h, scene, {
         "cluster_build_s": round(build_s, 2),
         "packed_build_s": round(pk_s, 2)})
-    timing, errs, mid = phase_kernels(scene, cam, cb, cfg, (0, 3), pk)
-    probe_launches = phase_fetch_probes(cb, mid)
+    timing, errs, mid = run("kernels", phase_kernels, scene, cam, cb, cfg,
+                            (0, 3), pk)
+    probe_launches = run("fetch_probes", phase_fetch_probes, cb, mid)
     del mid
-    phase_traverse()
-    small = phase_render_small(scene, cb)
-    phase_determinism(scene, cb)
-    cb_fb, _, img_fb, img_packed = phase_render_exact(scene, scene_h, cb, pk,
-                                                      small)
-    phase_render_grad(scene, cb, cb_fb, img_fb)
+    run("traverse", phase_traverse)
+    small = run("render_small", phase_render_small, scene, cb)
+    run("determinism", phase_determinism, scene, cb)
+    cb_fb, _, img_fb, img_packed, img_rep, n_sus = run(
+        "render_exact", phase_render_exact, scene, scene_h, cb, pk, small)
+    run("render_grad", phase_render_grad, scene, cb, cb_fb, img_fb)
     del small
-    launches, main_line, img_main = phase_render_main(scene, cam, cb, cfg,
-                                                      build_s, n_tris)
-    # The device builds' paths, each with its launch counts zeroed just
-    # before its render and read just after.
-    by_path = {
-        "render_lbvh": phase_render_lbvh(scene, cam, cfg, lb, pk, main_line,
-                                         img_main, img_packed,
-                                         fp32_ops_per_s),
-        "render_device": phase_render_device(scene, cam, cfg, cd, pk,
-                                             main_line, img_main)}
+    launches, main_line, img_main = run(
+        "render_main", phase_render_main, scene, cam, cb, cfg, build_s,
+        n_tris)
+    # The command line's paths and the device builds', each with its launch
+    # counts zeroed just before its render and read just after.
+    by_path = run("cli", phase_cli, scene_h, img_main, main_line, img_rep,
+                  n_sus)
+    del img_rep
+    by_path["render_lbvh"] = run(
+        "render_lbvh", phase_render_lbvh, scene, cam, cfg, lb, pk, main_line,
+        img_main, img_packed, fp32_ops_per_s)
+    by_path["render_device"] = run(
+        "render_device", phase_render_device, scene, cam, cfg, cd, pk,
+        main_line, img_main)
     del lb, cd, img_packed
-    phase_render_autotune(scene, scene_h, cb, cfg, main_line, img_main,
-                          img_fb)
+    run("render_autotune", phase_render_autotune, scene, scene_h, cb, cfg,
+        main_line, img_main, img_fb)
     del img_fb, scene_h
-    launches.update(phase_render_fallback(scene, cam, cb_fb, cfg, main_line,
-                                          img_main))
+    launches.update(run("render_fallback", phase_render_fallback, scene, cam,
+                        cb_fb, cfg, main_line, img_main))
     del cb_fb
-    launches.update(phase_render_split(scene, cam, cb, cfg, main_line,
-                                       img_main))
+    launches.update(run("render_split", phase_render_split, scene, cam, cb,
+                        cfg, main_line, img_main))
     del img_main
-    launches.update(phase_render_dedup(scene, cam, cb, cfg, main_line))
+    launches.update(run("render_dedup", phase_render_dedup, scene, cam, cb,
+                        cfg, main_line))
     for pair_stage in ("fused", "split", "dedup"):
-        phase_loop(scene, cam, cb, cfg, (0, 3), profile, pair_stage)
+        run("loop_" + pair_stage, phase_loop, scene, cam, cb, cfg, (0, 3),
+            profile, pair_stage)
     # The descent's row form (the twin of the field fetch) in the same
     # loop: its kernels per step beside the field form's.
-    phase_loop(scene, cam, cb, cfg, (0, 3), profile, "fused", fetch="rows")
+    run("loop_rows", phase_loop, scene, cam, cb, cfg, (0, 3), profile,
+        "fused", fetch="rows")
     if profile:
-        phase_loop_pairs(scene, cam, cb, cfg, (0, 3))
-    oracle_launches, flat_walks = phase_render_oracle(fp32_ops_per_s)
+        run("loop_pairs", phase_loop_pairs, scene, cam, cb, cfg, (0, 3))
+    oracle_launches, flat_walks = run("render_oracle", phase_render_oracle,
+                                      fp32_ops_per_s)
     launches.update(oracle_launches)
     launches.update(probe_launches)
     del scene, cb, pk
-    by_path["render_atrium"] = phase_render_atrium()
+    by_path["render_atrium"] = run("render_atrium", phase_render_atrium)
 
     # file:line of the pl.pallas_call each kernel replaces.
     sources = {
@@ -4234,13 +4661,16 @@ def main():
                     "take_along"):
             row["launches_counted_in"] = (
                 "render_main" if name == "fetch_fields" else "fetch_probes")
-        if name in ("pair_ray_reduce", "fetch_fields", "packed_walk"):
-            # Its launches in one render of each device build's path.
+        if name in ("pair_ray_reduce", "fetch_fields", "packed_walk",
+                    "flat_walk"):
+            # Its launches in one run of each command line path and one
+            # render of each device build's path.
             row["launches_by_path"] = {
                 path: got[name] for path, got in by_path.items()
                 if name in got}
         rows.append(row)
-    emit({"phase": "done", "total_s": round(time.time() - t_start, 1)})
+    emit({"phase": "done", "total_s": round(time.time() - t_start, 1),
+          "phase_s": phase_s})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

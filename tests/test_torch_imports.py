@@ -1,6 +1,7 @@
 """The port imports torch and numpy only, and its entry points run on the
 card unless the caller asks for the CPU."""
 
+import json
 import os
 import pkgutil
 import subprocess
@@ -39,7 +40,10 @@ def test_every_module_layout_name_is_present():
                 "render.envmap",
                 "render.bsdf", "render.lights", "render.brute",
                 "render.integrator", "render.driver", "render.wavefront",
-                "render.film", "diff.params", "diff.adjoint"):
+                "render.film", "diff.params", "diff.adjoint", "cli",
+                "scene.exr", "scene.obj", "scene.collada", "scene.halfedge",
+                "scene.graph", "render.progressive", "render.debug",
+                "render.metrics"):
         assert f"tpu_pt_torch.{mod}" in names, mod
 
 
@@ -72,6 +76,30 @@ def test_no_source_file_mentions_the_jax_package_in_an_import():
                         head = s.split()[1].split(".")[0]
                         assert head not in ("jax", "tpu_pt", "ml_dtypes",
                                             "jaxlib"), (fn, s)
+
+
+def test_command_line_renders_on_the_cpu_only_when_asked(tmp_path):
+    """``python -m tpu_pt_torch.cli``: with ``--device cpu`` it writes the
+    PNG and the JSON line; without it, where there is no card, it raises
+    instead of falling back to the host."""
+    out = str(tmp_path / "cb.png")
+    cmd = [sys.executable, "-m", "tpu_pt_torch.cli", "render",
+           "cornell-spheres", "-r", "16", "16", "-s", "1", "-f", out]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(cmd + ["--device", "cpu"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["width"] == 16 and line["overflow"] == 0
+    assert 0.3 < line["mean_radiance"] < 0.7
+    assert open(out, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+    if torch.cuda.is_available():
+        return
+    os.remove(out)
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    assert proc.stdout == "" and not os.path.exists(out)
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

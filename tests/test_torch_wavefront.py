@@ -213,25 +213,211 @@ def _debug_calls():
     }
 
 
+def _jax_debug_calls():
+    """The JAX package's counterpart of each entry point, on the same
+    render.  ``wavefront_loss`` is the forward half of
+    ``loss_and_grad_wavefront``: its counterpart is that function."""
+    from tpu_pt.diff import adjoint, params
+    from tpu_pt.render import driver
+
+    scene = jax.tree.map(jnp.asarray, jc.cornell("spheres"))
+    cb = jcl.build_cluster_bvh(jc.cornell("spheres"))
+    cam = jc.camera(4, 4)
+    key = jax.random.key(1)
+    p = params.split(scene)[0]
+    target = jnp.zeros((16, 3), jnp.float32)
+    img = jnp.zeros((4, 4, 3), jnp.float32)
+    sus = np.ones((16,), np.int32)
+    kw = dict(queue=16, backend="cluster")
+    accum = jax.jit(jwf.wavefront_accum, static_argnames=(
+        "cfg", "queue", "backend", "n_pix_local"))
+
+    def loss_and_grad_wavefront(cfg):
+        return adjoint.loss_and_grad_wavefront(p, scene, cam, cfg, key,
+                                               target, cb, queue=16)
+
+    return {
+        "render_wavefront": lambda cfg: jwf.render_wavefront(
+            scene, cam, cfg, key, cb, **kw),
+        "render_wavefront_counts": lambda cfg: jwf.render_wavefront_counts(
+            scene, cam, cfg, key, cb, **kw),
+        "render_wavefront_suspect_counts": lambda cfg:
+            jwf.render_wavefront_suspect_counts(scene, cam, cfg, key, cb,
+                                                **kw),
+        "repair_suspect_pixels": lambda cfg: jwf.repair_suspect_pixels(
+            scene, cam, cfg, key, cb, img, sus, **kw),
+        "wavefront_accum": lambda cfg: accum(
+            scene, cam, cfg, key, cb, queue=16, backend="cluster", pix_lo=0,
+            n_pix_local=16),
+        "driver.render": lambda cfg: driver.render(scene, cam, cfg, key),
+        "render_flat": lambda cfg: adjoint.render_flat(scene, cam, cfg, key),
+        "render_grad": lambda cfg: adjoint.render_grad(p, scene, cam, cfg,
+                                                       key, target),
+        "loss_and_grad": lambda cfg: adjoint.loss_and_grad(p, scene, cam,
+                                                           cfg, key, target),
+        "wavefront_loss": loss_and_grad_wavefront,
+        "loss_and_grad_wavefront": loss_and_grad_wavefront,
+    }
+
+
 ENTRY_POINTS = ("render_wavefront", "render_wavefront_counts",
                 "render_wavefront_suspect_counts", "repair_suspect_pixels",
                 "wavefront_accum", "driver.render", "render_flat",
                 "render_grad", "loss_and_grad", "wavefront_loss",
                 "loss_and_grad_wavefront")
+# The JAX package's forward wavefront renders stage its checks under jit
+# without checkify, which raises ValueError; its oracle renders never read
+# the flag, and under loss_and_grad_wavefront's gradient no check runs.
+RAISE_ON_FLAG = ENTRY_POINTS[:5]
+
+
+def _leaves(out):
+    """The tensors / arrays of an entry point's output, flattened."""
+    if isinstance(out, dict):
+        return [x for k in sorted(out) for x in _leaves(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [x for y in out for x in _leaves(y)]
+    return [out] if hasattr(out, "shape") else []
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
 def test_debug_checks_raise_at_every_rendering_entry_point(entry):
-    """The sanitizer is not ported: ``debug_checks=True`` raises, naming
-    where it is planned, and ``False`` renders as before."""
+    """``debug_checks=True`` at every rendering entry point, as the JAX
+    package treats it there (each case runs the JAX entry point with the
+    flag): the forward wavefront renders raise ValueError and name
+    ``render_wavefront_checked``; the oracle renders and the gradient of
+    the wavefront render as without the flag, bit for bit."""
     calls = _debug_calls()
     assert tuple(calls) == ENTRY_POINTS
-    call = calls[entry]
+    call, call_j = calls[entry], _jax_debug_calls()[entry]
     cfg = TConfig(width=4, height=4, spp=1, max_depth=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        call(cfg.replace(debug_checks=True))
+    cfg_j = JConfig(width=4, height=4, spp=1, max_depth=1, debug_checks=True)
     out = call(cfg)
+    if entry in RAISE_ON_FLAG:
+        with pytest.raises(ValueError, match="checkify"):
+            call_j(cfg_j)   # raises while tracing, before any compile
+        with pytest.raises(ValueError, match="render_wavefront_checked"):
+            call(cfg.replace(debug_checks=True))
+    else:
+        # Traced, not compiled (the JAX package's checks act when traced),
+        # but for driver.render, whose chunk loop runs on the host.
+        out_j = call_j(cfg_j) if entry == "driver.render" else \
+            jax.eval_shape(lambda: call_j(cfg_j))
+        assert _leaves(out_j)
+        flagged = call(cfg.replace(debug_checks=True))
+        for a, b in zip(_leaves(out), _leaves(flagged), strict=True):
+            assert torch.equal(a, b), entry
     first = out[0] if isinstance(out, tuple) else out
     assert bool(torch.isfinite(first).all())
     assert TConfig.from_json(cfg.replace(debug_checks=True).to_json()) \
         .debug_checks is True
+
+
+def _sanitizer_setup(**cfg_kw):
+    scene = tc.cornell("spheres")
+    cb = tcl.build_cluster_bvh(scene)
+    cfg = TConfig(**{**dict(width=8, height=8, spp=2, max_depth=2),
+                     **cfg_kw})
+    return scene, tc.camera(cfg.width, cfg.height), cfg, cb
+
+
+def test_render_wavefront_checked_is_the_render_on_a_sound_scene():
+    scene, cam, cfg, cb = _sanitizer_setup()
+    kw = dict(queue=64, device="cpu")
+    img = twf.render_wavefront_checked(scene, cam, cfg, (0, 2), cb, **kw)
+    slow = twf.render_wavefront(scene, cam, cfg, (0, 2), cb, fast=False,
+                                **kw)
+    fast = twf.render_wavefront(scene, cam, cfg, (0, 2), cb, **kw)
+    assert torch.equal(img, slow) and torch.equal(img, fast)
+    assert not img.requires_grad and float(img.mean()) > 0
+    # The packed walk, as the JAX package's own test renders it.
+    from tpu_pt_torch.bvh.native import build_packed_any
+
+    pk = build_packed_any(scene)
+    img = twf.render_wavefront_checked(scene, cam, cfg, (0, 2), pk,
+                                       backend="packed", **kw)
+    assert torch.equal(img, twf.render_wavefront(
+        scene, cam, cfg, (0, 2), pk, backend="packed", **kw))
+
+
+def _broken_intersector(monkeypatch, how):
+    """Make the sanitizer's traversals return a broken closest hit."""
+    real = twf._intersectors_counted
+
+    def broken(*a, **k):
+        isect, occl = real(*a, **k)
+
+        def isect_b(scene, ro, rd, t_min, t_max):
+            hit, novf = isect(scene, ro, rd, t_min, t_max)
+            h = hit.hit
+            if how == "t":
+                hit = hit._replace(t=torch.where(h, -hit.t, hit.t))
+            elif how == "t_max":
+                hit = hit._replace(t=torch.where(h, 2.0 * t_max, hit.t))
+            else:
+                hit = hit._replace(u=torch.where(h, hit.u + 2.0, hit.u))
+            return hit, novf
+
+        return isect_b, occl
+
+    monkeypatch.setattr(twf, "_intersectors_counted", broken)
+
+
+def _nan_scene(scene, field):
+    arr = getattr(scene, field).copy()
+    arr.reshape(-1)[0] = np.nan if field != "sph_radius" else np.inf
+    return scene._replace(**{field: arr})
+
+
+@pytest.mark.parametrize("case", [
+    "vertices", "normals", "sph_center", "sph_radius", "t", "t_max",
+    "barycentrics", "throughput", "shading"])
+def test_render_wavefront_checked_raises_the_jax_message(case, monkeypatch):
+    """Each check on a scene or ray batch made to break it, with the JAX
+    package's words (held against its source; the NaN-vertex case also
+    against its raise)."""
+    import inspect
+
+    scene, cam, cfg, cb = _sanitizer_setup()
+    message = {
+        "t": "traversal: hit.t must be positive finite where hit",
+        "t_max": "traversal: hit.t beyond t_max",
+        "barycentrics": "traversal: barycentrics outside the triangle",
+        "throughput": "wavefront: non-finite path throughput",
+        "shading": "shading: non-finite radiance contribution",
+    }.get(case, f"scene.{case} has non-finite values")
+    jax_source = inspect.getsource(jwf)
+    assert f'"{message}"' in jax_source or \
+        '"scene.{name} has non-finite values"' in jax_source
+    if case in ("vertices", "normals", "sph_center", "sph_radius"):
+        scene = _nan_scene(scene, case)
+    elif case in ("t", "t_max", "barycentrics"):
+        _broken_intersector(monkeypatch, case)
+    elif case == "throughput":
+        # An infinite albedo, no light to sample: the first bounce's
+        # contribution stays finite, its throughput does not.
+        mats = scene.materials._replace(
+            albedo=np.full_like(scene.materials.albedo, np.inf))
+        scene = scene._replace(materials=mats, lights=scene.lights._replace(
+            radiance=np.zeros_like(scene.lights.radiance)))
+    else:
+        mats = scene.materials._replace(
+            emission=np.full_like(scene.materials.emission, np.inf))
+        scene = scene._replace(materials=mats)
+    with pytest.raises(twf.CheckError) as err:
+        twf.render_wavefront_checked(scene, cam, cfg, (0, 2), cb, queue=64,
+                                     device="cpu")
+    assert str(err.value) == message
+    assert isinstance(err.value, ValueError)
+    if case == "vertices":
+        from jax.experimental import checkify
+
+        bad = jc.cornell("spheres")
+        bad = bad._replace(vertices=jnp.asarray(bad.vertices).at[0].set(
+            jnp.nan))
+        with pytest.raises(checkify.JaxRuntimeError, match=message):
+            jwf.render_wavefront_checked(
+                bad, jc.camera(8, 8), JConfig(width=8, height=8, spp=2,
+                                             max_depth=2),
+                jax.random.key(2), jcl.build_cluster_bvh(bad), queue=64,
+                backend="cluster")

@@ -1,5 +1,5 @@
 """Render configuration (a frozen dataclass of plain Python values) and the
-checks every entry point makes of it and of the device it is asked for."""
+check every entry point makes of the device it is asked for."""
 
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ class RenderConfig:
     spp_chunk: int = 4               # spp rendered per device pass (memory knob)
     dtype: str = "float32"
     eps: float = 1e-4                # shadow/secondary ray offset
-    debug_checks: bool = False       # the sanitizer: not ported, True raises
+    debug_checks: bool = False       # the sanitizer: render_wavefront_checked
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
@@ -39,16 +39,6 @@ class RenderConfig:
     @classmethod
     def from_json(cls, s: str) -> "RenderConfig":
         return cls(**json.loads(s))
-
-
-def refuse_debug_checks(cfg: RenderConfig) -> None:
-    """Raise on ``cfg.debug_checks``: the reference runs its sanitizer on
-    it, and this package has none yet, so every rendering entry point
-    refuses the flag rather than render without the checks."""
-    if cfg.debug_checks:
-        raise NotImplementedError(
-            "RenderConfig(debug_checks=True): the sanitizer is not ported "
-            "yet (ROADMAP.md queue 1 item 5); render with debug_checks=False")
 
 
 def resolve_device(device) -> torch.device:

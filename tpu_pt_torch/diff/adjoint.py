@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_pt_torch.config import RenderConfig, refuse_debug_checks
+from tpu_pt_torch.config import RenderConfig
 from tpu_pt_torch.diff.params import merge
 from tpu_pt_torch.render.driver import _intersectors, _on_device
 from tpu_pt_torch.render.integrator import render_chunk
@@ -41,7 +41,6 @@ from tpu_pt_torch.scene.types import Scene
 
 def _render_flat(scene: Scene, cam, cfg: RenderConfig, key, backend, bvh,
                  use_kernels):
-    refuse_debug_checks(cfg)
     isect, occl = _intersectors(backend, bvh, use_kernels)
     dev = scene.vertices.device
     pixel_ids = torch.arange(cfg.n_pixels, device=dev).repeat_interleave(
@@ -128,12 +127,14 @@ def wavefront_loss(params, scene: Scene, cam, cfg: RenderConfig, key, target,
     are merged into ``scene`` and the image renders through the
     differentiable wavefront loop.  Returns (loss, image (n_pixels, 3),
     (n_closest, n_shadow, n_overflow, steps_run), done); loss and image
-    carry the graph back to ``params``."""
+    carry the graph back to ``params``.  ``cfg.debug_checks`` is ignored,
+    as the JAX package's ``loss_and_grad_wavefront`` ignores it: no check
+    runs under its gradient."""
     accum, counts, done = wavefront_accum(
-        merge(params, scene), cam, cfg, key, bvh, queue, backend, 0,
-        cfg.n_pixels, with_counts=True, use_kernels=use_kernels,
-        pair_stage=pair_stage, differentiable=True, steps_hint=steps_hint,
-        with_done=True)
+        merge(params, scene), cam, cfg.replace(debug_checks=False), key, bvh,
+        queue, backend, 0, cfg.n_pixels, with_counts=True,
+        use_kernels=use_kernels, pair_stage=pair_stage, differentiable=True,
+        steps_hint=steps_hint, with_done=True)
     img = accum / cfg.spp
     return torch.mean((img - target) ** 2), img, counts, done
 

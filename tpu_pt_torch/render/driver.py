@@ -15,8 +15,7 @@ from typing import Optional
 
 import torch
 
-from tpu_pt_torch.config import (RenderConfig, refuse_debug_checks,
-                                 resolve_device)
+from tpu_pt_torch.config import RenderConfig, resolve_device
 from tpu_pt_torch.render import brute
 from tpu_pt_torch.render.integrator import render_chunk
 from tpu_pt_torch.scene.types import Scene
@@ -175,7 +174,6 @@ def render(scene: Scene, cam, cfg: RenderConfig, key, backend: str = "brute",
     the brute backend keeps ``1 << 22`` ray × primitive pairs resident at
     once and the others take ``(1 << 17) // spp`` pixels a chunk.  A tail
     chunk is padded by re-rendering the last pixel."""
-    refuse_debug_checks(cfg)
     device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
     if pix_chunk is None:
         if backend == "brute":

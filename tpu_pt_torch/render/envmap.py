@@ -136,6 +136,49 @@ def env_pdf(marg_cdf, cond_cdf, d):
     return (pmf * (h * w) / (2.0 * math.pi ** 2 * sin_t))[..., None]
 
 
+def load_envmap(path: str) -> np.ndarray:
+    """Load a lat-long radiance map by extension: ``.exr`` (scanline
+    NONE / ZIP / ZIPS, ``scene/exr.py``) or ``.pfm``.  Returns (H, W, 3)
+    float32, top row first: the command line's ``-e`` input."""
+    low = path.lower()
+    if low.endswith(".exr"):
+        from tpu_pt_torch.scene.exr import read_exr
+
+        return read_exr(path)
+    if low.endswith(".pfm"):
+        return load_pfm(path)
+    raise ValueError(f"unsupported environment map format: {path} "
+                     "(.exr or .pfm)")
+
+
+def load_pfm(path: str) -> np.ndarray:
+    """Read a PFM file -> (H, W, 3) float32 (top row first)."""
+    with open(path, "rb") as fh:
+        header = fh.readline().strip()
+        if header not in (b"PF", b"Pf"):
+            raise ValueError(f"not a PFM file: {path}")
+        dims = fh.readline().split()
+        w, h = int(dims[0]), int(dims[1])
+        scale = float(fh.readline().strip())
+        data = np.frombuffer(fh.read(), "<f4" if scale < 0 else ">f4")
+    c = 3 if header == b"PF" else 1
+    img = data.reshape(h, w, c)[::-1]  # PFM stores bottom-up
+    if c == 1:
+        img = np.repeat(img, 3, axis=2)
+    return np.ascontiguousarray(img.astype(np.float32))
+
+
+def write_pfm(path: str, img: np.ndarray) -> None:
+    """Write (H, W, 3) float data as a little-endian colour PFM."""
+    img = np.asarray(img, np.float32)
+    h, w, _ = img.shape
+    with open(path, "wb") as fh:
+        fh.write(b"PF\n")
+        fh.write(f"{w} {h}\n".encode())
+        fh.write(b"-1.0\n")
+        fh.write(np.ascontiguousarray(img[::-1]).astype("<f4").tobytes())
+
+
 def gradient_sky(h: int = 32, w: int = 64, horizon=(0.8, 0.85, 1.0),
                  zenith=(0.2, 0.35, 0.8), ground=(0.25, 0.2, 0.15),
                  scale: float = 1.0) -> np.ndarray:

@@ -32,6 +32,16 @@ only those pixels again on a cluster BVH with the exact fallback attached
 and splices them in.  A pixel subset renders through a ``pix_ids``
 indirection with every random draw keyed by the GLOBAL sample id, so a
 repaired pixel is the value it has in a full render.
+
+The sanitizer: ``render_wavefront_checked`` renders with
+``cfg.debug_checks`` on and raises ``CheckError`` on the first violated
+invariant (non-finite scene input, a hit t that is not positive and finite
+or lies beyond t_max, barycentrics outside the triangle, a non-finite
+throughput or shading contribution).  Each check is a host read, made only
+under the flag.  Every other entry point of this module raises
+``ValueError`` on the flag, as the JAX package's do (its checks cannot run
+outside ``checkify``); the gradient path ignores it, as the JAX package's
+does (``diff/adjoint.py::wavefront_loss``).
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ from typing import NamedTuple
 
 import torch
 
-from tpu_pt_torch.config import RenderConfig, refuse_debug_checks
+from tpu_pt_torch.config import RenderConfig
 from tpu_pt_torch.core.camera import generate_rays, pixel_xy
 from tpu_pt_torch.core.sampling import draws_lane
 from tpu_pt_torch.core.vecmath import dot, make_coord_space, to_local, to_world
@@ -57,6 +67,34 @@ from tpu_pt_torch.scene.types import Scene
 # shadow batches are fully occupied and wide-angle coherent, so they run the
 # WIDE any-hit pair budget; the loop body then uses the narrow one.
 WIDE_PREFIX_STEPS = 2
+
+
+class CheckError(ValueError):
+    """An invariant the sanitizer (``render_wavefront_checked``) checks was
+    violated; the message names it.  A ``ValueError``, as the JAX package's
+    ``checkify`` error is."""
+
+
+def _check(ok, message: str) -> None:
+    """Raise ``CheckError(message)`` unless the bool tensor ``ok`` holds."""
+    if not bool(ok):
+        raise CheckError(message)
+
+
+def _check_hits(hit, t_max, beta) -> None:
+    """The sanitizer's checks of a closest-hit batch and the throughput of
+    its lanes, in the JAX package's order and words."""
+    ht, hh = hit.t[:, 0], hit.hit[:, 0]
+    _check(torch.all(~hh | ((ht > 0.0) & torch.isfinite(ht))),
+           "traversal: hit.t must be positive finite where hit")
+    _check(torch.all(~hh | (ht <= t_max[:, 0])),
+           "traversal: hit.t beyond t_max")
+    u, v = hit.u[:, 0], hit.v[:, 0]
+    _check(torch.all(~hh | ((u >= -1e-4) & (v >= -1e-4)
+                            & (u + v <= 1 + 1e-4))),
+           "traversal: barycentrics outside the triangle")
+    _check(torch.all(torch.isfinite(beta)),
+           "wavefront: non-finite path throughput")
 
 
 class QueueState(NamedTuple):
@@ -251,6 +289,8 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
         sus_lane = (sus_c & alive0[:, 0]).to(torch.int32)
     else:
         hit, n_ovf = _untaped(intersect_fn, scene_d, ro0, rd0, t_min, t_max)
+    if cfg.debug_checks:
+        _check_hits(hit, t_max, beta0)
     si = shade_info(scene, ro0, rd0, hit)
     wo_world = -rd0
     tb, bb = make_coord_space(si.ns)
@@ -310,6 +350,9 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
             n_ovf = n_ovf + ovf_s
             w = f * ls.radiance * cos_s / (ls.pdf * ns)
             contrib = contrib + torch.where(mask & ~occ, beta0 * w, zero3)
+    if cfg.debug_checks:
+        _check(torch.all(torch.isfinite(torch.where(alive0, contrib, zero3))),
+               "shading: non-finite radiance contribution")
 
     # ---- Scatter to next bounce. ----
     max_depth = 0 if cfg.direct_only else cfg.max_depth
@@ -373,7 +416,7 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                     use_kernels: bool = True, pair_stage: str = "fused",
                     with_suspects: bool = False, pix_ids=None,
                     differentiable: bool = False, steps_hint=None,
-                    with_done: bool = False):
+                    with_done: bool = False, checked: bool = False):
     """Render pixels {pix_lo + j*pix_stride : j < n_pix_local} × samples
     [spp_lo, spp_lo+spp_count) -> (n_pix_local, 3) radiance sums (divide by
     cfg.spp for the full-spp mean).  ``scene``, ``cam`` and ``bvh`` hold
@@ -401,8 +444,12 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     steps_run) as device scalars / int; with ``with_suspects`` the
     (n_pix_local,) i32 suspect flags follow; with ``with_done`` the last
     item is a bool: no lane alive and every sample spawned.
-    ``cfg.debug_checks`` raises (no sanitizer yet)."""
-    refuse_debug_checks(cfg)
+    ``cfg.debug_checks`` raises ``ValueError`` unless ``checked`` (the
+    sanitizer's own call, ``render_wavefront_checked``)."""
+    if cfg.debug_checks and not checked:
+        raise ValueError(
+            "RenderConfig(debug_checks=True): the wavefront's checks run "
+            "only through render_wavefront_checked")
     spp_count = spp_count or cfg.spp
     pick = _intersectors_suspect if with_suspects else _intersectors_counted
     intersect_fn, occluded_fn = pick(backend, bvh, use_kernels, pair_stage)
@@ -466,6 +513,30 @@ def render_wavefront(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     return (accum / cfg.spp).reshape(cfg.height, cfg.width, 3)
 
 
+def render_wavefront_checked(scene: Scene, cam, cfg: RenderConfig, key, bvh,
+                             queue: int = 1 << 17, backend: str = "cluster",
+                             device="cuda"):
+    """The sanitizer render: ``render_wavefront(fast=False)``'s loop (the
+    wide any-hit budget every step; no autograd tape) with
+    ``cfg.debug_checks`` forced on.  Raises ``CheckError`` on the first
+    violated invariant: the scene's vertices, normals and sphere centres
+    and radii finite, then per step a positive, finite hit t no farther
+    than t_max, barycentrics inside the triangle, a finite throughput and a
+    finite shading contribution.  On a sound scene the image is
+    ``render_wavefront(fast=False)``'s, bit for bit."""
+    device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
+    # Inputs first: NaN geometry masks into misses downstream (every NaN
+    # comparison is False), so no later check would see it.
+    for name in ("vertices", "normals", "sph_center", "sph_radius"):
+        _check(torch.all(torch.isfinite(getattr(scene, name))),
+               f"scene.{name} has non-finite values")
+    with torch.no_grad():
+        accum = wavefront_accum(
+            scene, cam, cfg.replace(debug_checks=True), key, bvh, queue,
+            backend, 0, cfg.n_pixels, differentiable=True, checked=True)
+    return (accum / cfg.spp).reshape(cfg.height, cfg.width, 3)
+
+
 def render_wavefront_counts(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                             queue: int = 1 << 17, backend: str = "cluster",
                             device="cuda", use_kernels: bool = True,
@@ -520,7 +591,6 @@ def repair_suspect_pixels(scene: Scene, cam, cfg: RenderConfig, key,
     padded to the next power of two, at least 16, by repeating the first
     suspect pixel; the repeats fill accumulator rows of their own and are
     dropped at the splice."""
-    refuse_debug_checks(cfg)
     device, scene, cam, bvh_exact = _on_device(device, scene, cam, bvh_exact)
     sus = torch.nonzero(torch.as_tensor(suspect_flags).reshape(-1).to(
         device)).reshape(-1)

@@ -201,6 +201,31 @@ def make_scene(vertices, tri_idx, tri_mat, materials: Materials,
     )
 
 
+def with_envmap(scene: Scene, env_map: np.ndarray) -> Scene:
+    """Attach a lat-long radiance map to a host scene: rebuilds the
+    importance-sampling CDF tables and appends a LIGHT_ENV row (if absent)
+    so next-event estimation samples the map.  Host arrays in, host arrays
+    out, like ``make_scene``; the command line's ``-e`` path."""
+    from tpu_pt_torch.render.envmap import build_env_tables
+
+    env = np.asarray(env_map, np.float32)
+    marg_cdf, cond_cdf = build_env_tables(env)
+    lights = scene.lights
+    kinds = np.asarray(lights.kind)
+    if not (kinds == LIGHT_ENV).any():
+        z3 = np.zeros((1, 3), np.float32)
+        lights = Lights(
+            kind=np.concatenate([kinds, np.full((1,), LIGHT_ENV, np.int32)]),
+            position=np.concatenate([np.asarray(lights.position), z3]),
+            edge_x=np.concatenate([np.asarray(lights.edge_x), z3]),
+            edge_y=np.concatenate([np.asarray(lights.edge_y), z3]),
+            normal=np.concatenate([np.asarray(lights.normal), z3]),
+            radiance=np.concatenate([np.asarray(lights.radiance), z3]),
+        )
+    return scene._replace(env_map=env, env_marg_cdf=marg_cdf,
+                          env_cond_cdf=cond_cdf, lights=lights)
+
+
 def _vertex_normals(vertices: np.ndarray, tri_idx: np.ndarray) -> np.ndarray:
     """Area-weighted vertex normals (host-side)."""
     n = np.zeros_like(vertices)
