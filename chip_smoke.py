@@ -14,6 +14,9 @@
                                       # turns (run_s medians and ratio)
     python3 chip_smoke.py --determinism  # instead of the phases: only the
                                          # spp 4 render twice, held bitwise
+    python3 chip_smoke.py --dist      # instead of the phases: only the
+                                      # dist phase (after the headline render
+                                      # and the grad cell's hint it needs)
 
 Builds the native SAH builder and the CUDA kernel library from the sources
 in this checkout (the headline scene's BVHs must come from the native
@@ -81,6 +84,15 @@ against the brute-force oracle, and drives these paths at full width:
 - ``determinism``: the same scene at 128², spp 4, rendered twice; the two
   images must be the same bits (several samples of a pixel are in flight in
   one step, and the accumulate adds them in one fixed order);
+- ``dist``: the distribution layer (``tpu_pt_torch.dist.sharding``): one
+  NCCL rank in this process runs ``loss_and_grad_sharded`` on the grad
+  cell against ``loss_and_grad_wavefront`` (the gradient all-reduced chunk
+  by chunk during backward) and ``dryrun_multichip(1)``; two gloo ranks on
+  the one card (two processes of this script, ``--dist-child``) render the
+  headline interleaved (``render_main``'s image bit for bit, the shards'
+  counts summing to the port's record), take the grad cell's step (both
+  ranks equal, and equal to the one rank's) and render 256² interleaved
+  and contiguous (the same bits);
 - the differentiable path: ``render_grad`` takes gradients of an L2 image
   loss through the differentiable wavefront loop at the JAX package's grad
   cell (256², target zeros), times forward and backward apart, and holds
@@ -126,11 +138,13 @@ for a kernel that does nothing.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -2425,6 +2439,24 @@ def grads_max_diff(a, b):
     return max(float((a[k] - b[k]).abs().max()) for k in a)
 
 
+def grad_cell():
+    """The grad cell's config and camera (big-1m 256², spp 1, depth 4, RR
+    from 2 at 0.7: the JAX package's ``BENCH_GRAD=1`` cell)."""
+    cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4,
+                       rr_start=2, rr_prob=0.7)
+    return cfg, meshes.big_camera(256, 256).to(DEV)
+
+
+def grad_hint(scene, cb):
+    """The grad cell's ``steps_hint``: 1.2 x the steps of a counting render
+    (key (0, 0)) plus the depth and 2; and that render's (n_closest,
+    n_shadow, steps_run)."""
+    cfg, cam = grad_cell()
+    _, nc, ns, _, n_iter = wavefront.render_wavefront_counts(
+        scene, cam, cfg, (0, 0), cb, queue=4096, device=DEV)
+    return int(n_iter * 1.2) + cfg.max_depth + 2, (nc, ns, n_iter)
+
+
 def phase_render_grad(scene, cb, cb_fb, img_fb):
     """The differentiable path on the card.
 
@@ -2439,16 +2471,12 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
     image is ``render_exact``'s fallback render.
     (c) Kernels against their plain versions through autograd, on two small
     scenes; and the dense-sweep backend's gradients against the brute
-    backend's."""
+    backend's.  Returns the grad cell's steps_hint."""
     from tpu_pt_torch.diff import adjoint, params as dparams
 
-    cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4,
-                       rr_start=2, rr_prob=0.7)
-    cam = meshes.big_camera(256, 256).to(DEV)
+    cfg, cam = grad_cell()
     params = dparams.split(scene)[0]
-    _, nc, ns, _, n_iter = wavefront.render_wavefront_counts(
-        scene, cam, cfg, (0, 0), cb, queue=4096, device=DEV)
-    hint = int(n_iter * 1.2) + cfg.max_depth + 2
+    hint, (nc, ns, n_iter) = grad_hint(scene, cb)
 
     def step(key, bvh=cb):
         out = grad_step(adjoint, params, scene, cam, cfg, key, bvh, hint)
@@ -2635,6 +2663,7 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
         assert torch.allclose(ld2, lb, rtol=1e-3, atol=1e-3) and all(
             torch.allclose(gd2[k], gb[k], rtol=1e-3, atol=1e-3) for k in gb), \
             f"{name}: dense-sweep gradients vs brute gradients"
+    return hint
 
 
 def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
@@ -4424,6 +4453,368 @@ def phase_cli(scene_h, img_main, main_line, img_rep, sus_pixels):
     return by_path
 
 
+# --------------------------------------------------------------------------
+# Distribution: tile-sharded renders and the sharded gradient step
+# --------------------------------------------------------------------------
+
+# Each collective of a group gives up after this long, so that a rank that
+# fails cannot hold the others forever.
+DIST_TIMEOUT = datetime.timedelta(seconds=240)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_grad_step(scene, cb_fb, mesh, hint):
+    """``loss_and_grad_sharded`` on the grad cell (key (0, 3), target
+    zeros, the fallback attached), its launches taken apart per shard
+    forward and backward.  Returns (loss, grads, stats, launches fwd,
+    launches bwd)."""
+    from tpu_pt_torch.diff import params as dparams
+    from tpu_pt_torch.dist import sharding
+
+    cfg, cam = grad_cell()
+    got = {"forward": [], "backward": []}
+    zero_launches(ALL_KERNELS)
+    loss, grads, stats = sharding.loss_and_grad_sharded(
+        dparams.split(scene)[0], scene, cam, cfg, (0, 3),
+        torch.zeros((cfg.n_pixels, 3), device=DEV), cb_fb, mesh, queue=4096,
+        backend="cluster", steps_hint=hint, with_stats=True,
+        on_phase=lambda name: got[name].append(take_launches()))
+    fwd = {k: sum(d[k] for d in got["forward"]) for k in got["forward"][0]}
+    bwd = {k: sum(d[k] for d in got["backward"]) for k in got["backward"][0]}
+    return loss, grads, stats, fwd, bwd
+
+
+def check_step_launches(fwd, bwd, stats, cb, label):
+    """Forward: 2 traversals x 4 sub-batches a step, a pair kernel and a
+    walk each; backward: no kernel."""
+    steps = sum(stats["steps_run"])
+    assert fwd["pair_ray_reduce"] == 2 * 4 * steps, (label, fwd)
+    assert fwd["packed_walk"] == 2 * 4 * steps, (label, fwd)
+    check_fetch_launches(fwd, cb, steps)
+    assert not any(n for k, n in fwd.items() if k not in (
+        "pair_ray_reduce", "packed_walk", "fetch_fields")), (label, fwd)
+    assert not any(bwd.values()), (label, "kernels in backward", bwd)
+    assert stats["allreduces_bwd"] == sum(m for _, m in stats["chunks"]), \
+        (label, stats["chunks"], stats["allreduces_bwd"])
+
+
+def grads_close(a, b, rtol=1e-4, atol=1e-6):
+    return all(torch.allclose(a[k].to(b[k].device), b[k], rtol=rtol,
+                              atol=atol) for k in b)
+
+
+def dist_child(rank, port, tmp, hint):
+    """One of the two ranks of the dist phase's part (b): gloo, both on
+    cuda:0.  Builds big-1m and its BVHs itself; runs (b3) the 256²
+    interleaved and contiguous renders, (b1) the headline interleaved,
+    (b2) the grad cell; prints one JSON line a part and leaves the image
+    (rank 0) and each rank's loss and gradients in ``tmp``."""
+    import torch.distributed as dist
+    from tpu_pt_torch.dist import sharding
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2, timeout=DIST_TIMEOUT)
+    try:
+        t0 = time.time()
+        scene_h = meshes.big_scene(subdiv=8)
+        cb = cluster.build_cluster_bvh(scene_h).to(DEV)
+        cb_fb = cluster.attach_fallback(cb, scene_h)
+        scene = scene_h.to(DEV)
+        mesh = sharding.make_mesh(2)
+        setup_s = time.time() - t0
+
+        # (b3) 256², interleaved and contiguous (also the warm-up).
+        cfg, cam = grad_cell()
+        imgs = [sharding.render_sharded(
+            scene, cam, cfg, (0, 3), cb_fb, mesh, queue=4096,
+            backend="cluster", interleave=il) for il in (True, False)]
+        emit({"phase": "dist", "part": "b3", "rank": rank,
+              "device": str(mesh.device), "setup_s": round(setup_s, 2),
+              "interleaved_equals_contiguous_bitwise":
+                  bool(torch.equal(imgs[0], imgs[1]))})
+        del imgs
+
+        # (b1) the headline, interleaved, on the fallback-attached BVH.
+        cfg = RenderConfig(width=1024, height=1024, spp=1, max_depth=4,
+                           rr_start=2, rr_prob=0.7)
+        cam = meshes.big_camera(1024, 1024).to(DEV)
+        dist.barrier()
+        zero_launches(ALL_KERNELS)
+        sync()
+        t0 = time.time()
+        img, stats = sharding.render_sharded(
+            scene, cam, cfg, (0, 3), cb_fb, mesh, queue=4096,
+            backend="cluster", with_stats=True)
+        sync()
+        run_s = time.time() - t0
+        launches = take_launches()
+        if rank == 0:
+            torch.save(img.cpu(), os.path.join(tmp, "b1.pt"))
+        emit({"phase": "dist", "part": "b1", "rank": rank,
+              "run_s": round(run_s, 3),
+              "stats": {k: v.tolist() for k, v in stats.items()},
+              "launches": launches})
+        del img
+
+        # (b2) the grad cell over the two ranks.
+        loss, grads, st, fwd, bwd = sharded_grad_step(scene, cb_fb, mesh,
+                                                      hint)
+        torch.save({"loss": loss.cpu(),
+                    "grads": {k: g.cpu() for k, g in grads.items()}},
+                   os.path.join(tmp, f"b2_rank{rank}.pt"))
+        emit({"phase": "dist", "part": "b2", "rank": rank,
+              "loss": float(loss), "chunks": st["chunks"],
+              "allreduces_bwd": st["allreduces_bwd"],
+              "steps_run": st["steps_run"], "overflow": st["overflow"],
+              "fwd_s": round(st["fwd_s"], 3), "bwd_s": round(st["bwd_s"], 3),
+              "wait_s": round(st["wait_s"], 4),
+              "launches_fwd": fwd, "launches_bwd": bwd})
+        check_step_launches(fwd, bwd, st, cb, f"b2 rank {rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_children(hint, tmp, deadline_s=300):
+    """Start the two ranks of part (b), wait for both; a rank that fails or
+    outlives the deadline fails the phase with its stderr, and every child
+    still running is killed.  Returns each rank's JSON lines."""
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs, logs = [], []
+    try:
+        for r in range(2):
+            out = open(os.path.join(tmp, f"rank{r}.out"), "w+")
+            err = open(os.path.join(tmp, f"rank{r}.err"), "w+")
+            logs.append((out, err))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-child",
+                 str(r), str(port), tmp, str(hint)],
+                stdout=out, stderr=err, env=env))
+        t0 = time.time()
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.time() - t0 > deadline_s:
+                break
+            time.sleep(0.5)
+        failed = [r for r, p in enumerate(procs) if p.poll() != 0]
+        if failed:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for r in failed:
+                procs[r].wait(timeout=30)
+                logs[r][1].seek(0)
+                sys.stderr.write(f"--- dist rank {r} (exit "
+                                 f"{procs[r].returncode}) stderr:\n"
+                                 + logs[r][1].read()[-8000:])
+            raise RuntimeError(f"dist: rank(s) {failed} failed or timed out")
+        lines = []
+        for out, _ in logs:
+            out.seek(0)
+            lines.append([json.loads(s) for s in out.read().splitlines()
+                          if s.startswith("{")])
+        return lines
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for out, err in logs:
+            out.close()
+            err.close()
+
+
+def dist_only(scene_h):
+    """``--dist``: what the dist phase needs, then the phase alone:
+    big-1m's BVHs, the fallback attached, ``render_main``'s image (one warm
+    render, one timed; counts held to the port's record) and the grad cell's
+    hint."""
+    scene = scene_h.to(DEV)
+    cb = cluster.build_cluster_bvh(scene_h).to(DEV)
+    cb_fb = cluster.attach_fallback(cb, scene_h)
+    cfg = RenderConfig(width=1024, height=1024, spp=1, max_depth=4,
+                       rr_start=2, rr_prob=0.7)
+    cam = meshes.big_camera(1024, 1024).to(DEV)
+    for _ in range(2):
+        sync()
+        t0 = time.time()
+        img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
+            scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
+            device=DEV)
+        sync()
+    main = {"run_s": round(time.time() - t0, 3)}
+    assert (nc, ns, ovf, n_iter) == tuple(PORT_RECORD[k] for k in (
+        "n_closest", "n_shadow", "overflow", "steps_run")), \
+        (nc, ns, ovf, n_iter)
+    hint, _ = grad_hint(scene, cb)
+    by_path = phase_dist(scene, cb, cb_fb, main, img, hint)
+    emit({"phase": "dist", "part": "launches_by_path", **by_path})
+
+
+def phase_dist(scene, cb, cb_fb, main, img_main, hint):
+    """The port's distribution layer (``tpu_pt_torch.dist.sharding``) on the
+    card.
+
+    (a) One rank over NCCL in this process: ``loss_and_grad_sharded`` on
+    the grad cell (fallback attached, key (0, 3), the hint of
+    ``render_grad``) against ``loss_and_grad_wavefront`` on the same inputs
+    (loss rel 1e-5, gradients rtol 1e-4 / atol 1e-6: tests/test_dist.py:
+    114-119); reduces in backward = M, the pair kernel and the walk 8 x
+    steps in forward and no kernel in backward; one warm call, then the two
+    steps timed whole in turns (sharded, plain, plain, sharded: ``step_s``),
+    ``fwd_s`` / ``bwd_s`` / ``wait_s`` from the last.
+    (c) ``dryrun_multichip(1)`` on the card, in the same group.
+    (b) Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    GPU), two processes this script starts (``--dist-child``): (b1) the
+    headline interleaved must be ``render_main``'s image bit for bit, its
+    per-shard counts summing to the port's record; (b2) the grad cell, the
+    same loss and gradients on both ranks, equal to (a)'s within (a)'s
+    tolerances; (b3) at 256² the interleaved and contiguous images
+    ``torch.equal``.  Returns the launches of each path."""
+    import torch.distributed as dist
+    from tpu_pt_torch.diff import adjoint, params as dparams
+    from tpu_pt_torch.dist import sharding
+
+    by_path = {}
+    t_a = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            timeout=DIST_TIMEOUT)
+    try:
+        mesh = sharding.make_mesh(1)
+        cfg, cam = grad_cell()
+        sharded_grad_step(scene, cb_fb, mesh, hint)             # warm
+        # The whole step, sharded and plain, in turns in this call.
+        step_s = {"sharded": [], "wavefront": []}
+        for which in ("sharded", "wavefront", "wavefront", "sharded"):
+            sync()
+            t0 = time.time()
+            if which == "sharded":
+                loss, grads, st, fwd, bwd = sharded_grad_step(
+                    scene, cb_fb, mesh, hint)
+            else:
+                loss_w, grads_w, done = adjoint.loss_and_grad_wavefront(
+                    dparams.split(scene)[0], scene, cam, cfg, (0, 3),
+                    torch.zeros((cfg.n_pixels, 3), device=DEV), cb_fb,
+                    queue=4096, steps_hint=hint, device=DEV)
+            sync()
+            step_s[which].append(round(time.time() - t0, 3))
+        rel = abs(float(loss) - float(loss_w)) / abs(float(loss_w))
+        line_a = {
+            "phase": "dist", "part": "a", "backend": dist.get_backend(),
+            "ranks": 1, "cell": "grad (big-1m 256², fallback attached)",
+            "key": [0, 3], "steps_hint": hint, "loss": float(loss),
+            "loss_wavefront": float(loss_w), "loss_rel_err": rel,
+            "grads_max_abs_diff": grads_max_diff(grads, grads_w),
+            "grads_bitwise": grads_equal(grads, grads_w),
+            "chunks": st["chunks"], "allreduces_bwd": st["allreduces_bwd"],
+            "steps_run": st["steps_run"], "overflow": st["overflow"],
+            "fwd_s": round(st["fwd_s"], 3), "bwd_s": round(st["bwd_s"], 3),
+            "wait_s": round(st["wait_s"], 4),
+            "step_s_in_turns": step_s,
+            "launches_fwd": fwd, "launches_bwd": bwd,
+            "tolerance": "loss rel 1e-5; grads rtol 1e-4 atol 1e-6; "
+                         "allreduces in backward = M; backward launches 0"}
+        emit(line_a)
+        assert done, "dist (a): the hint dropped samples"
+        assert rel <= 1e-5, f"dist (a): loss {float(loss)} vs {float(loss_w)}"
+        assert grads_close(grads, grads_w), "dist (a): gradients"
+        assert st["chunks"][0][0] == st["chunks"][0][1] >= 1, st["chunks"]
+        check_step_launches(fwd, bwd, st, cb, "a")
+        by_path["dist_a"] = fwd
+        # (c)
+        zero_launches(ALL_KERNELS)
+        sharding.dryrun_multichip(1)
+        by_path["dist_c"] = take_launches()
+        emit({"phase": "dist", "part": "c", "dryrun_multichip": 1,
+              "finite": True, "launches": by_path["dist_c"]})
+        assert by_path["dist_c"]["pair_ray_reduce"] > 0, by_path["dist_c"]
+    finally:
+        dist.destroy_process_group()
+    a_s = time.time() - t_a
+
+    t_b = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = run_children(hint, tmp)
+        for rank_lines in lines:
+            for line in rank_lines:
+                emit(line)
+        part = {p: [next(x for x in rl if x["part"] == p) for rl in lines]
+                for p in ("b1", "b2", "b3")}
+        img = torch.load(os.path.join(tmp, "b1.pt"), weights_only=True)
+        b2 = [torch.load(os.path.join(tmp, f"b2_rank{r}.pt"),
+                         weights_only=True) for r in range(2)]
+    b_s = time.time() - t_b
+    img = img.to(DEV)
+    stats = part["b1"][0]["stats"]
+    sums = {k: sum(stats[k]) for k in ("n_closest", "n_shadow",
+                                       "n_overflow")}
+    launch_sum = {k: sum(x["launches"][k] for x in part["b1"])
+                  for k in part["b1"][0]["launches"]}
+    loss_r = [float(x["loss"]) for x in b2]
+    line_b = {
+        "phase": "dist", "part": "b", "backend": "gloo", "ranks": 2,
+        "device": "cuda:0 (both ranks)",
+        "b1": {"size": 1024, "interleave": True, "per_shard": stats,
+               "sums": sums,
+               "sums_equal_port_record": (sums["n_closest"], sums["n_shadow"])
+               == (PORT_RECORD["n_closest"], PORT_RECORD["n_shadow"]),
+               "image_equals_render_main_bitwise": bool(
+                   torch.equal(img, img_main)),
+               "run_s_per_rank": [x["run_s"] for x in part["b1"]],
+               "run_s": max(x["run_s"] for x in part["b1"]),
+               "run_s_render_main": main["run_s"],
+               "launches_both_ranks": launch_sum},
+        "b2": {"loss_per_rank": loss_r,
+               "ranks_equal_bitwise": bool(torch.equal(b2[0]["loss"],
+                                                       b2[1]["loss"]))
+               and grads_equal(b2[0]["grads"], b2[1]["grads"]),
+               "loss_rel_err_vs_a": abs(loss_r[0] - float(loss))
+               / abs(float(loss)),
+               "grads_max_abs_diff_vs_a": grads_max_diff(
+                   {k: v.to(DEV) for k, v in b2[0]["grads"].items()}, grads),
+               "chunks_per_rank": [x["chunks"] for x in part["b2"]],
+               "fwd_s_per_rank": [x["fwd_s"] for x in part["b2"]],
+               "bwd_s_per_rank": [x["bwd_s"] for x in part["b2"]],
+               "wait_s_per_rank": [x["wait_s"] for x in part["b2"]]},
+        "b3_interleaved_equals_contiguous": [
+            x["interleaved_equals_contiguous_bitwise"] for x in part["b3"]],
+        "a_s": round(a_s, 1), "b_s": round(b_s, 1),
+        "tolerance": "b1 image torch.equal render_main's, count sums "
+                     "exactly the port's record; b2 ranks rel 1e-6 / 1e-5, "
+                     "vs (a) loss rel 1e-5, grads rtol 1e-4 atol 1e-6; "
+                     "b3 torch.equal"}
+    emit(line_b)
+    assert line_b["b1"]["image_equals_render_main_bitwise"], \
+        "dist (b1): the two ranks' headline differs from render_main's"
+    assert line_b["b1"]["sums_equal_port_record"] and \
+        sums["n_overflow"] == 0, f"dist (b1): counts {sums}"
+    for x in part["b1"]:
+        steps = x["stats"]["steps_run"][x["rank"]]
+        for k in ("pair_ray_reduce", "packed_walk"):
+            assert x["launches"][k] == 2 * 4 * steps, x["launches"]
+        check_fetch_launches(x["launches"], cb, steps)
+    assert abs(loss_r[0] - loss_r[1]) <= 1e-6 * abs(loss_r[0]), loss_r
+    assert grads_close(b2[1]["grads"], b2[0]["grads"], 1e-5, 1e-10), \
+        "dist (b2): the ranks' gradients differ"
+    assert line_b["b2"]["loss_rel_err_vs_a"] <= 1e-5, line_b["b2"]
+    assert grads_close({k: v.to(DEV) for k, v in b2[0]["grads"].items()},
+                       grads), "dist (b2): gradients vs (a)"
+    assert all(line_b["b3_interleaved_equals_contiguous"]), \
+        "dist (b3): interleaved and contiguous renders differ"
+    by_path["dist_b1"] = launch_sum
+    by_path["dist_b2"] = {k: sum(x["launches_fwd"][k] for x in part["b2"])
+                          for k in part["b2"][0]["launches_fwd"]}
+    return by_path
+
+
 def phase_paired(scene, cam, cb, cfg, n):
     """The headline render through the fused and the split pair stage
     (``render_main``'s and ``render_split``'s), after one warm-up of each, n
@@ -4465,6 +4856,10 @@ def phase_paired(scene, cam, cb, cfg, n):
 
 def main():
     args = sys.argv[1:]
+    if "--dist-child" in args:
+        rank, port, tmp, hint = args[args.index("--dist-child") + 1:][:4]
+        dist_child(int(rank), port, tmp, int(hint))
+        return
     profile = "--profile" in args
     paired = int(args[args.index("--paired") + 1]) if "--paired" in args \
         else 0
@@ -4483,6 +4878,15 @@ def main():
     t0 = time.time()
     scene_h = meshes.big_scene(subdiv=8)
     t_scene = time.time() - t0
+    if "--dist" in args:
+        run("dist", dist_only, scene_h)
+        emit({"phase": "done", "total_s": round(time.time() - t_start, 1),
+              "phase_s": phase_s})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     if determinism_only:
         scene, cb = scene_h.to(DEV), cluster.build_cluster_bvh(scene_h).to(DEV)
         phase_determinism(scene, cb)
@@ -4522,7 +4926,7 @@ def main():
     run("determinism", phase_determinism, scene, cb)
     cb_fb, _, img_fb, img_packed, img_rep, n_sus = run(
         "render_exact", phase_render_exact, scene, scene_h, cb, pk, small)
-    run("render_grad", phase_render_grad, scene, cb, cb_fb, img_fb)
+    hint = run("render_grad", phase_render_grad, scene, cb, cb_fb, img_fb)
     del small
     launches, main_line, img_main = run(
         "render_main", phase_render_main, scene, cam, cb, cfg, build_s,
@@ -4544,6 +4948,8 @@ def main():
     del img_fb, scene_h
     launches.update(run("render_fallback", phase_render_fallback, scene, cam,
                         cb_fb, cfg, main_line, img_main))
+    by_path.update(run("dist", phase_dist, scene, cb, cb_fb, main_line,
+                       img_main, hint))
     del cb_fb
     launches.update(run("render_split", phase_render_split, scene, cam, cb,
                         cfg, main_line, img_main))

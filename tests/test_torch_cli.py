@@ -20,6 +20,7 @@ from tpu_pt_torch.render import envmap, film, wavefront
 from tpu_pt_torch.scene import cornell, exr
 
 from test_loaders import DAE_TEXT
+import torch_port_util  # noqa: F401  (torch threads per xdist worker)
 
 # The loaders' test document with its camera turned down onto the lit
 # floor.

@@ -12,6 +12,8 @@ import torch
 
 import tpu_pt_torch
 
+import torch_port_util  # noqa: F401  (torch threads per xdist worker)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -25,7 +27,7 @@ def _submodules():
 def test_every_module_layout_name_is_present():
     names = set(_submodules())
     for sub in ("core", "scene", "bvh", "render", "kernels", "diff",
-                "tools"):
+                "dist", "tools"):
         assert f"tpu_pt_torch.{sub}" in names
     for mod in ("config", "convert", "core.vecmath", "core.intersect",
                 "core.camera", "core.sampling", "core.aabb", "scene.types",
@@ -43,7 +45,7 @@ def test_every_module_layout_name_is_present():
                 "render.film", "diff.params", "diff.adjoint", "cli",
                 "scene.exr", "scene.obj", "scene.collada", "scene.halfedge",
                 "scene.graph", "render.progressive", "render.debug",
-                "render.metrics"):
+                "render.metrics", "dist.sharding"):
         assert f"tpu_pt_torch.{mod}" in names, mod
 
 
@@ -198,12 +200,27 @@ def test_gradient_entry_points_default_to_cuda_and_raise_without_a_card():
             wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=16,
                                        fast=False, **kw),
     }
+    # The distribution entry points take their device from the mesh.
+    from tpu_pt_torch.dist import sharding
+
+    mesh = lambda **kw: sharding.make_mesh(**kw)  # noqa: E731
+    calls.update({
+        "make_mesh": lambda **kw: mesh(**kw).device,
+        "render_sharded": lambda **kw: sharding.render_sharded(
+            scene, cam, cfg, (0, 0), cb, mesh(**kw), queue=16,
+            backend="cluster"),
+        "loss_and_grad_sharded": lambda **kw: sharding.loss_and_grad_sharded(
+            p, scene, cam, cfg, (0, 0), target, cb, mesh(**kw), queue=16,
+            backend="cluster"),
+        "dryrun_multichip": lambda **kw: sharding.dryrun_multichip(1, **kw),
+    })
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         out = call(device="cpu")
         first = out[0] if isinstance(out, tuple) else out
-        assert first.device.type == "cpu", name
+        first = getattr(first, "device", first)
+        assert first.type == "cpu", name
     with pytest.raises((RuntimeError, AssertionError)):
         convert.params_from_numpy(p)
     assert convert.params_from_numpy(p, "cpu")["albedo"].requires_grad

@@ -28,6 +28,8 @@ from tpu_pt_torch.render import wavefront as twf
 from tpu_pt_torch.render.driver import render as trender
 from tpu_pt_torch.scene import cornell as tc
 
+import torch_port_util  # noqa: F401  (torch threads per xdist worker)
+
 
 def _both(variant, backend, kw, key_i=5, pix_chunk=None):
     sj, st = jc.cornell(variant), tc.cornell(variant)

@@ -34,6 +34,8 @@ from tpu_pt_torch.scene import meshes as tm
 from tpu_pt_torch.scene.types import (LIGHT_POINT, make_lights,
                                       make_materials, make_scene)
 
+import torch_port_util  # noqa: F401  (torch threads per xdist worker)
+
 
 @pytest.fixture(scope="module")
 def spheres():

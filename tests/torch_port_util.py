@@ -1,9 +1,19 @@
 """Helpers shared by the tests/test_torch_*.py parity tests: flatten the JAX
 package's containers into plain dicts of numpy arrays (the input format of
-``tpu_pt_torch.convert``) and make seeded numpy inputs for both packages."""
+``tpu_pt_torch.convert``) and make seeded numpy inputs for both packages.
+
+Imported by every test_torch_*.py file: under pytest-xdist it gives each
+worker process its share of the cores for torch's intra-op threads, so that
+N workers do not each start one thread per core."""
+
+import os
 
 import numpy as np
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(
+        1, (os.cpu_count() or 1) // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 def T(x):

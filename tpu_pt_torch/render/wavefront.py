@@ -23,7 +23,10 @@ every step on the autograd tape; every traversal runs under
 ``torch.no_grad()`` on detached inputs, so the tape keeps only its hit and
 occlusion records and backward never traverses.  Sampling decisions (the
 pixel jitter, the BSDF uniforms and direction, barycentrics and hit
-distance) are detached, as in the JAX package.
+distance) are detached, as in the JAX package.  Under ``psum_group`` (a
+``ChunkReduce``, ``dist/sharding.py``'s gradient step) the steps are
+grouped in chunks whose scene gradients are all-reduced across ranks while
+backward runs.
 
 Suspect-pixel repair: a render with ``with_suspects`` flags every pixel one
 of whose path segments had its traversal candidates cut by a static budget
@@ -374,6 +377,147 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
             sus_lane, n_closest, n_shadow, n_ovf)
 
 
+class ChunkReduce:
+    """The per-chunk gradient all-reduces of differentiable wavefront renders
+    over a process group: what ``wavefront_accum``'s ``psum_group`` takes,
+    the port's form of the JAX package's ``psum_axis``
+    (``tpu_pt/render/wavefront.py:549-594``, "grad allreduce overlapped").
+
+    A render's steps fall in chunks: step i is in chunk ``i // inner``, with
+    ``inner = max(1, round(sqrt(steps)))`` and ``steps`` the loop's static
+    bound (``n_steps`` of the block, or the hint), the same on every rank.
+    Each chunk reads the scene's float tensors that require grad through an
+    autograd node of its own (``_ChunkView``).  When backward reaches that
+    node it flattens the chunk's gradient into one buffer, starts an async
+    ``all_reduce(SUM)`` of it on ``group`` (``None``: one process, nothing
+    to reduce) and passes nothing on to the scene's tensors; :meth:`wait`
+    waits on every reduce and sums them.  Integer fields take no part.
+
+    The eager loop runs a different number of steps on each rank, so the
+    collectives are paired by an agreed count: after the forward loop one
+    ``all_reduce(MAX)`` of the render's chunk count gives ``M``, and a
+    render with fewer chunks starts its ``M - n`` missing reduces as zeros,
+    first, when its backward starts.  Every rank then starts as many reduces
+    of one shape, and since all of them are summed, any pairing gives the
+    same total (the sum is linear)."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.tensors = None     # what every chunk reads, in buffer order
+        self.chunks = []        # (local chunk count, agreed M) per render
+        self.n_reduces = 0      # reduces started during backward
+        self._pending = []      # (buffer, work or None)
+
+    def _bind(self, tensors):
+        if self.tensors is None:
+            self.tensors = tensors
+        elif len(tensors) != len(self.tensors) or any(
+                a is not b for a, b in zip(tensors, self.tensors)):
+            raise ValueError("psum_group: every render of one ChunkReduce "
+                             "must differentiate the same scene tensors")
+
+    def _agree(self, n_local: int, device) -> int:
+        """M = the largest chunk count of this render over the group."""
+        m = n_local
+        if self.group is not None:
+            import torch.distributed as dist
+
+            t = torch.tensor([n_local], dtype=torch.int64, device=device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+            m = int(t)
+        self.chunks.append((n_local, m))
+        return m
+
+    def _start(self, buf) -> None:
+        work = None
+        if self.group is not None:
+            import torch.distributed as dist
+
+            work = dist.all_reduce(buf, group=self.group, async_op=True)
+        self._pending.append((buf, work))
+        self.n_reduces += 1
+
+    def wait(self, tensors) -> list:
+        """Wait on every reduce; the summed gradient of each of
+        ``tensors`` (zeros for a tensor no chunk read)."""
+        total = None
+        for buf, work in self._pending:
+            if work is not None:
+                work.wait()
+            total = buf if total is None else total + buf
+        self._pending = []
+        grads, at = {}, 0
+        for x in self.tensors or ():
+            if total is not None:
+                grads[id(x)] = total[at: at + x.numel()].reshape(x.shape)
+            at += x.numel()
+        return [grads.get(id(x), torch.zeros_like(x.detach())) for x in tensors]
+
+
+def _scene_leaves(scene, path=()):
+    """(path, tensor) of every float tensor of ``scene`` (and its nested
+    tuples) that requires grad."""
+    out = []
+    for name, x in zip(scene._fields, scene):
+        if hasattr(x, "_fields"):
+            out += _scene_leaves(x, path + (name,))
+        elif torch.is_tensor(x) and x.requires_grad and x.is_floating_point():
+            out.append((path + (name,), x))
+    return out
+
+
+def _with_fields(nt, path, value):
+    if len(path) == 1:
+        return nt._replace(**{path[0]: value})
+    return nt._replace(**{path[0]: _with_fields(getattr(nt, path[0]),
+                                                path[1:], value)})
+
+
+class _ChunkView(torch.autograd.Function):
+    """Identity on a chunk's scene tensors; its backward hands their
+    gradients to the render's ``_RenderChunks``."""
+
+    @staticmethod
+    def forward(ctx, chunks, *xs):
+        ctx.chunks = chunks
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.chunks.backward(grads)
+        return (None,) * (1 + len(grads))
+
+
+class _RenderChunks:
+    """One render's chunks on a ``ChunkReduce``."""
+
+    def __init__(self, reduce: ChunkReduce, scene: Scene):
+        self.reduce = reduce
+        self.leaves = _scene_leaves(scene)
+        reduce._bind([x for _, x in self.leaves])
+        self.pad = 0
+        self.started = False
+
+    def view(self, scene: Scene) -> Scene:
+        """``scene`` reading its differentiable tensors through a new
+        chunk node."""
+        if not self.leaves or not torch.is_grad_enabled():
+            return scene
+        views = _ChunkView.apply(self, *(x for _, x in self.leaves))
+        for (path, _), v in zip(self.leaves, views):
+            scene = _with_fields(scene, path, v)
+        return scene
+
+    def backward(self, grads) -> None:
+        buf = torch.cat([g.reshape(-1) for g in grads])
+        if not self.started:
+            # The reduces this rank is short of, as zeros, first.
+            self.started = True
+            for _ in range(self.pad):
+                self.reduce._start(torch.zeros_like(buf))
+        self.reduce._start(buf)
+
+
 def init_queue(Q: int, n_pix_local: int, device,
                track_suspects: bool = False,
                spp_count: int = 1) -> QueueState:
@@ -416,7 +560,8 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                     use_kernels: bool = True, pair_stage: str = "fused",
                     with_suspects: bool = False, pix_ids=None,
                     differentiable: bool = False, steps_hint=None,
-                    with_done: bool = False, checked: bool = False):
+                    with_done: bool = False, checked: bool = False,
+                    psum_group: ChunkReduce | None = None):
     """Render pixels {pix_lo + j*pix_stride : j < n_pix_local} × samples
     [spp_lo, spp_lo+spp_count) -> (n_pix_local, 3) radiance sums (divide by
     cfg.spp for the full-spp mean).  ``scene``, ``cam`` and ``bvh`` hold
@@ -445,11 +590,19 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     (n_pix_local,) i32 suspect flags follow; with ``with_done`` the last
     item is a bool: no lane alive and every sample spawned.
     ``cfg.debug_checks`` raises ``ValueError`` unless ``checked`` (the
-    sanitizer's own call, ``render_wavefront_checked``)."""
+    sanitizer's own call, ``render_wavefront_checked``).
+
+    ``psum_group`` (a :class:`ChunkReduce`; needs ``differentiable``): the
+    scene's gradient reaches the group's reduce chunk by chunk during
+    backward instead of the scene's tensors; the caller takes it from
+    ``psum_group.wait()`` and reduces nothing again."""
     if cfg.debug_checks and not checked:
         raise ValueError(
             "RenderConfig(debug_checks=True): the wavefront's checks run "
             "only through render_wavefront_checked")
+    if psum_group is not None and not differentiable:
+        raise ValueError("psum_group reduces gradients: it needs "
+                         "differentiable=True")
     spp_count = spp_count or cfg.spp
     pick = _intersectors_suspect if with_suspects else _intersectors_counted
     intersect_fn, occluded_fn = pick(backend, bvh, use_kernels, pair_stage)
@@ -475,13 +628,18 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     prefix = min(WIDE_PREFIX_STEPS, steps)
     nc = ns = novf = torch.zeros((), dtype=torch.int64, device=device)
     n_iter = 0
+    step_scene = scene
+    chunks = None if psum_group is None else _RenderChunks(psum_group, scene)
+    inner = max(1, int(round(steps ** 0.5)))      # steps a chunk
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         while n_iter < steps:
             if n_iter >= prefix and not busy():
                 break
+            if chunks is not None and n_iter % inner == 0:
+                step_scene = chunks.view(scene)
             st, (c, s, o) = _step(
-                scene, cam, cfg, key, intersect_fn, occluded_fn, st, pix_lo,
-                n_pix_local, spp_lo, spp_count, pix_stride=pix_stride,
+                step_scene, cam, cfg, key, intersect_fn, occluded_fn, st,
+                pix_lo, n_pix_local, spp_lo, spp_count, pix_stride=pix_stride,
                 # direct-only renders: EVERY wave is a fresh fully-occupied
                 # primary wave, so the steady-state budget never applies.
                 shadow_narrow=(n_iter >= prefix and not cfg.direct_only
@@ -490,6 +648,9 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
             nc, ns, novf = nc + c, ns + s, novf + o
             n_iter += 1
         accum = _sample_sum(st.accum, n_pix_local, spp_count)
+    if chunks is not None:
+        n_chunks = -(-n_iter // inner)
+        chunks.pad = psum_group._agree(n_chunks, device) - n_chunks
     ret = (accum, (nc, ns, novf, n_iter)) if with_counts else (accum,)
     if with_suspects:
         ret = (*ret, st.suspect)
