@@ -100,7 +100,17 @@ against the brute-force oracle, and drives these paths at full width:
   a central difference, that the same step with the exact fallback
   attached renders ``render_exact``'s fallback image, and, on two small
   scenes, that kernels and plain versions give the same loss and gradients
-  bit for bit.
+  bit for bit; every step past 16 steps recomputes its √steps chunks in
+  backward (``remat``, ``chunks``, the device memory the step adds), and
+  the grad cell's step once more as the twin without recomputation
+  (``remat=False``: the same gradients, its memory beside);
+- ``grad_headline``: the headline as a gradient step (the JAX package's
+  ``BENCH_GRAD=1 BENCH_SIZE=1024``: 1024², spp 1, target zeros, the hint
+  from ``render_main``'s steps), once recomputing and once as the twin:
+  forward and backward seconds, the memory each step adds, no kernel in
+  backward, the pair kernel 8 times a step in forward, gradients equal,
+  and the forward image ``render_main``'s bit for bit where nothing
+  overflowed.
 
 The descent of every cluster traversal above fetches its children's box
 fields through the kernel ``fetch_fields`` (``csrc/fetch_rows.cu``), so
@@ -2373,30 +2383,66 @@ def check_fetch_launches(launches, cb, steps, traversals=2):
     assert launches["fetch_rows"] == 0, launches
 
 
+def check_grad_launches(r, cb, walk=False, label="render_grad"):
+    """A gradient step launched no kernel in backward and, in forward, the
+    pair kernel (and the exact fallback's window walk, with ``walk``) once
+    for each of 4 sub-batches of 2 traversals a step, the descent's child
+    fetch through fetch_fields only."""
+    assert not any(r["launches_bwd"].values()), \
+        f"{label}: kernels launched in backward: {r['launches_bwd']}"
+    for name in ("pair_ray_reduce",) + (("packed_walk",) if walk else ()):
+        assert r["launches_fwd"][name] == 2 * 4 * r["steps_run"], \
+            r["launches_fwd"]
+    assert r["launches_fwd"]["packed_walk_thread"] == 0, r["launches_fwd"]
+    check_fetch_launches(r["launches_fwd"], cb, r["steps_run"])
+
+
 def grad_step(adjoint, params, scene, cam, cfg, key, bvh, hint, **kw):
     """One differentiable step through the port's entry points, timed in its
     two halves: ``adjoint.wavefront_loss`` (the forward pass on fresh leaves
     of ``params``, target zeros), then ``torch.autograd.grad``.  The launch
-    counts of the two halves are taken apart."""
+    counts of the two halves are taken apart.  Also the device memory
+    allocated before the step and its peak during it (``step_mem_MB``: the
+    peak less the memory before), and the chunks the loop checkpointed
+    (``chunks``; ``remat``: any) and recomputed in backward
+    (``replays``)."""
     leaves = {k: v.detach().clone().requires_grad_(True)
               for k, v in params.items()}
     target = torch.zeros((cfg.n_pixels, 3), device=DEV)
+    chunks, real = [], wavefront.checkpoint
+
+    def spy(fn, *a, **k):
+        chunks.append(fn)
+        return real(fn, *a, **k)
+
     take_launches()
     sync()
-    t0 = time.time()
-    loss, img, (nc, ns, novf, n_iter), done = adjoint.wavefront_loss(
-        leaves, scene, cam, cfg, key, target, bvh, queue=4096,
-        steps_hint=hint, **kw)
-    sync()
-    t1 = time.time()
-    fwd = take_launches()
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    sync()
-    t2 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    wavefront.checkpoint = spy
+    try:
+        t0 = time.time()
+        loss, img, (nc, ns, novf, n_iter), done = adjoint.wavefront_loss(
+            leaves, scene, cam, cfg, key, target, bvh, queue=4096,
+            steps_hint=hint, **kw)
+        sync()
+        t1 = time.time()
+        fwd = take_launches()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        sync()
+        t2 = time.time()
+    finally:
+        wavefront.checkpoint = real
+    peak = torch.cuda.max_memory_allocated()
     return dict(loss=loss.detach(), img=img.detach(), done=done,
-                overflow=int(novf), steps_run=n_iter,
-                grads=dict(zip(leaves, grads)), fwd_s=t1 - t0, bwd_s=t2 - t1,
-                launches_fwd=fwd, launches_bwd=take_launches())
+                overflow=int(novf), steps_run=n_iter, n_closest=int(nc),
+                n_shadow=int(ns), grads=dict(zip(leaves, grads)),
+                fwd_s=t1 - t0, bwd_s=t2 - t1, launches_fwd=fwd,
+                launches_bwd=take_launches(), remat=bool(chunks),
+                chunks=len(chunks), replays=sum(c.replays for c in chunks),
+                mem_before_step_MB=round(mem0 / 1e6, 1),
+                peak_mem_MB=round(peak / 1e6, 1),
+                step_mem_MB=round((peak - mem0) / 1e6, 1))
 
 
 def most_seen_material(scene, cam, cb, cfg):
@@ -2439,6 +2485,22 @@ def grads_max_diff(a, b):
     return max(float((a[k] - b[k]).abs().max()) for k in a)
 
 
+def grads_max_rel(a, b):
+    """The largest |a - b| of each gradient over the largest |b| of it."""
+    return max(float((a[k] - b[k]).abs().max())
+               / max(float(b[k].abs().max()), 1e-30) for k in a)
+
+
+def check_remat(r, twin=None, label="render_grad"):
+    """A step past 16 steps recomputed every chunk it checkpointed, once;
+    the twin checkpointed none."""
+    assert r["remat"] and r["replays"] == r["chunks"] > 1, \
+        f"{label}: chunks {r['chunks']}, recomputed {r['replays']}"
+    if twin is not None:
+        assert not twin["remat"] and twin["chunks"] == 0, \
+            f"{label}: the twin checkpointed {twin['chunks']} chunks"
+
+
 def grad_cell():
     """The grad cell's config and camera (big-1m 256², spp 1, depth 4, RR
     from 2 at 0.7: the JAX package's ``BENCH_GRAD=1`` cell)."""
@@ -2466,7 +2528,10 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
     render, the full bound if it was too small): one warm step, then three
     timed with keys 1, 2, 3.  No kernel launches in backward; the pair
     kernel 8 times a step in forward; grads finite; albedo's gradient at
-    the material the camera sees most against a central difference.
+    the material the camera sees most against a central difference.  The
+    hint is past 16 steps, so every chunk is recomputed in backward; key 3
+    once more as the twin (``remat=False``): the same loss and gradients,
+    and the memory its tape adds beside the recomputing step's.
     (b) The same with the exact fallback attached, key (0, 3): the forward
     image is ``render_exact``'s fallback render.
     (c) Kernels against their plain versions through autograd, on two small
@@ -2485,28 +2550,16 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
             out["hint_failed"] = True
         return out
 
-    def check_launches(r, walk):
-        assert not any(r["launches_bwd"].values()), \
-            f"render_grad: kernels launched in backward: {r['launches_bwd']}"
-        # 2 traversals x 4 sub-batches a step, one launch each.
-        for name in ("pair_ray_reduce",) + (("packed_walk",) if walk else ()):
-            assert r["launches_fwd"][name] == 2 * 4 * r["steps_run"], \
-                r["launches_fwd"]
-        assert r["launches_fwd"]["packed_walk_thread"] == 0, r["launches_fwd"]
-        check_fetch_launches(r["launches_fwd"], cb, r["steps_run"])
-
     step((0, 0))                                    # warm
-    runs = []
-    for i in (1, 2, 3):
-        if i == 3:
-            torch.cuda.reset_peak_memory_stats()
-            mem0 = torch.cuda.memory_allocated()
-        runs.append(step((0, i)))
-    peak = torch.cuda.max_memory_allocated()
+    runs = [step((0, i)) for i in (1, 2, 3)]
     fwd_s = statistics.median(r["fwd_s"] for r in runs)
     bwd_s = statistics.median(r["bwd_s"] for r in runs)
     total_s = statistics.median(r["fwd_s"] + r["bwd_s"] for r in runs)
     last = runs[-1]
+    twin = grad_step(adjoint, params, scene, cam, cfg, (0, 3), cb,
+                     None if last.get("hint_failed") else hint, remat=False)
+    twin_bitwise = bool(torch.equal(twin["loss"], last["loss"])) \
+        and grads_equal(twin["grads"], last["grads"])
 
     # Central difference of the loss in one albedo entry (no sampling
     # decision depends on albedo), on the last run's key.
@@ -2539,8 +2592,22 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
           "hint_failed": any(r.get("hint_failed", False) for r in runs),
           "overflow": [r["overflow"] for r in runs],
           "steps_run": [r["steps_run"] for r in runs],
-          "peak_mem_MB": round(peak / 1e6, 1),
-          "mem_before_step_MB": round(mem0 / 1e6, 1),
+          "peak_mem_MB": last["peak_mem_MB"],
+          "mem_before_step_MB": last["mem_before_step_MB"],
+          "step_mem_MB": last["step_mem_MB"],
+          "remat": last["remat"], "chunks": last["chunks"],
+          "chunks_recomputed": last["replays"],
+          "twin": {"remat": twin["remat"], "fwd_s": round(twin["fwd_s"], 3),
+                   "bwd_s": round(twin["bwd_s"], 3),
+                   "peak_mem_MB": twin["peak_mem_MB"],
+                   "mem_before_step_MB": twin["mem_before_step_MB"],
+                   "step_mem_MB": twin["step_mem_MB"],
+                   "launches_bwd": twin["launches_bwd"],
+                   "equals_recomputed_bitwise": twin_bitwise,
+                   "grads_max_abs_diff": grads_max_diff(twin["grads"],
+                                                        last["grads"])},
+          "step_mem_over_twin": round(last["step_mem_MB"]
+                                      / twin["step_mem_MB"], 4),
           "launches_fwd": last["launches_fwd"],
           "launches_bwd": last["launches_bwd"],
           "fd_albedo": {"material": m, "channel": 0, "eps": eps, "grad": g,
@@ -2549,9 +2616,17 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
           "tolerance": "backward launches 0; pair_ray_reduce 8 x steps, "
                        "fetch_fields 8 x fetch levels x steps, fetch_rows 0; "
                        "the window walk only; grads finite; "
-                       "albedo grad vs central difference rtol 2e-2"})
+                       "albedo grad vs central difference rtol 2e-2; every "
+                       "chunk recomputed once; the twin's loss and grads "
+                       "bitwise, else rtol 1e-6 of the largest"})
+    check_remat(last, twin)
+    check_grad_launches(twin, cb)
+    assert bool(torch.equal(twin["loss"], last["loss"])) \
+        and grads_max_rel(twin["grads"], last["grads"]) <= 1e-6, \
+        "render_grad: the twin's gradients differ from the recomputed ones"
+    del twin
     for r in runs:
-        check_launches(r, walk=False)
+        check_grad_launches(r, cb)
         assert all(bool(torch.isfinite(x).all())
                    for x in r["grads"].values()), \
             "render_grad: a gradient is not finite"
@@ -2571,12 +2646,18 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
           "max_abs_diff": float((img - img_fb).abs().max()),
           "fwd_s": round(fb["fwd_s"], 3), "bwd_s": round(fb["bwd_s"], 3),
           "overflow": fb["overflow"], "steps_run": fb["steps_run"],
+          "remat": fb["remat"], "chunks": fb["chunks"],
+          "chunks_recomputed": fb["replays"],
+          "peak_mem_MB": fb["peak_mem_MB"],
+          "mem_before_step_MB": fb["mem_before_step_MB"],
+          "step_mem_MB": fb["step_mem_MB"],
           "loss": float(fb["loss"]), "launches_fwd": fb["launches_fwd"],
           "launches_bwd": fb["launches_bwd"],
           "tolerance": "bitwise, else rtol 2e-4 atol 2e-5 where the tile "
                        "test and the walk's row test round t apart; loss "
                        "= mean(img²) bitwise"})
-    check_launches(fb, walk=True)
+    check_grad_launches(fb, cb, walk=True)
+    check_remat(fb)
     assert bool(fb["loss"] == torch.mean(fb["img"] ** 2)), \
         "render_grad: the fallback loss is not mean(img²) of its image"
     assert torch.allclose(img, img_fb, rtol=2e-4, atol=2e-5), \
@@ -2664,6 +2745,98 @@ def phase_render_grad(scene, cb, cb_fb, img_fb):
             torch.allclose(gd2[k], gb[k], rtol=1e-3, atol=1e-3) for k in gb), \
             f"{name}: dense-sweep gradients vs brute gradients"
     return hint
+
+
+def phase_grad_headline(scene, cam, cb, cfg, main, img_main):
+    """The headline as a gradient step: the JAX package's ``BENCH_GRAD=1
+    BENCH_SIZE=1024`` cell (big-1m, 1024², spp 1, depth 4, RR from 2 at
+    0.7, queue 4096, key (0, 3), target zeros, cluster backend, fused pair
+    stage), its ``steps_hint`` made from ``render_main``'s steps as
+    ``grad_hint`` makes it (the full bound if it was too small).  Once
+    recomputing every √steps chunk in backward (``remat=None``) and once as
+    the twin that keeps every step's shading (``remat=False``).  Holds: no
+    kernel launched in backward, the pair kernel 8 times a step in forward,
+    every chunk recomputed once, the twin's gradients equal to the
+    recomputed ones (bitwise, else rtol 1e-6 of the largest), loss =
+    mean(img²) bit for bit, the forward image ``render_main``'s bit for bit
+    where nothing overflowed, and the memory the recomputing step adds at
+    most 0.25 of the twin's.  Returns the recomputing step's forward
+    launches."""
+    from tpu_pt_torch.diff import adjoint, params as dparams
+
+    params = dparams.split(scene)[0]
+    hint = int(main["steps_run"] * 1.2) + cfg.max_depth + 2
+    out = {}
+    for name, remat in (("remat", None), ("twin", False)):
+        r = grad_step(adjoint, params, scene, cam, cfg, (0, 3), cb, hint,
+                      remat=remat)
+        if not r["done"]:       # the hint was too small: the full bound
+            r = grad_step(adjoint, params, scene, cam, cfg, (0, 3), cb, None,
+                          remat=remat)
+            r["hint_failed"] = True
+        out[name] = r
+    r, tw = out["remat"], out["twin"]
+    img = r["img"].reshape(cfg.height, cfg.width, 3)
+    differ = (img != img_main).any(-1)
+    bitwise = bool(torch.equal(r["loss"], tw["loss"])) \
+        and grads_equal(r["grads"], tw["grads"])
+
+    def line(x):
+        total_s = x["fwd_s"] + x["bwd_s"]
+        return {"fwd_s": round(x["fwd_s"], 3), "bwd_s": round(x["bwd_s"], 3),
+                "bwd_over_fwd": round(x["bwd_s"] / x["fwd_s"], 4),
+                "grad_rays_per_s": round((x["n_closest"] + x["n_shadow"])
+                                         / total_s, 1),
+                "peak_mem_MB": x["peak_mem_MB"],
+                "mem_before_step_MB": x["mem_before_step_MB"],
+                "step_mem_MB": x["step_mem_MB"], "remat": x["remat"],
+                "chunks": x["chunks"], "chunks_recomputed": x["replays"],
+                "steps_run": x["steps_run"], "overflow": x["overflow"],
+                "n_closest": x["n_closest"], "n_shadow": x["n_shadow"],
+                "hint_failed": x.get("hint_failed", False),
+                "loss": float(x["loss"]),
+                "loss_is_mean_img_sq_bitwise": bool(
+                    x["loss"] == torch.mean(x["img"] ** 2)),
+                "launches_fwd": x["launches_fwd"],
+                "launches_bwd": x["launches_bwd"]}
+
+    steps = min(wavefront.n_steps(cfg, 4096), hint)
+    emit({"phase": "render_grad", "part": "grad_headline", "scene": "big-1m",
+          "size": cfg.width, "spp": cfg.spp, "max_depth": cfg.max_depth,
+          "queue": 4096, "pair_stage": "fused", "key": [0, 3],
+          "steps_hint": hint, "inner": max(1, round(steps ** 0.5)),
+          "render_main_steps_run": main["steps_run"],
+          "recomputed": line(r), "twin": line(tw),
+          "step_mem_over_twin": round(r["step_mem_MB"] / tw["step_mem_MB"],
+                                      4),
+          "bwd_s_over_twin": round(r["bwd_s"] / tw["bwd_s"], 4),
+          "twin_equals_recomputed_bitwise": bitwise,
+          "grads_max_abs_diff": grads_max_diff(r["grads"], tw["grads"]),
+          "grads_max_rel_diff": grads_max_rel(r["grads"], tw["grads"]),
+          "image_equals_render_main_bitwise": int(differ.sum()) == 0,
+          "pixels_differ_render_main": int(differ.sum()),
+          "tolerance": "backward launches 0; pair_ray_reduce 8 x steps; "
+                       "every chunk recomputed once; twin loss and grads "
+                       "bitwise, else rtol 1e-6 of the largest; loss = "
+                       "mean(img²) bitwise; image = render_main's bitwise "
+                       "at overflow 0; step memory <= 0.25 x the twin's"})
+    for x in (r, tw):
+        check_grad_launches(x, cb, label="grad_headline")
+        assert bool(torch.isfinite(x["loss"])) and all(
+            bool(torch.isfinite(g).all()) for g in x["grads"].values()), \
+            "grad_headline: loss or gradients not finite"
+        assert bool(x["loss"] == torch.mean(x["img"] ** 2)), \
+            "grad_headline: the loss is not mean(img²) of its image"
+    check_remat(r, tw, label="grad_headline")
+    assert bool(torch.equal(r["loss"], tw["loss"])) \
+        and grads_max_rel(r["grads"], tw["grads"]) <= 1e-6, \
+        "grad_headline: the twin's gradients differ from the recomputed ones"
+    if r["overflow"] == 0 and main["overflow"] == 0:
+        assert int(differ.sum()) == 0, \
+            "grad_headline: forward image vs render_main's"
+    assert r["step_mem_MB"] <= 0.25 * tw["step_mem_MB"], \
+        "grad_headline: the recomputing step holds more than 0.25 of the twin's"
+    return {"grad_headline": r["launches_fwd"]}
 
 
 def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
@@ -4931,10 +5104,13 @@ def main():
     launches, main_line, img_main = run(
         "render_main", phase_render_main, scene, cam, cb, cfg, build_s,
         n_tris)
-    # The command line's paths and the device builds', each with its launch
-    # counts zeroed just before its render and read just after.
-    by_path = run("cli", phase_cli, scene_h, img_main, main_line, img_rep,
-                  n_sus)
+    # The headline's gradient step, the command line's paths and the
+    # device builds', each with its launch counts zeroed just before its
+    # run and read just after.
+    by_path = run("grad_headline", phase_grad_headline, scene, cam, cb, cfg,
+                  main_line, img_main)
+    by_path.update(run("cli", phase_cli, scene_h, img_main, main_line,
+                       img_rep, n_sus))
     del img_rep
     by_path["render_lbvh"] = run(
         "render_lbvh", phase_render_lbvh, scene, cam, cfg, lb, pk, main_line,

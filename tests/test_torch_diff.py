@@ -37,7 +37,7 @@ from tpu_pt_torch.render import wavefront as twf
 from tpu_pt_torch.scene import cornell as tc
 from tpu_pt_torch.scene import types as ttypes
 
-from torch_port_util import bvh_dict
+from torch_port_util import bvh_dict, chunks_seen
 
 GGX = dict(kind=jtypes.MAT_GGX, albedo=(0.8, 0.6, 0.4), roughness=0.35)
 
@@ -357,23 +357,27 @@ def _counting(monkeypatch, module, name, log):
     monkeypatch.setattr(module, name, factory)
 
 
-@pytest.mark.parametrize("path", ["wavefront", "flat"])
+@pytest.mark.parametrize("path", ["wavefront", "flat", "wavefront_remat"])
 def test_traversals_stay_out_of_backward(monkeypatch, path):
     """No intersector runs between the end of the forward pass and the end
-    of backward(), and no traversal output carries a graph."""
+    of backward(), and no traversal output carries a graph.  At queue 64
+    the loop runs 9 steps; at queue 12 (``wavefront_remat``) it runs more
+    than 16, and backward recomputes every chunk on its kept records."""
     log = []
     _, (st, cam, cfg, key) = _setup(
         spp=2, w=8, h=8, mat_row=GGX, direct_only=False, max_depth=2)
     st, cam = st.to("cpu"), cam.to("cpu")
     params = convert.params_from_numpy(
         {k: v.numpy() for k, v in tparams.split(st)[0].items()}, "cpu")
-    if path == "wavefront":
+    if path.startswith("wavefront"):
         _counting(monkeypatch, twf, "_intersectors_counted", log)
+        chunks = chunks_seen(monkeypatch)
         bvh = tcl.build_cluster_bvh(st).to("cpu")
         loss, img, counts, done = tadj.wavefront_loss(
             params, st, cam, cfg, key, torch.zeros((cfg.n_pixels, 3)), bvh,
-            queue=64, use_kernels=False)
-        assert done and counts[3] > 2
+            queue=12 if path == "wavefront_remat" else 64, use_kernels=False)
+        assert done and counts[3] > (16 if path == "wavefront_remat" else 2)
+        assert bool(chunks) == (path == "wavefront_remat")
     else:
         _counting(monkeypatch, tadj, "_intersectors", log)
         img = tadj.render_flat(tparams.merge(params, st), cam, cfg, key,
@@ -383,6 +387,8 @@ def test_traversals_stay_out_of_backward(monkeypatch, path):
     assert n_forward > 0 and loss.requires_grad
     loss.backward()
     assert len(log) == n_forward, "a traversal ran during backward()"
+    if path.startswith("wavefront"):
+        assert all(c.replays == 1 for c in chunks)
     def tensors(x):
         if torch.is_tensor(x):
             yield x

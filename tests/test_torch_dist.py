@@ -37,7 +37,7 @@ from tpu_pt_torch.render import wavefront as twf
 from tpu_pt_torch.scene import cornell as tc
 
 import torch_dist_worker
-import torch_port_util  # noqa: F401  (torch threads per xdist worker)
+import torch_port_util  # also sets torch's threads per xdist worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_dist_worker.py")
@@ -279,6 +279,33 @@ def test_reduces_start_per_chunk_during_backward():
     with pytest.raises(ValueError, match="differentiable"):
         twf.wavefront_accum(scene, cam, cfg, key, pk, 32, "packed", 0, block,
                             psum_group=twf.ChunkReduce())
+
+
+def test_recomputed_chunks_reduce_m_times_as_the_twin(monkeypatch):
+    """Under ``psum_group`` every chunk is recomputed in backward (the JAX
+    package's rule): the reduces in backward are still M, one per chunk,
+    and their sum is the twin's (``remat=False``) bit for bit."""
+    params, scene, cam, cfg, key, _, pk = torch_dist_worker.setup("chunks")
+    scene, cam = scene.to("cpu"), cam.to("cpu")
+    pk = pk.to("cpu")
+    block = cfg.n_pixels // 8
+    seen = torch_port_util.chunks_seen(monkeypatch)
+    out = {}
+    for remat in (None, False):
+        red = twf.ChunkReduce()
+        leaves = tadj._leaves(params, "cpu")
+        accum = twf.wavefront_accum(
+            tparams.merge(leaves, scene), cam, cfg, key, pk, 32, "packed",
+            3 * block, block, differentiable=True, psum_group=red,
+            remat=remat)
+        torch.sum((accum / cfg.spp) ** 2).backward()
+        assert red.chunks == [(4, 4)] and red.n_reduces == 4
+        out[remat] = red.wait(leaves.values())
+        if remat is None:
+            assert len(seen) == 4 and all(c.replays == 1 for c in seen)
+    assert len(seen) == 4       # the twin checkpoints nothing
+    for g, g0 in zip(out[None], out[False]):
+        assert torch.equal(g, g0)
 
 
 def test_dryrun_multichip_on_the_cpu():

@@ -67,3 +67,24 @@ def assert_tree_equal(a, b):
             x = np.asarray(x)
             assert x.dtype == y.dtype, (f, x.dtype, y.dtype)
             np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+def chunks_seen(monkeypatch, inputs=None):
+    """Spy on the differentiable loop's checkpoint
+    (``tpu_pt_torch.render.wavefront.checkpoint``): the list of every chunk
+    it is given, in order (each a ``_Chunk``: ``n`` steps run, ``replays``
+    recomputations, ``records``), while ``monkeypatch`` holds; each call's
+    inputs are appended to ``inputs`` where a list is given."""
+    from tpu_pt_torch.render import wavefront
+
+    seen = []
+    real = wavefront.checkpoint
+
+    def spy(fn, *a, **kw):
+        seen.append(fn)
+        if inputs is not None:
+            inputs.append(a)
+        return real(fn, *a, **kw)
+
+    monkeypatch.setattr(wavefront, "checkpoint", spy)
+    return seen

@@ -121,20 +121,21 @@ def loss_and_grad(params, scene: Scene, cam, cfg: RenderConfig, key, target,
 def wavefront_loss(params, scene: Scene, cam, cfg: RenderConfig, key, target,
                    bvh, backend: str = "cluster", queue: int = 1 << 14,
                    steps_hint=None, use_kernels: bool = True,
-                   pair_stage: str = "fused"):
+                   pair_stage: str = "fused", remat=None):
     """The forward half of :func:`loss_and_grad_wavefront`, for tensors
     already on one device: ``params`` (tensors that require grad, or not)
     are merged into ``scene`` and the image renders through the
     differentiable wavefront loop.  Returns (loss, image (n_pixels, 3),
     (n_closest, n_shadow, n_overflow, steps_run), done); loss and image
-    carry the graph back to ``params``.  ``cfg.debug_checks`` is ignored,
+    carry the graph back to ``params``.  ``remat`` as
+    :func:`loss_and_grad_wavefront`'s.  ``cfg.debug_checks`` is ignored,
     as the JAX package's ``loss_and_grad_wavefront`` ignores it: no check
     runs under its gradient."""
     accum, counts, done = wavefront_accum(
         merge(params, scene), cam, cfg.replace(debug_checks=False), key, bvh,
         queue, backend, 0, cfg.n_pixels, with_counts=True,
         use_kernels=use_kernels, pair_stage=pair_stage, differentiable=True,
-        steps_hint=steps_hint, with_done=True)
+        steps_hint=steps_hint, with_done=True, remat=remat)
     img = accum / cfg.spp
     return torch.mean((img - target) ** 2), img, counts, done
 
@@ -143,23 +144,30 @@ def loss_and_grad_wavefront(params, scene: Scene, cam, cfg: RenderConfig,
                             key, target, bvh, backend: str = "cluster",
                             queue: int = 1 << 14, steps_hint=None,
                             device="cuda", use_kernels: bool = True,
-                            pair_stage: str = "fused"):
+                            pair_stage: str = "fused", remat=None):
     """Differentiable step through the production path: the wavefront loop
     on ``backend`` (the cluster BVH by default) with the L2 loss
     ``mean((img - target)²)``.  target: (n_pixels, 3).
 
     The eager loop leaves as soon as the sample budget is spent, under
-    autograd too, and autograd saves each step's shading once (no
-    rematerialization): memory grows with steps x queue.  ``steps_hint``
-    caps the loop as the JAX package's static scan length does; with a hint
-    the result is (loss, grads, done), and done=False means the hint was too
-    small and samples were dropped (redo without it).  Without one it is
-    (loss, grads)."""
+    autograd too.  Past 16 steps it runs in chunks of about sqrt(steps)
+    steps, each recomputed in backward from its lanes at its start and the
+    traversal records the forward kept (``remat=None``, the JAX package's
+    √steps-chunked rematerialization): the tape holds the records of every
+    step (about 0.1 MB a step at queue 4096), the lanes at each chunk
+    boundary and one chunk's shading, O(sqrt(steps) x queue), so a 1024²
+    gradient fits on one card.  ``remat=False`` is the twin that keeps
+    every step's shading on the tape (memory grows with steps x queue), the
+    same loss and gradients bit for bit.  ``steps_hint`` caps the loop as
+    the JAX package's static scan length does; with a hint the result is
+    (loss, grads, done), and done=False means the hint was too small and
+    samples were dropped (redo without it).  Without one it is (loss,
+    grads)."""
     device, scene, cam, bvh = _on_device(device, scene, cam, bvh)
     leaves = _leaves(params, device)
     loss, _, _, done = wavefront_loss(
         leaves, scene, cam, cfg, key, _f32(target, device), bvh, backend,
-        queue, steps_hint, use_kernels, pair_stage)
+        queue, steps_hint, use_kernels, pair_stage, remat)
     grads = _grads(loss, leaves)
     if steps_hint is not None:
         return loss.detach(), grads, done

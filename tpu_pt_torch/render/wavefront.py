@@ -23,10 +23,16 @@ every step on the autograd tape; every traversal runs under
 ``torch.no_grad()`` on detached inputs, so the tape keeps only its hit and
 occlusion records and backward never traverses.  Sampling decisions (the
 pixel jitter, the BSDF uniforms and direction, barycentrics and hit
-distance) are detached, as in the JAX package.  Under ``psum_group`` (a
-``ChunkReduce``, ``dist/sharding.py``'s gradient step) the steps are
-grouped in chunks whose scene gradients are all-reduced across ranks while
-backward runs.
+distance) are detached, as in the JAX package.  The loop runs in chunks of
+``round(sqrt(steps))`` steps.  Past 16 steps (or under ``psum_group``) each
+chunk is recomputed in backward (``torch.utils.checkpoint``) from its
+lanes at its start and its traversal records, which the forward keeps: the
+tape holds the records of every step, the lanes at every chunk boundary
+and one chunk's shading at a time, O(sqrt(steps) x queue) in all, where a
+tape of every step's shading grows with steps x queue (``remat=False``,
+the twin).  Under ``psum_group`` (a ``ChunkReduce``,
+``dist/sharding.py``'s gradient step) each chunk's scene gradients are
+all-reduced across ranks while backward runs.
 
 Suspect-pixel repair: a render with ``with_suspects`` flags every pixel one
 of whose path segments had its traversal candidates cut by a static budget
@@ -52,6 +58,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tpu_pt_torch.config import RenderConfig
 from tpu_pt_torch.core.camera import generate_rays, pixel_xy
@@ -198,6 +205,23 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
     the real mixed-depth population that the capacity autotuner
     (``bvh/cluster.py::autotune_for_render``) sizes the budgets from; the
     hook changes nothing else the step computes."""
+    lanes, adds, counts = _advance(
+        scene, cam, cfg, key, intersect_fn, occluded_fn, st, pix_lo,
+        n_pix_local, spp_lo, spp_count, pix_stride, shadow_narrow,
+        track_suspects, pix_ids, ray_probe)
+    accum, suspect = _apply(st.accum, st.suspect, adds, n_pix_local)
+    return lanes._replace(accum=accum, suspect=suspect), counts
+
+
+def _advance(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
+             occluded_fn, st: QueueState, pix_lo, n_pix_local, spp_lo,
+             spp_count, pix_stride: int = 1, shadow_narrow: bool = False,
+             track_suspects: bool = False, pix_ids=None, ray_probe=None):
+    """:func:`_step` on the lanes alone: returns (state with its lanes
+    advanced and its ``accum`` and ``suspect`` as they were, adds,
+    counts); :func:`_apply` adds ``adds`` to the accumulator and the
+    suspect flags.  It reads neither, so a chunk of steps can run without
+    them."""
     st = _respawn(cam, cfg, key, st, pix_lo, n_pix_local, spp_lo, spp_count,
                   pix_stride, pix_ids)
     (contrib, pixel, cont, ro_n, rd_n, beta_n, inc_n, sus_lane,
@@ -206,16 +230,9 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
         (st.ro, st.rd, st.beta, st.ray_id, st.depth, st.include_le,
          st.alive), pix_lo, n_pix_local, spp_lo, pix_stride, shadow_narrow,
         track_suspects, pix_ids, ray_probe)
-
-    suspect = st.suspect
-    if track_suspects:
-        # A max, so the order of the lanes does not matter; dead lanes
-        # carry 0 and change nothing wherever they land.
-        suspect = suspect.scatter_reduce(0, pixel.clamp(0, n_pix_local - 1),
-                                         sus_lane, "amax")
     # The lane's row: its local (pixel, sample).
     sample = torch.clamp_min(st.ray_id, 0) % cfg.spp - spp_lo
-    row = pixel * spp_count + sample
+    adds = (pixel * spp_count + sample, contrib, st.alive, pixel, sus_lane)
     st = st._replace(
         ro=torch.where(cont, ro_n, st.ro),
         rd=torch.where(cont, rd_n, st.rd),
@@ -223,10 +240,20 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
         depth=st.depth + 1,
         include_le=torch.where(cont, inc_n, st.include_le),
         alive=cont,
-        accum=_accumulate(st.accum, row, contrib, st.alive),
-        suspect=suspect,
     )
-    return st, (nc, ns_, novf)
+    return st, adds, (nc, ns_, novf)
+
+
+def _apply(accum, suspect, adds, n_pix_local: int):
+    """One step's ``adds`` (from :func:`_advance`) on the accumulator and,
+    where tracked, the per-pixel suspect flags."""
+    row, contrib, alive, pixel, sus_lane = adds
+    if sus_lane is not None:
+        # A max, so the order of the lanes does not matter; dead lanes
+        # carry 0 and change nothing wherever they land.
+        suspect = suspect.scatter_reduce(0, pixel.clamp(0, n_pix_local - 1),
+                                         sus_lane, "amax")
+    return _accumulate(accum, row, contrib, alive), suspect
 
 
 def _accumulate(accum, row, contrib, alive):
@@ -255,8 +282,8 @@ def _sample_sum(accum, n_pix_local: int, spp_count: int):
 
 def _untaped(traverse, scene, *rays, **kw):
     """A traversal outside autograd, on detached rays: its outputs are
-    records with no graph behind them, so backward never runs it (the
-    port's form of the JAX package's ``save_only_these_names("isect")``)."""
+    records with no graph behind them, so backward never runs it (and a
+    recomputed chunk reads them back: :class:`_Chunk`)."""
     with torch.no_grad():
         return traverse(scene, *(r.detach() for r in rays), **kw)
 
@@ -518,6 +545,56 @@ class _RenderChunks:
         self.reduce._start(buf)
 
 
+class _Chunk:
+    """Steps [i0, i0 + n) of the loop on the lanes alone, as
+    ``torch.utils.checkpoint`` runs them.  Its first call traverses, keeps
+    every traversal's outputs in call order and ends early where the queue
+    runs dry (a host read before each step past the wide prefix); it
+    records how many steps it ran.  Every later call is backward's
+    recomputation: it runs that many steps on the same lanes and returns
+    the kept records in place of every traversal, so it traverses nothing
+    and reads nothing back to the host (the port's form of the JAX
+    package's ``save_only_these_names("isect")``).  Its scene, first step
+    and step count are its own, bound when the forward runs."""
+
+    def __init__(self, advance, scene, i0: int, n_max: int, prefix: int,
+                 busy, intersect_fn, occluded_fn):
+        self.advance, self.scene, self.busy = advance, scene, busy
+        self.i0, self.n_max, self.prefix = i0, n_max, prefix
+        self.isect = self._kept(intersect_fn)
+        self.occl = self._kept(occluded_fn)
+        self.records = []
+        self.n = None          # steps run, once the first call has run
+        self.replays = 0
+        self._at = 0
+
+    def _kept(self, traverse):
+        def call(*a, **kw):
+            if self.n is None:
+                out = traverse(*a, **kw)
+                self.records.append(out)
+            else:
+                out = self.records[self._at]
+                self._at += 1
+            return out
+        return call
+
+    def __call__(self, lanes):
+        replay = self.n is not None
+        self.replays += replay
+        self._at = 0
+        out = []
+        for k in range(self.n if replay else self.n_max):
+            i = self.i0 + k
+            if not replay and k and i >= self.prefix and not self.busy(lanes):
+                break
+            lanes, adds, counts = self.advance(self.scene, lanes, i,
+                                               self.isect, self.occl)
+            out.append((adds, counts))
+        self.n = len(out)
+        return lanes, out
+
+
 def init_queue(Q: int, n_pix_local: int, device,
                track_suspects: bool = False,
                spp_count: int = 1) -> QueueState:
@@ -561,7 +638,7 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                     with_suspects: bool = False, pix_ids=None,
                     differentiable: bool = False, steps_hint=None,
                     with_done: bool = False, checked: bool = False,
-                    psum_group: ChunkReduce | None = None):
+                    psum_group: ChunkReduce | None = None, remat=None):
     """Render pixels {pix_lo + j*pix_stride : j < n_pix_local} × samples
     [spp_lo, spp_lo+spp_count) -> (n_pix_local, 3) radiance sums (divide by
     cfg.spp for the full-spp mean).  ``scene``, ``cam`` and ``bvh`` hold
@@ -595,7 +672,18 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     ``psum_group`` (a :class:`ChunkReduce`; needs ``differentiable``): the
     scene's gradient reaches the group's reduce chunk by chunk during
     backward instead of the scene's tensors; the caller takes it from
-    ``psum_group.wait()`` and reduces nothing again."""
+    ``psum_group.wait()`` and reduces nothing again.
+
+    Under autograd the steps run in chunks of ``inner = max(1,
+    round(sqrt(steps)))``, ``steps`` the bound or the hint, and each
+    chunk's adds reach the accumulator after it, in step order.
+    ``remat=None`` (the JAX package's rule): past 16 steps, or under
+    ``psum_group``, each chunk runs under ``torch.utils.checkpoint`` and
+    is recomputed in backward from its lanes at its start and its kept
+    traversal records (:class:`_Chunk`); the tape then holds no chunk's
+    shading past the chunk's own backward.  ``remat=False``: the twin,
+    which keeps every step's shading on the tape; the same graph, the
+    same loss and gradients bit for bit."""
     if cfg.debug_checks and not checked:
         raise ValueError(
             "RenderConfig(debug_checks=True): the wavefront's checks run "
@@ -603,6 +691,9 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     if psum_group is not None and not differentiable:
         raise ValueError("psum_group reduces gradients: it needs "
                          "differentiable=True")
+    if remat is not None and remat is not False:
+        raise ValueError(f"remat must be None (recompute past 16 steps) or "
+                         f"False (the twin), not {remat!r}")
     spp_count = spp_count or cfg.spp
     pick = _intersectors_suspect if with_suspects else _intersectors_counted
     intersect_fn, occluded_fn = pick(backend, bvh, use_kernels, pair_stage)
@@ -617,36 +708,53 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
         steps = max(1, min(steps, int(steps_hint)))
     total = n_pix_local * spp_count
 
-    def busy():
+    def busy(lanes):
         # One host read: anything alive or left to spawn?
-        return bool(torch.any(st.alive) | (st.next_sample < total))
+        return bool(torch.any(lanes.alive) | (lanes.next_sample < total))
 
     # Wide warm-up PREFIX: the first waves' shadow batches are fully
     # occupied and wide-angle coherent — the binding any-hit pair
     # population — so they run the wide any-hit budget; later steps of a
     # forward render run the NARROW one (pair_mults[3]).
     prefix = min(WIDE_PREFIX_STEPS, steps)
+
+    def advance(chunk_scene, lanes, i, isect, occl):
+        return _advance(
+            chunk_scene, cam, cfg, key, isect, occl, lanes, pix_lo,
+            n_pix_local, spp_lo, spp_count, pix_stride=pix_stride,
+            # direct-only renders: EVERY wave is a fresh fully-occupied
+            # primary wave, so the steady-state budget never applies.
+            shadow_narrow=(i >= prefix and not cfg.direct_only
+                           and not differentiable),
+            track_suspects=with_suspects, pix_ids=pix_ids)
+
     nc = ns = novf = torch.zeros((), dtype=torch.int64, device=device)
     n_iter = 0
-    step_scene = scene
+    taped = differentiable and torch.is_grad_enabled()
+    remat = taped and remat is None and (steps > 16 or psum_group is not None)
     chunks = None if psum_group is None else _RenderChunks(psum_group, scene)
     inner = max(1, int(round(steps ** 0.5)))      # steps a chunk
-    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
-        while n_iter < steps:
-            if n_iter >= prefix and not busy():
-                break
-            if chunks is not None and n_iter % inner == 0:
-                step_scene = chunks.view(scene)
-            st, (c, s, o) = _step(
-                step_scene, cam, cfg, key, intersect_fn, occluded_fn, st,
-                pix_lo, n_pix_local, spp_lo, spp_count, pix_stride=pix_stride,
-                # direct-only renders: EVERY wave is a fresh fully-occupied
-                # primary wave, so the steady-state budget never applies.
-                shadow_narrow=(n_iter >= prefix and not cfg.direct_only
-                               and not differentiable),
-                track_suspects=with_suspects, pix_ids=pix_ids)
-            nc, ns, novf = nc + c, ns + s, novf + o
-            n_iter += 1
+    with torch.set_grad_enabled(taped):
+        while n_iter < steps and (n_iter < prefix or busy(st)):
+            # Untaped, a chunk is one step: its adds need not wait.
+            run = _Chunk(advance,
+                         scene if chunks is None else chunks.view(scene),
+                         n_iter, min(inner if taped else 1, steps - n_iter),
+                         prefix, busy, intersect_fn, occluded_fn)
+            # The accumulator and the flags stay out of the chunk: a
+            # checkpoint keeps its inputs.
+            lanes = st._replace(accum=None, suspect=None)
+            if remat:
+                lanes, out = checkpoint(run, lanes, use_reentrant=False,
+                                        preserve_rng_state=False)
+            else:
+                lanes, out = run(lanes)
+            accum, suspect = st.accum, st.suspect
+            for adds, (c, s, o) in out:
+                accum, suspect = _apply(accum, suspect, adds, n_pix_local)
+                nc, ns, novf = nc + c, ns + s, novf + o
+            st = lanes._replace(accum=accum, suspect=suspect)
+            n_iter += run.n
         accum = _sample_sum(st.accum, n_pix_local, spp_count)
     if chunks is not None:
         n_chunks = -(-n_iter // inner)
@@ -655,7 +763,7 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     if with_suspects:
         ret = (*ret, st.suspect)
     if with_done:
-        ret = (*ret, not busy())
+        ret = (*ret, not busy(st))
     return ret if len(ret) > 1 else ret[0]
 
 
