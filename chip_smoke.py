@@ -17,6 +17,10 @@
     python3 chip_smoke.py --dist      # instead of the phases: only the
                                       # dist phase (after the headline render
                                       # and the grad cell's hint it needs)
+    python3 chip_smoke.py --walks     # instead of the phases: only the two
+                                      # walks' times, both designs (run it
+                                      # from another checkout of the port
+                                      # to time that tree's walks)
 
 Builds the native SAH builder and the CUDA kernel library from the sources
 in this checkout (the headline scene's BVHs must come from the native
@@ -120,7 +124,9 @@ window design of ``packed_walk`` (``csrc/packed_walk.cu``), never its twin
 (``design="thread"``); the oracle's ``"bvh"`` renders run the row design of
 ``flat_walk`` (``csrc/flat_walk.cu``), never its twin (``design="thread"``).
 The kernels phase holds each redesign bitwise against its plain version
-and against its twin and times the two inside this call; ``render_oracle``
+and against its twin and times the two inside this call, and holds both
+designs of both walks to the port's brute force, bit for bit, on 20,000
+rays aimed up at the reduced atrium's coplanar beam faces; ``render_oracle``
 also renders the Cornell mesh once through each design of the flat walk,
 under the profiler, and sums the durations and the bounds of its 320
 walks.  ``fetch_probes`` runs the three ported fetch probes
@@ -149,6 +155,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import io
 import json
 import os
@@ -1057,11 +1064,33 @@ def overflow_batches(scene, cb):
     return got, n_over
 
 
-def walk_edge_rays(pk, n, seed):
+def atrium_up_rays(n=20000):
+    """The coplanar case of the walks' CPU tests (tests/torch_port_util.py::
+    atrium_upward): n seeded rays from the reduced atrium's hall aimed up
+    at its crossing ceiling beams, as numpy (ro, rd)."""
+    rs = np.random.RandomState(0)
+    ro = rs.uniform([-11, 0.5, -4.5], [11, 8.0, 4.5],
+                    (n, 3)).astype(np.float32)
+    rd = rs.normal(size=(n, 3))
+    rd[:, 1] = np.abs(rd[:, 1]) * 2
+    return ro, (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(
+        np.float32)
+
+
+def with_up_rays(ro, rd, t_max, up):
+    """The edge rays with ``up`` ((ro, rd) numpy, t_max 1e30) after them."""
+    if up is None:
+        return ro, rd, t_max
+    return (np.concatenate([ro, up[0]]), np.concatenate([rd, up[1]]),
+            np.concatenate([t_max, np.full((len(up[0]),), 1e30, np.float32)]))
+
+
+def walk_edge_rays(pk, n, seed, up=None):
     """Rays with the walk's edge cases: half aimed into random leaf boxes,
     axis-parallel directions (components +0 and -0), origins ON a node box
     face with the direction in its plane (0 * inf = NaN in the slab test),
-    t_max = -1 (leaves at the root) and t_max = 0.5."""
+    t_max = -1 (leaves at the root) and t_max = 0.5; then the rays ``up``
+    (:func:`atrium_up_rays`), if given."""
     rs = np.random.RandomState(seed)
     boxes = pk.node_rows()[0]
     leaves = boxes[boxes[:, 7].view(np.int32) >= 0]
@@ -1091,19 +1120,119 @@ def walk_edge_rays(pk, n, seed):
     t_max = np.full((n,), 1e30, np.float32)
     t_max[8::19] = 0.5
     t_max[::17] = -1.0
+    ro, rd, t_max = with_up_rays(ro, rd, t_max, up)
     return tuple(torch.from_numpy(x).to(DEV) for x in
-                 (ro, rd, np.zeros((n,), np.float32), t_max))
+                 (ro, rd, np.zeros_like(t_max), t_max))
 
 
-def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
+@functools.lru_cache(maxsize=1)
+def atrium_brute():
+    """The port's brute force (``render/brute.py``) of
+    :func:`atrium_up_rays` on the reduced atrium, run on the host in chunks
+    of 500 rays: there its dot products sum left to right, as the walks'
+    row test does (the CPU tests hold the plain walks to it bit for bit);
+    torch's reduction on the card sums them in another order, so the card's
+    brute force rounds t apart from every walk.  A ``Hit`` on the card."""
+    scene = meshes.atrium_scene(col_rad=16, col_ny=6).to("cpu")
+    ro, rd = (torch.from_numpy(x) for x in atrium_up_rays())
+    R = ro.shape[0]
+    parts = [brute.intersect(scene, ro[i:i + 500], rd[i:i + 500],
+                             torch.zeros((min(500, R - i), 1)),
+                             torch.full((min(500, R - i), 1), 1e30))
+             for i in range(0, R, 500)]
+    return brute.Hit(*(torch.cat(f).to(DEV) for f in zip(*parts)))
+
+
+def hold_to_brute(label, hit_of, occluded):
+    """A walk's nearest hits on :func:`atrium_up_rays` (t_min 0, t_max
+    1e30) against the port's brute force (:func:`atrium_brute`), bit for
+    bit: hit and t on every ray, primitive, u and v where brute force hits.
+    ``hit_of(t_max)`` gives the walk's (t, primitive id, u, v);
+    ``occluded(t_max)`` its any-hit bits, one tensor a design, which at
+    t_max = brute force's t (the nearest hit on the bound) must be brute
+    force's hit bits.  Returns the counts."""
+    hb = atrium_brute()
+    R = int(hb.t.shape[0])
+    t_max = torch.full((R,), 1e30, device=DEV)
+    t, g, u, v = hit_of(t_max)
+    m = hb.hit[:, 0]
+    apart = ((t < t_max) != m) | (t != hb.t[:, 0]) \
+        | (m & ((g != hb.prim) | (u != hb.u[:, 0]) | (v != hb.v[:, 0])))
+    occ_apart = [int((o != m).sum()) for o in occluded(hb.t[:, 0])]
+    res = {"rays": R, "hits": int(m.sum()), "apart_from_brute": int(
+        apart.sum()), "any_hit_at_brute_t_apart": occ_apart}
+    assert res["apart_from_brute"] == 0 and not any(occ_apart), \
+        f"{label}: the walk is not brute force's bit for bit on the " \
+        f"coplanar rays: {res}"
+    return res
+
+
+def packed_walk_edge_cases(pk):
+    """(c) of check_packed_walk: edge cases on the headline's table, on
+    spheres, on coincident triangles and on the reduced atrium's coplanar
+    faces (there also against brute force).  Returns the cases."""
+    cases = []
+    v, f = meshes.icosphere(subdiv=1)
+    f = np.concatenate([f, f[:12]])          # 12 faces twice, higher ids
+    twin = make_scene(v, f, np.zeros(len(f), np.int32),
+                      make_materials([dict(albedo=(0.5,) * 3)]),
+                      make_lights([]))
+    pk_twin = native.build_packed(twin).to(DEV)
+    atrium = meshes.atrium_scene(col_rad=16, col_ny=6)
+    up = atrium_up_rays()
+    for name, pk_e in (("edge_big1m", pk),
+                       ("edge_cornell_spheres",
+                        native.build_packed(cornell.cornell("spheres")).to(DEV)),
+                       ("edge_coincident_triangles", pk_twin),
+                       ("edge_atrium_coplanar",
+                        native.build_packed(atrium).to(DEV))):
+        coplanar = name == "edge_atrium_coplanar"
+        args = walk_args(pk_e, *walk_edge_rays(pk_e, 3000, 31,
+                                               up if coplanar else None))
+        for form in (False, True):
+            res, _, out = compare_walk(args, name, form)
+            assert res["hits"] > 0, f"packed_walk {name}: no hit"
+            cases.append(res)
+        if name == "edge_cornell_spheres":
+            assert res["rows_sph"] > 0, "no sphere row tested"
+        if coplanar:
+            # The upward rays (the last ones) against brute force.
+            ro_u, rd_u = (x[-len(up[0]):] for x in args[2:4])
+
+            def hit_of(t_max):
+                t, slot, u, v = packed_walk_ref(*walk_args(
+                    pk_e, ro_u, rd_u, torch.zeros_like(t_max), t_max))
+                return t, pk_e.prim_gid[slot.long()], u, v
+
+            res["vs_brute"] = hold_to_brute(
+                "packed_walk " + name, hit_of,
+                lambda t_max: [packed_walk(*walk_args(
+                    pk_e, ro_u, rd_u, torch.zeros_like(t_max), t_max),
+                    any_hit=True, design=d) for d in WALK_DESIGNS])
+    c = torch.from_numpy(v[f[:12]].mean(axis=1)).float()
+    args = walk_args(pk_twin, (c * 3.0).to(DEV),
+                     (-c / c.norm(dim=1, keepdim=True)).to(DEV),
+                     torch.zeros(12, device=DEV), torch.full((12,), 1e30,
+                                                             device=DEV))
+    res, _, (t, slot, _, _) = compare_walk(args, "coincident_lowest_gid", False)
+    assert bool((t < INF).all()) and \
+        pk_twin.prim_gid[slot.long()].tolist() == list(range(12)), \
+        "coincident triangles: not the lowest id"
+    cases.append(res)
+    return cases
+
+
+def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush,
+                      edges=True):
     """The walk kernel in both designs against its plain version and
     against each other, bitwise, closest and any hit: (a) the first
     overflowing closest-hit and shadow sub-batch of the 256² render (of each
     form that overflows there) as the retrace hands them over (t_max = -1
     where a ray is not suspect); (b) the whole 4,096-lane queue after
-    N_WARM steps, and its shadow batch; (c) edge cases.  Times the kernel and the plain
-    version on (a) and (b), the two designs one after the other on the
-    same operands.  Returns (cases, timing)."""
+    N_WARM steps, and its shadow batch; (c) edge cases
+    (:func:`packed_walk_edge_cases`, where ``edges``).  Times the kernel and
+    the plain version on (a) and (b), the two designs one after the other
+    on the same operands.  Returns (cases, timing)."""
     cases, timing = [], {}
     got, n_over = overflow_batches(scene, cb)
     batches = []
@@ -1158,35 +1287,10 @@ def check_packed_walk(scene, cb, pk, mid, mid_full, shadow_full, flush):
                 dict(shape=shape, **time_both(
                     lambda: packed_walk(*args, any_hit=form, design="thread"),
                     flush, WALK_KERNEL["thread"]), bytes=n_bytes, flops=ops)
-    # (c) Edge cases on the headline's table, on spheres and on coincident
-    # triangles; a batch in which no ray is suspect (all leave at the root).
-    v, f = meshes.icosphere(subdiv=1)
-    f = np.concatenate([f, f[:12]])          # 12 faces twice, higher ids
-    twin = make_scene(v, f, np.zeros(len(f), np.int32),
-                      make_materials([dict(albedo=(0.5,) * 3)]),
-                      make_lights([]))
-    for name, pk_e in (("edge_big1m", pk),
-                       ("edge_cornell_spheres",
-                        native.build_packed(cornell.cornell("spheres")).to(DEV)),
-                       ("edge_coincident_triangles",
-                        native.build_packed(twin).to(DEV))):
-        args = walk_args(pk_e, *walk_edge_rays(pk_e, 3000, 31))
-        for form in (False, True):
-            res, _, out = compare_walk(args, name, form)
-            assert res["hits"] > 0, f"packed_walk {name}: no hit"
-            cases.append(res)
-        if name == "edge_cornell_spheres":
-            assert res["rows_sph"] > 0, "no sphere row tested"
-    c = torch.from_numpy(v[f[:12]].mean(axis=1)).float()
-    args = walk_args(pk_e, (c * 3.0).to(DEV), (-c / c.norm(dim=1,
-                                                            keepdim=True)).to(DEV),
-                     torch.zeros(12, device=DEV), torch.full((12,), 1e30,
-                                                             device=DEV))
-    res, _, (t, slot, _, _) = compare_walk(args, "coincident_lowest_gid", False)
-    assert bool((t < INF).all()) and \
-        pk_e.prim_gid[slot.long()].tolist() == list(range(12)), \
-        "coincident triangles: not the lowest id"
-    cases.append(res)
+    # (c) Edge cases (unless ``edges`` is false); a batch in which no ray is
+    # suspect (all leave at the root).
+    if edges:
+        cases += packed_walk_edge_cases(pk)
     ro, rd, t_max = mid
     args = walk_args(pk, ro, rd, torch.zeros_like(t_max[:, 0]),
                      torch.full_like(t_max[:, 0], -1.0))
@@ -1304,11 +1408,12 @@ def flat_work(stats, R, any_hit, tri_idx, design):
     return n_bytes, ops, steps * 36 + tri * 52 + sph * 20 + ray_io
 
 
-def flat_edge_rays(fb, n, seed):
+def flat_edge_rays(fb, n, seed, up=None):
     """walk_edge_rays' cases on a host FlatBVH: half the rays aimed into
     random leaf boxes, axis-parallel directions (+0 and -0 components),
     origins ON a node box's face with the direction in its plane (0 * inf =
-    NaN in the slab test), t_max = -1 (leaves at the root) and 0.5."""
+    NaN in the slab test), t_max = -1 (leaves at the root) and 0.5; then
+    the rays ``up`` (:func:`atrium_up_rays`), if given."""
     rs = np.random.RandomState(seed)
     nlo, nhi = fb.node_min, fb.node_max
     leaf = fb.prim_count > 0
@@ -1338,8 +1443,9 @@ def flat_edge_rays(fb, n, seed):
     t_max = np.full((n,), 1e30, np.float32)
     t_max[8::19] = 0.5
     t_max[::17] = -1.0
+    ro, rd, t_max = with_up_rays(ro, rd, t_max, up)
     return tuple(torch.from_numpy(x).to(DEV) for x in
-                 (ro, rd, np.zeros((n,), np.float32), t_max))
+                 (ro, rd, np.zeros_like(t_max), t_max))
 
 
 def sphere_grid_scene():
@@ -1354,7 +1460,65 @@ def sphere_grid_scene():
                       sph_mat=np.zeros(27, np.int32))
 
 
-def check_flat_walk(o_scene_h, o_cam, o_cfg, rows_c, rows_a, flush):
+def flat_walk_edge_cases(o_scene_h):
+    """(b) of check_flat_walk: edge cases on five scenes, the reduced
+    atrium's coplanar faces among them (there also against brute force),
+    and the lowest id of coincident triangles.  Returns the cases."""
+    cases = []
+    v, f = meshes.icosphere(subdiv=1)
+    f = np.concatenate([f, f[:12]])          # 12 faces twice, higher ids
+    twin = make_scene(v, f, np.zeros(len(f), np.int32),
+                      make_materials([dict(albedo=(0.5,) * 3)]),
+                      make_lights([]))
+    up = atrium_up_rays()
+    for name, sc_h in (("edge_cornell_mesh_4", o_scene_h),
+                       ("edge_cornell_spheres", cornell.cornell("spheres")),
+                       ("edge_coincident_triangles", twin),
+                       ("edge_sphere_only_leaves", sphere_grid_scene()),
+                       ("edge_atrium_coplanar",
+                        meshes.atrium_scene(col_rad=16, col_ny=6))):
+        coplanar = name == "edge_atrium_coplanar"
+        fb_h = sah.build_bvh(sc_h)
+        fb_e, sc_e = fb_h.to(DEV), sc_h.to(DEV)
+        rows_e = flat.row_tables(fb_e, sc_e)
+        args = flat_args(fb_e, sc_e, *flat_edge_rays(
+            fb_h, 3000, 37, up if coplanar else None))
+        for form in (False, True):
+            res, _, _ = compare_flat(args, rows_e, name, form)
+            assert res["hits"] > 0, f"flat_walk {name}: no hit"
+            cases.append(res)
+        if name in ("edge_cornell_spheres", "edge_sphere_only_leaves"):
+            assert res["prims_sph"] > 0, f"{name}: no sphere tested"
+        if coplanar:
+            # The upward rays (the last ones) against brute force.
+            ro_u, rd_u = (x[-len(up[0]):] for x in args[10:12])
+
+            def flat_of(t_max):
+                return flat_args(fb_e, sc_e, ro_u, rd_u,
+                                 torch.zeros_like(t_max), t_max)
+
+            res["vs_brute"] = hold_to_brute(
+                "flat_walk " + name,
+                lambda t_max: flat_walk_ref(*flat_of(t_max)),
+                lambda t_max: [flat_walk(*flat_of(t_max), any_hit=True,
+                                         design=d, rows=rows_e)
+                               for d in FLAT_DESIGNS])
+    c = torch.from_numpy(v[f[:12]].mean(axis=1)).float()
+    fb_t, twin_d = sah.build_bvh(twin).to(DEV), twin.to(DEV)
+    args = flat_args(fb_t, twin_d, (c * 3.0).to(DEV),
+                     (-c / c.norm(dim=1, keepdim=True)).to(DEV),
+                     torch.zeros(12, device=DEV),
+                     torch.full((12,), 1e30, device=DEV))
+    res, _, (t, g, _, _) = compare_flat(
+        args, flat.row_tables(fb_t, twin_d), "coincident_lowest_id", False)
+    assert bool((t < INF).all()) and g.tolist() == list(range(12)), \
+        "flat_walk coincident triangles: not the lowest id"
+    cases.append(res)
+    return cases
+
+
+def check_flat_walk(o_scene_h, o_cam, o_cfg, rows_c, rows_a, flush,
+                    edges=True):
     """The flat walk kernel in both designs (rows, thread) against its
     plain version and against each other, bitwise, closest and any hit:
     (a) walk batches of the full-size oracle render of ``o_scene_h`` (R =
@@ -1363,10 +1527,11 @@ def check_flat_walk(o_scene_h, o_cam, o_cfg, rows_c, rows_a, flush):
     rays (the mesh) and chunk 0's first bounce, closest and shadow (the
     whole integrator), each timed in both designs one after the other (the
     chunk-0 batches also in the plain version);
-    (b) edge cases on four scenes: axis-parallel directions, origins on box
-    faces, t_max -1 and 0.5, coincident triangles (the lowest id must win),
-    leaves of spheres only; (c) a batch where nothing walks.  Returns
-    (cases, timing)."""
+    (b) edge cases on five scenes (:func:`flat_walk_edge_cases`, where
+    ``edges``): axis-parallel directions, origins on box faces, t_max -1
+    and 0.5, coincident triangles (the lowest id must win), leaves of
+    spheres only, the reduced atrium's coplanar faces; (c) a batch where
+    nothing walks.  Returns (cases, timing)."""
     cases, timing = [], {}
     fb = sah.build_bvh(o_scene_h).to(DEV)
     sc = o_scene_h.to(DEV)
@@ -1435,36 +1600,8 @@ def check_flat_walk(o_scene_h, o_cam, o_cfg, rows_c, rows_a, flush):
                 timing[key]["plain_ms"] = time_launches(
                     lambda: flat_walk_ref(*args, any_hit=form), flush,
                     repeats=2, warmup=0)
-    v, f = meshes.icosphere(subdiv=1)
-    f = np.concatenate([f, f[:12]])          # 12 faces twice, higher ids
-    twin = make_scene(v, f, np.zeros(len(f), np.int32),
-                      make_materials([dict(albedo=(0.5,) * 3)]),
-                      make_lights([]))
-    for name, sc_h in (("edge_cornell_mesh_4", o_scene_h),
-                       ("edge_cornell_spheres", cornell.cornell("spheres")),
-                       ("edge_coincident_triangles", twin),
-                       ("edge_sphere_only_leaves", sphere_grid_scene())):
-        fb_h = sah.build_bvh(sc_h)
-        fb_e, sc_e = fb_h.to(DEV), sc_h.to(DEV)
-        args = flat_args(fb_e, sc_e, *flat_edge_rays(fb_h, 3000, 37))
-        for form in (False, True):
-            res, _, _ = compare_flat(args, flat.row_tables(fb_e, sc_e), name,
-                                     form)
-            assert res["hits"] > 0, f"flat_walk {name}: no hit"
-            cases.append(res)
-        if name in ("edge_cornell_spheres", "edge_sphere_only_leaves"):
-            assert res["prims_sph"] > 0, f"{name}: no sphere tested"
-    c = torch.from_numpy(v[f[:12]].mean(axis=1)).float()
-    fb_t, twin_d = sah.build_bvh(twin).to(DEV), twin.to(DEV)
-    args = flat_args(fb_t, twin_d, (c * 3.0).to(DEV),
-                     (-c / c.norm(dim=1, keepdim=True)).to(DEV),
-                     torch.zeros(12, device=DEV),
-                     torch.full((12,), 1e30, device=DEV))
-    res, _, (t, g, _, _) = compare_flat(
-        args, flat.row_tables(fb_t, twin_d), "coincident_lowest_id", False)
-    assert bool((t < INF).all()) and g.tolist() == list(range(12)), \
-        "flat_walk coincident triangles: not the lowest id"
-    cases.append(res)
+    if edges:
+        cases += flat_walk_edge_cases(o_scene_h)
     args = flat_args(fb, sc, rows_c[:, 0:3], rows_c[:, 4:7], rows_c[:, 3],
                      torch.full_like(rows_c[:, 7], -1.0))
     for form in (False, True):
@@ -1992,6 +2129,67 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
 # --------------------------------------------------------------------------
 # Phase 4 — the ported fetch probes
 # --------------------------------------------------------------------------
+
+def phase_walks(scene, cam, cb, cfg, pk, fp32_ops_per_s):
+    """``--walks``: only the two walks' times, for comparing two trees of
+    the port inside one call.  Both designs of each walk on the kernels
+    phase's batches (check_packed_walk and check_flat_walk without their
+    edge cases: each batch held bitwise to the plain version and timed),
+    on the reduced atrium's 20,000 upward rays (:func:`atrium_up_rays`),
+    and the walks of one full-size oracle render of the Cornell mesh in
+    each design (flat_render_walks).  One JSON line: the package's path,
+    each batch's times and counts, the render's summed walk times."""
+    import tpu_pt_torch
+
+    _, mid, _, mid_full, shadow_full = queue_batches(scene, cam, cb, cfg,
+                                                     (0, 3), 4096, N_WARM)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
+    _, timing, _ = check_packed_walk(scene, cb, pk, mid, mid_full,
+                                     shadow_full, flush, edges=False)
+    o_scene_h = cornell.cornell("mesh", mesh_subdiv=4)
+    o_cfg = RenderConfig(width=512, height=512, spp=16, max_depth=4)
+    o_scene, o_cam = o_scene_h.to(DEV), cornell.camera(512, 512).to(DEV)
+    rows_c, rows_a = oracle_chunk_rays(o_scene, o_cam,
+                                       PallasScene(o_scene_h).to(DEV), o_cfg,
+                                       (0, 0))
+    timing.update(check_flat_walk(o_scene_h, o_cam, o_cfg, rows_c, rows_a,
+                                  flush, edges=False)[1])
+    # Both walks, both designs, on the reduced atrium's upward rays (the
+    # coplanar case), closest hit.
+    atrium = meshes.atrium_scene(col_rad=16, col_ny=6)
+    ro, rd = (torch.from_numpy(x).to(DEV) for x in atrium_up_rays())
+    t_min = torch.zeros((ro.shape[0],), device=DEV)
+    t_max = torch.full_like(t_min, 1e30)
+    args = walk_args(native.build_packed(atrium).to(DEV), ro, rd, t_min,
+                     t_max)
+    for d in WALK_DESIGNS:
+        timing[("packed_walk" if d == "window" else "packed_walk_thread")
+               + "@atrium_up"] = time_both(
+            lambda: packed_walk(*args, design=d), flush, WALK_KERNEL[d])
+    fb_a, sc_a = sah.build_bvh(atrium).to(DEV), atrium.to(DEV)
+    rows_up = flat.row_tables(fb_a, sc_a)
+    args = flat_args(fb_a, sc_a, ro, rd, t_min, t_max)
+    for d in FLAT_DESIGNS:
+        timing[("flat_walk" if d == "rows" else "flat_walk_thread")
+               + "@atrium_up"] = time_both(
+            lambda: flat_walk(*args, design=d, rows=rows_up), flush,
+            FLAT_KERNEL[d])
+    del flush
+    fb = sah.build_bvh(o_scene_h).to(DEV)
+    img = render(o_scene, o_cam, o_cfg, (0, 0), backend="bvh", bvh=fb,
+                 device=DEV)
+    emit({"phase": "walks", "package": os.path.dirname(tpu_pt_torch.__file__),
+          "batches": {k: {**{f: v[f] for f in ("shape", "ms", "trace_us",
+                                               "trace_n", "trace_warm_us")
+                             if f in v},
+                          **({"bound_us": max(
+                              v["bytes"] / HBM_BYTES_PER_S,
+                              v["flops"] / fp32_ops_per_s) * 1e6}
+                             if "bytes" in v else {})}
+                      for k, v in timing.items()},
+          "walks_per_design": flat_render_walks(
+              o_scene, o_cam, o_cfg, (0, 0), fb, img, fp32_ops_per_s)})
+
 
 def phase_fetch_probes(cb, mid):
     """The three ported fetch probes (``tpu_pt_torch/tools/``) through their
@@ -4133,11 +4331,11 @@ def differing_pixels(img, ref, sus, n=12):
 
 
 # The share of the atrium's pixels that may lie outside rtol 2e-4 / atol
-# 2e-5 between two renders whose walks differ only in the packed walk's tie
-# rule at coplanar faces: 0.01%, 26 pixels at 512^2.  That rule flips 6
-# of 20,000 rays aimed up at the beams of the reduced atrium (0.03%), and
-# most paths never meet a coplanar pair.
-ATRIUM_FEW = 1e-4
+# 2e-5 between two of its renders: none.  Every path takes each hit with
+# brute force's (t, lowest id): the pair stage tests every candidate, and
+# the walks' conservative cull (csrc/pair_isect_common.cuh::widen_up)
+# culls no box that holds it, coplanar faces included.
+ATRIUM_FEW = 0
 
 
 def phase_render_atrium():
@@ -4150,15 +4348,15 @@ def phase_render_atrium():
     render flagging suspects, the exact fallback attached and the suspect
     pixels repaired where it overflowed).  The two final images must be
     equal bit for bit where both are at overflow 0; else every pixel
-    suspect in neither render must be, the pixels outside rtol 2e-4 / atol
-    2e-5 at most ``ATRIUM_FEW`` of the image, and all of them repaired by
-    the fallback's walk: the walk culls boxes against its running best t
-    and can keep another primitive at equal t on coplanar faces
-    (``tests/test_torch_packed.py::test_walk_on_coplanar_faces_matches_the_
-    reference_not_always_brute``), so a repaired path may diverge.  The
-    packed walk's render of the same scene (no capacity to overflow) holds
-    both final images to the same share.  Returns the launches of (b)'s
-    render."""
+    suspect in neither render must be, and every pixel must lie within
+    rtol 2e-4 / atol 2e-5 (``ATRIUM_FEW`` of the image may lie outside:
+    none).  The fallback's walk repairs with brute force's nearest (t,
+    lowest id), coplanar faces included (its conservative cull:
+    ``tests/test_torch_packed.py::test_walk_on_coplanar_faces_matches_
+    brute_force``), so a repaired path takes the hits the pair stage would
+    have taken.  The packed walk's render of the same scene (no capacity to
+    overflow) holds both final images to the same rule.  Returns the
+    launches of (b)'s render."""
     t0 = time.time()
     scene_h = meshes.atrium_scene()
     scene_s = time.time() - t0
@@ -4215,11 +4413,10 @@ def phase_render_atrium():
           "tolerance": "the two final images torch.equal where both renders "
                        "are at overflow 0; else torch.equal on every pixel "
                        "suspect in neither render (both took every hit from "
-                       "the pair stage), and at most 0.01% of the image "
-                       "outside rtol 2e-4 atol 2e-5, every such pixel "
-                       "repaired by the fallback's walk; each final image "
-                       "against the packed walk's render: at most 0.01% of "
-                       "the image outside rtol 2e-4 atol 2e-5"})
+                       "the pair stage), and every pixel within rtol 2e-4 "
+                       "atol 2e-5; each final image against the packed "
+                       "walk's render: every pixel within rtol 2e-4 atol "
+                       "2e-5"})
     assert bool(torch.isfinite(img_a).all() and torch.isfinite(img_b).all())
     assert float(img_a.mean()) > 0.0
     if both_exact:
@@ -5080,8 +5277,12 @@ def main():
     cfg = RenderConfig(width=1024, height=1024, spp=1, max_depth=4,
                        rr_start=2, rr_prob=0.7)
     cam = meshes.big_camera(1024, 1024).to(DEV)
-    if paired:
-        phase_paired(scene, cam, cb, cfg, paired)
+    if paired or "--walks" in args:
+        if paired:
+            phase_paired(scene, cam, cb, cfg, paired)
+        else:
+            run("walks", phase_walks, scene, cam, cb, cfg, pk,
+                fp32_ops_per_s)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),

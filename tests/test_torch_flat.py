@@ -46,9 +46,11 @@ from tpu_pt_torch.render import driver as tdriver
 from tpu_pt_torch.render.driver import render as trender
 from tpu_pt_torch.render.wavefront import (
     render_wavefront_counts, render_wavefront_suspect_counts)
+from tpu_pt_torch.scene import types as tt
 from tpu_pt_torch.tools import flat_chains
 
-from torch_port_util import T, camera_dict, rays, scene_dict
+from torch_port_util import (T, assert_hits_equal, camera_dict, rays,
+                             scene_dict)
 
 SCENES = ("cornell", "mesh", "coincident", "spheres_only")
 
@@ -270,6 +272,178 @@ def test_coincident_triangles_take_the_lowest_id(setups):
     h = tflat.intersect(bt.to("cpu"), st, T(ro), T(rd), 0.0, 1e30)
     assert bool(h.hit.all())
     np.testing.assert_array_equal(h.prim.numpy(), np.arange(12))
+
+
+def test_flat_walk_on_coplanar_faces_matches_brute_force():
+    """The packed walk's coplanar case (``tests/test_torch_packed.py::
+    test_walk_on_coplanar_faces_matches_brute_force``, where the widening
+    is argued) for the flat walk: on the same 20,000 rays aimed up at the
+    reduced atrium's crossing beams, the plain cull kept another primitive
+    than brute force on 3, all at equal t.  Both forms of the plain walk
+    (the row tables and the arrays) equal the port's brute force bitwise,
+    the JAX brute force in hit and prim exactly and in t to 1e-6, and the
+    JAX flat walk wherever that agrees with its brute force; any hit with
+    t_max at brute force's t is occluded exactly where brute force hits.
+    Prints how many rays the JAX flat walk keeps apart."""
+    from torch_port_util import atrium_upward, atrium_upward_jax_brute
+
+    sj, st, args, h_b = atrium_upward()
+    jb_hit, jb_t, jb_prim = atrium_upward_jax_brute()
+    bt = tsah.build_bvh(st).to("cpu")
+    rows = tflat.row_tables(bt, st)
+    R = args[0].shape[0]
+    for form in (rows, None):
+        h_f = tflat.intersect(bt, st, *args, rows=form)
+        assert_hits_equal(h_f, h_b, "rows" if form else "arrays")
+        assert torch.equal(tflat.occluded(bt, st, args[0], args[1], h_b.t,
+                                          rows=form), h_b.hit)
+    np.testing.assert_array_equal(h_f.hit.numpy(), jb_hit)
+    m = jb_hit[:, 0]
+    np.testing.assert_array_equal(h_f.prim.numpy()[m], jb_prim[m])
+    np.testing.assert_allclose(h_f.t.numpy(), jb_t, rtol=1e-6, atol=1e-6)
+    h_j = jflat.intersect(jsah.build_bvh(sj), sj,
+                          *(jnp.asarray(x.numpy()) for x in args))
+    j_hit, j_prim = np.asarray(h_j.hit), np.asarray(h_j.prim)
+    agree = (j_hit == jb_hit)[:, 0] & (~m | (j_prim == jb_prim))
+    np.testing.assert_array_equal(h_f.prim.numpy()[agree & m],
+                                  j_prim[agree & m])
+    np.testing.assert_allclose(h_f.t.numpy()[agree], np.asarray(h_j.t)[agree],
+                               rtol=1e-6, atol=1e-6)
+    print(f"coplanar faces: the JAX flat walk keeps {int((~agree).sum())} of "
+          f"{R} rays apart from the JAX brute force; the port's walk 0")
+
+
+def _grid(p0, ex, ey, n):
+    """An n x n grid of quads (two triangles each) from corner p0 along
+    edges ex, ey: (vertices (V, 3) f32, triangles (T, 3))."""
+    p0, ex, ey = (np.asarray(x, np.float64) for x in (p0, ex, ey))
+    i, j = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
+    v = p0 + i[..., None] / n * ex + j[..., None] / n * ey
+    k = (i * (n + 1) + j)[:-1, :-1].reshape(-1)
+    f = np.concatenate([np.stack([k, k + n + 1, k + n + 2], 1),
+                        np.stack([k, k + n + 2, k + 1], 1)])
+    return v.reshape(-1, 3).astype(np.float32), f
+
+
+def _box(lo, hi, n):
+    """An axis-aligned box, each face an n x n grid: six (v, f) parts."""
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    parts = []
+    for ax in range(3):
+        ea, eb = np.zeros(3), np.zeros(3)
+        ea[(ax + 1) % 3] = (hi - lo)[(ax + 1) % 3]
+        eb[(ax + 2) % 3] = (hi - lo)[(ax + 2) % 3]
+        for side in (lo, hi):
+            p0 = lo.copy()
+            p0[ax] = side[ax]
+            parts.append(_grid(p0, ea, eb, n))
+    return parts
+
+
+def _aimed(rs, n, o_lo, o_hi, at_lo, at_hi):
+    """n rays from uniform origins in [o_lo, o_hi] towards uniform points of
+    [at_lo, at_hi]."""
+    ro = rs.uniform(o_lo, o_hi, (n, 3))
+    rd = rs.uniform(at_lo, at_hi, (n, 3)) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return ro.astype(np.float32), rd.astype(np.float32)
+
+
+def _coplanar_case(name, n=4096):
+    """(port host scene, ro, rd) of one small coplanar construction.  Faces
+    are grids, so that the BVHs (leaves of at most 4) split them over many
+    leaves, and every ray hits."""
+    rs = np.random.RandomState(7)
+    if name == "crossing_beams":
+        # Two beams crossing at right angles: their bottom faces overlap
+        # in the crossing square at y = 1, hit from below at equal t.
+        parts = _box((-2, 1, -.25), (2, 1.25, .25), 6) \
+            + _box((-.25, 1, -2), (.25, 1.25, 2), 6)
+        ro, rd = _aimed(rs, n, (-.6, 0, -.6), (.6, .8, .6), (-.25, 1, -.25),
+                        (.25, 1, .25))
+    elif name.startswith("coincident_quads"):
+        # A 4 x 4 grid of quads on the top face of a box (the face of its
+        # node box), its ids below or above the box's; hit from above.
+        slab = _box((-1, 0, -1), (1, 1, 1), 6)
+        quads = [_grid((-1, 1, -1), (0, 0, 2), (2, 0, 0), 4)]
+        parts = quads + slab if name.endswith("lower_ids") else slab + quads
+        ro, rd = _aimed(rs, n, (-1.5, 1.5, -1.5), (1.5, 3, 1.5), (-1, 1, -1),
+                        (1, 1, 1))
+    elif name == "axis_parallel_in_box_plane":
+        # Two overlapping grids at y = 1 (8 x 8 and 6 x 6) over a box; rays
+        # along +y (every fourth with a -0 component) whose origin lies on
+        # a grid line, so in the plane of leaf boxes' faces (0 * inf = NaN
+        # in that slab).
+        parts = [_grid((-1, 1, -1), (0, 0, 2), (2, 0, 0), 8),
+                 _grid((-1, 1, -1), (0, 0, 2), (2, 0, 0), 6)] \
+            + _box((-1, 0, -1), (1, 1, 1), 3)
+        ro = rs.uniform((-1, .05, -1), (1, .95, 1), (n, 3)).astype(np.float32)
+        lines = np.concatenate([np.linspace(-1, 1, 9),
+                                np.linspace(-1, 1, 7)]).astype(np.float32)
+        ro[np.arange(n), np.where(np.arange(n) % 2, 2, 0)] = \
+            lines[rs.randint(0, len(lines), n)]
+        rd = np.zeros((n, 3), np.float32)
+        rd[:, 1] = 1.0
+        rd[::4, 0] = -0.0
+    else:
+        # one_ulp_inside_far_face: a 5 x 5 grid at y = 1 - 2^-24, one ulp
+        # inside the top face of the box around it; rays from inside the
+        # box upward reach it a ulp before the box's own top face.
+        v, f = _grid((-1, 0, -1), (0, 0, 2), (2, 0, 0), 5)
+        v[:, 1] = np.nextafter(np.float32(1), np.float32(0))
+        parts = _box((-1, 0, -1), (1, 1, 1), 6) + [(v, f)]
+        ro, rd = _aimed(rs, n, (-.9, .1, -.9), (.9, .7, .9), (-1, 1, -1),
+                        (1, 1, 1))
+    base = np.cumsum([0] + [len(v) for v, _ in parts])
+    v = np.concatenate([v for v, _ in parts])
+    f = np.concatenate([f + b for (_, f), b in zip(parts, base)])
+    scene = tt.make_scene(v, f.astype(np.int32), np.zeros(len(f), np.int32),
+                          tt.make_materials([dict(albedo=(0.5,) * 3)]),
+                          tt.make_lights([]))
+    return scene, ro, rd
+
+
+# Each case fails with the plain cull (t_near <= min(t_far, best t)): in
+# both walks on the closest hit (crossing beams, axis-parallel rays, one
+# ulp inside: 50-480 of the 4,096 rays) and on the any hit at t_max = the
+# nearest t (all five: about 1,000-1,500 rays).  Why the widening is
+# enough: above tests/test_torch_packed.py::
+# test_walk_on_coplanar_faces_matches_brute_force.
+@pytest.mark.parametrize("walk", ["packed", "flat"])
+@pytest.mark.parametrize("case", [
+    "crossing_beams", "coincident_quads_lower_ids",
+    "coincident_quads_higher_ids", "axis_parallel_in_box_plane",
+    "one_ulp_inside_far_face"])
+def test_walks_equal_brute_force_on_coplanar_constructions(case, walk):
+    """Both forms of each plain walk (the packed walk's two designs; the
+    flat walk's row tables and arrays) give brute force's (hit, prim, t,
+    u, v) bit for bit on every ray of a small coplanar construction, and
+    any hit, with t_max at brute force's nearest t and one ulp below it,
+    brute force's occluded bit."""
+    sh, ro, rd = _coplanar_case(case)
+    st = sh.to("cpu")
+    R = ro.shape[0]
+    args = (T(ro), T(rd), torch.zeros((R, 1)), torch.full((R, 1), 1e30))
+    h_b = tbrute.intersect(st, *args)
+    assert bool(h_b.hit.all())
+    if walk == "packed":
+        pk = tnative.build_packed(sh).to("cpu")
+        forms = {d: dict(design=d) for d in ("window", "thread")}
+        closest = lambda kw: tpk.intersect(pk, st, *args, **kw)
+        anyhit = lambda t_max, kw: tpk.occluded(pk, st, *args[:2], t_max,
+                                                **kw)
+    else:
+        fb = tsah.build_bvh(sh).to("cpu")
+        forms = {"rows": dict(rows=tflat.row_tables(fb, st)), "arrays": {}}
+        closest = lambda kw: tflat.intersect(fb, st, *args, **kw)
+        anyhit = lambda t_max, kw: tflat.occluded(fb, st, *args[:2], t_max,
+                                                  **kw)
+    below = torch.nextafter(h_b.t, torch.zeros_like(h_b.t))
+    for form, kw in forms.items():
+        assert_hits_equal(closest(kw), h_b, form)
+        for t_max in (h_b.t, below):
+            assert torch.equal(anyhit(t_max, kw),
+                               tbrute.occluded(st, *args[:2], t_max)), form
 
 
 def test_walk_stats_dead_rays_and_refusals(setups):

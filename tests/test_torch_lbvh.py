@@ -205,6 +205,25 @@ def test_lbvh_walk_matches_brute_and_jax(builds, name):
                                              jnp.asarray(short))))
 
 
+def test_lbvh_walk_on_coplanar_faces_matches_brute_force():
+    """The packed walk on the port's LBVH (one primitive a leaf, so every
+    coplanar face its own box) of the reduced atrium, on the coplanar
+    case's 20,000 upward rays (``tests/test_torch_packed.py::
+    test_walk_on_coplanar_faces_matches_brute_force``): the port's brute
+    force bit for bit, and any hit at t_max = brute force's t occluded
+    exactly where brute force hits."""
+    from torch_port_util import assert_hits_equal, atrium_upward
+
+    _, st, args, h_b = atrium_upward()
+    lb = tl.build_lbvh(st, device="cpu")
+    assert lb.max_leaf == 1
+    for design in ("window", "thread"):    # both run the plain walk here
+        assert_hits_equal(tpk.intersect(lb, st, *args, design=design), h_b,
+                          design)
+        assert torch.equal(tpk.occluded(lb, st, args[0], args[1], h_b.t,
+                                        design=design), h_b.hit), design
+
+
 def test_lbvh_render_matches_oracle():
     """tests/test_lbvh.py:94-106: 16², spp 2, depth 2 through the packed
     backend on the LBVH against the brute oracle."""

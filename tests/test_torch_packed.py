@@ -352,9 +352,10 @@ def _emulate_window_walk(pt, ro, rd, t_min, t_max, any_hit):
     """The window design of csrc/packed_walk.cu, one ray at a time: a
     window of WINDOW node rows loaded at the cursor, each row's slab entry
     and exit computed as one lane does, the walk resolved inside the window
-    in order under the current best t, a leaf's rows tested together under
-    the best t at the leaf (the port's row test) and reduced by (t, gid,
-    row).  Returns the walk's outputs and, per ray, the windows it loaded,
+    in order under the current best t (the bound widened as
+    ``packed_walk.widen_up`` widens it), a leaf's rows tested together
+    under the best t at the leaf (the port's row test) and reduced by (t,
+    gid, row).  Returns the walk's outputs and, per ray, the windows it loaded,
     the nodes it resolved and the leaves it entered."""
     W = tpw.WINDOW
     table = pt.table.numpy()
@@ -371,6 +372,7 @@ def _emulate_window_walk(pt, ro, rd, t_min, t_max, any_hit):
     steps = np.zeros(R, np.int64)
     leaves = np.zeros(R, np.int64)
     one = np.float32(1.0)
+    widen_up, widen_down = np.float32(1 + 2**-20), np.float32(1 - 2**-20)
     for r in range(R):
         o, d = ro[r], rd[r]
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -399,7 +401,9 @@ def _emulate_window_walk(pt, ro, rd, t_min, t_max, any_hit):
             while cursor < n and cursor - base < W:
                 j = cursor - base
                 steps[r] += 1
-                hit_bb = t_near[j] <= np.fmin(t_far_slab[j], best_t)
+                bound = np.fmin(t_far_slab[j], best_t)
+                hit_bb = t_near[j] <= bound * (widen_down if bound < 0
+                                               else widen_up)
                 if hit_bb and meta[j] >= 0:
                     leaves[r] += 1
                     start = int(meta[j]) & ((1 << 26) - 1)
@@ -532,48 +536,75 @@ def test_packed_walk_matches_plain_version_on_the_card():
                         *args[3:])
 
 
-def test_walk_on_coplanar_faces_matches_the_reference_not_always_brute():
+# Why the walks' cull is widened by 2^-20, and why that is enough
+# (``kernels/packed_walk.py::widen_up``).  A node is entered iff its slab
+# entry t_near <= widen_up(min(slab exit, best t)).  A walk equals brute
+# force iff it tests the leaf of brute force's winner P*: P*, the (t,
+# lowest id) minimum over every primitive, then takes over and is never
+# replaced.  It reaches that leaf unless an ancestor's computed t_near
+# exceeds the bound.  Ize 2013 ("Robust BVH Ray Traversal", JCGT 2(2)):
+# (b - o) * (1 / d) rounds three times, so each slab t is within gamma_3
+# of exact, and t_near <= t_far (1 + 2 gamma_3) for every box the exact
+# ray meets.  Against best t >= t(P*), P*'s own rounding adds to that: on
+# a face in an axis plane with an edge along an axis (every coplanar face
+# below, and the atrium's beams and coffers) Möller–Trumbore's other
+# products are exact zeros and t rounds seven times, so t_near <= t(P*)
+# (1 + gamma_3) / (1 - gamma_7), about t (1 + 10 u) (u = 2^-24), while
+# the bound is at least t (1 + 2^-20)(1 - u) = t (1 + 15 u).  Ize's own
+# 2 gamma_3 (6 u) covers the slab t alone.  A power of two makes |x| 2^-20
+# exact, so x (1 ± 2^-20) rounds once, the same on the card and here.
+# (Not covered: a skew face, whose t has no such bound, and a hit within
+# rounding of its box's edge, which the exact ray may miss.)
+def test_walk_on_coplanar_faces_matches_brute_force():
     """The atrium's crossing ceiling beams put coplanar faces of different
-    ids at the same t.  The walk culls a box whose slab entry rounds above
-    its running best t, so there it can keep another primitive than brute
-    force (a higher id at equal t, or a farther hit); the JAX package's
-    walk does the same, ray for ray, and the cluster traversal, which tests
-    every candidate, agrees with brute force.  Prints how many rays the
-    walk keeps apart from brute force."""
+    ids at the same t, in different leaves.  Culling a box whose slab
+    entry rounds above best t (the plain ``t_near <= min(t_far, best t)``
+    that the JAX package's walk keeps) gives another primitive than brute
+    force on 6 of these rays: 5 at equal t, 1 a ulp farther.  The widened
+    cull keeps brute force's nearest on every ray: bitwise the port's brute
+    force (t on every ray; prim, u, v where it hits), the JAX package's
+    brute force in hit and prim exactly and in t to 1e-6, and the JAX walk
+    on every ray where that walk agrees with its brute force; the cluster
+    traversal, which tests every candidate, too.  Any hit with t_max at
+    brute force's t (the nearest hit on the bound): occluded exactly where
+    brute force says so.  Prints how many rays the JAX walk keeps apart
+    from the JAX brute force."""
+    from torch_port_util import (assert_hits_equal, atrium_upward,
+                                 atrium_upward_jax_brute)
+
     from tpu_pt_torch.bvh import cluster as tcl
 
-    sj = jm.atrium_scene(col_rad=16, col_ny=6)
-    st = convert.scene_from_numpy(scene_dict(sj), "cpu")
+    sj, st, args, h_b = atrium_upward()
+    jb_hit, jb_t, jb_prim = atrium_upward_jax_brute()
     pj = jnative.build_packed(sj)
     pt = convert.packed_bvh_from_numpy(packed_dict(pj), "cpu")
+    R = args[0].shape[0]
+    assert int(h_b.hit.sum()) > R // 2
+    for design in tpw.DESIGNS:          # both run the plain walk here
+        h_w = tpk.intersect(pt, st, *args, design=design)
+        assert_hits_equal(h_w, h_b, design)
+    np.testing.assert_array_equal(h_w.hit.numpy(), jb_hit)
+    m = jb_hit[:, 0]
+    np.testing.assert_array_equal(h_w.prim.numpy()[m], jb_prim[m])
+    np.testing.assert_allclose(h_w.t.numpy(), jb_t, rtol=1e-6, atol=1e-6)
+    h_j = jpk.intersect(pj, sj, *(jnp.asarray(x.numpy()) for x in args))
+    j_hit, j_prim = np.asarray(h_j.hit), np.asarray(h_j.prim)
+    agree = (j_hit == jb_hit)[:, 0] & (~m | (j_prim == jb_prim))
+    np.testing.assert_array_equal(h_w.prim.numpy()[agree & m],
+                                  j_prim[agree & m])
+    np.testing.assert_allclose(h_w.t.numpy()[agree], np.asarray(h_j.t)[agree],
+                               rtol=1e-6, atol=1e-6)
     cb = tcl.build_cluster_bvh(st).to("cpu")
-    rs = np.random.RandomState(0)
-    R = 20000
-    ro = rs.uniform([-11, 0.5, -4.5], [11, 8.0, 4.5], (R, 3)).astype(np.float32)
-    rd = rs.normal(size=(R, 3))
-    rd[:, 1] = np.abs(rd[:, 1]) * 2                     # up, to the beams
-    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
-    t_min, t_max = np.zeros((R, 1), np.float32), np.full((R, 1), 1e30,
-                                                           np.float32)
-    args = tuple(T(x) for x in (ro, rd, t_min, t_max))
-    h_w = tpk.intersect(pt, st.to("cpu"), *args)
-    h_c = tcl.intersect(cb, st.to("cpu"), *args)
-    h_j = jpk.intersect(pj, sj, *(jnp.asarray(x) for x in (ro, rd, t_min,
-                                                             t_max)))
-    np.testing.assert_array_equal(h_w.hit.numpy(), np.asarray(h_j.hit))
-    np.testing.assert_array_equal(h_w.prim.numpy(), np.asarray(h_j.prim))
-    np.testing.assert_allclose(h_w.t.numpy(), np.asarray(h_j.t), rtol=1e-6,
-                               atol=1e-6)
-    assert torch.equal(h_c.hit, h_w.hit)
-    apart = torch.nonzero(h_c.hit[:, 0] & ((h_w.prim != h_c.prim)
-                                          | (h_w.t != h_c.t)[:, 0]))
-    apart = apart.reshape(-1)
-    h_b = tbrute.intersect(st.to("cpu"), *(a[apart] for a in args))
-    assert bool(h_b.hit.all())
-    for f in ("prim", "t", "u", "v"):
-        assert torch.equal(getattr(h_c, f)[apart], getattr(h_b, f)), f
-    assert bool((h_w.t[apart] >= h_b.t).all())
-    equal_t = int((h_w.t[apart] == h_b.t).sum())
-    print(f"coplanar faces: {apart.numel()} of {R} rays kept apart from "
-          f"brute force by the walk ({equal_t} at equal t, "
-          f"{apart.numel() - equal_t} farther)")
+    h_c = tcl.intersect(cb, st, *args)
+    assert_hits_equal(h_c, h_b, "cluster")
+    # Any hit at t_max = brute force's t: brute force's occluded bit there
+    # is its hit bit (the same test of the same pairs, bounded by its own
+    # minimum), checked on the first 1,000 rays.
+    ro, rd = args[0], args[1]
+    assert torch.equal(tbrute.occluded(st, ro[:1000], rd[:1000],
+                                       h_b.t[:1000]), h_b.hit[:1000])
+    for design in tpw.DESIGNS:
+        assert torch.equal(tpk.occluded(pt, st, ro, rd, h_b.t, design=design),
+                           h_b.hit), design
+    print(f"coplanar faces: the JAX walk keeps {int((~agree).sum())} of {R} "
+          f"rays apart from the JAX brute force; the port's walk 0")

@@ -6,6 +6,7 @@ Imported by every test_torch_*.py file: under pytest-xdist it gives each
 worker process its share of the cores for torch's intra-op threads, so that
 N workers do not each start one thread per core."""
 
+import functools
 import os
 
 import numpy as np
@@ -88,3 +89,69 @@ def chunks_seen(monkeypatch, inputs=None):
 
     monkeypatch.setattr(wavefront, "checkpoint", spy)
     return seen
+
+
+def brute_in_chunks(scene, ro, rd, t_min, t_max, n: int = 500):
+    """``tpu_pt_torch.render.brute.intersect`` over chunks of ``n`` rays
+    (it holds (R, T) arrays), concatenated into one ``Hit``."""
+    from tpu_pt_torch.render import brute
+
+    outs = [brute.intersect(scene, *(x[i:i + n] for x in (ro, rd, t_min,
+                                                           t_max)))
+            for i in range(0, ro.shape[0], n)]
+    return brute.Hit(*(torch.cat(f) for f in zip(*outs)))
+
+
+def assert_hits_equal(h, ref, label=""):
+    """Two ``Hit``s equal bit for bit: hit and t on every ray; prim, u and
+    v where ``ref`` hits (brute force names primitive 0, with its u and v,
+    where nothing hits, and a walk slot 0's primitive and zeros)."""
+    m = ref.hit[:, 0]
+    for f in ("hit", "t"):
+        assert torch.equal(getattr(h, f), getattr(ref, f)), (label, f)
+    for f in ("prim", "u", "v"):
+        assert torch.equal(getattr(h, f)[m], getattr(ref, f)[m]), (label, f)
+
+
+@functools.lru_cache(maxsize=None)
+def atrium_upward():
+    """The coplanar-face case of the walk tests: the JAX package's reduced
+    atrium (``atrium_scene(col_rad=16, col_ny=6)``, 12,708 triangles) and
+    the port's scene of the same arrays, 20,000 seeded rays from the hall
+    aimed upward at the crossing ceiling beams (t bounds (R, 1) tensors),
+    and the port's brute-force nearest hit of each ray.  Made once a
+    process (the brute force takes about 40 s on one core); callers must
+    not write into what it returns."""
+    from tpu_pt.scene import meshes as jm
+    from tpu_pt_torch import convert
+
+    sj = jm.atrium_scene(col_rad=16, col_ny=6)
+    st = convert.scene_from_numpy(scene_dict(sj), "cpu")
+    rs = np.random.RandomState(0)
+    R = 20000
+    ro = rs.uniform([-11, 0.5, -4.5], [11, 8.0, 4.5],
+                    (R, 3)).astype(np.float32)
+    rd = rs.normal(size=(R, 3))
+    rd[:, 1] = np.abs(rd[:, 1]) * 2                     # up, to the beams
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    t_min = np.zeros((R, 1), np.float32)
+    t_max = np.full((R, 1), 1e30, np.float32)
+    args = tuple(T(x) for x in (ro, rd, t_min, t_max))
+    return sj, st, args, brute_in_chunks(st, *args)
+
+
+@functools.lru_cache(maxsize=None)
+def atrium_upward_jax_brute():
+    """The JAX package's brute-force nearest hit (``tpu_pt/render/brute.py``)
+    of :func:`atrium_upward`'s rays, as numpy arrays (hit, t, prim), in
+    jitted chunks of 1,000 rays."""
+    import jax
+    import jax.numpy as jnp
+    from tpu_pt.render import brute as jbrute
+
+    sj, _, args, _ = atrium_upward()
+    f = jax.jit(lambda *a: jbrute.intersect(sj, *a))
+    outs = [f(*(jnp.asarray(x[i:i + 1000].numpy()) for x in args))
+            for i in range(0, args[0].shape[0], 1000)]
+    return tuple(np.concatenate([np.asarray(getattr(h, k)) for h in outs])
+                 for k in ("hit", "t", "prim"))

@@ -68,10 +68,14 @@
 // (kernels/flat_walk.py::flat_walk_ref) under the library's -fmad=false.
 // The slab test keeps NaN through min and max, as torch.minimum /
 // torch.maximum do, and then maps a NaN near to -inf and a NaN far to +inf
-// (core/aabb.py::slab_test).  The closest form takes a primitive that hits
-// (t <= best t) nearer, or as near with a lower id while best t is below
-// 1e30; the best id starts at 0 (tpu_pt/bvh/flat.py's rule).  The any-hit
-// form leaves at its first hit within [t_min, t_max].
+// (core/aabb.py::slab_test).  A node is entered iff t_near <= widen_up(
+// t_far), t_far already min(slab exit, best t): the packed walk's
+// conservative cull (pair_isect_common.cuh), so that no box holding brute
+// force's nearest (t, lowest id) on a coplanar face is culled.  The closest
+// form takes a primitive that hits (t <= best t) nearer, or as near with a
+// lower id while best t is below 1e30; the best id starts at 0
+// (tpu_pt/bvh/flat.py's rule).  The any-hit form leaves at its first hit
+// within [t_min, t_max].
 
 #include "pair_isect_common.cuh"
 
@@ -126,7 +130,7 @@ __global__ void flat_walk_kernel(
     const float fz = nan_to(max_nan(lz, hz), INFINITY);
     const float t_near = fmaxf(fmaxf(fmaxf(nx, ny), nz), ray.t_min);
     const float t_far = fminf(fminf(fminf(fx, fy), fz), best_t);
-    const bool hit_bb = t_near <= t_far;
+    const bool hit_bb = t_near <= widen_up(t_far);
     const int count = __ldg(prim_count + cursor);
     if (hit_bb && count > 0) {
       const int start = __ldg(prim_start + cursor);
@@ -202,7 +206,7 @@ __device__ __forceinline__ bool row_hit(const float4& a, const float4& b,
   const float fz = nan_to(max_nan(lz, hz), INFINITY);
   const float t_near = fmaxf(fmaxf(fmaxf(nx, ny), nz), ray.t_min);
   const float t_far = fminf(fminf(fminf(fx, fy), fz), best_t);
-  return t_near <= t_far;
+  return t_near <= widen_up(t_far);
 }
 
 // Per-ray counts of the STATS form: node steps, leaves entered, triangles

@@ -23,7 +23,11 @@
 // prim_hit.  The slab test keeps NaN through min and max, as torch.minimum
 // and torch.maximum do (an axis-parallel ray on a slab plane gives 0 * inf),
 // and then maps a NaN near to -inf and a NaN far to +inf; fminf / fmaxf
-// would drop it instead.  A row takes over when it hits (t <= best t) and is
+// would drop it instead.  A node is entered iff t_near <= widen_up(fminf(
+// t_far, best t)) (pair_isect_common.cuh): the bound is widened upward, so a
+// box that holds a primitive at best t on a coplanar face is not culled where
+// the slab t rounds above the primitive's t, and the walk keeps brute force's
+// nearest (t, lowest id).  A row takes over when it hits (t <= best t) and is
 // nearer, or as near with a lower primitive id.  The any-hit form leaves at
 // its first such row: the occluded bit is the same.
 //
@@ -38,18 +42,18 @@
 // and slab exit t_far_slab = min(fx, fy, fz), NaN handled as above.  The
 // warp then resolves the walk inside the window in order, reading lane
 // (cursor - base)'s values with shuffles: a node is entered iff t_near <=
-// fminf(t_far_slab, best t) under the CURRENT best t.  That is the thread
-// walk's test split in two (the same operations), so the nodes visited and
-// the leaves tested, in their order, are the thread walk's.  A leaf's rows
-// are tested one a lane, each with t_max = best t at the leaf, and reduced
-// by (t, gid, row) with shuffles.  That picks the row the sequential loop
-// picks: a row the loop rejects under a smaller best t is farther than, or
-// as near with a higher id than, the row that made best t smaller, so it
-// loses the minimum too; the winner's t does not depend on the t_max it
-// was tested with (a sphere's far root is taken only where its near one is
-// behind t_min).  The any-hit form takes a ballot and leaves.  A new window
-// is loaded when the cursor leaves [base, base + 32): round trips fall from
-// one a node to one a window, and a ray waits for no other ray.
+// widen_up(fminf(t_far_slab, best t)) under the CURRENT best t.  That is the
+// thread walk's test split in two (the same operations), so the nodes visited
+// and the leaves tested, in their order, are the thread walk's.  A leaf's
+// rows are tested one a lane, each with t_max = best t at the leaf, and
+// reduced by (t, gid, row) with shuffles.  That picks the row the sequential
+// loop picks: a row the loop rejects under a smaller best t is farther than,
+// or as near with a higher id than, the row that made best t smaller, so it
+// loses the minimum too; the winner's t does not depend on the t_max it was
+// tested with (a sphere's far root is taken only where its near one is behind
+// t_min).  The any-hit form takes a ballot and leaves.  A new window is
+// loaded when the cursor leaves [base, base + 32): round trips fall from one
+// a node to one a window, and a ray waits for no other ray.
 
 #include <climits>
 
@@ -82,8 +86,8 @@ __device__ __forceinline__ WalkRay walk_ray(const float* __restrict__ ro,
 }
 
 // Node row i: the slab entry (with t_min) and exit of its box along the
-// ray, its skip and meta.  The walk enters it iff t_near <= fminf(t_far,
-// best t).
+// ray, its skip and meta.  The walk enters it iff t_near <=
+// widen_up(fminf(t_far, best t)).
 struct Node {
   float t_near, t_far;
   int skip, meta;
@@ -136,7 +140,7 @@ __global__ void packed_walk_kernel(
     const Node nd = load_node(nodes, cursor, w);
     const int skip = nd.skip;
     const int meta = nd.meta;
-    const bool hit_bb = nd.t_near <= fminf(nd.t_far, best_t);
+    const bool hit_bb = nd.t_near <= widen_up(fminf(nd.t_far, best_t));
     if (hit_bb && meta >= 0) {
       const int start = meta & ((1 << 26) - 1);
       const int cnt = min((int)((unsigned)meta >> 26), max_leaf);
@@ -226,7 +230,7 @@ __global__ void __launch_bounds__(kWindowWarps * 32) packed_walk_window_kernel(
       const float tf = __shfl_sync(kFull, mine.t_far, j);
       const int sk = __shfl_sync(kFull, mine.skip, j);
       const int mt = __shfl_sync(kFull, mine.meta, j);
-      const bool hit_bb = tn <= fminf(tf, best_t);
+      const bool hit_bb = tn <= widen_up(fminf(tf, best_t));
       if (hit_bb && mt >= 0) {
         const int start = mt & ((1 << 26) - 1);
         const int cnt = min((int)((unsigned)mt >> 26), max_leaf);

@@ -28,7 +28,9 @@ and the arrays otherwise.  ``flat_walk`` runs it for CPU tensors, whatever
 the design; for CUDA tensors it launches the kernel of the design asked for
 or raises.
 
-The walk: a node whose box the ray enters within [t_min, best t] is
+The walk: a node whose box the ray enters within [t_min, best t] (held
+conservatively, as the packed walk holds it: the slab entry against
+``packed_walk.widen_up`` of min(slab exit, best t)) is
 descended into (``cursor + 1``) unless it is a leaf; otherwise, and after a
 leaf, the walk goes to ``skip`` (``cursor + 1`` after a leaf in these
 tables).  A leaf tests its first ``min(count, max_leaf)`` primitives.  A
@@ -46,7 +48,7 @@ import torch
 
 from tpu_pt_torch.core.intersect import INF
 from tpu_pt_torch.kernels import _build
-from tpu_pt_torch.kernels.packed_walk import _prim_row_test
+from tpu_pt_torch.kernels.packed_walk import _prim_row_test, widen_up
 
 DESIGNS = ("rows", "thread")
 
@@ -238,7 +240,7 @@ def flat_walk_ref(node_min, node_max, skip, prim_start, prim_count, prim_ids,
             torch.maximum(torch.maximum(nx, ny), nz), t_min)
         t_far = torch.minimum(
             torch.minimum(torch.minimum(fx, fy), fz), best_t)
-        hit_bb = (t_near <= t_far)[:, 0] & active
+        hit_bb = (t_near <= widen_up(t_far))[:, 0] & active
 
         is_leaf = count > 0
         test_leaf = hit_bb & is_leaf

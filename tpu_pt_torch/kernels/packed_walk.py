@@ -22,9 +22,12 @@ The table (see ``bvh/packed.py::PackedBVH``): ``n_tables`` node tables of
             sphere   [centre, r, 0 0, 0 0 0, material bits, 1 (type), pad].
 The walk: a node whose box the ray enters within [t_min, best t] is
 descended into (``cursor + 1``); otherwise, and after a leaf, the walk goes
-to ``skip``.  A leaf tests its first ``min(count, max_leaf)`` rows; a row
-takes over when it hits nearer, or as near with a lower primitive id.  The
-any-hit form stops at the first such row.
+to ``skip``.  "Enters" is conservative: the slab entry is held against
+:func:`widen_up` of min(slab exit, best t), so that a box holding a
+primitive at best t is entered even where the slab t and the primitive's t
+round apart (coplanar faces).  A leaf tests its first ``min(count,
+max_leaf)`` rows; a row takes over when it hits nearer, or as near with a
+lower primitive id.  The any-hit form stops at the first such row.
 """
 
 from __future__ import annotations
@@ -37,12 +40,30 @@ from tpu_pt_torch.kernels import _build
 _GID_NONE = 2**31 - 1   # best gid before any hit
 WINDOW = 32             # node rows a window of the window design
 DESIGNS = ("window", "thread")
+_WIDEN_UP = 1.0 + 2.0**-20     # exact in f32, as is _WIDEN_DOWN
+_WIDEN_DOWN = 1.0 - 2.0**-20
 
 
 def _check_design(design: str) -> None:
     if design not in DESIGNS:
         raise ValueError(f"unknown design {design!r}: expected one of "
                          f"{', '.join(DESIGNS)}")
+
+
+def widen_up(x):
+    """The walks' cull bound: ``x`` times 1 + 2^-20 where ``x >= 0`` and
+    times 1 - 2^-20 where ``x < 0``: one rounding of x + |x| 2^-20, so
+    upward for either sign, with inf, -inf, 0 and NaN kept.
+    ``csrc/pair_isect_common.cuh::widen_up`` is the same multiply.
+
+    A walk enters a node iff its slab entry is <= widen_up(min(slab exit,
+    best t)).  2^-20 (16 u, u = 2^-24) covers a slab t's three roundings
+    (Ize 2013) and a face's Möller–Trumbore t's seven in an axis plane, so
+    no box holding brute force's nearest (t, lowest id) on a coplanar
+    face is culled: the argument is written out above
+    ``tests/test_torch_packed.py::
+    test_walk_on_coplanar_faces_matches_brute_force``."""
+    return x * torch.where(x < 0, _WIDEN_DOWN, _WIDEN_UP)
 
 
 def _octant_of(rd):
@@ -214,7 +235,7 @@ def packed_walk_ref(table, prim_gid, ro, rd, t_min, t_max, n_nodes: int,
             torch.maximum(torch.maximum(nx, ny), nz), t_min)
         t_far = torch.minimum(
             torch.minimum(torch.minimum(fx, fy), fz), best_t)
-        hit_bb = (t_near <= t_far)[:, 0] & active
+        hit_bb = (t_near <= widen_up(t_far))[:, 0] & active
 
         is_leaf = meta >= 0
         start = (meta & ((1 << 26) - 1)).long()

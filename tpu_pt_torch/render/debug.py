@@ -24,7 +24,9 @@ _CHECK_EVERY = 16
 
 def _count_walk(table, n: int, n_tables: int, ro, rd):
     """Per-ray (visits, leaf_tests), int32, of a full closest-hit-style walk
-    with best t fixed at 1e30."""
+    with best t fixed at 1e30.  Its cull stays the JAX heatmap's plain
+    ``t_near <= t_far``, not the walks' ``widen_up`` bound: it counts
+    visits, to be held to the JAX heatmap's counts, and picks no hit."""
     R = ro.shape[0]
     rd_inv = 1.0 / rd
     base = (_octant_of(rd) % n_tables) * n

@@ -60,7 +60,8 @@ def queue_batches(scene, cam, cb, cfg, key, queue, n_warm):
 def summary(x) -> dict:
     """Max, mean and quantiles of a per-ray count."""
     x = x.double()
-    q = torch.quantile(x, torch.tensor([0.5, 0.9, 0.99], dtype=x.dtype))
+    q = torch.quantile(x, torch.tensor([0.5, 0.9, 0.99], dtype=x.dtype,
+                                       device=x.device))
     return {"max": int(x.max()), "mean": round(float(x.mean()), 3),
             "p50": float(q[0]), "p90": float(q[1]), "p99": float(q[2])}
 
