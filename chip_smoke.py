@@ -21,13 +21,17 @@
                                       # walks' times, both designs (run it
                                       # from another checkout of the port
                                       # to time that tree's walks)
+    python3 chip_smoke.py --modes     # instead of the phases: traverse,
+                                      # determinism, render_main and
+                                      # render_modes
 
 Builds the native SAH builder and the CUDA kernel library from the sources
 in this checkout (the headline scene's BVHs must come from the native
 builder; the Python SAH builder and its packing are timed on the Cornell
 scenes), holds every kernel against its plain PyTorch version on
-the card, checks the cluster traversal (every form of its pair stage)
-against the brute-force oracle, and drives these paths at full width:
+the card, checks the cluster traversal (every form of its pair stage,
+every traversal mode) against the brute-force oracle, and drives these
+paths at full width:
 
 - ``render_main``: the 1.3M-triangle scene through the wavefront renderer
   and the cluster BVH (1024x1024, spp 1, depth 4, queue 4096) with the
@@ -37,12 +41,23 @@ against the brute-force oracle, and drives these paths at full width:
 - ``render_split``: the same render through the two-kernel pair stage
   (``pair_stage="split"``); its image must equal ``render_main``'s bit for
   bit, and the two ``run_s`` are printed side by side;
+- ``render_modes``: the same render through the cluster BVH's two other
+  traversal modes (``ClusterBVH.traversal_mode`` "frontier": per-ray sorted
+  frontiers and best-t feedback rounds; "pairs": the pair-major walk),
+  whose pair batches all go through ``pair_tile_isect``; at overflow 0
+  each image must equal ``render_main``'s bit for bit (the pair-major walk
+  cuts the headline at its default budgets, as the JAX package's does:
+  printed, not held); with ``--modes`` the same render with every step as
+  two lane slices (``step_slices=2``), timed, bit for bit
+  ``render_main``'s; then the pair-major walk's capacity (``pairs_stats``, ``candidate_stats``) on a
+  camera and a mixed batch of 4,096 rays;
 - ``render_oracle``: the unrolled oracle renderer through the dense-sweep
   backend (``backend="pallas"``) and through the flat SAH BVH walk
   (``backend="bvh"``, the kernel ``flat_walk``) at the command line's
   defaults (512x512, spp 16, depth 4) on two Cornell scenes, after small
   renders held against the brute backend, the plain versions and the
-  wavefront renderer;
+  wavefront renderer (through ``"bvh"``, its default backend, it must
+  have launched the row walk);
 - ``render_autotune``: the capacity autotuner (``cluster.
   autotune_for_render``, the wavefront probe) at ``render_exact``'s 256²
   cell, whose tuned image (after the command line's verify-then-retry
@@ -87,7 +102,9 @@ against the brute-force oracle, and drives these paths at full width:
   the sanitizer (``render_wavefront_checked``) on the 256² cell;
 - ``determinism``: the same scene at 128², spp 4, rendered twice; the two
   images must be the same bits (several samples of a pixel are in flight in
-  one step, and the accumulate adds them in one fixed order);
+  one step, and the accumulate adds them in one fixed order), and once more
+  with whole-step lane slicing (``wavefront_accum(step_slices=2)``): the same
+  bits and counts;
 - ``dist``: the distribution layer (``tpu_pt_torch.dist.sharding``): one
   NCCL rank in this process runs ``loss_and_grad_sharded`` on the grad
   cell against ``loss_and_grad_wavefront`` (the gradient all-reduced chunk
@@ -154,6 +171,7 @@ for a kernel that does nothing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import functools
 import io
@@ -1056,7 +1074,8 @@ def overflow_batches(scene, cb):
     cluster._traverse_compact_anyhit_1 = spy("any_hit")
     try:
         wavefront.render_wavefront_counts(scene, cam, cfg, (0, 3), cb,
-                                          queue=4096, device=DEV)
+                                          queue=4096, backend="cluster",
+                                          device=DEV)
     finally:
         cluster._traverse_compact_1 = real["closest"]
         cluster._traverse_compact_anyhit_1 = real["any_hit"]
@@ -2309,8 +2328,72 @@ def phase_traverse():
                     "dedup": {"tile": 128, "hit_mask_equal": True,
                               "t_bitwise_equal_to_ray_major": True,
                               "prim_agreement": prim_dd,
-                              "occluded_equal": True}})
+                              "occluded_equal": True},
+                    "modes": traverse_modes(cb, scene, ro, rd, tmin, tmax,
+                                            tmax2, h_ref, o_ref, h_cl, o_cl,
+                                            name)})
     emit({"phase": "traverse", "cases": out})
+
+
+def traverse_modes(cb, scene, ro, rd, tmin, tmax, tmax2, h_ref, o_ref, h_cl,
+                   o_cl, name):
+    """The cluster BVH's "frontier" and "pairs" traversal modes on one of
+    the traverse phase's scenes: against the brute oracle as the compact
+    mode is held; at overflow 0 bitwise the compact mode (hit and t on
+    every ray, prim, u and v where it hits, occlusion), since the three
+    select (t, lowest gid) from the same tile test; the plain versions
+    (``use_kernels=False``) the same bits; every pair batch through
+    ``pair_tile_isect``, none through ``pair_ray_reduce``; and the capacity
+    tools (``candidate_stats``, ``pairs_stats``) at 0 overflow."""
+    m = h_ref.hit[:, 0]
+    res = {}
+    for mode in ("frontier", "pairs"):
+        kernels = (pair_tile_isect, pair_ray_reduce)
+        cbm = cb._replace(traversal_mode=mode)
+        zero_launches(kernels)
+        h, ovf = cluster.intersect_counted(cbm, scene, ro, rd, tmin, tmax)
+        o, ovf_o = cluster.occluded_counted(cbm, scene, ro, rd, tmax2)
+        launches = read_launches(kernels)
+        h_p, _ = cluster.intersect_counted(cbm, scene, ro, rd, tmin, tmax,
+                                           use_kernels=False)
+        o_p, _ = cluster.occluded_counted(cbm, scene, ro, rd, tmax2,
+                                          use_kernels=False)
+        label = f"{name} {mode}"
+        assert launches["pair_tile_isect"] > 0 \
+            and launches["pair_ray_reduce"] == 0, (label, launches)
+        assert bool(torch.equal(h_ref.hit, h.hit)), f"{label}: hit mask"
+        assert torch.allclose(h_ref.t[m], h.t[m], rtol=1e-5, atol=1e-6), \
+            f"{label}: t"
+        t_same = (h_ref.t[:, 0] == h.t[:, 0])[m]
+        prim_eq = (h_ref.prim == h.prim)[m]
+        assert bool(prim_eq[t_same].all()), f"{label}: prim where t equal"
+        assert float(prim_eq.float().mean()) > 0.999, f"{label}: prim"
+        assert bool(torch.equal(o_ref, o)), f"{label}: occlusion"
+        assert int(ovf) == 0 and int(ovf_o) == 0, f"{label}: overflow"
+        for fld, a, b in (("hit", h.hit, h_cl.hit), ("t", h.t, h_cl.t),
+                          ("prim", h.prim[m], h_cl.prim[m]),
+                          ("u", h.u[m], h_cl.u[m]), ("v", h.v[m], h_cl.v[m]),
+                          ("occluded", o, o_cl)):
+            assert bool(torch.equal(a, b)), f"{label}: {fld} vs compact"
+        for fld, a, b in (("hit", h_p.hit, h.hit), ("t", h_p.t, h.t),
+                          ("prim", h_p.prim[m], h.prim[m]),
+                          ("u", h_p.u[m], h.u[m]), ("v", h_p.v[m], h.v[m]),
+                          ("occluded", o_p, o)):
+            assert bool(torch.equal(a, b)), f"{label}: {fld} vs plain"
+        res[mode] = {"launches": launches, "overflow": [int(ovf), int(ovf_o)],
+                     "equals_compact_bitwise": True,
+                     "equals_plain_bitwise": True,
+                     "all_fields_equal_plain_on_misses_too": all(
+                         bool(torch.equal(getattr(h_p, f), getattr(h, f)))
+                         for f in ("prim", "u", "v"))}
+    n_cand, ovf_c = cluster.candidate_stats(cb, ro, rd, tmin, tmax)
+    n_live, dropped = cluster.pairs_stats(cb, ro, rd, tmin, tmax)
+    assert int(ovf_c.sum()) == 0 and int(dropped) == 0, \
+        f"{name}: candidate_stats {int(ovf_c.sum())}, pairs_stats {int(dropped)}"
+    res["candidate_stats"] = {"mean_candidates": float(n_cand.float().mean()),
+                              "overflow": int(ovf_c.sum())}
+    res["pairs_stats"] = {"n_live": int(n_live), "dropped": int(dropped)}
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -2369,25 +2452,53 @@ def phase_determinism(scene, cb):
     """The same spp 4 render twice (``big-1m`` at 128², depth 4, RR from 2
     at 0.7, queue 4096, key (0, 3)): at spp > 1 several samples of one pixel
     are in flight in one step, so the accumulate must add them in a fixed
-    order for the two images to be the same bits."""
+    order for the two images to be the same bits.  Then once more with
+    whole-step lane slicing (``step_slices=2``: each step as two
+    strided slices of 2,048 lanes), which must give the same bits and
+    counts: every lane adds to its own row, and each slice's traversal
+    sub-batches are the unsliced step's."""
     cfg = RenderConfig(width=128, height=128, spp=4, max_depth=4,
                        rr_start=2, rr_prob=0.7)
     cam = meshes.big_camera(128, 128).to(DEV)
-    outs = [wavefront.render_wavefront_counts(
-        scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
-        device=DEV) for _ in range(2)]
+
+    def render():
+        return wavefront.render_wavefront_counts(
+            scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
+            device=DEV)
+
+    outs = [render() for _ in range(2)]
+    sliced = render_sliced(scene, cam, cfg, (0, 3), cb, 2)
     a, b = outs[0][0], outs[1][0]
     differ = (a != b).any(-1)
     equal = bool(torch.equal(a, b))
+    sliced_equal = bool(torch.equal(sliced[0], a))
     emit({"phase": "determinism", "scene": "big-1m", "size": cfg.width,
           "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
           "images_equal_bitwise": equal,
           "pixels_differ": int(differ.sum()),
           "max_abs_diff": float((a - b).abs().max()),
           "counts": [list(o[1:]) for o in outs],
+          "step_slices_2": {"image_equals_bitwise": sliced_equal,
+                            "pixels_differ": int((sliced[0] != a).any(-1)
+                                                 .sum()),
+                            "counts": list(sliced[1:])},
           "mean_radiance": float(a.mean())})
     assert bool(torch.isfinite(a).all()), "determinism: image not finite"
     assert equal, "determinism: two spp 4 renders differ"
+    assert sliced_equal, "determinism: the sliced render differs"
+    assert list(sliced[1:]) == list(outs[0][1:]), \
+        "determinism: the sliced render's counts differ"
+
+
+def render_sliced(scene, cam, cfg, key, cb, k):
+    """``render_wavefront_counts``'s result (cluster backend, queue 4096)
+    with every step of the loop run as ``k`` strided lane slices
+    (``wavefront_accum(step_slices=k)``)."""
+    accum, (nc, ns, novf, n_iter) = wavefront.wavefront_accum(
+        scene, cam, cfg, key, cb, 4096, "cluster", 0, cfg.n_pixels,
+        with_counts=True, step_slices=k)
+    return ((accum / cfg.spp).reshape(cfg.height, cfg.width, 3), int(nc),
+            int(ns), int(novf), n_iter)
 
 
 # Suspect rays the exact fallback's walk re-traced in the last call of
@@ -2446,7 +2557,7 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
 
     img1, nc1, ns1, ovf1, it1, sus1 = timed(
         "suspect_counts", lambda: wavefront.render_wavefront_suspect_counts(
-            scene, cam, cfg, key, cb, **kw))
+            scene, cam, cfg, key, cb, backend="cluster", **kw))
     assert ovf1 > 0 and int(sus1.sum()) > 0, \
         f"render_exact: no overflow to repair ({ovf1})"
     assert bool(torch.equal(img1, img_s)) and (nc1, ns1, ovf1, it1) == counts_s, \
@@ -2459,7 +2570,8 @@ def phase_render_exact(scene, scene_h, cb, pk, small):
     img2, nc2, ns2, ovf2, it2, sus2 = timed(
         "suspect_counts_fallback",
         lambda: with_repair_count(wavefront.render_wavefront_suspect_counts,
-                                  scene, cam, cfg, key, cb_fb, **kw))
+                                  scene, cam, cfg, key, cb_fb,
+                                  backend="cluster", **kw))
     repaired = REPAIRED.copy()
     launches = packed_walk.launches
     thread_launches = packed_walk.thread_launches
@@ -2713,7 +2825,7 @@ def grad_hint(scene, cb):
     n_shadow, steps_run)."""
     cfg, cam = grad_cell()
     _, nc, ns, _, n_iter = wavefront.render_wavefront_counts(
-        scene, cam, cfg, (0, 0), cb, queue=4096, device=DEV)
+        scene, cam, cfg, (0, 0), cb, queue=4096, backend="cluster", device=DEV)
     return int(n_iter * 1.2) + cfg.max_depth + 2, (nc, ns, n_iter)
 
 
@@ -3085,7 +3197,7 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
                pair_tile_isect_dedup, packed_walk, fetch_rows,
                fetch_fields)
 
-    def run():
+    def run(cam=cam, cfg=cfg):
         sync()
         t0 = time.time()
         out = wavefront.render_wavefront_counts(
@@ -3094,7 +3206,11 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
         sync()
         return out, time.time() - t0
 
-    _, warm_s = run()
+    # The warm-up renders the same scene at 256²: the same kernels and
+    # queue, a quarter of the headline's time (the earlier phases have
+    # built and launched every kernel already).
+    _, warm_s = run(meshes.big_camera(256, 256).to(DEV),
+                    dataclasses.replace(cfg, width=256, height=256))
     times = []
     for i in range(3):
         if i == 2:
@@ -3124,7 +3240,7 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
             "frontiers": list(cb.frontiers), "k_leaf": cb.k_leaf,
             "pair_mults": list(cb.pair_mults),
             "bvh_build_s": round(build_s, 2),
-            "warmup_s": round(warm_s, 3),
+            "warmup_s": round(warm_s, 3), "warmup_size": 256,
             "run_s_all": [round(t, 3) for t in times], "run_s": round(run_s, 3),
             "steps": wavefront.n_steps(cfg, 4096), "steps_run": n_iter,
             "n_closest": nc, "n_shadow": ns, "overflow": ovf,
@@ -3259,7 +3375,8 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
     t0 = time.time()
     img1, nc1, ns1, ovf1, it1, sus1 = \
         wavefront.render_wavefront_suspect_counts(scene, cam_a, cfg_a, key,
-                                                  cb_a, **kw)
+                                                  cb_a, backend="cluster",
+                                                  **kw)
     sync()
     run_s = {"render": round(time.time() - t0, 3)}
     launches = read_launches(kernels)
@@ -3321,7 +3438,7 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
     sync()
     t0 = time.time()
     img, nc, ns, ovf, it = wavefront.render_wavefront_counts(
-        scene, cam_h.to(DEV), cfg, key, cb_b, **kw)
+        scene, cam_h.to(DEV), cfg, key, cb_b, backend="cluster", **kw)
     sync()
     run_s = time.time() - t0
     launches = read_launches(kernels)
@@ -3349,27 +3466,21 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
 
 
 def phase_render_split(scene, cam, cb, cfg, main, img_main):
-    """The headline render through the two-kernel pair stage: bit-identical
-    to ``render_main``'s image, timed beside it on the same host.  Returns
-    the launches of its kernels in one render."""
+    """The headline render through the two-kernel pair stage, once:
+    bit-identical to ``render_main``'s image, timed beside it on the same
+    host.  Returns the launches of its kernels in the render."""
     kernels = (pair_tile_isect, pair_segmin, pair_ray_reduce,
                pair_tile_isect_dedup, fetch_rows,
                fetch_fields)
-    times = []
-    for _ in range(2):
-        zero_launches(kernels)
-        sync()
-        t0 = time.time()
-        img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
+    zero_launches(kernels)
+    (img, nc, ns, ovf, n_iter), run_s = timed_sync(
+        lambda: wavefront.render_wavefront_counts(
             scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
-            device=DEV, pair_stage="split")
-        sync()
-        times.append(time.time() - t0)
+            device=DEV, pair_stage="split"))
     launches = read_launches(kernels)
-    run_s = statistics.median(times)
     emit({"phase": "render_split", "scene": "big-1m", "size": cfg.width,
           "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
-          "run_s_all": [round(t, 3) for t in times], "run_s": round(run_s, 3),
+          "run_s": round(run_s, 3),
           "run_s_render_main": main["run_s"],
           "run_s_all_render_main": main["run_s_all"],
           "run_s_fused_over_split": round(main["run_s"] / run_s, 4),
@@ -3388,6 +3499,194 @@ def phase_render_split(scene, cam, cb, cfg, main, img_main):
     assert launches["pair_tile_isect_dedup"] == 0, launches
     check_fetch_launches(launches, cb, n_iter)
     return {k: launches[k] for k in ("pair_tile_isect", "pair_segmin")}
+
+
+def capacity_batch(cam, Q, mixed, block=None):
+    """tests/test_capacity.py's batches on the headline camera (1024²):
+    Q rays through seeded random pixel centres, or with ``block`` through
+    the Q pixels from that one on (the wavefront's respawn order);
+    ``mixed``: the second half replaced by rays from uniform origins in
+    [-2, 2)^3 in uniform random directions (the incoherent bounce-like
+    half)."""
+    g = torch.Generator().manual_seed(11)
+    pix = torch.randint(0, 1024 * 1024, (Q,), generator=g) if block is None \
+        else block + torch.arange(Q)
+    xy = pixel_xy(1024, 1024, pix, torch.full((Q, 2), 0.5))
+    ro, rd = generate_rays(cam.to("cpu"), xy)
+    if mixed:
+        h = Q // 2
+        ro_r = torch.rand((h, 3), generator=g) * 4 - 2
+        rd_r = torch.randn((h, 3), generator=g)
+        ro = torch.cat([ro[:h], ro_r])
+        rd = torch.cat([rd[:h], rd_r / rd_r.norm(dim=1, keepdim=True)])
+    return ro.contiguous().to(DEV), rd.contiguous().to(DEV)
+
+
+def pair_level_loads(fn):
+    """fn() with the per-level loads of every pair-major descent it runs
+    collected (``cluster._descend_pairs(collect=)``): returns (fn's result,
+    per level {"need_max_per_ray": the largest live (ray, node) pairs of a
+    call over its rays, "dropped": pairs cut in all}), read once at the
+    end."""
+    real = cluster._descend_pairs
+    got = []
+
+    def spy(cb, ro, *a, **kw):
+        col = []
+        out = real(cb, ro, *a, collect=col, **kw)
+        got.append([(n / ro.shape[0], d) for n, d in col])
+        return out
+
+    cluster._descend_pairs = spy
+    try:
+        out = fn()
+    finally:
+        cluster._descend_pairs = real
+    return out, [{"need_max_per_ray": round(float(torch.stack(
+                      [g[l][0] for g in got]).max()), 3),
+                  "dropped": int(torch.stack([g[l][1] for g in got]).sum())}
+                 for l in range(len(got[0]))]
+
+
+def phase_render_modes(scene, cam, cb, cfg, main, img_main,
+                       sliced: bool = False):
+    """The headline (``render_main``'s cell: big-1m, 1024², spp 1, depth 4,
+    RR from 2 at 0.7, queue 4096, key (0, 3), the host SAH cluster BVH)
+    through the cluster BVH's two other traversal modes
+    (``ClusterBVH.traversal_mode`` "frontier" and "pairs"), one render
+    each, timed beside ``render_main``.  Every pair batch goes through
+    ``pair_tile_isect`` (K2), none through the fused stage, and the child
+    gathers are plain indexing (no ``fetch_fields``).  At overflow 0 the
+    image must be ``render_main``'s bit for bit with the port's counts; a
+    frontier render that overflows must keep the counts within 0.5 % and
+    the mean within 1 % of ``render_main``'s.
+
+    The pair-major walk cuts its (ray, node) pairs to ``pair_mults[:3]`` x
+    Q at every level, and at the BVH's own (8, 8, 6) it cuts the headline's
+    coherent batches (the pairs of each level are collected:
+    ``pair_level_loads``), as the JAX package's walk does on the same BVH
+    and rays (tests/test_torch_pairs_headline.py::test_pairs_cuts_
+    coherent_headline_blocks_as_jax_does); these modes flag no ray suspect,
+    so nothing is repaired.  Its counts and mean are printed beside
+    ``render_main``'s with the 0.5 % / 1 % bounds, which are not held for
+    this mode: only the per-level cuts must add up to its overflow.
+
+    With ``sliced`` (``--modes``), the headline once more in the compact
+    mode with every step as two strided lane slices
+    (``wavefront_accum(step_slices=2)``), timed: its image must be
+    ``render_main``'s bit for bit with the port's counts (the whole run
+    holds slicing bitwise in ``determinism``).  Last, the pair-major walk's capacity on tests/test_capacity.py's camera
+    and mixed batches (4,096 rays): ``pairs_stats`` drops nothing and the
+    leaf budget is at least 1.5 x the live pairs; ``candidate_stats`` cuts
+    nothing; and, printed only, on the coherent block of 4,096 pixels from
+    (512, 512).  Returns each render's launches."""
+    kernels = (pair_tile_isect, pair_ray_reduce, pair_segmin,
+               pair_tile_isect_dedup, packed_walk, fetch_rows, fetch_fields)
+    by_path = {}
+    record = (PORT_RECORD["n_closest"], PORT_RECORD["n_shadow"],
+              PORT_RECORD["steps_run"])
+    for mode in ("frontier", "pairs"):
+        zero_launches(kernels)
+        render = functools.partial(
+            wavefront.render_wavefront_counts, scene, cam, cfg, (0, 3),
+            cb._replace(traversal_mode=mode), queue=4096, backend="cluster",
+            device=DEV)
+        levels = None
+        if mode == "frontier":
+            (img, nc, ns, ovf, n_iter), run_s = timed_sync(render)
+        else:
+            ((img, nc, ns, ovf, n_iter), run_s), levels = pair_level_loads(
+                lambda: timed_sync(render))
+        launches = read_launches(kernels)
+        mean = float(img.mean())
+        equal = bool(torch.equal(img, img_main))
+        d_counts = {k: (got - main[k]) / main[k] for k, got in (
+            ("n_closest", nc), ("n_shadow", ns), ("mean_radiance", mean))}
+        within = bool(abs(d_counts["n_closest"]) <= 0.005
+                      and abs(d_counts["n_shadow"]) <= 0.005
+                      and abs(d_counts["mean_radiance"]) <= 0.01)
+        emit({"phase": "render_modes", "mode": mode, "scene": "big-1m",
+              "size": cfg.width, "spp": cfg.spp, "max_depth": cfg.max_depth,
+              "queue": 4096, "key": [0, 3],
+              "pair_mults": list(cb.pair_mults), "run_s": round(run_s, 3),
+              "run_s_render_main": main["run_s"],
+              "run_s_all_render_main": main["run_s_all"],
+              "run_s_over_render_main": round(run_s / main["run_s"], 4),
+              "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
+              "overflow": ovf, "mean_radiance": mean,
+              "rays_per_s": round((nc + ns) / run_s, 1),
+              "render_main": {k: main[k] for k in (
+                  "steps_run", "n_closest", "n_shadow", "overflow",
+                  "mean_radiance")},
+              "rel_vs_render_main": d_counts,
+              "within_counts_0.5pct_mean_1pct": within,
+              "bounds_held": mode != "pairs",
+              "image_equals_render_main_bitwise": equal,
+              "pair_levels": levels, "launches": launches})
+        assert bool(torch.isfinite(img).all()), f"{mode}: image not finite"
+        assert launches["pair_tile_isect"] > 0, launches
+        assert not any(n for k, n in launches.items()
+                       if k != "pair_tile_isect"), launches
+        if ovf == 0:
+            assert equal, f"render_modes {mode}: image differs from " \
+                "render_main's at overflow 0"
+            assert (nc, ns, n_iter) == record, \
+                f"render_modes {mode}: counts moved from the port's record"
+        elif mode == "pairs":
+            assert sum(lv["dropped"] for lv in levels) == ovf, levels
+        else:
+            assert within, f"render_modes {mode}: overflow {ovf} moved the " \
+                f"counts or the mean past 0.5 % / 1 %: {d_counts}"
+        by_path["render_modes_" + mode] = launches
+        del img
+    if sliced:
+        zero_launches(kernels)
+        (img, nc, ns, ovf, n_iter), run_s = timed_sync(
+            lambda: render_sliced(scene, cam, cfg, (0, 3), cb, 2))
+        launches = read_launches(kernels)
+        equal = bool(torch.equal(img, img_main))
+        emit({"phase": "render_modes", "mode": "compact, step_slices=2",
+              "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
+              "run_s_all_render_main": main["run_s_all"],
+              "run_s_over_render_main": round(run_s / main["run_s"], 4),
+              "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
+              "overflow": ovf, "image_equals_render_main_bitwise": equal,
+              "launches": launches})
+        del img
+        assert equal and (nc, ns, n_iter) == record and ovf == 0, \
+            "render_modes: the sliced headline differs from render_main's"
+        assert launches["pair_ray_reduce"] > 0, launches
+    out = {}
+    for name, mixed in (("camera", False), ("mixed", True)):
+        Q = 4096
+        ro, rd = capacity_batch(cam, Q, mixed)
+        t_min = torch.zeros((Q, 1), device=DEV)
+        t_max = torch.full((Q, 1), 1e30, device=DEV)
+        n_live, dropped = cluster.pairs_stats(cb, ro, rd, t_min, t_max)
+        n_cand, ovf_c = cluster.candidate_stats(cb, ro, rd, t_min, t_max)
+        leaf_budget = cb.pair_mults[2] * Q
+        out[name] = {"rays": Q, "n_live_pairs": int(n_live),
+                     "dropped": int(dropped), "leaf_budget": leaf_budget,
+                     "leaf_budget_over_live": round(leaf_budget
+                                                    / max(1, int(n_live)), 3),
+                     "candidates_mean": float(n_cand.float().mean()),
+                     "candidates_max": int(n_cand.max()),
+                     "candidate_overflow": int(ovf_c.sum())}
+    ro, rd = capacity_batch(cam, 4096, False, block=512 * 1024 + 512)
+    t_min = torch.zeros((4096, 1), device=DEV)
+    t_max = torch.full((4096, 1), 1e30, device=DEV)
+    n_live, dropped = cluster.pairs_stats(cb, ro, rd, t_min, t_max)
+    out["block_512_512"] = {"rays": 4096, "n_live_pairs": int(n_live),
+                            "dropped": int(dropped), "held": False}
+    emit({"phase": "render_modes", "part": "capacity",
+          "pair_mults": list(cb.pair_mults), **out})
+    for name, rec in out.items():
+        if name == "block_512_512":
+            continue
+        assert rec["dropped"] == 0, (name, rec)
+        assert rec["leaf_budget"] >= 1.5 * rec["n_live_pairs"], (name, rec)
+        assert rec["candidate_overflow"] == 0, (name, rec)
+    return by_path
 
 
 def kernel_us_in(fn, name_part):
@@ -3553,9 +3852,18 @@ def phase_render_oracle(fp32_ops_per_s):
             img_wb = wavefront.render_wavefront(scene_h, cam_s, small, key,
                                                 None, queue=4096,
                                                 backend="brute", device=DEV)
+            # "bvh" is the wavefront entry points' default backend (the
+            # JAX package's): its render passes none, and must have walked
+            # the flat BVH through the row walk.
+            wf_kw = {} if backend == "bvh" else dict(backend=backend)
+            zero_launches((flat_walk,))
             img_wk = wavefront.render_wavefront(scene_h, cam_s, small, key,
-                                                bvh, queue=4096,
-                                                backend=backend, device=DEV)
+                                                bvh, queue=4096, device=DEV,
+                                                **wf_kw)
+            wf_walks = read_launches((flat_walk,))
+            if backend == "bvh":
+                assert wf_walks["flat_walk"] > 0 \
+                    and wf_walks["flat_walk_thread"] == 0, wf_walks
             assert bool(torch.isfinite(img_k).all())
             assert bool(torch.equal(img_k, img_p)), \
                 f"{backend} {name}: image with kernels differs from the " \
@@ -3612,6 +3920,9 @@ def phase_render_oracle(fp32_ops_per_s):
                                   float((img_wk - img_k).abs().max()),
                               "max_abs_diff_wavefront_brute_vs_oracle_"
                               f"{backend}": float((img_wb - img_k).abs().max()),
+                              "wavefront_backend": wf_kw.get(
+                                  "backend", "the default"),
+                              "wavefront_launches": wf_walks,
                               "tolerance": f"{backend} vs brute rtol 1e-3 "
                                            "atol 1e-3; wavefront vs oracle "
                                            "on one intersector rtol 2e-4 "
@@ -4283,7 +4594,7 @@ def render_repaired(scene, cam, cfg, key, cb, fallback):
     zero_launches(kernels)
     (img, nc, ns, ovf, it, sus), run_s = timed_sync(
         lambda: wavefront.render_wavefront_suspect_counts(
-            scene, cam, cfg, key, cb, **kw))
+            scene, cam, cfg, key, cb, backend="cluster", **kw))
     rec = {"overflow": ovf, "steps_run": it, "n_closest": nc,
            "n_shadow": ns, "mean_radiance": float(img.mean()),
            "run_s": round(run_s, 3), "rays_per_s": round((nc + ns) / run_s, 1),
@@ -4794,7 +5105,7 @@ def phase_cli(scene_h, img_main, main_line, img_rep, sus_pixels):
         # (f) The sanitizer on the 256² cell.
         cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4)
         cb = cluster.build_cluster_bvh(scene_h).to(DEV)
-        kw = dict(queue=4096, device=DEV)
+        kw = dict(queue=4096, backend="cluster", device=DEV)
         checked, checked_s = timed_sync(
             lambda: wavefront.render_wavefront_checked(scene, cam, cfg,
                                                        (0, 3), cb, **kw))
@@ -5277,6 +5588,20 @@ def main():
     cfg = RenderConfig(width=1024, height=1024, spp=1, max_depth=4,
                        rr_start=2, rr_prob=0.7)
     cam = meshes.big_camera(1024, 1024).to(DEV)
+    if "--modes" in args:
+        run("traverse", phase_traverse)
+        run("determinism", phase_determinism, scene, cb)
+        _, main_line, img_main = run("render_main", phase_render_main, scene,
+                                     cam, cb, cfg, build_s, n_tris)
+        run("render_modes", phase_render_modes, scene, cam, cb, cfg,
+            main_line, img_main, True)
+        emit({"phase": "done", "total_s": round(time.time() - t_start, 1),
+              "phase_s": phase_s})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     if paired or "--walks" in args:
         if paired:
             phase_paired(scene, cam, cb, cfg, paired)
@@ -5330,6 +5655,8 @@ def main():
     del cb_fb
     launches.update(run("render_split", phase_render_split, scene, cam, cb,
                         cfg, main_line, img_main))
+    by_path.update(run("render_modes", phase_render_modes, scene, cam, cb,
+                       cfg, main_line, img_main))
     del img_main
     launches.update(run("render_dedup", phase_render_dedup, scene, cam, cb,
                         cfg, main_line))
@@ -5444,10 +5771,11 @@ def main():
                     "take_along"):
             row["launches_counted_in"] = (
                 "render_main" if name == "fetch_fields" else "fetch_probes")
-        if name in ("pair_ray_reduce", "fetch_fields", "packed_walk",
-                    "flat_walk"):
-            # Its launches in one run of each command line path and one
-            # render of each device build's path.
+        if name in ("pair_ray_reduce", "pair_tile_isect", "fetch_fields",
+                    "packed_walk", "flat_walk"):
+            # Its launches in one run of each command line path, one
+            # render of each device build's path and (K2) one headline in
+            # each of the cluster BVH's other traversal modes.
             row["launches_by_path"] = {
                 path: got[name] for path, got in by_path.items()
                 if name in got}

@@ -146,8 +146,8 @@ def test_repair_flow_through_the_command_line(files, capsys, monkeypatch):
     cfg = RenderConfig(width=12, height=12, spp=2, max_depth=2)
     cb = tcl.attach_fallback(capped(scene), scene)
     ref = wavefront.render_wavefront(scene, cornell.camera(12, 12), cfg,
-                                     (0, 0), cb,
-                                     queue=64, device="cpu").numpy()
+                                     (0, 0), cb, queue=64, backend="cluster",
+                                     device="cpu").numpy()
     ref_png = str(tmp / "ref.png")
     film.save(ref_png, ref)
     got, want = read_png(out), read_png(ref_png)

@@ -278,14 +278,16 @@ def test_wavefront_with_dedup_matches_the_ray_major_render():
     cam = tc.camera(16, 16)
     n2, n3 = tki.pair_tile_isect.launches, tki.pair_tile_isect_dedup.launches
     a = twf.render_wavefront_counts(st, cam, cfg, (0, 3), ct, queue=256,
-                                    device="cpu")
+                                    backend="cluster", device="cpu")
     b = twf.render_wavefront_counts(st, cam, cfg, (0, 3), ct, queue=256,
-                                    device="cpu", pair_stage="dedup")
+                                    backend="cluster", device="cpu",
+                                    pair_stage="dedup")
     np.testing.assert_allclose(b[0].numpy(), a[0].numpy(), rtol=2e-4,
                                atol=2e-5)
     assert a[1:] == b[1:] and b[3] == 0
     c = twf.render_wavefront(st, cam, cfg, (0, 3), ct, queue=256,
-                             device="cpu", pair_stage="dedup")
+                             backend="cluster", device="cpu",
+                             pair_stage="dedup")
     assert torch.equal(c, b[0])
     # CPU tensors take the plain versions: nothing was launched.
     assert (tki.pair_tile_isect.launches,

@@ -424,7 +424,7 @@ def test_accumulate_at_spp1_is_the_accumulate_before_bitwise(monkeypatch):
     scene, cam = tc.cornell("spheres"), tc.camera(16, 16)
     cb = tcl.build_cluster_bvh(scene)
     cfg = TConfig(width=16, height=16, spp=1, max_depth=3)
-    kw = dict(queue=96, device="cpu")
+    kw = dict(queue=96, backend="cluster", device="cpu")
     new = twf.render_wavefront_counts(scene, cam, cfg, (0, 4), cb, **kw)
     monkeypatch.setattr(twf, "_accumulate", _accumulate_before)
     old = twf.render_wavefront_counts(scene, cam, cfg, (0, 4), cb, **kw)
@@ -445,7 +445,8 @@ def test_accumulate_at_spp4_matches_jax_and_ignores_the_queue():
     st, cam, cfg = tc.cornell("spheres"), tc.camera(12, 12), TConfig(**kw)
     ct = convert.cluster_bvh_from_numpy(bvh_dict(cj), "cpu")
     imgs = [twf.render_wavefront(st, cam, cfg, (0, 6), ct, queue=q,
-                                 device="cpu") for q in (100, 256)]
+                                 backend="cluster", device="cpu")
+            for q in (100, 256)]
     np.testing.assert_allclose(imgs[0].numpy(), np.asarray(img_j), rtol=2e-4,
                                atol=2e-5)
     assert torch.equal(imgs[0], imgs[1])
@@ -465,7 +466,7 @@ def test_repair_at_spp2_equals_the_full_exact_render():
     fb = tcl.attach_fallback(ct, st)
     cam = tc.camera(16, 16)
     cfg = TConfig(width=16, height=16, spp=2, max_depth=2)
-    kw = dict(queue=256, device="cpu")
+    kw = dict(queue=256, backend="cluster", device="cpu")
     img, *_, novf, _, sus = twf.render_wavefront_suspect_counts(
         st, cam, cfg, (0, 9), ct, **kw)
     assert novf > 0 and 0 < int(sus.sum()) < cfg.n_pixels

@@ -124,7 +124,7 @@ def test_sharded_cluster_backend_equals_single_bitwise():
                                             256, True, with_stats=True)
     _, nc, ns, novf, _ = twf.render_wavefront_counts(
         scene, tc.camera(16, 16), TConfig(**kw), (0, 2), cb, queue=256,
-        device="cpu")
+        backend="cluster", device="cpu")
     assert int(stats["n_overflow"].sum()) == novf == 0
     assert (int(stats["n_closest"].sum()), int(stats["n_shadow"].sum())) == \
         (nc, ns)

@@ -209,9 +209,9 @@ def test_without_overflow_the_fallback_changes_nothing():
     for f in HIT_FIELDS:
         assert torch.equal(getattr(h0, f), getattr(h1, f)), f
     a = twf.render_wavefront_counts(scene, cam, cfg, (0, 1), cb, queue=1024,
-                                    device="cpu")
+                                    backend="cluster", device="cpu")
     b = twf.render_wavefront_counts(scene, cam, cfg, (0, 1), fb, queue=1024,
-                                    device="cpu")
+                                    backend="cluster", device="cpu")
     assert torch.equal(a[0], b[0]) and a[1:] == b[1:] and a[3] == 0
 
 
@@ -235,7 +235,7 @@ def render24():
         np.asarray(out_j[5]), queue=256, backend="cluster")
     scene_t = tc.cornell("mesh")
     cam_t = convert.camera_from_numpy(camera_dict(cam_j), "cpu")
-    common = dict(queue=256, device="cpu")
+    common = dict(queue=256, backend="cluster", device="cpu")
     out_t = twf.render_wavefront_suspect_counts(scene_t, cam_t, cfg_t, (0, 9),
                                                 ct, **common)
     rep_t, novf_rt = twf.repair_suspect_pixels(

@@ -38,7 +38,7 @@ def test_every_module_layout_name_is_present():
                 "kernels.packed_walk", "kernels.flat_walk", "kernels.fetch",
                 "kernels.take_along", "tools.microbench_vmem_gather",
                 "tools.microbench_fetch_kernel", "tools.microbench_dyngather",
-                "tools.walk_windows", "tools.flat_chains",
+                "tools.walk_windows", "tools.flat_chains", "tools.walk_edges",
                 "render.envmap",
                 "render.bsdf", "render.lights", "render.brute",
                 "render.integrator", "render.driver", "render.wavefront",
@@ -47,6 +47,36 @@ def test_every_module_layout_name_is_present():
                 "scene.graph", "render.progressive", "render.debug",
                 "render.metrics", "dist.sharding"):
         assert f"tpu_pt_torch.{mod}" in names, mod
+
+
+def test_the_last_slice_names_are_present_with_the_reference_defaults():
+    """The names the JAX package has and the port took last: the cluster
+    BVH's traversal modes (the JAX package's ``TRAVERSAL_MODE`` is here a
+    field of the BVH) and their tools, whole-step lane slicing (its
+    ``STEP_SLICES`` a keyword of ``wavefront_accum``), and the
+    wavefront entry points' default backend (``"bvh"``, as in the JAX
+    package; ``repair_suspect_pixels`` keeps ``"cluster"``)."""
+    import inspect
+
+    from tpu_pt_torch.bvh import cluster
+    from tpu_pt_torch.render import wavefront
+
+    assert cluster.ClusterBVH._field_defaults["traversal_mode"] == "compact"
+    assert cluster.TRAVERSAL_MODES == ("compact", "frontier", "pairs")
+    for name in ("candidate_stats", "pairs_stats", "_seg_min", "_descend",
+                 "_traverse", "_traverse_anyhit", "_descend_pairs",
+                 "_traverse_pairs", "_traverse_pairs_anyhit",
+                 "_flatten_live"):
+        assert callable(getattr(cluster, name)), name
+    assert inspect.signature(wavefront.wavefront_accum).parameters[
+        "step_slices"].default == 1
+    for name in ("render_wavefront", "render_wavefront_checked",
+                 "render_wavefront_counts",
+                 "render_wavefront_suspect_counts"):
+        assert inspect.signature(getattr(wavefront, name)).parameters[
+            "backend"].default == "bvh", name
+    assert inspect.signature(wavefront.repair_suspect_pixels).parameters[
+        "backend"].default == "cluster"
 
 
 def test_fresh_import_of_every_submodule_loads_no_jax():
@@ -117,12 +147,14 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1)
     cam = cornell.camera(8, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
-        wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=64)
+        wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=64,
+                                   backend="cluster")
     with pytest.raises(RuntimeError, match="CUDA"):
-        wavefront.render_wavefront_counts(scene, cam, cfg, (0, 0), cb, queue=64)
+        wavefront.render_wavefront_counts(scene, cam, cfg, (0, 0), cb,
+                                          queue=64, backend="cluster")
     # Asked for the CPU, it runs.
     img = wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=64,
-                                     device="cpu")
+                                     backend="cluster", device="cpu")
     assert tuple(img.shape) == (8, 8, 3)
     # The device builds: on the card by default, on the CPU when asked.
     from tpu_pt_torch.bvh import lbvh
@@ -198,7 +230,7 @@ def test_gradient_entry_points_default_to_cuda_and_raise_without_a_card():
                                             steps_hint=8, **kw),
         "render_wavefront(fast=False)": lambda **kw:
             wavefront.render_wavefront(scene, cam, cfg, (0, 0), cb, queue=16,
-                                       fast=False, **kw),
+                                       backend="cluster", fast=False, **kw),
     }
     # The distribution entry points take their device from the mesh.
     from tpu_pt_torch.dist import sharding

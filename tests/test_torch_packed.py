@@ -372,7 +372,8 @@ def _emulate_window_walk(pt, ro, rd, t_min, t_max, any_hit):
     steps = np.zeros(R, np.int64)
     leaves = np.zeros(R, np.int64)
     one = np.float32(1.0)
-    widen_up, widen_down = np.float32(1 + 2**-20), np.float32(1 - 2**-20)
+    widen_up = np.float32(tpw._WIDEN_UP)
+    widen_down = np.float32(tpw._WIDEN_DOWN)
     for r in range(R):
         o, d = ro[r], rd[r]
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -536,8 +537,10 @@ def test_packed_walk_matches_plain_version_on_the_card():
                         *args[3:])
 
 
-# Why the walks' cull is widened by 2^-20, and why that is enough
-# (``kernels/packed_walk.py::widen_up``).  A node is entered iff its slab
+# Why the walks' cull is widened by at least 2^-20, and why that is enough
+# here (``kernels/packed_walk.py::widen_up``, which widens by 2^-14 for
+# the skew faces of tests/test_torch_flat.py::
+# test_walks_equal_brute_force_on_skew_faces).  A node is entered iff its slab
 # entry t_near <= widen_up(min(slab exit, best t)).  A walk equals brute
 # force iff it tests the leaf of brute force's winner P*: P*, the (t,
 # lowest id) minimum over every primitive, then takes over and is never
@@ -551,10 +554,10 @@ def test_packed_walk_matches_plain_version_on_the_card():
 # products are exact zeros and t rounds seven times, so t_near <= t(P*)
 # (1 + gamma_3) / (1 - gamma_7), about t (1 + 10 u) (u = 2^-24), while
 # the bound is at least t (1 + 2^-20)(1 - u) = t (1 + 15 u).  Ize's own
-# 2 gamma_3 (6 u) covers the slab t alone.  A power of two makes |x| 2^-20
-# exact, so x (1 ± 2^-20) rounds once, the same on the card and here.
-# (Not covered: a skew face, whose t has no such bound, and a hit within
-# rounding of its box's edge, which the exact ray may miss.)
+# 2 gamma_3 (6 u) covers the slab t alone.  A power of two w makes |x| w
+# exact, so x (1 ± w) rounds once, the same on the card and here.  (Not
+# covered by this argument: a skew face hit within rounding of its box's
+# edge, which the exact ray may miss; ``tools/walk_edges.py`` counts it.)
 def test_walk_on_coplanar_faces_matches_brute_force():
     """The atrium's crossing ceiling beams put coplanar faces of different
     ids at the same t, in different leaves.  Culling a box whose slab

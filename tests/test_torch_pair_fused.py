@@ -359,10 +359,11 @@ def test_pair_stage_keyword_gives_equal_images_and_unknown_raises():
     n0 = (tpf.pair_ray_reduce.launches, tki.pair_tile_isect.launches,
           tps.pair_segmin.launches, tki.pair_tile_isect_dedup.launches)
     out = {s: twf.render_wavefront_counts(st, cam, cfg, (0, 3), ct, queue=256,
-                                          device="cpu", pair_stage=s)
+                                          backend="cluster", device="cpu",
+                                          pair_stage=s)
            for s in tcl.PAIR_STAGES}
     default = twf.render_wavefront_counts(st, cam, cfg, (0, 3), ct, queue=256,
-                                          device="cpu")
+                                          backend="cluster", device="cpu")
     assert tcl.PAIR_STAGES == ("fused", "split", "dedup")
     assert bool(torch.isfinite(default[0]).all()) and float(default[0].mean()) > 0
     for s in tcl.PAIR_STAGES:
@@ -372,7 +373,8 @@ def test_pair_stage_keyword_gives_equal_images_and_unknown_raises():
     for s in ("Fused", "", "scan", None, True):
         with pytest.raises(ValueError, match="unknown pair_stage"):
             twf.render_wavefront_counts(st, cam, cfg, (0, 3), ct, queue=256,
-                                        device="cpu", pair_stage=s)
+                                        backend="cluster", device="cpu",
+                                        pair_stage=s)
     ro, rd = (T(x) for x in rays(64, 3))
     z, big = torch.zeros((64, 1)), torch.full((64, 1), 1e30)
     with pytest.raises(ValueError, match="unknown pair_stage"):

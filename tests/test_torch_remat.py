@@ -192,7 +192,7 @@ def test_sixteen_steps_or_fewer_recompute_nothing(monkeypatch, queue, hint,
         loss.backward()
     with torch.no_grad():
         ref = twf.render_wavefront(st, cam, cfg, key, bvh, queue=queue,
-                                   device="cpu", fast=False)
+                                   backend=backend, device="cpu", fast=False)
     assert torch.equal(img.detach().reshape(ref.shape), ref)
 
 

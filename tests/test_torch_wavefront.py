@@ -109,14 +109,15 @@ def test_render_wavefront_image_equals_counts_image():
     st, ct = tc.cornell("spheres"), tcl.build_cluster_bvh(tc.cornell("spheres"))
     cfg = TConfig(width=16, height=16, spp=2, max_depth=2)
     cam = tc.camera(16, 16)
-    a = twf.render_wavefront(st, cam, cfg, (0, 1), ct, queue=256, device="cpu")
+    kw = dict(backend="cluster", device="cpu")
+    a = twf.render_wavefront(st, cam, cfg, (0, 1), ct, queue=256, **kw)
     b = twf.render_wavefront_counts(st, cam, cfg, (0, 1), ct, queue=256,
-                                    device="cpu")[0]
-    c = twf.render_wavefront(st, cam, cfg, (0, 1), ct, queue=256, device="cpu",
+                                    **kw)[0]
+    c = twf.render_wavefront(st, cam, cfg, (0, 1), ct, queue=256, **kw,
                              use_kernels=False)
     assert torch.equal(a, b) and torch.equal(a, c)
     # Queue width does not change which random numbers a sample sees.
-    d = twf.render_wavefront(st, cam, cfg, (0, 1), ct, queue=100, device="cpu")
+    d = twf.render_wavefront(st, cam, cfg, (0, 1), ct, queue=100, **kw)
     np.testing.assert_allclose(a.numpy(), d.numpy(), rtol=1e-5, atol=1e-6)
 
 
@@ -132,12 +133,68 @@ def test_overflow_surfaced_out_of_contract():
     cfg = TConfig(width=16, height=16, spp=2, max_depth=2)
     good = tcl.build_cluster_bvh(scene, tile=32)
     assert twf.render_wavefront_counts(scene, cam, cfg, (0, 5), good,
-                                       queue=256, device="cpu")[3] == 0
+                                       queue=256, backend="cluster",
+                                       device="cpu")[3] == 0
     bad = tcl.build_cluster_bvh(scene, tile=32,
                                 frontiers=(1,) * len(good.levels), k_leaf=1,
                                 pair_mults=(1, 1, 1))
     assert twf.render_wavefront_counts(scene, cam, cfg, (0, 5), bad,
-                                       queue=256, device="cpu")[3] > 0
+                                       queue=256, backend="cluster",
+                                       device="cpu")[3] > 0
+
+
+DEFAULT_ENTRY_POINTS = ("render_wavefront", "render_wavefront_checked",
+                        "render_wavefront_counts",
+                        "render_wavefront_suspect_counts")
+
+
+def _default_setup():
+    """The Cornell spheres at 12 x 12, spp 2, depth 2, queue 64, key 4, and
+    each package's flat SAH BVH of it (built from the same arrays)."""
+    from tpu_pt.bvh.sah import build_bvh as jbuild_bvh
+    from tpu_pt_torch.bvh.sah import build_bvh as tbuild_bvh
+
+    kw = dict(width=12, height=12, spp=2, max_depth=2)
+    sj, st = jc.cornell("spheres"), tc.cornell("spheres")
+    return (kw, (sj, jc.camera(12, 12), JConfig(**kw), jax.random.key(4),
+                 jbuild_bvh(sj)),
+            (st, tc.camera(12, 12), TConfig(**kw), (0, 4), tbuild_bvh(st)))
+
+
+@pytest.mark.parametrize("entry", DEFAULT_ENTRY_POINTS)
+def test_default_backend_is_the_flat_bvh_as_in_jax(entry):
+    """Each of the four entry points called without ``backend`` on a
+    ``FlatBVH`` (both packages default to ``"bvh"``): the image to the
+    image tolerance of the JAX package's default call, counts equal or
+    within 0.1 %, overflow 0, and no pixel suspect."""
+    _, (sj, camj, cfgj, keyj, bj), (st, camt, cfgt, keyt, bt) = \
+        _default_setup()
+    out_j = getattr(jwf, entry)(sj, camj, cfgj, keyj, bj, queue=64)
+    out_t = getattr(twf, entry)(st, camt, cfgt, keyt, bt, queue=64,
+                                device="cpu")
+    if entry in ("render_wavefront", "render_wavefront_checked"):
+        out_j, out_t = (out_j, 0.0, 0.0, 0, 0), (out_t, 0, 0, 0, 0)
+    _check(out_j[:5], out_t[:5], (12, 12, 3))
+    if entry == "render_wavefront_suspect_counts":
+        assert not out_t[5].any() and not np.asarray(out_j[5]).any()
+
+
+def test_default_backend_refuses_a_cluster_bvh():
+    """Without ``backend``, a ``ClusterBVH`` is the wrong tree for the
+    default ``"bvh"``: each of the four port entry points raises
+    ``ValueError`` naming the tree it wants, where the JAX package's call
+    fails as well (an ``AttributeError``: its flat walk finds no node count
+    on the tree)."""
+    kw, (sj, camj, cfgj, keyj, _), (st, camt, cfgt, keyt, _) = \
+        _default_setup()
+    cj, ct = jcl.build_cluster_bvh(sj), tcl.build_cluster_bvh(st)
+    with pytest.raises(AttributeError, match="ClusterBVH"):
+        jwf.render_wavefront_counts(sj, camj, cfgj, keyj, cj, queue=64)
+    for entry in DEFAULT_ENTRY_POINTS:
+        with pytest.raises(ValueError, match="requires a FlatBVH, not "
+                                             "ClusterBVH"):
+            getattr(twf, entry)(st, camt, cfgt, keyt, ct, queue=64,
+                                device="cpu")
 
 
 def test_queue_bookkeeping_matches_jax():
@@ -182,7 +239,7 @@ def _debug_calls():
     target = np.zeros((16, 3), np.float32)
     img = torch.zeros((4, 4, 3))
     sus = torch.ones((16,), dtype=torch.int32)
-    kw = dict(queue=16, device="cpu")
+    kw = dict(queue=16, backend="cluster", device="cpu")
     sc, camc, cbc = scene.to("cpu"), cam.to("cpu"), cb.to("cpu")
     return {
         "render_wavefront": lambda cfg: twf.render_wavefront(
@@ -324,10 +381,12 @@ def _sanitizer_setup(**cfg_kw):
 def test_render_wavefront_checked_is_the_render_on_a_sound_scene():
     scene, cam, cfg, cb = _sanitizer_setup()
     kw = dict(queue=64, device="cpu")
-    img = twf.render_wavefront_checked(scene, cam, cfg, (0, 2), cb, **kw)
+    img = twf.render_wavefront_checked(scene, cam, cfg, (0, 2), cb,
+                                       backend="cluster", **kw)
     slow = twf.render_wavefront(scene, cam, cfg, (0, 2), cb, fast=False,
-                                **kw)
-    fast = twf.render_wavefront(scene, cam, cfg, (0, 2), cb, **kw)
+                                backend="cluster", **kw)
+    fast = twf.render_wavefront(scene, cam, cfg, (0, 2), cb,
+                                backend="cluster", **kw)
     assert torch.equal(img, slow) and torch.equal(img, fast)
     assert not img.requires_grad and float(img.mean()) > 0
     # The packed walk, as the JAX package's own test renders it.
@@ -406,7 +465,7 @@ def test_render_wavefront_checked_raises_the_jax_message(case, monkeypatch):
         scene = scene._replace(materials=mats)
     with pytest.raises(twf.CheckError) as err:
         twf.render_wavefront_checked(scene, cam, cfg, (0, 2), cb, queue=64,
-                                     device="cpu")
+                                     backend="cluster", device="cpu")
     assert str(err.value) == message
     assert isinstance(err.value, ValueError)
     if case == "vertices":

@@ -40,8 +40,14 @@ leaves from the native builder, numpy), and ``build_cluster_device``,
 torch ops on the card (Morton-ordered chunks, refined by SAH window
 splits, under wider default caps: ``cap_scale``).
 
-Only the compact traversal is here, and the capacity tooling that sizes
-its budgets from measured rays (``level_hit_counts``, ``autotune_*``);
+``ClusterBVH.traversal_mode`` selects the walk: the compact traversal
+above (the default, the only one that flags suspects), the "frontier" walk (per-ray t-sorted, truncated frontiers and
+best-t feedback rounds, ``_traverse``; ``candidate_stats``) or the "pairs"
+walk (a ray-sorted list of live (ray, node) pairs cut to a budget at every
+level, ``_traverse_pairs``; ``pairs_stats``), the JAX package's earlier
+traversals; those two test every pair batch with
+``kernels.cluster_isect.pair_tile_isect``.  The capacity tooling sizes the
+compact budgets from measured rays (``level_hit_counts``, ``autotune_*``);
 everything runs under ``torch.no_grad()`` semantics (no tensor requires
 grad).
 """
@@ -145,7 +151,11 @@ class ClusterBVH(NamedTuple):
       ``levels[0].T`` and, per level l >= 1, the (N_l / 8, 64) field-major
       sibling rows [f0 of children 0..7, f1 of children 0..7, ...].
     fallback: None, or the exact-retrace ``PackedBVH`` of the same scene
-      (``attach_fallback``), moved with the rest by ``to``."""
+      (``attach_fallback``), moved with the rest by ``to``.
+    traversal_mode: the walk every traversal call runs (the JAX package's
+      ``TRAVERSAL_MODE``, there a module global; here it travels with the
+      budgets it reads): one of ``TRAVERSAL_MODES``, checked at the call;
+      ``cb._replace(traversal_mode="frontier")`` selects another."""
 
     levels: tuple
     tiles: object
@@ -158,6 +168,7 @@ class ClusterBVH(NamedTuple):
     top_soa: object = None
     child16: tuple = ()
     fallback: object = None
+    traversal_mode: str = "compact"
 
     @property
     def n_clusters(self) -> int:
@@ -557,6 +568,367 @@ def _test_pair_batch(cb: ClusterBVH, ro, rd, t_min1, t_max1, ray_c, cid_c,
     return out[:, 0], out[:, 2], out[:, 3], cb.tile_gid[cid_c, lane]
 
 
+def _seg_min(t, seg_start, gid=None):
+    """Segmented running minimum along axis 0, reset where ``seg_start``:
+    returns (min_t, position of that minimum) at every element (inclusive).
+    With ``gid``, ties in t go to the LOWEST gid; remaining ties (and every
+    tie without ``gid``) to the earliest position.  A NaN that heads a
+    segment is its minimum all through the segment.  The minimum comes back
+    with -0 as +0, as the JAX package's scan gives it.
+
+    The JAX package computes this as an associative scan; here it is one
+    running minimum (``torch.cummin``) of a unique integer key: the
+    segment, counted down, above the element's rank in the lexicographic
+    (t, gid, position) order (two stable sorts; -0 ranks with +0, as the
+    scan compares them).  A NaN head ranks first in its segment."""
+    n = t.shape[0]
+    key_t = t + 0.0                       # -0 -> +0
+    if gid is None:
+        order = torch.sort(key_t, stable=True).indices
+    else:
+        order = torch.sort(gid, stable=True).indices
+        order = order[torch.sort(key_t[order], stable=True).indices]
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=t.device)
+    seg = torch.cumsum(seg_start.to(torch.int64), 0)
+    rank = torch.where(seg_start & torch.isnan(t), 0, rank + 1)
+    mi = torch.cummin((seg[-1] + 1 - seg) * (n + 1) + rank, 0).indices
+    return t[mi] + 0.0, mi
+
+
+def _child_planes(cb: ClusterBVH, l: int, node):
+    """The six box fields of the 8 children of each node id in ``node`` (any
+    shape) at level ``l``, as f32 (*node.shape, 8) planes, gathered by
+    indexing the field-major rows (the bf16 outward-rounded table under
+    ``GATHER_BF16``)."""
+    if GATHER_BF16:
+        child = cb.child16[l]
+    else:
+        child = cb.levels[l].reshape(-1, 8, 8).transpose(1, 2).reshape(-1, 64)
+    blk = child[node].float()
+    return tuple(blk[..., f * 8:(f + 1) * 8] for f in range(6))
+
+
+# ---------------------------------------------------------------------------
+# Frontier traversal (traversal_mode "frontier"): per ray a t-sorted,
+# truncated frontier per level, then best-t feedback rounds over the leaf
+# candidates.
+# ---------------------------------------------------------------------------
+
+
+def _sort_trunc(te, idx, cap: int):
+    """Sort each ray's candidates by entry t and keep the first ``cap``.
+    The keys are the entry t ROUNDED DOWN to bf16 (the low 16 bits cleared:
+    exact for t >= 0), so the t kept is a lower bound and best-t pruning
+    stays exact; the INF sentinel rounds down to 9.953038e29 and is put
+    back.  A stable sort.  Returns (te, idx, per-ray count of finite
+    candidates cut)."""
+    te16 = (te.contiguous().view(torch.int32) & -65536).view(torch.float32)
+    te16, order = torch.sort(te16, dim=1, stable=True)
+    idx = torch.gather(idx, 1, order)
+    te = torch.where(te16 >= 9.953038e29, INF, te16)
+    ovf = torch.sum(te[:, cap:] < INF, dim=1) if te.shape[1] > cap else \
+        torch.zeros((te.shape[0],), dtype=torch.int64, device=te.device)
+    return te[:, :cap], idx[:, :cap], ovf
+
+
+def _descend(cb: ClusterBVH, ro, rd_inv, t_min, t_max):
+    """Frontier descent: a dense slab test of the top level, then per level
+    the children of the kept nodes (a gather of their rows), a slab test
+    and ``_sort_trunc`` to the level's cap (``frontiers[l]``; ``k_leaf`` at
+    the leaves).  Returns (cand (Q, K) i64 cluster ids, t-ascending,
+    cand_t (Q, K) rounded-down entry t, INF in dead slots, overflow (Q,)
+    i64 finite candidates cut at any level).  The top level is sorted only
+    where it is wider than its cap."""
+    Q = ro.shape[0]
+    levels = cb.levels
+    caps = cb.frontiers
+    ro_c = tuple(ro[:, i:i + 1] for i in range(3))          # (Q, 1) each
+    ri_c = tuple(rd_inv[:, i:i + 1] for i in range(3))
+
+    topT = cb.top_soa
+    te = _slab_soa(tuple(topT[i][None, :] for i in range(3)),
+                   tuple(topT[3 + i][None, :] for i in range(3)),
+                   ro_c, ri_c, t_min, t_max)                # (Q, N0)
+    idx = torch.arange(levels[0].shape[0], device=ro.device)[None, :] \
+        .expand(te.shape)
+    overflow = torch.zeros((Q,), dtype=torch.int64, device=ro.device)
+    F = min(caps[0], levels[0].shape[0])
+    if te.shape[1] > F:
+        te, idx, ovf = _sort_trunc(te, idx, F)
+        overflow = overflow + ovf
+
+    eight = torch.arange(8, device=ro.device)
+    for l in range(1, len(levels)):
+        K8 = idx.shape[1] * 8
+        planes = tuple(p.reshape(Q, K8) for p in _child_planes(cb, l, idx))
+        tc = _slab_soa(planes[0:3], planes[3:6], ro_c, ri_c, t_min, t_max)
+        alive = (te < INF)[:, :, None].expand(Q, idx.shape[1], 8)
+        tc = torch.where(alive.reshape(Q, K8), tc, INF)     # dead parents
+        cidx = (idx[:, :, None] * 8 + eight).reshape(Q, K8)
+        cap = cb.k_leaf if l == len(levels) - 1 else \
+            min(caps[l], levels[l].shape[0])
+        te, idx, ovf = _sort_trunc(tc, cidx, cap)
+        overflow = overflow + ovf
+    return idx, te, overflow
+
+
+def _round_min(t_p, u_p, v_p, g_p, Q: int, pb: int):
+    """Round 1 of the frontier walk: per ray the (t, lowest gid) minimum of
+    its first ``pb`` pairs, a plain (Q, pb) reduce.  Returns (best_t, u, v,
+    gid), gid 0 where nothing hits."""
+    t_p = t_p.reshape(Q, pb)
+    g_2d = g_p.reshape(Q, pb)
+    best_t = torch.min(t_p, dim=1).values
+    at_min = t_p == best_t[:, None]
+    g_min = torch.min(torch.where(at_min, g_2d, 2**31 - 1), dim=1).values
+    # argmax of a 0/1 row is its first 1.
+    slot = torch.argmax((at_min & (g_2d == g_min[:, None])).to(torch.int32),
+                        dim=1)
+    arq = torch.arange(Q, device=t_p.device)
+    return (best_t, u_p.reshape(Q, pb)[arq, slot],
+            v_p.reshape(Q, pb)[arq, slot],
+            torch.where(best_t < INF, g_min, torch.zeros_like(g_min)))
+
+
+def _live_pairs(cand, live, Q: int, P2: int):
+    """The live (ray, candidate) slots flattened ray-major (a stable sort of
+    the ray keys, dead slots keyed Q) and cut to the first ``P2``.
+    Returns (ray (<= P2,) with Q on dead pairs, cluster id, live mask,
+    ray clamped into range)."""
+    ray_of = torch.arange(Q, device=cand.device)[:, None].expand(cand.shape)
+    key = torch.where(live, ray_of, Q).reshape(-1)
+    ray_c, order = torch.sort(key, stable=True)
+    cid_c = cand.reshape(-1)[order[:P2]]
+    ray_c = ray_c[:P2]
+    return ray_c, cid_c, ray_c < Q, torch.clamp_max(ray_c, Q - 1)
+
+
+def _consumed(ray_c, Q: int):
+    """(left, right): ray q's pairs occupy [left, right) of the ray-sorted
+    list ``ray_c``."""
+    arq = torch.arange(Q, device=ray_c.device)
+    return (torch.searchsorted(ray_c, arq, side="left"),
+            torch.searchsorted(ray_c, arq, side="right"))
+
+
+def _first_round(cb: ClusterBVH, ro, rd, t_min1, t_max1, use_kernels: bool):
+    """The frontier descent and round 1 of its walks: the first
+    ``pair_budget`` slots of every ray tested.  Returns (cand, cand_t,
+    overflow, pb, the batch's per-pair (t, u, v, gid), ray-major)."""
+    cand, cand_t, ovf = _descend(cb, ro, 1.0 / rd, t_min1[:, None],
+                                 t_max1[:, None])
+    pb = min(cb.pair_budget, cand.shape[1])
+    arq = torch.arange(ro.shape[0], device=ro.device)
+    return cand, cand_t, ovf, pb, _test_pair_batch(
+        cb, ro, rd, t_min1, t_max1, arq.repeat_interleave(pb),
+        cand[:, :pb].reshape(-1), (cand_t[:, :pb] < INF).reshape(-1),
+        use_kernels)
+
+
+def _traverse(cb: ClusterBVH, ro, rd, t_min, t_max, use_kernels: bool = True):
+    """Closest hit over the frontier descent's candidates, exact for any
+    pair budget: the candidates of a ray are t_entry-ascending, so the
+    untested ones lie behind its best hit.  Round 1 tests the first
+    ``pair_budget`` slots of every ray; then each round flattens the slots
+    [cursor, end) of every ray, end = the candidates whose entry t is <=
+    the ray's best t, cuts the list to P2 = max(Q // 2, 1024) pairs, tests
+    them and takes the per-ray (t, lowest gid) minimum (``_seg_min``).  A
+    round consumes at least one pair, and it runs while any ray has one
+    left (one host read a round).  Returns (best_t (Q, 1), gid, u (Q, 1),
+    v (Q, 1), n_overflow)."""
+    Q = ro.shape[0]
+    t_min1 = t_min[:, 0]
+    t_max1 = t_max[:, 0]
+    cand, cand_t, ovf, pb, first = _first_round(cb, ro, rd, t_min1, t_max1,
+                                                use_kernels)
+    bt, bu, bv, bg = _round_min(*first, Q, pb)
+
+    P2 = max(Q // 2, 1024)
+    slots = torch.arange(cand.shape[1], device=ro.device)[None, :]
+    cur = torch.full((Q,), pb, dtype=torch.int64, device=ro.device)
+    while True:
+        # <= so that a cluster whose entry t ties the best t is still
+        # tested: it may hold an equal-t prim of a LOWER gid.
+        end = torch.sum((cand_t <= bt[:, None]) & (cand_t < INF), dim=1)
+        if not bool(torch.any(end > cur)):
+            break
+        live = (slots >= cur[:, None]) & (slots < end[:, None])
+        ray_c, cid_c, ok, ray_cc = _live_pairs(cand, live, Q, P2)
+        t_p, u_p, v_p, g_p = _test_pair_batch(
+            cb, ro, rd, t_min1, t_max1, ray_cc, cid_c, ok, use_kernels)
+        seg_start = torch.ones_like(ok)
+        seg_start[1:] = ray_cc[1:] != ray_cc[:-1]
+        mt, mi = _seg_min(t_p, seg_start, gid=g_p)
+        left, right = _consumed(ray_c, Q)
+        has = right > left
+        endpos = torch.clamp(right - 1, 0, ray_c.shape[0] - 1)
+        bt_new = torch.where(has, mt[endpos], INF)
+        bi = mi[endpos]
+        g_new = g_p[bi]
+        better = has & ((bt_new < bt)
+                        | ((bt_new == bt) & (bt < INF) & (g_new < bg)))
+        bt = torch.where(better, bt_new, bt)
+        bu = torch.where(better, u_p[bi], bu)
+        bv = torch.where(better, v_p[bi], bv)
+        bg = torch.where(better, g_new, bg)
+        cur = cur + (right - left)
+    return bt[:, None], bg, bu[:, None], bv[:, None], torch.sum(ovf)
+
+
+def _traverse_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
+                     use_kernels: bool = True):
+    """Occlusion over the frontier descent's candidates: round 1 tests the
+    first ``pair_budget`` slots of every ray; then each round tests the
+    remaining finite candidates of the rays not yet occluded (cut to P2
+    pairs), until none is left.  Returns ((Q,) bool, n_overflow)."""
+    Q = ro.shape[0]
+    t_min1 = t_min[:, 0]
+    t_max1 = t_max[:, 0]
+    cand, cand_t, ovf, pb, first = _first_round(cb, ro, rd, t_min1, t_max1,
+                                                use_kernels)
+    occ = torch.any(first[0].reshape(Q, pb) < INF, dim=1)
+
+    P2 = max(Q // 2, 1024)
+    slots = torch.arange(cand.shape[1], device=ro.device)[None, :]
+    n_fin = torch.sum(cand_t < INF, dim=1)
+    cur = torch.full((Q,), pb, dtype=torch.int64, device=ro.device)
+    while bool(torch.any(~occ & (n_fin > cur))):
+        live = (slots >= cur[:, None]) & (slots < n_fin[:, None]) \
+            & ~occ[:, None]
+        ray_c, cid_c, ok, ray_cc = _live_pairs(cand, live, Q, P2)
+        t_p = _test_pair_batch(cb, ro, rd, t_min1, t_max1, ray_cc, cid_c, ok,
+                               use_kernels)[0]
+        hit_pair = ((t_p < INF) & ok).to(torch.int32)
+        n_hit = torch.zeros((Q,), dtype=torch.int32, device=ro.device)
+        occ = occ | (n_hit.index_add_(0, ray_cc, hit_pair) > 0)
+        left, right = _consumed(ray_c, Q)
+        cur = cur + (right - left)
+    return occ, torch.sum(ovf)
+
+
+def candidate_stats(cb: ClusterBVH, ro, rd, t_min, t_max):
+    """The frontier descent's capacity contract: (per-ray candidate count,
+    per-ray truncation count).  A truncation > 0 means the frontier caps or
+    ``k_leaf`` are too small for this scene and these rays.  t bounds are
+    (Q,) or (Q, 1)."""
+    cand, cand_t, overflow = _descend(
+        cb, ro, 1.0 / rd, t_min[:, None] if t_min.dim() == 1 else t_min,
+        t_max[:, None] if t_max.dim() == 1 else t_max)
+    return torch.sum(cand_t < INF, dim=1), overflow
+
+
+# ---------------------------------------------------------------------------
+# Pair-major traversal (traversal_mode "pairs"): after the dense top test the
+# walk's state is one ray-sorted list of live (ray, node) pairs, compacted
+# by a stable 1-D sort at every level and cut to a budget of pair_mults[:3]
+# x Q; every live leaf candidate is tile-tested, so no feedback is needed.
+# ---------------------------------------------------------------------------
+
+
+def _descend_pairs(cb: ClusterBVH, ro, rd_inv, t_min1, t_max1,
+                   collect: list | None = None):
+    """Dense top test + pair-major level walk.  Returns (rayP, cidP,
+    dropped): the ray-sorted live (ray, cluster) candidate pairs (sentinel
+    ray Q on the padding at the tail) and the count of live pairs the
+    static budgets cut (the capacity contract: 0 on supported scenes).
+
+    collect: when a list is passed, one (live pairs before the cut, pairs
+    cut) pair of scalars per level is appended."""
+    Q = ro.shape[0]
+    m_top, m_mid, m_leaf = cb.pair_mults[:3]
+    levels = cb.levels
+    topT = cb.top_soa
+    te = _slab_soa(tuple(topT[i][None, :] for i in range(3)),
+                   tuple(topT[3 + i][None, :] for i in range(3)),
+                   tuple(ro[:, i:i + 1] for i in range(3)),
+                   tuple(rd_inv[:, i:i + 1] for i in range(3)),
+                   t_min1[:, None], t_max1[:, None])        # (Q, N0)
+    arq = torch.arange(Q, device=ro.device)
+    key = torch.where(te < INF, arq[:, None], Q)
+    node = torch.arange(te.shape[1], device=ro.device)[None, :].expand(
+        te.shape)
+    rayP, nodeP, dropped = _flatten_live(
+        key.reshape(-1), node.reshape(-1), min(m_top * Q, Q * te.shape[1]), Q)
+    if collect is not None:
+        collect.append((torch.sum(key < Q), dropped))
+
+    eight = torch.arange(8, device=ro.device)
+    for l in range(1, len(levels)):
+        keep = (m_leaf if l == len(levels) - 1 else m_mid) * Q
+        rayPc = torch.clamp_max(rayP, Q - 1)
+        node_c = torch.clamp(nodeP, 0, levels[l - 1].shape[0] - 1)
+        planes = _child_planes(cb, l, node_c)               # (P, 8) each
+        tc = _slab_soa(planes[0:3], planes[3:6],
+                       tuple(ro[rayPc, i:i + 1] for i in range(3)),
+                       tuple(rd_inv[rayPc, i:i + 1] for i in range(3)),
+                       t_min1[rayPc][:, None], t_max1[rayPc][:, None])
+        live_c = (tc < INF) & (rayP < Q)[:, None]
+        cidx = nodeP[:, None] * 8 + eight
+        key = torch.where(live_c, rayPc[:, None], Q)
+        rayP, nodeP, drop = _flatten_live(key.reshape(-1), cidx.reshape(-1),
+                                          keep, Q)
+        dropped = dropped + drop
+        if collect is not None:
+            collect.append((torch.sum(live_c), drop))
+    return rayP, nodeP, dropped
+
+
+def _traverse_pairs(cb: ClusterBVH, ro, rd, t_min, t_max,
+                    use_kernels: bool = True):
+    """Closest hit through the pair-major walk, exact: every live candidate
+    is tile-tested and the per-ray nearest is a segmented (t, lowest gid)
+    minimum over the ray-sorted pair list.  Returns (best_t (Q, 1), gid,
+    u (Q, 1), v (Q, 1), n_dropped)."""
+    Q = ro.shape[0]
+    t_min1 = t_min[:, 0]
+    t_max1 = t_max[:, 0]
+    rayP, cidP, dropped = _descend_pairs(cb, ro, 1.0 / rd, t_min1, t_max1)
+    P = rayP.shape[0]
+    rayPc = torch.clamp_max(rayP, Q - 1)
+    t_p, u_p, v_p, g_p = _test_pair_batch(
+        cb, ro, rd, t_min1, t_max1, rayPc, cidP, rayP < Q, use_kernels)
+    seg_start = torch.ones_like(rayP, dtype=torch.bool)
+    seg_start[1:] = rayPc[1:] != rayPc[:-1]
+    mt, mi = _seg_min(t_p, seg_start, gid=g_p)
+    left, right = _consumed(rayP, Q)
+    has = right > left
+    endpos = torch.clamp(right - 1, 0, P - 1)
+    best_t = torch.where(has, mt[endpos], INF)
+    bi = mi[endpos]
+    return (best_t[:, None], torch.where(has, g_p[bi], 0),
+            torch.where(has, u_p[bi], 0.0)[:, None],
+            torch.where(has, v_p[bi], 0.0)[:, None], dropped)
+
+
+def _traverse_pairs_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
+                           use_kernels: bool = True):
+    """Occlusion through the pair-major walk: a live pair with a hit in
+    range occludes its ray (an integer scatter-add).  Returns ((Q,) bool,
+    n_dropped)."""
+    Q = ro.shape[0]
+    t_min1 = t_min[:, 0]
+    t_max1 = t_max[:, 0]
+    rayP, cidP, dropped = _descend_pairs(cb, ro, 1.0 / rd, t_min1, t_max1)
+    pair_ok = rayP < Q
+    rayPc = torch.clamp_max(rayP, Q - 1)
+    t_p = _test_pair_batch(cb, ro, rd, t_min1, t_max1, rayPc, cidP, pair_ok,
+                           use_kernels)[0]
+    hit_pair = ((t_p < INF) & pair_ok).to(torch.int32)
+    n_hit = torch.zeros((Q,), dtype=torch.int32, device=ro.device)
+    return n_hit.index_add_(0, rayPc, hit_pair) > 0, dropped
+
+
+def pairs_stats(cb: ClusterBVH, ro, rd, t_min, t_max):
+    """The pair-major walk's capacity contract: (n_live_pairs, n_dropped).
+    dropped > 0 means pair_mults x Q is too small for this scene and these
+    rays.  t bounds are (Q,) or (Q, 1)."""
+    t_min1 = t_min[:, 0] if t_min.dim() == 2 else t_min
+    t_max1 = t_max[:, 0] if t_max.dim() == 2 else t_max
+    rayP, _, dropped = _descend_pairs(cb, ro, 1.0 / rd, t_min1, t_max1)
+    return torch.sum(rayP < ro.shape[0]), dropped
+
+
 # ---------------------------------------------------------------------------
 # Compact traversal: the descent needs neither ORDER nor best-t feedback,
 # only COMPACTION.  1-bit compaction is sort-free: an inclusive cumsum ranks
@@ -944,6 +1316,32 @@ SPLIT_ANYHIT = 4
 # rounding is conservative).
 GATHER_BF16 = True
 
+# Traversal mode, read at every call of intersect_counted / occluded_counted:
+# ClusterBVH.traversal_mode: "compact" (the sort-free compact descent and
+# one flat pair batch, in SPLIT_CLOSEST / SPLIT_ANYHIT strided sub-batches),
+# "frontier" (per-ray t-sorted frontiers and best-t feedback rounds,
+# ``_traverse``) or "pairs" (the pair-major walk, ``_traverse_pairs``).  The
+# last two traverse the whole batch at once, test their pairs with
+# ``pair_tile_isect`` and run only the "fused" pair_stage keyword; they
+# report their truncation but flag no ray suspect and never walk the
+# fallback.
+TRAVERSAL_MODES = ("compact", "frontier", "pairs")
+
+
+def _traversal_mode(cb: ClusterBVH, pair_stage: str) -> str:
+    """``cb.traversal_mode``, checked, refusing a ``pair_stage`` the mode
+    does not run."""
+    _check_pair_stage(pair_stage)
+    mode = cb.traversal_mode
+    if mode not in TRAVERSAL_MODES:
+        raise ValueError(f"unknown traversal_mode {mode!r}: expected one of "
+                         f"{', '.join(TRAVERSAL_MODES)}")
+    if mode != "compact" and pair_stage != "fused":
+        raise ValueError(f"traversal_mode {mode!r} tests its pairs with "
+                         f"pair_tile_isect and has no pair_stage "
+                         f"{pair_stage!r}: pass pair_stage='fused'")
+    return mode
+
 
 def _split_batches(Q: int, split: int) -> int:
     """Effective split factor: sub-batches stay >= 1024 rays wide so that
@@ -1123,11 +1521,25 @@ def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
     as two, bit-identical; ``"dedup"`` runs the cluster-major stage (pairs
     sorted by cluster id, the tile-sharing kernel, scatter-min per-ray
     reduce) and raises on a shape that stage does not take (see
-    ``_dedup_supported``)."""
+    ``_dedup_supported``).
+
+    ``cb.traversal_mode`` selects the walk; the "frontier" and
+    "pairs" modes take only ``pair_stage="fused"`` (they test pairs with
+    ``pair_tile_isect``), append an all-False suspect mask (their
+    truncation is counted, not located: the repair flow cannot repair it)
+    and ignore an attached fallback, as the JAX package's do."""
+    mode = _traversal_mode(cb, pair_stage)
     t_max_b = as_col(t_max, ro.shape[0], ro.device)
-    best_t, gid, u, v, ovf = _traverse_compact(cb, ro, rd, t_min, t_max_b,
-                                               use_kernels, pair_stage,
-                                               suspect_out)
+    if mode == "compact":
+        best_t, gid, u, v, ovf = _traverse_compact(
+            cb, ro, rd, t_min, t_max_b, use_kernels, pair_stage, suspect_out)
+    else:
+        walk = _traverse_pairs if mode == "pairs" else _traverse
+        best_t, gid, u, v, ovf = walk(cb, ro, rd, t_min, t_max_b,
+                                      use_kernels)
+        if suspect_out is not None:
+            suspect_out.append(torch.zeros((ro.shape[0],), dtype=torch.bool,
+                                           device=ro.device))
     found = best_t < t_max_b
     return Hit(hit=found,
                t=torch.where(found, best_t, torch.full_like(best_t, INF)),
@@ -1145,14 +1557,22 @@ def occluded_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
                      pair_stage: str = "fused",
                      suspect_out: list | None = None):
     """Occlusion + overflow count (and suspect mask: see
-    intersect_counted)."""
+    intersect_counted; ``narrow`` is the compact mode's)."""
     t_min = torch.zeros((ro.shape[0], 1), dtype=torch.float32,
                         device=ro.device)
     t_max = as_col(t_max, ro.shape[0], ro.device)
-    occ, ovf = _traverse_compact_anyhit(cb, ro, rd, t_min, t_max,
-                                        narrow=narrow, use_kernels=use_kernels,
-                                        pair_stage=pair_stage,
-                                        suspect_out=suspect_out)
+    mode = _traversal_mode(cb, pair_stage)
+    if mode == "compact":
+        occ, ovf = _traverse_compact_anyhit(
+            cb, ro, rd, t_min, t_max, narrow=narrow, use_kernels=use_kernels,
+            pair_stage=pair_stage, suspect_out=suspect_out)
+    else:
+        walk = _traverse_pairs_anyhit if mode == "pairs" else \
+            _traverse_anyhit
+        occ, ovf = walk(cb, ro, rd, t_min, t_max, use_kernels)
+        if suspect_out is not None:
+            suspect_out.append(torch.zeros((ro.shape[0],), dtype=torch.bool,
+                                           device=ro.device))
     return occ[:, None], ovf
 
 

@@ -114,15 +114,15 @@ __device__ __forceinline__ float nan_to(float x, float to) {
   return x != x ? to : x;
 }
 
-// The walks' cull bound: x (1 + 2^-20) where x >= 0 (and NaN), x (1 -
-// 2^-20) where x < 0, one multiply: x + |x| 2^-20 rounded once, upward for
+// The walks' cull bound: x (1 + 2^-14) where x >= 0 (and NaN), x (1 -
+// 2^-14) where x < 0, one multiply: x + |x| 2^-14 rounded once, upward for
 // either sign, inf, -inf, 0 and NaN kept.  A walk enters a node iff its
 // slab entry is <= widen_up(min(slab exit, best t)), so that the slab t and
-// a primitive's t rounding apart on coplanar faces cull no box that holds
-// the nearest (t, lowest id); why 2^-20 is enough (Ize 2013):
-// kernels/packed_walk.py::widen_up, which is the same multiply.
+// a primitive's t rounding apart (coplanar faces; a skew face hit at its
+// edge by a rounding) cull no box that holds the nearest (t, lowest id);
+// why this width: kernels/packed_walk.py::widen_up, the same multiply.
 __device__ __forceinline__ float widen_up(float x) {
-  return x * (x < 0.0f ? 0.99999904632568359375f : 1.00000095367431640625f);
+  return x * (x < 0.0f ? 0.99993896484375f : 1.00006103515625f);
 }
 
 // Primitive row `slot` of a (P, 16) f32 table in bvh/packed.py's row

@@ -38,8 +38,9 @@ def _intersectors(backend: str, bvh=None, use_kernels: bool = True,
     if backend == "bvh":
         from tpu_pt_torch.bvh import flat
 
-        if bvh is None:
-            raise ValueError("backend='bvh' requires a FlatBVH")
+        if not isinstance(bvh, flat.FlatBVH):
+            raise ValueError(f"backend='bvh' requires a FlatBVH, not "
+                             f"{type(bvh).__name__}")
         return flat.intersectors(bvh, use_kernels, design)
     if backend == "pallas":
         from tpu_pt_torch.kernels import intersect as dense

@@ -60,6 +60,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tpu_pt_torch.bvh.cluster import _interleave
 from tpu_pt_torch.config import RenderConfig
 from tpu_pt_torch.core.camera import generate_rays, pixel_xy
 from tpu_pt_torch.core.sampling import draws_lane
@@ -192,7 +193,7 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
           st: QueueState, pix_lo, n_pix_local, spp_lo, spp_count,
           pix_stride: int = 1, shadow_narrow: bool = False,
           track_suspects: bool = False, pix_ids=None,
-          ray_probe: list | None = None):
+          ray_probe: list | None = None, step_slices: int = 1):
     """One wavefront iteration: respawn → intersect → shade/NEE → scatter.
     Returns (state, (n_closest, n_shadow, n_overflow)).  With
     ``track_suspects`` the intersectors are ``_intersectors_suspect``'s and
@@ -204,19 +205,36 @@ def _step(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn, occluded_fn,
     the rest are the NEE shadow batches in light-then-sample order.  It is
     the real mixed-depth population that the capacity autotuner
     (``bvh/cluster.py::autotune_for_render``) sizes the budgets from; the
-    hook changes nothing else the step computes."""
+    hook changes nothing else the step computes.
+
+    ``step_slices`` > 1 runs the post-respawn body as that many independent
+    strided lane slices (lane i in slice i % k), halved while the queue is
+    not a multiple of it or a slice would be under 2,048 lanes.  Per-lane
+    math is unchanged and every lane adds to its own accumulator row, so
+    the image is the unsliced one bit for bit; only a static pair budget,
+    applied per traversal call, sees a slice instead of the queue."""
     lanes, adds, counts = _advance(
         scene, cam, cfg, key, intersect_fn, occluded_fn, st, pix_lo,
         n_pix_local, spp_lo, spp_count, pix_stride, shadow_narrow,
-        track_suspects, pix_ids, ray_probe)
+        track_suspects, pix_ids, ray_probe, step_slices)
     accum, suspect = _apply(st.accum, st.suspect, adds, n_pix_local)
     return lanes._replace(accum=accum, suspect=suspect), counts
+
+
+def _slices(Q: int, step_slices: int) -> int:
+    """The slice count a queue of Q lanes takes: ``step_slices`` halved while
+    Q is not a multiple of it or a slice would be under 2,048 lanes."""
+    k = max(1, int(step_slices))
+    while k > 1 and (Q % k != 0 or Q // k < 2048):
+        k //= 2
+    return k
 
 
 def _advance(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
              occluded_fn, st: QueueState, pix_lo, n_pix_local, spp_lo,
              spp_count, pix_stride: int = 1, shadow_narrow: bool = False,
-             track_suspects: bool = False, pix_ids=None, ray_probe=None):
+             track_suspects: bool = False, pix_ids=None, ray_probe=None,
+             step_slices: int = 1):
     """:func:`_step` on the lanes alone: returns (state with its lanes
     advanced and its ``accum`` and ``suspect`` as they were, adds,
     counts); :func:`_apply` adds ``adds`` to the accumulator and the
@@ -224,12 +242,20 @@ def _advance(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     them."""
     st = _respawn(cam, cfg, key, st, pix_lo, n_pix_local, spp_lo, spp_count,
                   pix_stride, pix_ids)
-    (contrib, pixel, cont, ro_n, rd_n, beta_n, inc_n, sus_lane,
-     nc, ns_, novf) = _step_slice(
-        scene, cam, cfg, key, intersect_fn, occluded_fn,
-        (st.ro, st.rd, st.beta, st.ray_id, st.depth, st.include_le,
-         st.alive), pix_lo, n_pix_local, spp_lo, pix_stride, shadow_narrow,
-        track_suspects, pix_ids, ray_probe)
+    lanes = (st.ro, st.rd, st.beta, st.ray_id, st.depth, st.include_le,
+             st.alive)
+    k = _slices(st.ro.shape[0], step_slices)
+    parts = [_step_slice(scene, cam, cfg, key, intersect_fn, occluded_fn,
+                         tuple(x[i::k].contiguous() for x in lanes) if k > 1
+                         else lanes, pix_lo, n_pix_local, spp_lo, pix_stride,
+                         shadow_narrow, track_suspects, pix_ids, ray_probe)
+             for i in range(k)]
+    # The per-lane outputs of the slices interleaved back (lane j of slice
+    # i is lane j * k + i), the counts summed.
+    (contrib, pixel, cont, ro_n, rd_n, beta_n, inc_n, sus_lane) = (
+        v[0] if k == 1 or v[0] is None else _interleave(v)
+        for v in zip(*(p[:8] for p in parts)))
+    nc, ns_, novf = (sum(c) for c in zip(*(p[8:] for p in parts)))
     # The lane's row: its local (pixel, sample).
     sample = torch.clamp_min(st.ray_id, 0) % cfg.spp - spp_lo
     adds = (pixel * spp_count + sample, contrib, st.alive, pixel, sus_lane)
@@ -638,7 +664,8 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
                     with_suspects: bool = False, pix_ids=None,
                     differentiable: bool = False, steps_hint=None,
                     with_done: bool = False, checked: bool = False,
-                    psum_group: ChunkReduce | None = None, remat=None):
+                    psum_group: ChunkReduce | None = None, remat=None,
+                    step_slices: int = 1):
     """Render pixels {pix_lo + j*pix_stride : j < n_pix_local} × samples
     [spp_lo, spp_lo+spp_count) -> (n_pix_local, 3) radiance sums (divide by
     cfg.spp for the full-spp mean).  ``scene``, ``cam`` and ``bvh`` hold
@@ -657,6 +684,11 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     package's differentiable scan does; the loop still leaves as soon as
     nothing is alive or left to spawn, which changes no value: the steps it
     skips add nothing.
+
+    ``step_slices`` (the JAX package's ``STEP_SLICES``) runs each step of
+    the forward loop as that many strided lane slices (see :func:`_step`):
+    the same image bit for bit.  It applies to the non-differentiable loop
+    only, as in the JAX package; ``differentiable`` runs every step whole.
 
     ``steps_hint`` caps the loop at ``max(1, min(bound, steps_hint))``
     steps (the JAX package's static scan length); a cap that is too small
@@ -717,6 +749,8 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     # population — so they run the wide any-hit budget; later steps of a
     # forward render run the NARROW one (pair_mults[3]).
     prefix = min(WIDE_PREFIX_STEPS, steps)
+    if differentiable:
+        step_slices = 1
 
     def advance(chunk_scene, lanes, i, isect, occl):
         return _advance(
@@ -726,7 +760,8 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
             # primary wave, so the steady-state budget never applies.
             shadow_narrow=(i >= prefix and not cfg.direct_only
                            and not differentiable),
-            track_suspects=with_suspects, pix_ids=pix_ids)
+            track_suspects=with_suspects, pix_ids=pix_ids,
+            step_slices=step_slices)
 
     nc = ns = novf = torch.zeros((), dtype=torch.int64, device=device)
     n_iter = 0
@@ -768,7 +803,7 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
 
 
 def render_wavefront(scene: Scene, cam, cfg: RenderConfig, key, bvh,
-                     queue: int = 1 << 17, backend: str = "cluster",
+                     queue: int = 1 << 17, backend: str = "bvh",
                      device="cuda", use_kernels: bool = True,
                      pair_stage: str = "fused", fast: bool = True):
     """Full-image render -> (H, W, 3) linear radiance tensor on ``device``.
@@ -783,7 +818,7 @@ def render_wavefront(scene: Scene, cam, cfg: RenderConfig, key, bvh,
 
 
 def render_wavefront_checked(scene: Scene, cam, cfg: RenderConfig, key, bvh,
-                             queue: int = 1 << 17, backend: str = "cluster",
+                             queue: int = 1 << 17, backend: str = "bvh",
                              device="cuda"):
     """The sanitizer render: ``render_wavefront(fast=False)``'s loop (the
     wide any-hit budget every step; no autograd tape) with
@@ -807,7 +842,7 @@ def render_wavefront_checked(scene: Scene, cam, cfg: RenderConfig, key, bvh,
 
 
 def render_wavefront_counts(scene: Scene, cam, cfg: RenderConfig, key, bvh,
-                            queue: int = 1 << 17, backend: str = "cluster",
+                            queue: int = 1 << 17, backend: str = "bvh",
                             device="cuda", use_kernels: bool = True,
                             pair_stage: str = "fused"):
     """Full-image render + ray accounting.
@@ -828,7 +863,7 @@ def render_wavefront_counts(scene: Scene, cam, cfg: RenderConfig, key, bvh,
 
 def render_wavefront_suspect_counts(scene: Scene, cam, cfg: RenderConfig, key,
                                     bvh, queue: int = 1 << 17,
-                                    backend: str = "cluster", device="cuda",
+                                    backend: str = "bvh", device="cuda",
                                     use_kernels: bool = True,
                                     pair_stage: str = "fused"):
     """``render_wavefront_counts`` + a per-pixel SUSPECT flag: pixel p is
