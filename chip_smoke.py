@@ -17,10 +17,13 @@
     python3 chip_smoke.py --dist      # instead of the phases: only the
                                       # dist phase (after the headline render
                                       # and the grad cell's hint it needs)
-    python3 chip_smoke.py --walks     # instead of the phases: only the two
-                                      # walks' times, both designs (run it
-                                      # from another checkout of the port
-                                      # to time that tree's walks)
+    python3 chip_smoke.py --walks     # instead of the phases: the A/B
+                                      # mode: the times of both walks (both
+                                      # designs), of the pair kernels and
+                                      # of the dense kernels (copied into
+                                      # another checkout of the port it
+                                      # times that tree's kernels; with
+                                      # --paired N, then the headline too)
     python3 chip_smoke.py --modes     # instead of the phases: traverse,
                                       # determinism, render_main and
                                       # render_modes
@@ -241,10 +244,14 @@ N_SM, FP32_LANES_PER_SM = 132, 128   # H100 SXM
 # csrc/pair_isect_common.cuh::prim_test (each add, subtract, multiply,
 # divide, square root, compare and abs as one): a triangle or padding row
 # costs 54 (edge products 9, det 5, parallel test 2, 1 / det 1, tvec 3,
-# u 6, qvec 9, v 6, t 6, type test 1, six range tests); a sphere row 40
-# more for its quadratic.  The closest-hit sweep adds 3 (the shrinking
-# range and the strict compare), the any-hit sweep 1.
-OPS_TRI_ROW, OPS_SPH_ROW = 54, 94
+# u 6, qvec 9, v 6, t 6, type test 1, six range tests); a sphere row 47
+# more for its solve (sphere_hit: r^2 1, a 5, b 5, 1 / a 1, b / a 1, l 6,
+# |l|^2 5, disc 2, the test disc > 0 1, c 6, sqrt 1, q 3, the roots 2,
+# their order 1, q != 0 1, four range tests, two ANDs).  A ray with
+# disc <= 0 leaves after 27 of them; the sphere rows are a handful (the placeholder, or the
+# Cornell spheres' two), so all are counted at 47.  The closest-hit sweep
+# adds 3 (the shrinking range and the strict compare), the any-hit sweep 1.
+OPS_TRI_ROW, OPS_SPH_ROW = 54, 101
 OPS_CLOSEST, OPS_ANYHIT = 3, 1
 # FP32 operations of csrc/packed_walk.cu, counted the same way: a node step
 # costs 38 (six subtracts and six multiplies of the slab test, six
@@ -1104,6 +1111,54 @@ def with_up_rays(ro, rd, t_max, up):
             np.concatenate([t_max, np.full((len(up[0]),), 1e30, np.float32)]))
 
 
+SPHERE_KINDS = ("out", "in", "tangent", "far")
+SPHERE_EDGE_N = 256      # rays of each kind at each sphere
+
+
+def sphere_edge_rays(kinds=SPHERE_KINDS):
+    """The sphere solve's edge rays (``tools/sphere_edges.py``) at each
+    sphere of the Cornell spheres, ``SPHERE_EDGE_N`` of each kind a sphere:
+    origins on the sphere leaving outward and inward, near-tangent rays and
+    far rays; with ``kinds=("placeholder",)``, rays at the radius-0
+    placeholder of a scene without spheres.  (ro, rd) float32 numpy, for
+    t_min 0 and t_max 1e30."""
+    from tpu_pt_torch.tools import sphere_edges   # this checkout's own
+
+    sc = cornell.cornell("spheres")
+    ro, rd = [], []
+    for k, kind in enumerate(kinds):
+        spheres = [sphere_edges.PLACEHOLDER] if kind == "placeholder" else \
+            list(zip(sc.sph_center, sc.sph_radius))
+        for i, (c, r) in enumerate(spheres):
+            o, d, _, _ = sphere_edges.edge_rays(c, r, kind, SPHERE_EDGE_N,
+                                                seed=40 + 7 * k + i)
+            ro.append(o)
+            rd.append(d)
+    return np.concatenate(ro), np.concatenate(rd)
+
+
+def sphere_edge_pairs():
+    """The pair stage's and the dense sweep's operands for the sphere
+    solve's edge rays: on the Cornell spheres (their kinds) and on the
+    Cornell mesh (the placeholder's rays; its radius-0 sphere is in its
+    tiles and rows), each through the descent of the scene's cluster BVH
+    as a traversal hands them on.  Yields (label, cluster BVH, pair_inputs'
+    operands, dense ray rows, dense primitive rows)."""
+    for label, scene_e, kinds in (
+            ("edge_sphere_solve_cornell_spheres", cornell.cornell("spheres"),
+             SPHERE_KINDS),
+            ("edge_sphere_solve_placeholder", cornell.cornell("mesh"),
+             ("placeholder",))):
+        cb_e = cluster.build_cluster_bvh(scene_e).to(DEV)
+        ro, rd = (torch.from_numpy(x).to(DEV) for x in sphere_edge_rays(kinds))
+        R = ro.shape[0]
+        t_max = torch.full((R, 1), 1e30, device=DEV)
+        ops = pair_inputs(cb_e, ro, rd, t_max, cb_e.pair_mults[2])
+        rows = torch.zeros((R, 8), device=DEV)
+        rows[:, 0:3], rows[:, 4:7], rows[:, 7] = ro, rd, 1e30
+        yield label, cb_e, ops, rows, PallasScene(scene_e).to(DEV).prims
+
+
 def walk_edge_rays(pk, n, seed, up=None):
     """Rays with the walk's edge cases: half aimed into random leaf boxes,
     axis-parallel directions (components +0 and -0), origins ON a node box
@@ -1206,8 +1261,12 @@ def packed_walk_edge_cases(pk):
                        ("edge_atrium_coplanar",
                         native.build_packed(atrium).to(DEV))):
         coplanar = name == "edge_atrium_coplanar"
-        args = walk_args(pk_e, *walk_edge_rays(pk_e, 3000, 31,
-                                               up if coplanar else None))
+        # Appended rays: the atrium's upward ones, the sphere solve's edge
+        # rays on the spheres and at big-1m's radius-0 placeholder.
+        extra = {"edge_atrium_coplanar": up,
+                 "edge_cornell_spheres": sphere_edge_rays(),
+                 "edge_big1m": sphere_edge_rays(("placeholder",))}.get(name)
+        args = walk_args(pk_e, *walk_edge_rays(pk_e, 3000, 31, extra))
         for form in (False, True):
             res, _, out = compare_walk(args, name, form)
             assert res["hits"] > 0, f"packed_walk {name}: no hit"
@@ -1500,8 +1559,14 @@ def flat_walk_edge_cases(o_scene_h):
         fb_h = sah.build_bvh(sc_h)
         fb_e, sc_e = fb_h.to(DEV), sc_h.to(DEV)
         rows_e = flat.row_tables(fb_e, sc_e)
-        args = flat_args(fb_e, sc_e, *flat_edge_rays(
-            fb_h, 3000, 37, up if coplanar else None))
+        # Appended rays: the atrium's upward ones, the sphere solve's edge
+        # rays on the spheres and at the Cornell mesh's radius-0
+        # placeholder.
+        extra = {"edge_atrium_coplanar": up,
+                 "edge_cornell_spheres": sphere_edge_rays(),
+                 "edge_cornell_mesh_4": sphere_edge_rays(("placeholder",))
+                 }.get(name)
+        args = flat_args(fb_e, sc_e, *flat_edge_rays(fb_h, 3000, 37, extra))
         for form in (False, True):
             res, _, _ = compare_flat(args, rows_e, name, form)
             assert res["hits"] > 0, f"flat_walk {name}: no hit"
@@ -1993,6 +2058,18 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
     assert (out_e[0] < INF).tolist() == [True, True, False, True, False]
     assert out_e[1][3].item() == 0.0 and out_e[2][3].item() == 0.0  # sphere u, v
     cases_dense.append(res)
+    # Every kernel that tests spheres, on the sphere solve's edge rays:
+    # bitwise against its plain version (K2 with no fallback tolerance).
+    for label, cb_e, ops, rows_s, prims_s in sphere_edge_pairs():
+        cid_p, rays_p, _, _, cid_s, rays_s, fused_s = ops
+        cases_fused.append(compare_fused(cb_e, fused_s, label))
+        res, _ = compare_k2(cb_e.tiles, cid_p, rays_p, label)
+        assert res["bitwise"], f"K2 {label}: not bitwise"
+        cases_k2.append(res)
+        cases_k3.append(compare_k3(cb_e.tiles, cid_s, rays_s, label))
+        res, _ = compare_dense(rows_s, prims_s, label)
+        assert res["hits"] > 0, f"dense {label}: no hit"
+        cases_dense.append(res)
 
     # Time them on one chunk of the full-size oracle render (R = 131,072).
     o_scene_h = dense_scenes["cornell_mesh_4"]
@@ -2150,27 +2227,51 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
 # --------------------------------------------------------------------------
 
 def phase_walks(scene, cam, cb, cfg, pk, fp32_ops_per_s):
-    """``--walks``: only the two walks' times, for comparing two trees of
-    the port inside one call.  Both designs of each walk on the kernels
-    phase's batches (check_packed_walk and check_flat_walk without their
-    edge cases: each batch held bitwise to the plain version and timed),
-    on the reduced atrium's 20,000 upward rays (:func:`atrium_up_rays`),
-    and the walks of one full-size oracle render of the Cornell mesh in
-    each design (flat_render_walks).  One JSON line: the package's path,
-    each batch's times and counts, the render's summed walk times."""
+    """``--walks``: the A/B mode, for comparing two trees of the port inside
+    one call (copy this script into the other checkout and run it there
+    too; it uses only functions that earlier checkouts have): the times of
+    every kernel that tests primitives, without the other phases.  Both
+    designs of each walk on the kernels phase's batches (check_packed_walk
+    and check_flat_walk without their edge cases: each batch held bitwise
+    to the plain version and timed), on the reduced atrium's 20,000 upward
+    rays (:func:`atrium_up_rays`), and the walks of one full-size oracle
+    render of the Cornell mesh in each design (flat_render_walks); the
+    pair kernels (trace and warm medians, as the kernels phase takes them)
+    on the mid-render closest-hit batch and the narrow shadow batch; the
+    dense kernels (events) on the oracle chunk.  One JSON line: the
+    package's path, each batch's times and counts, the render's summed
+    walk times."""
     import tpu_pt_torch
 
-    _, mid, _, mid_full, shadow_full = queue_batches(scene, cam, cb, cfg,
-                                                     (0, 3), 4096, N_WARM)
+    _, mid, shadow, mid_full, shadow_full = queue_batches(
+        scene, cam, cb, cfg, (0, 3), 4096, N_WARM)
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
     _, timing, _ = check_packed_walk(scene, cb, pk, mid, mid_full,
                                      shadow_full, flush, edges=False)
+    for name, (ro, rd, t_max), mult, closest in (
+            ("mid", mid, cb.pair_mults[2], True),
+            ("shadow", shadow, cb.pair_mults[3], False)):
+        cid, rays, _, _, cid_s, rays_s, fused = pair_inputs(
+            cb, ro, rd, t_max, mult)
+        ops = fused_ops(cb.tiles, cb.tile_gid, fused)
+        timing[f"pair_ray_reduce@{name}"] = time_both(
+            lambda: pair_ray_reduce(*ops, any_hit=not closest), flush,
+            "pair_major_kernel")
+        timing[f"pair_tile_isect@{name}"] = time_both(
+            lambda: pair_tile_isect(cb.tiles, cid, rays), flush,
+            "pair_tile_isect_kernel")
+        timing[f"pair_tile_isect_dedup@{name}"] = time_both(
+            lambda: pair_tile_isect_dedup(cb.tiles, cid_s, rays_s), flush,
+            "pair_tile_isect_dedup_kernel")
     o_scene_h = cornell.cornell("mesh", mesh_subdiv=4)
     o_cfg = RenderConfig(width=512, height=512, spp=16, max_depth=4)
     o_scene, o_cam = o_scene_h.to(DEV), cornell.camera(512, 512).to(DEV)
-    rows_c, rows_a = oracle_chunk_rays(o_scene, o_cam,
-                                       PallasScene(o_scene_h).to(DEV), o_cfg,
-                                       (0, 0))
+    ps = PallasScene(o_scene_h).to(DEV)
+    rows_c, rows_a = oracle_chunk_rays(o_scene, o_cam, ps, o_cfg, (0, 0))
+    timing["dense_closest@oracle_chunk"] = {"ms": time_launches(
+        lambda: dense_closest(rows_c, ps.prims), flush)}
+    timing["dense_anyhit@oracle_chunk"] = {"ms": time_launches(
+        lambda: dense_anyhit(rows_a, ps.prims), flush)}
     timing.update(check_flat_walk(o_scene_h, o_cam, o_cfg, rows_c, rows_a,
                                   flush, edges=False)[1])
     # Both walks, both designs, on the reduced atrium's upward rays (the
@@ -3822,10 +3923,10 @@ def phase_render_oracle(fp32_ops_per_s):
     and the flat BVH walk (``"bvh"``): small renders held against the brute
     backend, the plain versions and the wavefront renderer (on the brute
     and on the backend's intersector), then the full-size renders (512x512,
-    spp 16, depth 4, the command line's defaults); on the Cornell mesh the
-    "bvh" render's walks in both designs (``flat_render_walks``).  Returns
+    spp 16, depth 4, the command line's defaults); on both scenes the
+    "bvh" renders' walks in both designs (``flat_render_walks``).  Returns
     the launches of the dense kernels and of the flat walk on the full-size
-    Cornell mesh renders, and the walks' sums."""
+    Cornell mesh renders, and that render's walks' sums."""
     scenes = {"cornell_mesh_4": cornell.cornell("mesh", mesh_subdiv=4),
               "cornell_spheres": cornell.cornell("spheres")}
     small = RenderConfig(width=64, height=64, spp=4, max_depth=3)
@@ -3948,6 +4049,11 @@ def phase_render_oracle(fp32_ops_per_s):
                     <= 0.005 * means["pallas", name], \
                     f"bvh {name}: mean_radiance {mean} not within 0.5 % of " \
                     f"the pallas render's {means['pallas', name]}"
+            if backend == "bvh":
+                # Both scenes' walks: the Cornell spheres' test two
+                # spheres in the well-conditioned solve.
+                line["walks_per_design"] = flat_render_walks(
+                    scene, cam, full, key, bvh, img, fp32_ops_per_s)
             if name == "cornell_spheres":
                 line["anchor_mean_radiance"] = ORACLE_ANCHOR
                 line["vs_anchor"] = mean - ORACLE_ANCHOR
@@ -3960,12 +4066,72 @@ def phase_render_oracle(fp32_ops_per_s):
                 film.save(png, img.cpu().numpy())
                 launches.update(n_launch)
                 if backend == "bvh":
-                    walks = flat_render_walks(scene, cam, full, key, bvh, img,
-                                              fp32_ops_per_s)
-                    line["walks_per_design"] = walks
+                    walks = line["walks_per_design"]
             out.append(line)
         emit({"phase": "render_oracle", "backend": backend, "renders": out})
     return launches, walks
+
+
+def phase_spheres_parity():
+    """The Cornell spheres at 64 x 32, spp 2, depth 2 (roulette from bounce
+    1 at 0.8), key 11, through ``render_wavefront`` on the card, on
+    "brute" and on "pallas" (the dense kernels): each image within rtol
+    2e-4 / atol 2e-5 of the port's CPU render of the same call and within
+    2e-5 absolute of the float64 CPU render (scene and camera in float64,
+    the random numbers float32 as always), at every pixel.  Returns the
+    dense kernels' launches on the "pallas" render."""
+    from tpu_pt_torch.tools.sphere_edges import as_float64  # this checkout's
+
+    cfg = RenderConfig(width=64, height=32, spp=2, max_depth=2, rr_start=1,
+                       rr_prob=0.8)
+    key = (0, 11)
+    scene_h, cam_h = cornell.cornell("spheres"), cornell.camera(64, 32)
+
+    def render(backend, device, scene=scene_h, cam=cam_h):
+        bvh = PallasScene(scene_h) if backend == "pallas" else None
+        t0 = time.time()
+        img = wavefront.render_wavefront(scene, cam, cfg, key, bvh,
+                                         queue=4096, backend=backend,
+                                         device=device)
+        sync()
+        return img.cpu(), time.time() - t0
+
+    witness, witness_s = render("brute", "cpu", as_float64(scene_h.to("cpu")),
+                                as_float64(cam_h.to("cpu")))
+    assert witness.dtype == torch.float64
+    line = {"phase": "spheres_parity", "size": [cfg.width, cfg.height],
+            "spp": cfg.spp, "max_depth": cfg.max_depth, "key": list(key),
+            "tolerance": "vs the CPU render rtol 2e-4 atol 2e-5; vs the "
+                         "float64 CPU render atol 2e-5",
+            "witness_s": round(witness_s, 2)}
+    for backend in ("brute", "pallas"):
+        img_c, cpu_s = render(backend, "cpu")
+        zero_launches((dense_closest, dense_anyhit))
+        img, run_s = render(backend, DEV)
+        n = read_launches((dense_closest, dense_anyhit))
+        if backend == "pallas":
+            assert n["dense_closest"] > 0 and n["dense_anyhit"] > 0, n
+            launches = n
+        else:
+            assert not any(n.values()), n
+        apart = int((~torch.isclose(img, img_c, rtol=2e-4, atol=2e-5)).sum())
+        err_w = float((img.double() - witness).abs().max())
+        line[backend] = {
+            "launches": n, "run_s": round(run_s, 3), "cpu_s": round(cpu_s, 3),
+            "mean_radiance": float(img.mean()),
+            "values_apart_from_cpu": apart,
+            "max_abs_diff_vs_cpu": float((img - img_c).abs().max()),
+            "max_abs_err_vs_float64": err_w,
+            "cpu_max_abs_err_vs_float64": float(
+                (img_c.double() - witness).abs().max())}
+        assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.1
+        assert apart == 0, \
+            f"spheres_parity {backend}: {apart} values past rtol 2e-4 / " \
+            "atol 2e-5 of the CPU render"
+        assert err_w <= 2e-5, \
+            f"spheres_parity {backend}: {err_w} from the float64 render"
+    emit(line)
+    return launches
 
 
 def phase_render_dedup(scene, cam, cb, cfg, main):
@@ -5603,11 +5769,11 @@ def main():
                                      "count": torch.cuda.device_count()}})
         return
     if paired or "--walks" in args:
-        if paired:
-            phase_paired(scene, cam, cb, cfg, paired)
-        else:
+        if "--walks" in args:
             run("walks", phase_walks, scene, cam, cb, cfg, pk,
                 fp32_ops_per_s)
+        if paired:
+            phase_paired(scene, cam, cb, cfg, paired)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -5673,6 +5839,7 @@ def main():
                                       fp32_ops_per_s)
     launches.update(oracle_launches)
     launches.update(probe_launches)
+    by_path["spheres_parity"] = run("spheres_parity", phase_spheres_parity)
     del scene, cb, pk
     by_path["render_atrium"] = run("render_atrium", phase_render_atrium)
 
@@ -5772,10 +5939,12 @@ def main():
             row["launches_counted_in"] = (
                 "render_main" if name == "fetch_fields" else "fetch_probes")
         if name in ("pair_ray_reduce", "pair_tile_isect", "fetch_fields",
-                    "packed_walk", "flat_walk"):
+                    "packed_walk", "flat_walk", "dense_closest",
+                    "dense_anyhit"):
             # Its launches in one run of each command line path, one
-            # render of each device build's path and (K2) one headline in
-            # each of the cluster BVH's other traversal modes.
+            # render of each device build's path, (K2) one headline in
+            # each of the cluster BVH's other traversal modes and (the
+            # dense kernels) the Cornell spheres' parity render.
             row["launches_by_path"] = {
                 path: got[name] for path, got in by_path.items()
                 if name in got}

@@ -95,12 +95,33 @@ def test_ray_probe_batches_of_one_step_equal_jax():
     for a, b in zip(quiet, probed):
         assert torch.equal(a, b)
     assert len(pt) == len(pj) == 1 + st.lights.count
-    for (ro_t, rd_t, tm_t), (ro_j, rd_j, tm_j) in zip(pt, pj):
+    # A shadow ray leaves its hit point moved by cfg.eps along the normal,
+    # so one from a sphere starts at r + eps or r - eps from its centre.
+    # Where the packages' origins part past 1e-5 (the JAX package's sphere
+    # solve cancels), the port's must lie on that shell within 1e-6 and
+    # closer to it than the JAX package's; those rows leave the comparison.
+    centre = st.sph_center.numpy().astype(np.float64)
+    radius = st.sph_radius.numpy().astype(np.float64)
+
+    def off_shell(o):
+        d = np.linalg.norm(o.astype(np.float64)[:, None] - centre, axis=-1)
+        return np.min(np.abs(np.abs(d - radius) - ct.eps), axis=1)
+
+    for k, ((ro_t, rd_t, tm_t), (ro_j, rd_j, tm_j)) in enumerate(zip(pt, pj)):
         assert tuple(tm_t.shape) == (128, 1)
         np.testing.assert_array_equal(tm_t.numpy() < 0, np.asarray(tm_j) < 0)
-        for a, b in ((ro_t, ro_j), (rd_t, rd_j), (tm_t, tm_j)):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
-                                       atol=1e-5)
+        ro_t, ro_j = ro_t.numpy(), np.asarray(ro_j)
+        apart = ~np.isclose(ro_t, ro_j, rtol=1e-5, atol=1e-5).all(1)
+        assert (k > 0 or not apart.any()) and apart.sum() <= 2
+        if apart.any():
+            s_t, s_j = off_shell(ro_t[apart]), off_shell(ro_j[apart])
+            print(f"batch {k}: {int(apart.sum())} origins held to the "
+                  f"sphere shell, off it by {s_t.max():.3g} (JAX package "
+                  f"{s_j.max():.3g})")
+            assert (s_t <= 1e-6).all() and (s_t < s_j).all(), (s_t, s_j)
+        for a, b in ((ro_t, ro_j), (rd_t.numpy(), rd_j), (tm_t.numpy(), tm_j)):
+            np.testing.assert_allclose(a[~apart], np.asarray(b)[~apart],
+                                       rtol=1e-5, atol=1e-5)
     assert (pt[0][2].numpy() > 0).all()               # a full first wave
     assert 0 < (pt[1][2].numpy() > 0).sum() < 128     # some shadow rays
 

@@ -50,8 +50,9 @@ from tpu_pt_torch.render.wavefront import (
 from tpu_pt_torch.scene import types as tt
 from tpu_pt_torch.tools import flat_chains, walk_edges
 
-from torch_port_util import (T, assert_hits_equal, camera_dict, rays,
-                             scene_dict)
+from torch_port_util import (T, assert_hits_equal, camera_dict,
+                             hold_apart_to_witness, hold_occluded_to_witness,
+                             rays, scene_dict, witness_scene)
 
 SCENES = ("cornell", "mesh", "coincident", "spheres_only")
 
@@ -239,9 +240,19 @@ def test_flat_intersect_matches_jax_and_brute(setups, name):
     assert 50 < m.sum() < len(m)
     assert not m[::17].any()                          # t_max = -1
     assert ht.prim.dtype == torch.int32
-    for ref in (hj, hb):
-        np.testing.assert_array_equal(ht.hit.numpy(), np.asarray(ref.hit))
-        np.testing.assert_allclose(ht.t.numpy()[m], np.asarray(ref.t)[m],
+    # Against the JAX package: hit mask exact and t within rtol 1e-5 but on
+    # the rows where its sphere solve parts from the port's, which must be
+    # the float64 witness's (the JAX package the farther one).
+    t_t, t_j = ht.t.numpy()[:, 0], np.asarray(hj.t)[:, 0]
+    apart = ~np.isclose(t_t, t_j, rtol=1e-5, atol=1e-6)
+    n, _ = hold_apart_to_witness(apart, t_t, t_j,
+                                 witness_scene(st, ro, rd, t_min, t_max))
+    assert n <= len(t_t) // 100
+    for ref, rows in ((hj, ~apart), (hb, slice(None))):
+        np.testing.assert_array_equal(ht.hit.numpy()[rows],
+                                      np.asarray(ref.hit)[rows])
+        mm = m & ~apart if ref is hj else m
+        np.testing.assert_allclose(ht.t.numpy()[mm], np.asarray(ref.t)[mm],
                                    rtol=1e-5, atol=1e-6)
         assert (ht.prim.numpy() == np.asarray(ref.prim))[m].mean() > 0.99
 
@@ -258,7 +269,9 @@ def test_flat_occluded_matches_jax_and_brute(setups, name):
     assert torch.equal(ot, tflat.occluded(bt.to("cpu"), st, T(ro), T(rd),
                                           T(t_max), design="thread"))
     assert ot.dtype == torch.bool and tuple(ot.shape) == (768, 1)
-    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
+    # Exact but on the rows where the sphere solves part (the witness's).
+    assert hold_occluded_to_witness(ot.numpy(), np.asarray(oj), st, ro, rd,
+                                    t_max) <= 768 // 100
     np.testing.assert_array_equal(
         ot.numpy(), tbrute.occluded(st, T(ro), T(rd), T(t_max)).numpy())
     assert 0 < int(ot.sum()) < 768

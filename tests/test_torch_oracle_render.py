@@ -3,11 +3,17 @@ integrator.radiance / render_chunk) against tpu_pt.render.driver.render on
 the same scene, camera, config and key words, and the port's wavefront
 renderer against the port's oracle.
 
-Image tolerance against the JAX package: rtol 1e-3, atol 1e-3, the JAX
-package's own tolerance between its dense-sweep backend and its brute
-oracle (tests/test_pallas.py).  Both packages draw the same random numbers
-(bitwise-equal counter RNG), so the difference is rounding only: the worst
-absolute difference found over the cases below is 4.1e-5.
+Image tolerance against the JAX package: rtol 2e-4, atol 2e-5, the image
+tolerance of the other parity tests.  Both packages draw the same random
+numbers (bitwise-equal counter RNG), so the difference is rounding only:
+over the cases below the worst absolute difference measured is 5.6e-5
+(the chunk-tail case, 0.65 of the bound), 1.8e-5 elsewhere.  There the JAX
+package is the one off: the port lies within 7.2e-7 of its own float64
+render and the JAX package 5.6e-5 (its sphere solve cancels; the port's,
+core/intersect.py::sphere_hit, does not; with the port's former solve the
+worst was 4.1e-5).  Inside the port, the oracle on its intersectors and
+the wavefront renderer give the same values (0 measured), held at the
+same tolerance.
 """
 
 import jax
@@ -51,24 +57,24 @@ def test_render_matches_jax(variant, backend):
     assert img_t.device.type == "cpu" and tuple(img_t.shape) == (16, 16, 3)
     assert img_t.dtype == torch.float32
     assert np.isfinite(img_t.numpy()).all() and img_t.numpy().mean() > 0.05
-    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("backend", ["brute", "pallas"])
 def test_direct_only_and_russian_roulette_match_jax(backend):
     kw = dict(width=16, height=16, spp=2, max_depth=3, direct_only=True)
     img_j, img_t = _both("spheres", backend, kw)
-    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=2e-4, atol=2e-5)
     # Depth 4 with roulette from bounce 1: every RR branch is taken.
     kw = dict(width=12, height=12, spp=2, max_depth=4, rr_start=1, rr_prob=0.6)
     img_j, img_t = _both("spheres", backend, kw, key_i=2)
-    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=2e-4, atol=2e-5)
 
 
 def test_two_light_samples_match_jax():
     kw = dict(width=12, height=12, spp=2, max_depth=1, ns_area_light=2)
     img_j, img_t = _both("spheres", "pallas", kw, key_i=1)
-    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("backend", ["brute", "pallas"])
@@ -79,7 +85,7 @@ def test_chunk_tail_re_renders_the_last_pixel(backend):
     kw = dict(width=15, height=11, spp=2, max_depth=2)
     img_j, img_t = _both("spheres", backend, kw, pix_chunk=64)
     assert tuple(img_t.shape) == (11, 15, 3)
-    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=2e-4, atol=2e-5)
     st = tc.cornell("spheres")
     whole = trender(st, tc.camera(15, 11), TConfig(**kw), (0, 5),
                     backend=backend, device="cpu",
@@ -123,10 +129,10 @@ def test_pallas_equals_brute_and_plain_versions_in_the_port():
                 use_kernels=False)
     assert torch.equal(a, b)
     c = trender(st, cam, cfg, (0, 7), backend="brute", device="cpu")
-    np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=2e-4, atol=2e-5)
     d = trender(st, cam, cfg, (0, 7), backend="cluster",
                 bvh=tcl.build_cluster_bvh(st), device="cpu")
-    np.testing.assert_allclose(a.numpy(), d.numpy(), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(a.numpy(), d.numpy(), rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("variant,backend", [
@@ -136,9 +142,8 @@ def test_wavefront_matches_the_ports_oracle(variant, backend):
     """Same draw ids, same shading code, same intersector: the wavefront
     renderer differs from the oracle in scheduling only.  rtol 2e-4 /
     atol 2e-5 is the JAX package's tolerance between its cluster backend and
-    its oracle.  Against the oracle on the BRUTE intersector the tolerance
-    is the looser one between two intersectors (an ulp of t can move a
-    specular path)."""
+    its oracle, held against the oracle on the brute intersector too (an
+    ulp of t could move a specular path; none did)."""
     st = tc.cornell(variant)
     bvh = {"brute": None, "pallas": PallasScene(st),
            "cluster": tcl.build_cluster_bvh(st)}[backend]
@@ -150,8 +155,8 @@ def test_wavefront_matches_the_ports_oracle(variant, backend):
     assert ovf == 0 and nc >= 20 * 20 * 3
     np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=2e-4, atol=2e-5)
     brute_ref = trender(st, cam, cfg, (0, 4), backend="brute", device="cpu")
-    np.testing.assert_allclose(img.numpy(), brute_ref.numpy(), rtol=1e-3,
-                               atol=1e-3)
+    np.testing.assert_allclose(img.numpy(), brute_ref.numpy(), rtol=2e-4,
+                               atol=2e-5)
 
 
 def test_radiance_is_keyed_by_ray_id_not_by_position():

@@ -32,8 +32,11 @@ from tpu_pt_torch.kernels import packed_walk as tpw
 from tpu_pt_torch.render import brute as tbrute
 from tpu_pt_torch.render.driver import render as trender
 from tpu_pt_torch.render.wavefront import render_wavefront as trender_wavefront
+from tpu_pt_torch.tools.sphere_edges import as_float64, solve64
 
-from torch_port_util import T, camera_dict, rays, scene_dict
+from torch_port_util import (T, camera_dict, hold_apart_to_witness,
+                             hold_occluded_to_witness, rays, scene_dict,
+                             witness_scene)
 
 
 def _coincident_scene(mod_t, mod_m):
@@ -139,11 +142,19 @@ def test_intersect_matches_jax(setups, name):
     hj = jpk.intersect(pj, sj, jnp.asarray(ro), jnp.asarray(rd),
                        jnp.asarray(t_min), jnp.asarray(t_max))
     ht = tpk.intersect(pt, st, T(ro), T(rd), T(t_min), T(t_max))
-    np.testing.assert_array_equal(ht.hit.numpy(), np.asarray(hj.hit))
+    # Hit mask exact and t within 1e-6 but on the rows where the JAX
+    # package's sphere solve parts from the port's: there the port must be
+    # the float64 witness's and the JAX package the farther one.
+    t_t, t_j = ht.t.numpy()[:, 0], np.asarray(hj.t)[:, 0]
+    apart = ~np.isclose(t_t, t_j, rtol=1e-6, atol=1e-6)
+    n, _ = hold_apart_to_witness(apart, t_t, t_j,
+                                 witness_scene(st, ro, rd, t_min, t_max))
+    assert n <= len(t_t) // 100
     m = ht.hit.numpy()[:, 0]
+    np.testing.assert_array_equal(m[~apart], np.asarray(hj.hit)[~apart, 0])
     assert 50 < m.sum() < len(m)
-    np.testing.assert_allclose(ht.t.numpy()[m], np.asarray(hj.t)[m],
-                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(t_t[m & ~apart], t_j[m & ~apart], rtol=1e-6,
+                               atol=1e-6)
     assert (ht.prim.numpy() == np.asarray(hj.prim))[m].mean() > 0.99
     assert ht.prim.dtype == torch.int32
     assert not ht.hit.numpy()[::17].any()             # t_max = -1
@@ -158,13 +169,17 @@ def test_occluded_matches_jax(setups, name):
                       jnp.asarray(t_max))
     ot = tpk.occluded(pt, st, T(ro), T(rd), T(t_max))
     assert ot.dtype == torch.bool and tuple(ot.shape) == (768, 1)
-    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
+    # Exact but on the rows where the sphere solves part (the witness's).
+    assert hold_occluded_to_witness(ot.numpy(), np.asarray(oj), st, ro, rd,
+                                    t_max) <= 768 // 100
     assert 0 < int(ot.sum()) < 768
 
 
 def test_prim_row_test_and_octant_match_jax():
     """The row test on mixed triangle / sphere / padding rows and random
-    ranges: hit mask exact, t within 1e-6; the octant index exact."""
+    ranges: hit mask exact, t within 1e-6, but on sphere rows where the JAX
+    package's solve parts from the port's, which must be the float64
+    witness's; the octant index exact."""
     rs = np.random.RandomState(5)
     R = 2048
     rows = np.zeros((R, 16), np.float32)
@@ -191,11 +206,18 @@ def test_prim_row_test_and_octant_match_jax():
                            jnp.asarray(t_min), jnp.asarray(t_max))
     b = tpk._prim_row_test(T(rows), T(active), T(ro), T(rd), T(t_min),
                            T(t_max))
-    np.testing.assert_array_equal(b[0].numpy(), np.asarray(a[0]))
     h = b[0].numpy()[:, 0]
+    t_t, t_j = b[1].numpy()[:, 0], np.asarray(a[1])[:, 0]
+    apart = ~np.isclose(t_t, t_j, rtol=1e-6, atol=1e-6)
+    t_w = np.where(sph & active[:, 0], solve64(
+        ro, rd, rows[:, 0:3], rows[:, 3], t_min[:, 0], t_max[:, 0]),
+        np.where(h, t_t, np.inf))
+    n, _ = hold_apart_to_witness(apart, t_t, t_j, t_w)
+    assert n <= R // 100 and not (apart & ~sph).any()
+    np.testing.assert_array_equal(h[~apart], np.asarray(a[0])[~apart, 0])
     assert 100 < h.sum() < R and (h & sph).any()
-    np.testing.assert_allclose(b[1].numpy()[h], np.asarray(a[1])[h],
-                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(t_t[h & ~apart], t_j[h & ~apart], rtol=1e-6,
+                               atol=1e-6)
     for x, y in zip(b[2:], a[2:]):    # u, v: as for the pair kernels (PR 1)
         np.testing.assert_allclose(x.numpy()[h], np.asarray(y)[h], rtol=1e-4,
                                    atol=1e-5)
@@ -286,7 +308,9 @@ def test_walk_refuses_bad_operands(setups):
 def test_oracle_render_packed_matches_jax(setups):
     """The oracle renderer on backend "packed" (tests/test_packed.py:74-88
     analogue): against the JAX package's render of the same tables, and
-    against the port's brute backend."""
+    against the port's brute backend.  Pixels where the JAX package's
+    sphere solve parts the two past rtol 2e-4 / atol 2e-5 are held to the
+    port's float64 render instead (within 2e-5, the JAX package farther)."""
     sj, pj, st, pt = setups["spheres"]
     kw = dict(width=24, height=24, spp=4, max_depth=3)
     camj = jc.camera(24, 24)
@@ -296,8 +320,17 @@ def test_oracle_render_packed_matches_jax(setups):
     img_t = trender(st, camt, TConfig(**kw), (0, 2), backend="packed",
                     bvh=pt, device="cpu")
     assert np.isfinite(img_t.numpy()).all() and img_t.numpy().mean() > 0.05
-    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=2e-4,
-                               atol=2e-5)
+    img_w = trender(as_float64(st), as_float64(camt), TConfig(**kw), (0, 2),
+                    backend="brute", device="cpu").numpy()
+    a, j = img_t.numpy(), np.asarray(img_j)
+    apart = ~np.isclose(a, j, rtol=2e-4, atol=2e-5)
+    err, err_j = np.abs(a - img_w)[apart], np.abs(j - img_w)[apart]
+    print(f"held to the float64 render: {int(apart.sum())} of {a.size} "
+          f"values, largest |port - jax| {np.abs(a - j).max():.3g}, "
+          f"|port - float64| {err.max(initial=0):.3g}, |jax - float64| "
+          f"{err_j.max(initial=0):.3g}")
+    assert apart.sum() <= a.size // 100
+    assert (err <= 2e-5).all() and (err_j > err).all()
     img_b = trender(st, camt, TConfig(**kw), (0, 2), backend="brute",
                     device="cpu")
     np.testing.assert_allclose(img_t.numpy(), img_b.numpy(), rtol=1e-3,

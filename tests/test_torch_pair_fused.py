@@ -29,7 +29,8 @@ from tpu_pt_torch.kernels import pair_scan as tps
 from tpu_pt_torch.render import wavefront as twf
 from tpu_pt_torch.scene import cornell as tc
 
-from torch_port_util import T, bvh_dict, rays, scene_dict
+from torch_port_util import (T, bvh_dict, hold_apart_to_witness, rays,
+                             scene_dict, witness_lanes)
 
 NAMES = ["big", "big128", "deep", "mesh", "cornell"]
 
@@ -87,6 +88,19 @@ def _i32(x):
     return jnp.asarray(x.numpy().astype(np.int32))
 
 
+def _pairs_witness(ct, ro, rd, tmin, tmax, cidP, cnt, right):
+    """(Q,) float64 witness t of each ray over the lanes of its segment's
+    tiles (``witness_lanes``), inf where none hits."""
+    cnt, right = cnt.numpy(), right.numpy()
+    pair = np.concatenate([np.arange(r - c, r) for c, r in zip(cnt, right)])
+    ray = np.repeat(np.arange(len(cnt)), cnt)
+    t_p = witness_lanes(ct.tiles.numpy()[cidP.numpy()[pair]],
+                        *(x.numpy()[ray] for x in (ro, rd, tmin, tmax)))
+    t_w = np.full((len(cnt),), np.inf)
+    np.minimum.at(t_w, ray, t_p.min(1))
+    return t_w
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_fused_ref_matches_the_jax_two_kernel_stage(setups, name):
     cj, ct = setups[name]
@@ -105,15 +119,22 @@ def test_fused_ref_matches_the_jax_two_kernel_stage(setups, name):
     args = (ct.tiles, ct.tile_gid, ro, rd, tmin, tmax, cidP, cnt, right)
     t_t, g_t, u_t, v_t = (x.numpy() for x in tpf.pair_ray_reduce_ref(*args))
     occ_t = tpf.pair_ray_reduce_ref(*args, any_hit=True).numpy()
-    hit = t_j < INF
+    hit = t_t < INF
     assert hit.sum() > 20 and (~hit).sum() > 0
     # Hit mask and occlusion exact; t to one ulp (XLA fuses the
     # multiply-adds); gid equal wherever t is bitwise equal and on > 0.999
     # of the hits: the tolerances of test_intersect_matches_jax_and_brute.
-    np.testing.assert_array_equal(hit, t_t < INF)
-    np.testing.assert_array_equal(occ_j, occ_t)
+    # Rows where the JAX package's sphere solve parts from the port's are
+    # held to the float64 witness of each ray's pairs instead.
+    apart = ~np.isclose(t_t, t_j, rtol=1e-6, atol=1e-6)
+    n, _ = hold_apart_to_witness(apart, t_t, t_j, _pairs_witness(
+        ct, ro, rd, tmin, tmax, cidP, cnt, right))
+    assert n <= Q // 100
+    np.testing.assert_array_equal(hit[~apart], (t_j < INF)[~apart])
+    np.testing.assert_array_equal(occ_j[~apart], occ_t[~apart])
     np.testing.assert_array_equal(occ_t, hit)
-    np.testing.assert_allclose(t_t, t_j, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(t_t[~apart], t_j[~apart], rtol=1e-6,
+                               atol=1e-6)
     t_same = (t_j == t_t) & hit
     np.testing.assert_array_equal(g_j[t_same], g_t[t_same])
     assert (g_j == g_t)[hit].mean() > 0.999

@@ -18,7 +18,7 @@ from tpu_pt_torch.core.intersect import INF
 from tpu_pt_torch.kernels import cluster_isect as tki
 from tpu_pt_torch.kernels import pair_scan as tps
 
-from torch_port_util import T
+from torch_port_util import T, hold_apart_to_witness, witness_lanes
 
 
 # ---------------------------------------------------------------- K2 ------
@@ -67,11 +67,20 @@ def _compare_k2(tiles, cid, rays):
         jnp.asarray(tiles), jnp.asarray(cid), jnp.asarray(rays)))
     out_t = tki.pair_tile_isect(T(tiles), T(cid), T(rays)).numpy()
     assert out_t.shape == out_j.shape == (len(cid), 8)
+    # Pairs where the JAX package's sphere solve parts from the port's are
+    # held to the float64 witness of the pair's tile instead.
+    apart = ~np.isclose(out_t[:, 0], out_j[:, 0], rtol=1e-6, atol=1e-6)
+    t_w = np.where(rays[:, 8] > 0, witness_lanes(
+        tiles[cid], rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+        rays[:, 7]).min(1), np.inf)
+    n, _ = hold_apart_to_witness(apart, out_t[:, 0], out_j[:, 0], t_w)
+    assert n <= len(cid) // 50
     hit_j, hit_t = out_j[:, 0] < INF, out_t[:, 0] < INF
-    np.testing.assert_array_equal(hit_j, hit_t)
+    np.testing.assert_array_equal(hit_j[~apart], hit_t[~apart])
     # One ulp apart at most (operation fusion differs), as between the Pallas
     # kernel and XLA's gather path.
-    np.testing.assert_allclose(out_t[:, 0], out_j[:, 0], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out_t[~apart, 0], out_j[~apart, 0], rtol=1e-6,
+                               atol=1e-6)
     t_same = (out_j[:, 0] == out_t[:, 0]) & hit_j
     np.testing.assert_array_equal(out_j[t_same, 1], out_t[t_same, 1])
     if hit_j.any():
@@ -136,13 +145,25 @@ def test_pair_tile_isect_ref_narrow_tiles_match_dense_test(L):
     t_p, u_p, v_p = _prim_tile_test(T(tiles)[T(cid).long()], T(rays[:, 0:3]),
                                     T(rays[:, 3:6]), T(rays[:, 6:7]),
                                     T(rays[:, 7:8]))
-    np.testing.assert_array_equal(np.asarray(t_l) < INF, t_p.numpy() < INF)
-    np.testing.assert_allclose(t_p.numpy(), np.asarray(t_l), rtol=1e-6,
-                               atol=1e-6)
-    t_l = np.where(rays[:, 8:9] > 0, np.asarray(t_l), np.float32(INF))
+    # Lanes where the JAX package's sphere solve parts from the port's are
+    # held to the float64 witness instead; the pair kernel's plain version
+    # is then the port's dense test's minimum, bit for bit.
+    t_l, t_p = np.asarray(t_l), t_p.numpy()
+    apart = ~np.isclose(t_p, t_l, rtol=1e-6, atol=1e-6)
+    n, _ = hold_apart_to_witness(apart, t_p, t_l, witness_lanes(
+        tiles[cid], rays[:, 0:3], rays[:, 3:6], rays[:, 6], rays[:, 7]))
+    assert n <= apart.size // 1000
+    np.testing.assert_array_equal((t_l < INF)[~apart], (t_p < INF)[~apart])
+    np.testing.assert_allclose(t_p[~apart], t_l[~apart], rtol=1e-6, atol=1e-6)
+    t_l = np.where(rays[:, 8:9] > 0, t_l, np.float32(INF))
     out = tki.pair_tile_isect(T(tiles), T(cid), T(rays)).numpy()
-    np.testing.assert_array_equal(t_l.min(1) < INF, out[:, 0] < INF)
-    np.testing.assert_allclose(out[:, 0], t_l.min(1), rtol=1e-6, atol=1e-6)
+    t_p = np.where(rays[:, 8:9] > 0, t_p, np.float32(INF))
+    np.testing.assert_array_equal(out[:, 0], t_p.min(1))
+    np.testing.assert_array_equal(t_l.min(1)[~apart.any(1)] < INF,
+                                  out[~apart.any(1), 0] < INF)
+    np.testing.assert_allclose(out[~apart.any(1), 0],
+                               t_l.min(1)[~apart.any(1)], rtol=1e-6,
+                               atol=1e-6)
     same_t = (out[:, 0] == t_l.min(1)) & (out[:, 0] < INF)
     np.testing.assert_array_equal(out[same_t, 1], t_l.argmin(1)[same_t])
 

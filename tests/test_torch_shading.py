@@ -103,16 +103,26 @@ def test_bsdf_sample():
     v = np.asarray(a.valid)[:, 0]
     np.testing.assert_allclose(np.asarray(a.wi)[v], b.wi.numpy()[v], **TOL)
     # weight = f*cos/pdf.  The near-mirror GGX row (roughness 0.05, alpha^2 =
-    # 6e-6) is ill-conditioned: D's denominator c2*(a2-1)+1 cancels to ~a2
-    # near cos_h = 1, so one ulp of c2 moves D by percents, and f (D at the
-    # re-normalised half vector) and pdf (D at the sampled one) no longer
-    # cancel bit for bit.  Those rows are held to 10 %; all others to 1e-4.
+    # 6e-6) is ill-conditioned: _ggx_d's denominator c2*(a2-1)+1 cancels to
+    # ~a2 near cos_h = 1, so one ulp of c2 moves D by percents, and f (D at
+    # the re-normalised half vector) and pdf (D at the sampled one) do not
+    # cancel.  Both packages round it alike: on this seed they agree to
+    # 2.6e-7 (held at 10x that), and both lie 3.8 % from a float64
+    # evaluation of the same formula (printed).  The port keeps the
+    # reference's formula on purpose.  All other rows: 1e-4.
     sharp = np.asarray(mj.roughness)[:, 0] < 0.1
     wa, wb = np.asarray(a.weight), b.weight.numpy()
     np.testing.assert_allclose(wa[v & ~sharp], wb[v & ~sharp], rtol=1e-4,
                                atol=1e-5)
-    np.testing.assert_allclose(wa[v & sharp], wb[v & sharp], rtol=0.1,
+    np.testing.assert_allclose(wa[v & sharp], wb[v & sharp], rtol=3e-6,
                                atol=1e-5)
+    w64 = tbsdf.sample(mt.__class__(*(x.double() if x.is_floating_point()
+                                      else x for x in mt)),
+                       T(wo).double(), T(u).double()).weight.numpy()
+    m = v & sharp
+    rel_j = np.max(np.abs(wb - wa)[m] / np.abs(wa[m]))
+    rel_64 = np.max(np.abs(wb - w64)[m] / np.abs(w64[m]))
+    print(f"sharp rows: port vs JAX {rel_j:.3g}, port vs float64 {rel_64:.3g}")
 
 
 def _light_tables():

@@ -368,19 +368,11 @@ def test_step_slices_render_the_same_bits(spp, monkeypatch):
         [int(x) for x in cc]
 
 
-# Pixels of the Cornell spheres (64 x 32, spp 2, key 11) whose sums lie past
-# rtol 2e-4 / atol 2e-5 between the packages, an open fault: both are glass
-# or mirror paths, 2.8e-4 and 3.8e-4 apart, and the slicing is not at fault
-# (each package's sliced sums are its unsliced sums bit for bit).
-SPHERES_APART = [588, 790]
-
-
 def test_step_slices_match_jax_sliced_render():
     """The sliced render at spp 2 against the JAX package's
-    (``wavefront_accum(fast=True, step_slices=2)``): on the Cornell mesh
-    every pixel; on the Cornell spheres every pixel but ``SPHERES_APART``,
-    which must be exactly the pixels apart, and apart by what the two
-    packages' unsliced renders are apart, bit for bit."""
+    (``wavefront_accum(fast=True, step_slices=2)``) at every pixel, on the
+    Cornell mesh and the Cornell spheres; on the spheres each package's
+    sliced sums are its unsliced sums bit for bit."""
     jit = jax.jit(jwf.wavefront_accum, static_argnames=(
         "cfg", "queue", "backend", "n_pix_local", "fast", "step_slices"))
     for scene in ("mesh", "spheres"):
@@ -403,11 +395,7 @@ def test_step_slices_match_jax_sliced_render():
 
         img_j, img_t = jax_render(2), port_render(2)
         assert float(img_t.mean()) > 0.01
-        apart = np.abs(img_t - img_j) > 2e-5 + 2e-4 * np.abs(img_j)
         if scene == "spheres":
-            assert np.flatnonzero(apart.any(-1)).tolist() == SPHERES_APART
             np.testing.assert_array_equal(img_j, jax_render(1))
             np.testing.assert_array_equal(img_t, port_render(1))
-            img_j = img_j.copy()
-            img_j[SPHERES_APART] = img_t[SPHERES_APART]
         np.testing.assert_allclose(img_t, img_j, rtol=2e-4, atol=2e-5)

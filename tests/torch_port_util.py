@@ -102,6 +102,89 @@ def brute_in_chunks(scene, ro, rd, t_min, t_max, n: int = 500):
     return brute.Hit(*(torch.cat(f) for f in zip(*outs)))
 
 
+def witness_scene(scene, ro, rd, t_min, t_max):
+    """(R,) float64 t of the nearest hit of numpy rays in [t_min, t_max] on
+    a port scene of CPU tensors, inf where none: triangles through the
+    port's brute-force Moller-Trumbore (the two packages agree there to an
+    ulp), spheres through the float64 solve
+    (``tpu_pt_torch/tools/sphere_edges.py::solve64``, the textbook
+    quadratic, written independently of the port's).  The witness of rows
+    where the packages' sphere solves part."""
+    from tpu_pt_torch.core.intersect import ray_triangle
+    from tpu_pt_torch.render.brute import _tri_soa
+    from tpu_pt_torch.tools.sphere_edges import solve64
+
+    t_min, t_max = (np.broadcast_to(np.reshape(x, (-1,)), (ro.shape[0],))
+                    for x in (t_min, t_max))
+    v0, e1, e2 = _tri_soa(scene)
+    hit, t, _, _ = ray_triangle(T(ro)[:, None], T(rd)[:, None], v0[None],
+                                e1[None], e2[None], T(t_min)[:, None, None],
+                                T(t_max)[:, None, None])
+    t_tri = np.where(hit[..., 0].numpy(), t[..., 0].numpy(), np.inf).min(1)
+    t_sph = solve64(ro[:, None], rd[:, None], scene.sph_center.numpy()[None],
+                    scene.sph_radius.numpy()[None], t_min[:, None],
+                    t_max[:, None]).min(1)
+    return np.minimum(t_tri, t_sph)
+
+
+def witness_lanes(tiles, ro, rd, t_min, t_max):
+    """(P, L) float64 t of rays (P,) on their tiles ((P, 12, L), numpy
+    float32), inf on a miss: triangle lanes through the port's tile test
+    (``kernels/cluster_isect.py::_mt_group``), sphere lanes through the
+    float64 solve, as in :func:`witness_scene`."""
+    from tpu_pt_torch.core.intersect import INF
+    from tpu_pt_torch.kernels.cluster_isect import _mt_group
+    from tpu_pt_torch.tools.sphere_edges import solve64
+
+    P = tiles.shape[0]
+    t_min, t_max = (np.broadcast_to(np.reshape(x, (-1,)), (P,))
+                    for x in (t_min, t_max))
+    rays = np.zeros((P, 16), np.float32)
+    rays[:, 0:3], rays[:, 3:6], rays[:, 6], rays[:, 7] = ro, rd, t_min, t_max
+    rays[:, 8] = 1.0
+    t32 = _mt_group(T(tiles), T(rays))[0].numpy().astype(np.float64)
+    t32[t32 >= INF] = np.inf
+    t64 = solve64(ro[:, None], rd[:, None], np.moveaxis(tiles[:, 0:3], 1, 2),
+                  tiles[:, 3], t_min[:, None], t_max[:, None])
+    return np.where(tiles[:, 9] > 0.5, t64, t32)
+
+
+def hold_apart_to_witness(apart, t, t_j, t_w, rtol=1e-6, atol=1e-6):
+    """Rows where the port (t) and the JAX package (t_j) are apart, both
+    numpy with INF (1e30) or inf for a miss: on each the port must be the
+    float64 witness's (t_w, inf for a miss): the same hit bit, t within
+    rtol / atol, and the JAX package the farther one from it (the other
+    hit bit, or t farther off).  Returns (rows, largest |t - t_j| among
+    rows where both hit)."""
+    t, t_j, t_w = (np.asarray(x, np.float64).reshape(-1) for x in
+                   (t, t_j, t_w))
+    r = np.flatnonzero(np.asarray(apart).reshape(-1))
+    hit, hit_j, hit_w = t[r] < 1e30, t_j[r] < 1e30, t_w[r] < np.inf
+    np.testing.assert_array_equal(hit, hit_w, err_msg="hit bit vs float64")
+    np.testing.assert_allclose(t[r][hit], t_w[r][hit], rtol=rtol, atol=atol,
+                               err_msg="t vs float64")
+    err, err_j = np.abs(t[r] - t_w[r]), np.abs(t_j[r] - t_w[r])
+    jax_farther = (hit_j != hit_w) | (hit_w & (err_j > err))
+    assert jax_farther.all(), ("the JAX package is not the farther one",
+                               r[~jax_farther])
+    both = hit & hit_j
+    size = float(np.abs(t[r] - t_j[r])[both].max()) if both.any() else 0.0
+    print(f"held to the float64 witness: {len(r)} rows (hit bits apart "
+          f"{int((hit != hit_j).sum())}, largest |t - t_jax| {size:.3g})")
+    return len(r), size
+
+
+def hold_occluded_to_witness(occ, occ_j, scene, ro, rd, t_max):
+    """:func:`hold_apart_to_witness` for any-hit bits ((R, 1) bool, t_min
+    0): the rows where they differ must be the witness's.  Returns their
+    count."""
+    t_w = witness_scene(scene, ro, rd, 0.0, t_max)
+    n, _ = hold_apart_to_witness(occ != occ_j, np.where(occ, 1.0, 1e30),
+                                 np.where(occ_j, 1.0, 1e30),
+                                 np.where(t_w < np.inf, 1.0, np.inf))
+    return n
+
+
 def assert_hits_equal(h, ref, label=""):
     """Two ``Hit``s equal bit for bit: hit and t on every ray; prim, u and
     v where ``ref`` hits (brute force names primitive 0, with its u and v,

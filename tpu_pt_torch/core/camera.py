@@ -45,13 +45,17 @@ class Camera(NamedTuple):
                       hfov=np.float32(hfov), vfov=np.float32(vfov))
 
     def to(self, device) -> "Camera":
-        return Camera(*(torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
-                                        else x, dtype=torch.float32).to(device)
+        """Tensors on ``device``: f32, or a tensor's own float dtype."""
+        return Camera(*(x.to(device) if torch.is_tensor(x)
+                        and x.is_floating_point() else torch.as_tensor(
+                            np.asarray(x), dtype=torch.float32).to(device)
                         for x in self))
 
 
 def generate_rays(cam: Camera, xy):
-    """Rays through screen coords xy (..., 2) -> (ro, rd) (..., 3), rd unit."""
+    """Rays through screen coords xy (..., 2) -> (ro, rd) (..., 3), rd unit,
+    in the camera's dtype."""
+    xy = xy.to(cam.c2w.dtype)
     tan_h = torch.tan(torch.deg2rad(cam.hfov) * 0.5)
     tan_v = torch.tan(torch.deg2rad(cam.vfov) * 0.5)
     dx = (2.0 * xy[..., 0:1] - 1.0) * tan_h

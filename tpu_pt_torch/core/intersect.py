@@ -43,23 +43,57 @@ def ray_triangle(ro, rd, v0, e1, e2, t_min, t_max):
     return hit, torch.where(hit, t, torch.full_like(t, INF)), u, v
 
 
-def ray_sphere(ro, rd, center, radius, t_min, t_max):
-    """Two-root ray-sphere solve; radius is (..., 1).  Returns (hit, t,
-    n_unscaled) where n_unscaled = hitpoint - center."""
-    oc = ro - center
-    a = dot(rd, rd)
-    b = 2.0 * dot(oc, rd)
-    c = dot(oc, oc) - radius * radius
-    disc = b * b - 4.0 * a * c
-    has_root = disc >= 0.0
+def sphere_hit(ocx, ocy, ocz, dx, dy, dz, r, t_min, t_max):
+    """The ray-sphere solve of every intersector of the package, written
+    out in ``csrc/pair_isect_common.cuh::sphere_hit``'s operation order,
+    one rounding per operation, so that each kernel agrees with its plain
+    version bit for bit.  oc = origin - centre, d the direction (any
+    length), r the radius, one component a tensor; all broadcast.  Returns
+    (hit, t): t is the near root where it lies in [t_min, t_max], else the
+    far one, and means nothing where hit is False.
+
+    The well-conditioned float32 form of Haines et al., "Precision
+    Improvements for Ray/Sphere Intersection" (Ray Tracing Gems, ch. 7):
+    the discriminant is a (r^2 - |l|^2), l = oc - (b/a) d the centre's
+    offset from the ray's nearest point, which does not cancel near
+    tangency as b^2 - ac does; the roots are q/a and c/q, q = -b - sign(b)
+    sqrt(disc), and neither cancels when the origin lies on the sphere
+    (c ~ 0: every ray leaving the glass or the mirror), as -b + sqrt(disc)
+    does.  b/a and q/a multiply by one reciprocal 1/a (two divisions in
+    all, which keeps the kernels' registers down).  A miss where disc <= 0
+    (a radius-0 sphere, such as the placeholder of a scene without spheres,
+    has disc <= 0 for every ray), where q = 0, and where a = 0 (b/a and so
+    disc are NaN there)."""
+    rr = r * r
+    a = dx * dx + dy * dy + dz * dz
+    b = ocx * dx + ocy * dy + ocz * dz      # half the quadratic's b
+    c = ocx * ocx + ocy * ocy + ocz * ocz - rr
+    inv_a = 1.0 / a
+    k = b * inv_a
+    lx = ocx - k * dx
+    ly = ocy - k * dy
+    lz = ocz - k * dz
+    disc = a * (rr - (lx * lx + ly * ly + lz * lz))
     sq = torch.sqrt(torch.clamp_min(disc, 0.0))
-    inv2a = 1.0 / torch.clamp_min(2.0 * a, 1e-20)
-    t0 = (-b - sq) * inv2a
-    t1 = (-b + sq) * inv2a
-    valid0 = has_root & (t0 >= t_min) & (t0 <= t_max)
-    valid1 = has_root & (t1 >= t_min) & (t1 <= t_max)
-    inf = torch.full_like(t0, INF)
-    t = torch.where(valid0, t0, torch.where(valid1, t1, inf))
-    hit = valid0 | valid1
+    q = torch.where(b < 0, sq - b, -b - sq)
+    r0 = q * inv_a
+    r1 = c / q
+    swap = r1 < r0
+    s0 = torch.where(swap, r1, r0)
+    s1 = torch.where(swap, r0, r1)
+    has = (disc > 0) & (q != 0)
+    ok0 = has & (s0 >= t_min) & (s0 <= t_max)
+    ok1 = has & (s1 >= t_min) & (s1 <= t_max)
+    return ok0 | ok1, torch.where(ok0, s0, s1)
+
+
+def ray_sphere(ro, rd, center, radius, t_min, t_max):
+    """Ray-sphere solve (:func:`sphere_hit`); radius is (..., 1).  Returns
+    (hit, t, n_unscaled) where n_unscaled = hitpoint - center."""
+    oc = ro - center
+    hit, t = sphere_hit(oc[..., 0:1], oc[..., 1:2], oc[..., 2:3],
+                        rd[..., 0:1], rd[..., 1:2], rd[..., 2:3], radius,
+                        t_min, t_max)
+    t = torch.where(hit, t, torch.full_like(t, INF))
     n_unscaled = (ro + t * rd) - center
-    return hit, torch.where(hit, t, inf), n_unscaled
+    return hit, t, n_unscaled

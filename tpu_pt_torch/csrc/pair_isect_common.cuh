@@ -154,6 +154,50 @@ __device__ __forceinline__ Prim load_tile_lane(const float* __restrict__ tiles,
   return p;
 }
 
+// The ray-sphere solve of every kernel: core/intersect.py::sphere_hit, in
+// its operation order (oc = origin - centre, d the direction, r the radius).
+// Haines et al.'s well-conditioned form (Ray Tracing Gems, ch. 7): the
+// discriminant a (r^2 - |l|^2), l = oc - (b/a) d, and the roots q/a and c/q,
+// q = -b - sign(b) sqrt(disc), none of which cancels near tangency or where
+// the origin lies on the sphere.  t is the near root inside [t_min, t_max],
+// else the far one; a miss where disc <= 0 (every ray on a radius-0 sphere),
+// q = 0 or a = 0 (NaN).  Selects, not fminf/fmaxf, order the roots, so NaN
+// takes the same path as in torch.  b/a and q/a multiply by one 1/a.  A
+// ray with disc <= 0 (or NaN) returns at once and leaves t as it was: the
+// miss that the Python form selects, and every caller reads t only on a
+// hit.  So the radius-0 placeholder, the only sphere of a mesh scene, costs
+// no square root and one division; with both, the kernels that include this
+// use as many registers as with the old b^2 - 4ac solve (chip_smoke.py's
+// build line prints them).
+__device__ __forceinline__ bool sphere_hit(float ocx, float ocy, float ocz,
+                                           float dx, float dy, float dz,
+                                           float rad, float t_min,
+                                           float t_max, float& t) {
+  const float rr = rad * rad;
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float b = ocx * dx + ocy * dy + ocz * dz;  // half the quadratic's b
+  const float inv_a = 1.0f / a;
+  const float k = b * inv_a;
+  const float lx = ocx - k * dx;
+  const float ly = ocy - k * dy;
+  const float lz = ocz - k * dz;
+  const float disc = a * (rr - (lx * lx + ly * ly + lz * lz));
+  if (!(disc > 0.0f)) return false;
+  const float c = ocx * ocx + ocy * ocy + ocz * ocz - rr;
+  const float sq = sqrtf(disc);  // max(disc, 0) in the Python form
+  const float q = (b < 0.0f) ? sq - b : -b - sq;
+  const float r0 = q * inv_a;
+  const float r1 = c / q;
+  const bool swap = r1 < r0;
+  const float s0 = swap ? r1 : r0;
+  const float s1 = swap ? r0 : r1;
+  const bool has = q != 0.0f;
+  const bool ok0 = has && (s0 >= t_min) && (s0 <= t_max);
+  const bool ok1 = has && (s1 >= t_min) && (s1 <= t_max);
+  t = ok0 ? s0 : s1;
+  return ok0 || ok1;
+}
+
 // Whether the ray hits the primitive inside [t_min, t_max], and where (t).
 // u, v are the triangle branch's barycentrics, for sphere primitives too
 // (0 there: e2 = 0 gives det = 0 and inv_det = 0).  The sphere's quadratic
@@ -183,19 +227,8 @@ __device__ __forceinline__ bool prim_hit(const Prim& p, const Ray& r,
     return !par && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
            (t_tri >= r.t_min) && (t_tri <= r.t_max);
   }
-  const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
-  const float b = 2.0f * (tvx * r.dx + tvy * r.dy + tvz * r.dz);
-  const float c = tvx * tvx + tvy * tvy + tvz * tvz - p.e1x * p.e1x;
-  const float disc = b * b - 4.0f * a * c;
-  const bool has = disc >= 0.0f;
-  const float sq = sqrtf(max_nan(disc, 0.0f));
-  const float inv2a = 1.0f / max_nan(2.0f * a, 1e-20f);
-  const float s0 = (-b - sq) * inv2a;
-  const float s1 = (-b + sq) * inv2a;
-  const bool ok0 = has && (s0 >= r.t_min) && (s0 <= r.t_max);
-  const bool ok1 = has && (s1 >= r.t_min) && (s1 <= r.t_max);
-  t = ok0 ? s0 : s1;
-  return ok0 || ok1;
+  return sphere_hit(tvx, tvy, tvz, r.dx, r.dy, r.dz, p.e1x, r.t_min, r.t_max,
+                    t);
 }
 
 // Hit distance of the ray on the primitive inside [t_min, t_max], kInf on a

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_pt_torch.core.intersect import INF
+from tpu_pt_torch.core.intersect import INF, sphere_hit
 from tpu_pt_torch.kernels import _build
 
 B = 128      # the pair count must be a multiple of this
@@ -80,19 +80,7 @@ def _mt_group(tiles, rays):
         & (t_tri >= t_min) & (t_tri <= t_max)
 
     # Sphere lanes: v0 = centre, e1.x = radius.
-    a = dx * dx + dy * dy + dz * dz
-    b = 2.0 * (tvx * dx + tvy * dy + tvz * dz)
-    c = tvx * tvx + tvy * tvy + tvz * tvz - e1x * e1x
-    disc = b * b - 4.0 * a * c
-    has = disc >= 0
-    sq = torch.sqrt(torch.maximum(disc, zero))
-    inv2a = 1.0 / torch.maximum(2.0 * a, torch.full_like(a, 1e-20))
-    s0 = (-b - sq) * inv2a
-    s1 = (-b + sq) * inv2a
-    ok0 = has & (s0 >= t_min) & (s0 <= t_max)
-    ok1 = has & (s1 >= t_min) & (s1 <= t_max)
-    t_sph = torch.where(ok0, s0, s1)
-    ok_sph = ok0 | ok1
+    ok_sph, t_sph = sphere_hit(tvx, tvy, tvz, dx, dy, dz, e1x, t_min, t_max)
 
     is_sph = typ > 0.5
     ok = ((is_sph & ok_sph) | (~is_sph & ok_tri)) & (live > 0.0)

@@ -195,7 +195,7 @@ def _render_chunks(scene: Scene, cam, cfg: RenderConfig, key, isect, occl,
     device of ``scene`` (and ``cam``), through the intersectors given."""
     device = scene.vertices.device
     n_pix = cfg.n_pixels
-    img = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
+    img = torch.zeros((n_pix, 3), dtype=scene.vertices.dtype, device=device)
     spp_ids = torch.arange(cfg.spp, device=device).repeat(pix_chunk)
     for start in range(0, n_pix, pix_chunk):
         ids = torch.arange(start, start + pix_chunk, device=device)

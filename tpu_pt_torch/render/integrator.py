@@ -107,14 +107,14 @@ def radiance(scene: Scene, intersect_fn: Callable, occluded_fn: Callable,
     every ray is traced at every depth (dead lanes keep their last ray), and
     one shadow ray per light and sample is cast unconditionally."""
     R = ro.shape[0]
-    f32 = dict(dtype=torch.float32, device=ro.device)
-    beta = torch.ones((R, 3), **f32)
-    L = torch.zeros((R, 3), **f32)
-    zero3 = torch.zeros((R, 3), **f32)
+    flt = dict(dtype=ro.dtype, device=ro.device)
+    beta = torch.ones((R, 3), **flt)
+    L = torch.zeros((R, 3), **flt)
+    zero3 = torch.zeros((R, 3), **flt)
     alive = torch.ones((R, 1), dtype=torch.bool, device=ro.device)
     include_le = torch.ones((R, 1), dtype=torch.bool, device=ro.device)
-    t_min = torch.zeros((R, 1), **f32)
-    t_max = torch.full((R, 1), 1e30, **f32)
+    t_min = torch.zeros((R, 1), **flt)
+    t_max = torch.full((R, 1), 1e30, **flt)
 
     n_lights = scene.lights.count
     scene_d = scene.detach()   # what the intersectors see

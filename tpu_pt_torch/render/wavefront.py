@@ -329,11 +329,11 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     n_closest = torch.sum(alive0[:, 0])  # rays traced now
     base = 1 + depth * _STRIDE  # (Q,) per-lane draw base
 
-    t_min = torch.zeros((Q, 1), dtype=torch.float32, device=dev)
+    t_min = torch.zeros((Q, 1), dtype=ro0.dtype, device=dev)
     # Dead lanes get t_max < t_min: every backend reports a trivial miss
     # AND the cluster walk spawns no candidate pairs for them (budget +
     # work proportional to LIVE lanes only).
-    t_max = torch.where(alive0, 1e30, -1.0).to(torch.float32)
+    t_max = torch.where(alive0, 1e30, -1.0).to(ro0.dtype)
     sus_lane = None
     scene_d = scene.detach()   # what the traversals see
     if ray_probe is not None:
@@ -357,7 +357,7 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     if pix_ids is None:
         pixel = torch.div(pixel - pix_lo, pix_stride, rounding_mode="floor")
 
-    zero3 = torch.zeros((Q, 3), dtype=torch.float32, device=dev)
+    zero3 = torch.zeros((Q, 3), dtype=ro0.dtype, device=dev)
     # Miss → environment radiance.
     contrib = torch.where(
         alive0 & ~hit.hit & include_le,
@@ -623,22 +623,23 @@ class _Chunk:
 
 def init_queue(Q: int, n_pix_local: int, device,
                track_suspects: bool = False,
-               spp_count: int = 1) -> QueueState:
+               spp_count: int = 1, dtype=torch.float32) -> QueueState:
     """Fresh all-dead queue + zero accumulator (one row per local (pixel,
-    sample) and Q spare rows) and zero suspect flags."""
-    f32 = dict(dtype=torch.float32, device=device)
-    rd = torch.zeros((Q, 3), **f32)
+    sample) and Q spare rows) and zero suspect flags; rays, throughput and
+    sums in ``dtype``."""
+    flt = dict(dtype=dtype, device=device)
+    rd = torch.zeros((Q, 3), **flt)
     rd[:, 2] = 1.0
     return QueueState(
-        ro=torch.zeros((Q, 3), **f32),
+        ro=torch.zeros((Q, 3), **flt),
         rd=rd,
-        beta=torch.zeros((Q, 3), **f32),
+        beta=torch.zeros((Q, 3), **flt),
         ray_id=torch.full((Q,), -1, dtype=torch.int64, device=device),
         depth=torch.zeros((Q,), dtype=torch.int64, device=device),
         include_le=torch.zeros((Q, 1), dtype=torch.bool, device=device),
         alive=torch.zeros((Q, 1), dtype=torch.bool, device=device),
         next_sample=torch.zeros((), dtype=torch.int64, device=device),
-        accum=torch.zeros((n_pix_local * spp_count + Q, 3), **f32),
+        accum=torch.zeros((n_pix_local * spp_count + Q, 3), **flt),
         suspect=torch.zeros((n_pix_local if track_suspects else 1,),
                             dtype=torch.int32, device=device),
     )
@@ -734,7 +735,7 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
         pix_ids = torch.as_tensor(pix_ids, dtype=torch.int64, device=device)
     Q = min(queue, n_pix_local * spp_count)
     st = init_queue(Q, n_pix_local, device, track_suspects=with_suspects,
-                    spp_count=spp_count)
+                    spp_count=spp_count, dtype=scene.vertices.dtype)
     steps = n_steps(cfg, Q, n_pix_local, spp_count)
     if steps_hint is not None:
         steps = max(1, min(steps, int(steps_hint)))
