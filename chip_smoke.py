@@ -25,8 +25,14 @@
                                       # times that tree's kernels; with
                                       # --paired N, then the headline too)
     python3 chip_smoke.py --modes     # instead of the phases: traverse,
-                                      # determinism, render_main and
-                                      # render_modes
+                                      # determinism, kernels_modes,
+                                      # render_main and render_modes (with
+                                      # the "split" twin of "frontier" and
+                                      # the sliced headline; with --profile
+                                      # also "frontier"'s steps profiled in
+                                      # both pair stages, with --paired N
+                                      # its headline in both stages, N each
+                                      # in turns)
 
 Builds the native SAH builder and the CUDA kernel library from the sources
 in this checkout (the headline scene's BVHs must come from the native
@@ -40,19 +46,28 @@ paths at full width:
   and the cluster BVH (1024x1024, spp 1, depth 4, queue 4096) with the
   one-kernel pair stage (``pair_stage="fused"``, the default), after the
   same scene rendered small with the fused kernel, the split stage's
-  kernels and plain versions;
-- ``render_split``: the same render through the two-kernel pair stage
-  (``pair_stage="split"``); its image must equal ``render_main``'s bit for
-  bit, and the two ``run_s`` are printed side by side;
+  kernels and plain versions; twice (``run_s`` the faster), then the
+  band;
+- the headline's band (``BAND_ROWS``: rows 384-639, a quarter of its
+  pixels, each as in the full render; ``render_main`` renders it once
+  more, its rows bit for bit, as the reference of the band's counts and
+  ``run_s``): the main path's twins render the band at full width (queue
+  4096), not the whole image;
+- ``render_split``: the band through the two-kernel pair stage
+  (``pair_stage="split"``); its rows must equal ``render_main``'s bit for
+  bit, and the two band ``run_s`` are printed side by side;
 - ``render_modes``: the same render through the cluster BVH's two other
   traversal modes (``ClusterBVH.traversal_mode`` "frontier": per-ray sorted
   frontiers and best-t feedback rounds; "pairs": the pair-major walk),
-  whose pair batches all go through ``pair_tile_isect``; at overflow 0
-  each image must equal ``render_main``'s bit for bit (the pair-major walk
-  cuts the headline at its default budgets, as the JAX package's does:
-  printed, not held); with ``--modes`` the same render with every step as
-  two lane slices (``step_slices=2``), timed, bit for bit
-  ``render_main``'s; then the pair-major walk's capacity (``pairs_stats``, ``candidate_stats``) on a
+  whose pair batches all go through ``pair_ray_reduce`` (the frontier
+  walk's round 1 as gapped segments); "frontier" must give ``render_main``'s
+  image bit for bit, "pairs" (which cuts the headline at its default
+  budgets, as the JAX package's walk does) its recorded cut, counts and
+  mean exactly; with ``--modes`` "frontier" once more through the "split"
+  twin (``pair_tile_isect`` and array code: the same bits and rounds) and
+  the compact render with every step as two lane slices
+  (``step_slices=2``), timed, bit for bit ``render_main``'s; then the
+  pair-major walk's capacity (``pairs_stats``, ``candidate_stats``) on a
   camera and a mixed batch of 4,096 rays;
 - ``render_oracle``: the unrolled oracle renderer through the dense-sweep
   backend (``backend="pallas"``) and through the flat SAH BVH walk
@@ -66,32 +81,32 @@ paths at full width:
   cell, whose tuned image (after the command line's verify-then-retry
   where it still overflows) must be ``render_exact``'s fallback render bit
   for bit, and at the headline as the command line's ``--autotune`` runs
-  it (probed at 512²), with one headline render on the tuned BVH beside
-  ``render_main``'s;
-- ``render_dedup``: the ``render_main`` render once more through the
-  cluster-major pair stage (``pair_stage="dedup"``);
+  it (probed at 512²), with one render of the band on the tuned BVH
+  beside ``render_main``'s;
+- ``render_dedup``: the band through the cluster-major pair stage
+  (``pair_stage="dedup"``);
 - exact repair of capacity overflow: ``render_exact`` takes the 256² render
   of the same scene, where the default capacities overflow, through the
   command line's flow (a render that flags suspect pixels, the packed
   fallback attached with ``cluster.attach_fallback``, the same render on
   it, the repair of only the suspect pixels, and the render on the packed
-  walk alone), and ``render_fallback`` renders the headline once more with
-  the fallback attached: the walk kernel (``packed_walk``) is launched on
-  every traversal sub-batch, and the image must equal ``render_main``'s bit
-  for bit;
+  walk alone), and ``render_fallback`` renders the band with the fallback
+  attached: the walk kernel (``packed_walk``) is launched on every
+  traversal sub-batch, and the rows must equal ``render_main``'s bit for
+  bit;
 - the device builds: ``build_device`` builds big-1m's LBVH
   (``lbvh.build_lbvh``) and its Morton-chunk cluster BVH
   (``cluster.build_cluster_device``) on the card, times them beside the
   host builds, checks their invariants and holds each equal, array by
   array, to the same build on the CPU; ``render_lbvh`` renders the
-  headline through the packed walk on the LBVH (counts and mean beside
-  ``render_main``'s; the 256² cell against ``render_exact``'s packed
+  band through the packed walk on the LBVH (counts and mean beside
+  ``render_main``'s band render's; the 256² cell against ``render_exact``'s packed
   render; both walk designs bitwise against the plain walk on a camera and
   a bounce batch, timed beside the SAH packed BVH); ``render_device``
-  renders it through the fused pair stage on the device cluster build
-  (``render_main``'s image at overflow 0, else the command line's repair,
-  held to it); ``render_atrium`` renders the atrium
-  (``meshes.atrium_scene``, two area lights) at 512² on the autotuned BVH
+  renders the band through the fused pair stage on the device cluster
+  build (``render_main``'s rows at overflow 0, else the whole headline in
+  the command line's flow, repaired, held to its image); ``render_atrium`` renders the atrium
+  (``meshes.atrium_scene``, two area lights) at 256² on the autotuned BVH
   and on the device cluster build, each repaired where it overflows, and
   holds the two images to each other;
 - ``cli``: the command line (``tpu_pt_torch.cli.main``, in-process, its
@@ -146,10 +161,10 @@ window design of ``packed_walk`` (``csrc/packed_walk.cu``), never its twin
 The kernels phase holds each redesign bitwise against its plain version
 and against its twin and times the two inside this call, and holds both
 designs of both walks to the port's brute force, bit for bit, on 20,000
-rays aimed up at the reduced atrium's coplanar beam faces; ``render_oracle``
-also renders the Cornell mesh once through each design of the flat walk,
-under the profiler, and sums the durations and the bounds of its 320
-walks.  ``fetch_probes`` runs the three ported fetch probes
+rays aimed up at the reduced atrium's coplanar beam faces (``--walks``
+also renders the Cornell mesh and spheres once through each design of the
+flat walk, under the profiler, and sums the durations and the bounds of
+each render's 320 walks).  ``fetch_probes`` runs the three ported fetch probes
 (``tpu_pt_torch/tools/microbench_*``: ``fetch_rows``, ``fetch_rows_t``,
 ``take_along``) at the JAX tools' full shapes and at the real descent.
 
@@ -173,6 +188,7 @@ for a kernel that does nothing.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import datetime
@@ -180,6 +196,7 @@ import functools
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import socket
@@ -286,6 +303,16 @@ RECORDED = dict(n_closest=1876297, n_shadow=910236, steps_run=459,
 # these are held exactly.
 PORT_RECORD = dict(n_closest=1877097, n_shadow=911322, steps_run=459,
                    overflow=0, mean_radiance=0.211140438914299)
+# The headline in the pair-major walk at the BVH's own budgets, which cut
+# it as the JAX package's walk does: the figures its K2 stage printed in
+# render_modes, held exactly in the fused stage (both select the same
+# (t, lowest gid) from the same tile test).
+PAIRS_RECORD = dict(overflow=281374, n_closest=1858624, n_shadow=890492,
+                    steps_run=454, mean_radiance=0.20668214559555054)
+# Pair-kernel launches of one headline render in each of the two modes: a
+# launch a pair batch (the frontier walk's round 1 and each feedback round;
+# the pair-major walk's one list a traversal), as K2 ran them.
+MODE_LAUNCHES = {"frontier": 1855, "pairs": 908}
 
 
 def emit(obj):
@@ -346,24 +373,48 @@ def built_by(fn):
     return out, "python_sah" if fell else "native"
 
 
-def phase_build(scene_h):
-    """The two libraries, then the packed BVH (the exact fallback's tables)
-    and the cluster BVH of the headline scene, built on the host; both must
-    come from the native builder.  Then the Python SAH builder and its
-    octant packing on the two Cornell scenes of the oracle.  Returns (the
-    packed BVH on the card, the host cluster BVH, its build seconds, the
-    packed BVH's build seconds)."""
+def build_libraries():
+    """The native SAH builder's library and the kernel library (nvcc, one
+    process a source), built from this checkout and loaded: (the native
+    library or None, its seconds, the kernels' seconds)."""
     t0 = time.time()
     lib = native._load()
     t_bvh = time.time() - t0
-    assert lib is not None, f"native SAH builder: {native.load_error}"
     t0 = time.time()
     _build.load(verbose_ptxas=True)
-    t_k = time.time() - t0
+    return lib, t_bvh, time.time() - t0
+
+
+def start_host_work():
+    """Start, in two threads, the host work of the default run that needs
+    neither the scene nor the card, so that it overlaps the scene's build:
+    :func:`build_libraries` (returns its future, which :func:`phase_build`
+    waits for) and :func:`atrium_brute_host` (which the kernels phase's
+    walk checks wait for).  Nothing else loads a library before
+    ``phase_build``."""
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    builds = pool.submit(build_libraries)
+    HOST_WORK["atrium_brute"] = pool.submit(atrium_brute_host)
+    pool.shutdown(wait=False)
+    return builds
+
+
+def phase_build(scene_h, builds=None):
+    """The two libraries (``builds``: the future of
+    :func:`build_libraries`, else built now), then the packed BVH (the
+    exact fallback's tables) and the cluster BVH of the headline scene,
+    built on the host; both must come from the native builder.  Then the
+    Python SAH builder and its octant packing on the two Cornell scenes of
+    the oracle.  Returns (the packed BVH on the card, the host cluster BVH,
+    its build seconds, the packed BVH's build seconds)."""
+    lib, t_bvh, t_k = builds.result() if builds is not None \
+        else build_libraries()
+    assert lib is not None, f"native SAH builder: {native.load_error}"
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "error" in ln.lower()
              or ("Compiling entry" in ln and ("packed_walk" in ln
-                                              or "flat_walk" in ln))]
+                                              or "flat_walk" in ln
+                                              or "pair_major" in ln))]
     t0 = time.time()
     pk, pk_by = built_by(lambda: native.build_packed_any(scene_h))
     t_pk = time.time() - t0
@@ -880,6 +931,217 @@ def check_fused_edge_case(L):
     return res
 
 
+def capture_calls(fn, names):
+    """fn() with the ``cluster`` functions ``names`` spied on: returns (fn's
+    result, per name the (args, kwargs) of each call, in order)."""
+    real = {n: getattr(cluster, n) for n in names}
+    got = {n: [] for n in names}
+
+    def spy(n):
+        def call(*a, **kw):
+            got[n].append((a, kw))
+            return real[n](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(cluster, n, spy(n))
+    try:
+        out = fn()
+    finally:
+        for n in names:
+            setattr(cluster, n, real[n])
+    return out, got
+
+
+def same_bits(a, b, label, prim_where=None):
+    """(t, gid, u, v) per ray equal bit for bit; gid only where
+    ``prim_where`` when it is given."""
+    for name, x, y in zip(("t", "gid", "u", "v"), a, b):
+        if name == "gid" and prim_where is not None:
+            x, y = x[prim_where], y[prim_where]
+        assert x.dtype == y.dtype and bool(torch.equal(x, y)), \
+            f"{label}: {name} differs"
+
+
+def packed_segments(cid_rows, n):
+    """``pair_fused.row_segments``' segments packed densely, without a sort:
+    ray q's ``n[q]`` pairs at ``[right[q] - n[q], right[q])``, ``right`` the
+    running sum of ``n``, moved by one scatter (the slots past
+    ``right[Q - 1]`` hold 0): the losing side of the round-1 layout A/B."""
+    Q, R = cid_rows.shape
+    cnt = n.to(torch.int64)
+    right = torch.cumsum(cnt, 0)
+    cols = torch.arange(R, device=cnt.device)[None, :]
+    pos = torch.where(cols < cnt[:, None], (right - cnt)[:, None] + cols,
+                      Q * R)
+    out = cid_rows.new_zeros((Q * R + 1,))
+    out.scatter_(0, pos.reshape(-1), cid_rows.reshape(-1))
+    return out[:Q * R], cnt, right
+
+
+def check_mode_batches(cb, mid_full, flush, ab=False):
+    """The pair batches of the cluster BVH's "frontier" and "pairs" modes on
+    the whole mid-render queue (``mid_full``: the headline's 4,096 lanes
+    after N_WARM steps, closest hit), captured from the traversals
+    themselves in both pair stages: the frontier walk's round 1 (4,096 x
+    pb slots, each ray's live candidates at the start of its row, the rest
+    a gap), its first feedback round and the pair-major walk's one list.
+    Held: each traversal "fused" == "split" bit for bit with as many
+    rounds; at each batch ``pair_ray_reduce`` bitwise its plain version and
+    the split twin's per-ray result; round 1's operands as ``_first_round``
+    builds them.  Timed at each batch: the kernel (time_both) and the
+    twin's span (K2 and the array code around it, ``twin_path_ms``: one
+    span between CUDA events with the L2 overwritten before it).  With
+    ``ab`` (``--modes``) also round 1 packed densely (``packed_segments``:
+    the same bits), and at each batch the fused path (the operands built
+    from the walk's tensors and the launch, ``path_ms``, timed as the
+    twin's span), the plain version and K2 alone.  Returns (cases, timing
+    entries)."""
+    ro, rd, t_max = mid_full
+    Q, L = ro.shape[0], cb.tiles.shape[2]
+    t_min = torch.zeros_like(t_max)
+    t_min1, t_max1 = t_min[:, 0].contiguous(), t_max[:, 0].contiguous()
+    names = ("pair_ray_reduce", "_test_pair_batch", "_list_closest")
+    runs = {}
+    for mode, walk in (("frontier", cluster._traverse),
+                       ("pairs", cluster._traverse_pairs)):
+        cbm = cb._replace(traversal_mode=mode)
+        for stage in cluster.MODE_PAIR_STAGES:
+            runs[mode, stage] = capture_calls(
+                lambda: walk(cbm, ro, rd, t_min, t_max, pair_stage=stage),
+                names)
+        (out_f, got_f), (out_s, got_s) = runs[mode, "fused"], \
+            runs[mode, "split"]
+        hit = out_s[0][:, 0] < INF
+        same_bits([x.reshape(-1) for x in out_f[:4]],
+                  [x.reshape(-1) for x in out_s[:4]], f"{mode} traversal",
+                  None if mode == "frontier" else hit)
+        assert int(out_f[4]) == int(out_s[4]), f"{mode}: overflow differs"
+        assert len(got_f["_list_closest"]) == len(got_s["_list_closest"]), \
+            f"{mode}: rounds differ"
+        assert len(got_f["_test_pair_batch"]) == 0 \
+            and len(got_s["pair_ray_reduce"]) == 0, f"{mode}: stage leak"
+    got_f, got_s = runs["frontier", "fused"][1], runs["frontier", "split"][1]
+    n_feedback = len(got_f["_list_closest"])
+    assert n_feedback >= 1, "frontier: no feedback round on the queue"
+
+    # Round 1, rebuilt from the descent as _first_round builds it.
+    cand, cand_t, _ = cluster._descend(cb, ro, 1.0 / rd, t_min, t_max)
+    pb = min(cb.pair_budget, cand.shape[1])
+    assert cluster._cand_sorted(cb), "the headline's candidates are sorted"
+    live = cand_t[:, :pb] < INF
+    rows = cand[:, :pb]
+    n = torch.sum(live, dim=1)
+    head = (cb.tiles, cb.tile_gid, ro.contiguous(), rd.contiguous(), t_min1,
+            t_max1)
+    row_ops = head + pair_fused.row_segments(rows, n)
+    a, _ = got_f["pair_ray_reduce"][0]
+    assert all(bool(torch.equal(x, y))
+               for x, y in zip(a[6:9], row_ops[6:9])), \
+        "round 1's operands differ from _first_round's"
+    arq = torch.arange(Q, device=DEV)
+
+    def round1_twin():
+        t_p, u_p, v_p, g_p = cluster._test_pair_batch(
+            cb, ro, rd, t_min1, t_max1, arq.repeat_interleave(pb),
+            rows.reshape(-1), live.reshape(-1))
+        t, u, v, g = cluster._round_min(t_p, u_p, v_p, g_p, Q, pb)
+        return t, g, u, v
+
+    def round1_path(segments):
+        return pair_ray_reduce(*head, *segments(rows, torch.sum(live, dim=1)))
+
+    twin1 = round1_twin()
+    batches = {"frontier_round1": dict(
+        ops=row_ops, twin=twin1,
+        path=lambda: round1_path(pair_fused.row_segments),
+        twin_path=round1_twin,
+        k2=k2_operands(cb, got_s["_test_pair_batch"][0][0]))}
+    if ab:
+        batches["frontier_round1_packed"] = dict(
+            ops=head + packed_segments(rows, n), twin=twin1,
+            path=lambda: round1_path(packed_segments))
+    # The first list of each walk: the frontier walk's first feedback round
+    # (its second pair batch), the pair-major walk's list (its only one).
+    for name, mode, k in (("frontier_feedback", "frontier", 1),
+                          ("pairs", "pairs", 0)):
+        got_f, got_s = runs[mode, "fused"][1], runs[mode, "split"][1]
+        lst = got_f["_list_closest"][0][0][:7]
+        for x, y in zip(lst[5:7], got_s["_list_closest"][0][0][5:7]):
+            assert bool(torch.equal(x, y)), f"{name}: the stages' lists differ"
+        twin = cluster._list_closest(*lst, True, "split")
+        batches[name] = dict(
+            ops=got_f["pair_ray_reduce"][k][0], twin=twin[:4],
+            prim_where=twin[0] < INF,
+            path=lambda lst=lst: cluster._list_closest(*lst, True, "fused"),
+            twin_path=lambda lst=lst: cluster._list_closest(*lst, True,
+                                                           "split"),
+            k2=k2_operands(cb, got_s["_test_pair_batch"][k][0]))
+    cases, timing = [], {}
+    for name, b in batches.items():
+        ops = b["ops"]
+        out = pair_ray_reduce(*ops)
+        ref = pair_ray_reduce_ref(*ops)
+        occ = pair_ray_reduce(*ops, any_hit=True)
+        sync()
+        same_bits(out, ref, f"{name}: kernel vs plain")
+        occ_ref = pair_ray_reduce_ref(*ops, any_hit=True)
+        assert bool(torch.equal(occ, occ_ref)), f"{name}: any hit vs plain"
+        # A list's t comes back with -0 as +0 (``_list_closest``), round
+        # 1's as the reduce leaves it, in both stages.
+        t_out = out[0] if name.startswith("frontier_round1") else out[0] + 0.0
+        same_bits((t_out,) + tuple(out[1:]), b["twin"],
+                  f"{name}: fused vs split", b.get("prim_where"))
+        cnt, right, cid = ops[7], ops[8], ops[6]
+        P = int(cid.shape[0])
+        start = right - cnt
+        slot = torch.arange(P, device=DEV)
+        ray_of = torch.searchsorted(right, slot, right=True).clamp_max(Q - 1)
+        in_seg = (slot >= start[ray_of]) & (slot < right[ray_of])
+        live_pairs = int(cnt.sum())
+        live_tiles = int(cid[in_seg].unique().numel())
+        shape = {"P": P, "Q": Q, "L": L, "live_pairs": live_pairs,
+                 "live_tiles": live_tiles,
+                 "max_pairs_of_a_ray": int(cnt.max()),
+                 "gapped": bool((start[1:] > right[:-1]).any()),
+                 "any_hit": False}
+        cases.append({"case": name, **shape, "hits": int((ref[0] < INF).sum()),
+                      "bitwise_plain": True, "equals_split_twin": True})
+        tm = dict(shape=shape,
+                  **time_both(lambda: pair_ray_reduce(*ops), flush,
+                              "pair_major_kernel"),
+                  bytes=fused_bytes(live_tiles, live_pairs, Q, L, False),
+                  flops=live_pairs * L * 100)
+        if "twin_path" in b:
+            tm["twin_path_ms"] = time_launches(b["twin_path"], flush)
+        if ab:
+            tm["path_ms"] = time_launches(b["path"], flush)
+        if ab and "k2" in b:
+            tm["plain_ms"] = time_launches(
+                lambda: pair_ray_reduce_ref(*ops), flush, repeats=10)
+            cid_p, rays = b["k2"]
+            k2_live = int((rays[:, 8] > 0).sum())
+            timing["pair_tile_isect@" + name] = dict(
+                shape={"P": int(cid_p.shape[0]), "L": L,
+                       "live_pairs": k2_live, "live_tiles": live_tiles},
+                **time_both(lambda: pair_tile_isect(cb.tiles, cid_p, rays),
+                            flush, "pair_tile_isect_kernel"),
+                bytes=pair_kernel_bytes(live_tiles, int(cid_p.shape[0]), L),
+                flops=k2_live * L * 100)
+        timing["pair_ray_reduce@" + name] = tm
+    cases.append({"case": "rounds", "frontier_feedback_rounds": n_feedback,
+                  "equal_in_both_stages": True})
+    return cases, timing
+
+
+def k2_operands(cb, test_args):
+    """K2's operands for one captured ``_test_pair_batch`` call: the padded
+    cluster ids and (P, 16) ray rows, as that function builds them."""
+    _, ro, rd, t_min1, t_max1, ray_c, cid_c, pair_ok = test_args[:8]
+    cid_c = torch.clamp(cid_c, 0, cb.n_clusters - 1)
+    return cluster._pair_rows(ro, rd, t_min1, t_max1, ray_c, cid_c, pair_ok)
+
+
 def fused_bytes(live_tiles, live_pairs, Q, L, any_hit):
     """Bytes the fused stage must move, each input read once and each
     output written once: rows 0-9 of every DISTINCT tile a live pair names
@@ -1199,14 +1461,13 @@ def walk_edge_rays(pk, n, seed, up=None):
                  (ro, rd, np.zeros_like(t_max), t_max))
 
 
-@functools.lru_cache(maxsize=1)
-def atrium_brute():
+def atrium_brute_host():
     """The port's brute force (``render/brute.py``) of
     :func:`atrium_up_rays` on the reduced atrium, run on the host in chunks
     of 500 rays: there its dot products sum left to right, as the walks'
     row test does (the CPU tests hold the plain walks to it bit for bit);
     torch's reduction on the card sums them in another order, so the card's
-    brute force rounds t apart from every walk.  A ``Hit`` on the card."""
+    brute force rounds t apart from every walk.  A ``Hit`` on the host."""
     scene = meshes.atrium_scene(col_rad=16, col_ny=6).to("cpu")
     ro, rd = (torch.from_numpy(x) for x in atrium_up_rays())
     R = ro.shape[0]
@@ -1214,7 +1475,21 @@ def atrium_brute():
                              torch.zeros((min(500, R - i), 1)),
                              torch.full((min(500, R - i), 1), 1e30))
              for i in range(0, R, 500)]
-    return brute.Hit(*(torch.cat(f).to(DEV) for f in zip(*parts)))
+    return brute.Hit(*(torch.cat(f) for f in zip(*parts)))
+
+
+# Host work that the default run starts in threads before it builds the
+# scene (start_host_work): here the future of atrium_brute_host's result.
+HOST_WORK = {}
+
+
+@functools.lru_cache(maxsize=1)
+def atrium_brute():
+    """:func:`atrium_brute_host`'s ``Hit`` on the card: the thread's result
+    where :func:`start_host_work` started one, else computed now."""
+    fut = HOST_WORK.pop("atrium_brute", None)
+    hb = fut.result() if fut is not None else atrium_brute_host()
+    return brute.Hit(*(f.to(DEV) for f in hb))
 
 
 def hold_to_brute(label, hit_of, occluded):
@@ -2020,6 +2295,8 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
                                 "trace_warm_n": both["trace_warm_n"]}
     for L_e in (128, 32):
         cases_fused.append(check_fused_edge_case(L_e))
+    cases_modes, timing_modes = check_mode_batches(cb, mid_full, flush)
+    timing.update(timing_modes)
     sync()
     assert pair_fused._counters and all(
         not bool(c.any()) for c in pair_fused._counters.values()), \
@@ -2148,6 +2425,14 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
                            "the plain version and against "
                            "pair_segmin(pair_tile_isect) on the card",
               "cases": cases_fused},
+          "pair_ray_reduce_modes": {
+              "tolerance": "bitwise, against the plain version and the "
+                           "split twin's per-ray result (K2, then "
+                           "_round_min or _seg_min; gid where there is a "
+                           "hit in the pairs list), on the frontier and "
+                           "pair-major walks' batches of the mid-render "
+                           "queue; each walk fused == split",
+              "cases": cases_modes},
           "launch_floor_us": floors,
           "pair_tile_isect_dedup": {
               "tolerance": "bitwise, against the plain version and against "
@@ -2205,6 +2490,8 @@ def phase_kernels(scene, cam, cb, cfg, key, pk):
                      if "library_ms" in v else {}),
                   **({"twin_path": round(v["twin_path_ms"] * 1e3, 2)}
                      if "twin_path_ms" in v else {}),
+                  **({"path": round(v["path_ms"] * 1e3, 2)}
+                     if "path_ms" in v else {}),
                   **v["shape"]}
               for k, v in timing.items()}})
     errs = {"pair_ray_reduce": max(c["max_abs_err"] for c in cases_fused),
@@ -2234,8 +2521,9 @@ def phase_walks(scene, cam, cb, cfg, pk, fp32_ops_per_s):
     designs of each walk on the kernels phase's batches (check_packed_walk
     and check_flat_walk without their edge cases: each batch held bitwise
     to the plain version and timed), on the reduced atrium's 20,000 upward
-    rays (:func:`atrium_up_rays`), and the walks of one full-size oracle
-    render of the Cornell mesh in each design (flat_render_walks); the
+    rays (:func:`atrium_up_rays`), and the walks of the full-size oracle
+    renders of the Cornell mesh and spheres in each design
+    (flat_render_walks: each the render's image bit for bit); the
     pair kernels (trace and warm medians, as the kernels phase takes them)
     on the mid-render closest-hit batch and the narrow shadow batch; the
     dense kernels (events) on the oracle chunk.  One JSON line: the
@@ -2295,9 +2583,14 @@ def phase_walks(scene, cam, cb, cfg, pk, fp32_ops_per_s):
             lambda: flat_walk(*args, design=d, rows=rows_up), flush,
             FLAT_KERNEL[d])
     del flush
-    fb = sah.build_bvh(o_scene_h).to(DEV)
-    img = render(o_scene, o_cam, o_cfg, (0, 0), backend="bvh", bvh=fb,
-                 device=DEV)
+    walks = {}
+    for name, sc_h in (("cornell_mesh_4", o_scene_h),
+                       ("cornell_spheres", cornell.cornell("spheres"))):
+        fb, sc = sah.build_bvh(sc_h).to(DEV), sc_h.to(DEV)
+        img = render(sc, o_cam, o_cfg, (0, 0), backend="bvh", bvh=fb,
+                     device=DEV)
+        walks[name] = flat_render_walks(sc, o_cam, o_cfg, (0, 0), fb, img,
+                                        fp32_ops_per_s)
     emit({"phase": "walks", "package": os.path.dirname(tpu_pt_torch.__file__),
           "batches": {k: {**{f: v[f] for f in ("shape", "ms", "trace_us",
                                                "trace_n", "trace_warm_us")
@@ -2307,8 +2600,7 @@ def phase_walks(scene, cam, cb, cfg, pk, fp32_ops_per_s):
                               v["flops"] / fp32_ops_per_s) * 1e6}
                              if "bytes" in v else {})}
                       for k, v in timing.items()},
-          "walks_per_design": flat_render_walks(
-              o_scene, o_cam, o_cfg, (0, 0), fb, img, fp32_ops_per_s)})
+          "walks_per_design": walks})
 
 
 def phase_fetch_probes(cb, mid):
@@ -2439,54 +2731,80 @@ def phase_traverse():
 def traverse_modes(cb, scene, ro, rd, tmin, tmax, tmax2, h_ref, o_ref, h_cl,
                    o_cl, name):
     """The cluster BVH's "frontier" and "pairs" traversal modes on one of
-    the traverse phase's scenes: against the brute oracle as the compact
-    mode is held; at overflow 0 bitwise the compact mode (hit and t on
-    every ray, prim, u and v where it hits, occlusion), since the three
-    select (t, lowest gid) from the same tile test; the plain versions
-    (``use_kernels=False``) the same bits; every pair batch through
-    ``pair_tile_isect``, none through ``pair_ray_reduce``; and the capacity
-    tools (``candidate_stats``, ``pairs_stats``) at 0 overflow."""
+    the traverse phase's scenes, each in both ray-major pair stages:
+    against the brute oracle as the compact mode is held; at overflow 0
+    bitwise the compact mode (hit and t on every ray, prim, u and v where
+    it hits, occlusion), since all select (t, lowest gid) from the same
+    tile test; "fused" and "split" bitwise each other (hit, t, u, v and
+    occlusion on every ray, prim where it hits and, in "frontier", on every
+    ray); the plain versions (``use_kernels=False``) of each stage the same
+    bits; every pair batch through ``pair_ray_reduce`` and none through
+    ``pair_tile_isect`` under "fused", the reverse under "split"; and the
+    capacity tools (``candidate_stats``, ``pairs_stats``) at 0 overflow."""
     m = h_ref.hit[:, 0]
     res = {}
+    kernels = (pair_tile_isect, pair_ray_reduce)
     for mode in ("frontier", "pairs"):
-        kernels = (pair_tile_isect, pair_ray_reduce)
         cbm = cb._replace(traversal_mode=mode)
-        zero_launches(kernels)
-        h, ovf = cluster.intersect_counted(cbm, scene, ro, rd, tmin, tmax)
-        o, ovf_o = cluster.occluded_counted(cbm, scene, ro, rd, tmax2)
-        launches = read_launches(kernels)
-        h_p, _ = cluster.intersect_counted(cbm, scene, ro, rd, tmin, tmax,
-                                           use_kernels=False)
-        o_p, _ = cluster.occluded_counted(cbm, scene, ro, rd, tmax2,
-                                          use_kernels=False)
-        label = f"{name} {mode}"
-        assert launches["pair_tile_isect"] > 0 \
-            and launches["pair_ray_reduce"] == 0, (label, launches)
-        assert bool(torch.equal(h_ref.hit, h.hit)), f"{label}: hit mask"
-        assert torch.allclose(h_ref.t[m], h.t[m], rtol=1e-5, atol=1e-6), \
-            f"{label}: t"
-        t_same = (h_ref.t[:, 0] == h.t[:, 0])[m]
-        prim_eq = (h_ref.prim == h.prim)[m]
-        assert bool(prim_eq[t_same].all()), f"{label}: prim where t equal"
-        assert float(prim_eq.float().mean()) > 0.999, f"{label}: prim"
-        assert bool(torch.equal(o_ref, o)), f"{label}: occlusion"
-        assert int(ovf) == 0 and int(ovf_o) == 0, f"{label}: overflow"
-        for fld, a, b in (("hit", h.hit, h_cl.hit), ("t", h.t, h_cl.t),
-                          ("prim", h.prim[m], h_cl.prim[m]),
-                          ("u", h.u[m], h_cl.u[m]), ("v", h.v[m], h_cl.v[m]),
-                          ("occluded", o, o_cl)):
-            assert bool(torch.equal(a, b)), f"{label}: {fld} vs compact"
-        for fld, a, b in (("hit", h_p.hit, h.hit), ("t", h_p.t, h.t),
-                          ("prim", h_p.prim[m], h.prim[m]),
-                          ("u", h_p.u[m], h.u[m]), ("v", h_p.v[m], h.v[m]),
-                          ("occluded", o_p, o)):
-            assert bool(torch.equal(a, b)), f"{label}: {fld} vs plain"
-        res[mode] = {"launches": launches, "overflow": [int(ovf), int(ovf_o)],
-                     "equals_compact_bitwise": True,
-                     "equals_plain_bitwise": True,
-                     "all_fields_equal_plain_on_misses_too": all(
-                         bool(torch.equal(getattr(h_p, f), getattr(h, f)))
-                         for f in ("prim", "u", "v"))}
+        got = {}
+        for stage in cluster.MODE_PAIR_STAGES:
+            zero_launches(kernels)
+            h, ovf = cluster.intersect_counted(cbm, scene, ro, rd, tmin, tmax,
+                                               pair_stage=stage)
+            o, ovf_o = cluster.occluded_counted(cbm, scene, ro, rd, tmax2,
+                                                pair_stage=stage)
+            launches = read_launches(kernels)
+            h_p, _ = cluster.intersect_counted(cbm, scene, ro, rd, tmin, tmax,
+                                               use_kernels=False,
+                                               pair_stage=stage)
+            o_p, _ = cluster.occluded_counted(cbm, scene, ro, rd, tmax2,
+                                              use_kernels=False,
+                                              pair_stage=stage)
+            label = f"{name} {mode} {stage}"
+            used, unused = ("pair_ray_reduce", "pair_tile_isect") \
+                if stage == "fused" else ("pair_tile_isect", "pair_ray_reduce")
+            assert launches[used] > 0 and launches[unused] == 0, \
+                (label, launches)
+            assert bool(torch.equal(h_ref.hit, h.hit)), f"{label}: hit mask"
+            assert torch.allclose(h_ref.t[m], h.t[m], rtol=1e-5, atol=1e-6), \
+                f"{label}: t"
+            t_same = (h_ref.t[:, 0] == h.t[:, 0])[m]
+            prim_eq = (h_ref.prim == h.prim)[m]
+            assert bool(prim_eq[t_same].all()), f"{label}: prim where t equal"
+            assert float(prim_eq.float().mean()) > 0.999, f"{label}: prim"
+            assert bool(torch.equal(o_ref, o)), f"{label}: occlusion"
+            assert int(ovf) == 0 and int(ovf_o) == 0, f"{label}: overflow"
+            for fld, a, b in (("hit", h.hit, h_cl.hit), ("t", h.t, h_cl.t),
+                              ("prim", h.prim[m], h_cl.prim[m]),
+                              ("u", h.u[m], h_cl.u[m]),
+                              ("v", h.v[m], h_cl.v[m]),
+                              ("occluded", o, o_cl)):
+                assert bool(torch.equal(a, b)), f"{label}: {fld} vs compact"
+            for fld, a, b in (("hit", h_p.hit, h.hit), ("t", h_p.t, h.t),
+                              ("prim", h_p.prim[m], h.prim[m]),
+                              ("u", h_p.u[m], h.u[m]),
+                              ("v", h_p.v[m], h.v[m]),
+                              ("occluded", o_p, o)):
+                assert bool(torch.equal(a, b)), f"{label}: {fld} vs plain"
+            got[stage] = (h, o)
+            res[f"{mode}_{stage}"] = {
+                "launches": launches, "overflow": [int(ovf), int(ovf_o)],
+                "equals_compact_bitwise": True,
+                "equals_plain_bitwise": True,
+                "all_fields_equal_plain_on_misses_too": all(
+                    bool(torch.equal(getattr(h_p, f), getattr(h, f)))
+                    for f in ("prim", "u", "v"))}
+        (h_f, o_f), (h_s, o_s) = got["fused"], got["split"]
+        for fld in ("hit", "t", "u", "v"):
+            assert bool(torch.equal(getattr(h_f, fld), getattr(h_s, fld))), \
+                f"{name} {mode}: {fld} of fused and split differ"
+        prim_all = bool(torch.equal(h_f.prim, h_s.prim))
+        assert bool(torch.equal(h_f.prim[m], h_s.prim[m])) \
+            and (prim_all or mode == "pairs"), f"{name} {mode}: prim"
+        assert bool(torch.equal(o_f, o_s)), f"{name} {mode}: occlusion"
+        res[f"{mode}_fused_equals_split"] = {
+            "hit_t_u_v_occluded": True, "prim_where_hit": True,
+            "prim_on_every_ray": prim_all}
     n_cand, ovf_c = cluster.candidate_stats(cb, ro, rd, tmin, tmax)
     n_live, dropped = cluster.pairs_stats(cb, ro, rd, tmin, tmax)
     assert int(ovf_c.sum()) == 0 and int(dropped) == 0, \
@@ -2600,6 +2918,35 @@ def render_sliced(scene, cam, cfg, key, cb, k):
         with_counts=True, step_slices=k)
     return ((accum / cfg.spp).reshape(cfg.height, cfg.width, 3), int(nc),
             int(ns), int(novf), n_iter)
+
+
+# The band of the headline that the main path's twins render (the split
+# and the cluster-major pair stage, the exact fallback attached, the
+# LBVH's packed walk, the autotuned BVH): rows 384-639 of 1024, a quarter
+# of its pixels across the displaced sphere, each pixel as in the full
+# render (``wavefront_accum``'s pixel range; the dist phase holds the same
+# for interleaved shards).  The whole headline runs through the main path
+# (render_main), the other traversal modes, the device build, the command
+# line, the gradient step and the two gloo ranks.
+BAND_ROWS = (384, 640)
+
+
+def render_band(scene, cam, cfg, key, bvh, backend="cluster",
+                pair_stage="fused"):
+    """``render_wavefront_counts``'s result (queue 4096) on the headline's
+    rows ``BAND_ROWS`` only: (those rows of the image, n_closest,
+    n_shadow, overflow, steps_run)."""
+    r0, r1 = BAND_ROWS
+    accum, (nc, ns, novf, n_iter) = wavefront.wavefront_accum(
+        scene, cam, cfg, key, bvh, 4096, backend, r0 * cfg.width,
+        (r1 - r0) * cfg.width, with_counts=True, pair_stage=pair_stage)
+    return ((accum / cfg.spp).reshape(r1 - r0, cfg.width, 3), int(nc),
+            int(ns), int(novf), n_iter)
+
+
+def band_of(img):
+    """The rows ``BAND_ROWS`` of a headline image."""
+    return img[BAND_ROWS[0]:BAND_ROWS[1]]
 
 
 # Suspect rays the exact fallback's walk re-traced in the last call of
@@ -3251,40 +3598,37 @@ def phase_grad_headline(scene, cam, cb, cfg, main, img_main):
 
 
 def phase_render_fallback(scene, cam, cb_fb, cfg, main, img_main):
-    """The headline render once more with the exact fallback attached (what
-    tpu_pt/bench.py:274-283 re-renders after an overflow): no ray is
-    suspect, so the image and counts must be render_main's, and the walk is
-    launched on every traversal sub-batch all the same.  Returns its
-    launches."""
+    """The headline's band (``BAND_ROWS``) once more with the exact
+    fallback attached (what tpu_pt/bench.py:274-283 re-renders after an
+    overflow): no ray is suspect, so the rows and counts must be
+    ``render_main``'s band render's, and the walk is launched on every
+    traversal sub-batch all the same.  Returns its launches."""
     kernels = (packed_walk, pair_ray_reduce, pair_tile_isect, pair_segmin,
                pair_tile_isect_dedup, fetch_rows,
                fetch_fields)
+    band = main["band"]
     # The launch counts of this path: zeroed just before the render, read
     # just after it.
     zero_launches(kernels)
-    sync()
-    t0 = time.time()
-    img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
-        scene, cam, cfg, (0, 3), cb_fb, queue=4096, backend="cluster",
-        device=DEV)
-    sync()
-    run_s = time.time() - t0
+    (img, nc, ns, ovf, n_iter), run_s = timed_sync(
+        lambda: render_band(scene, cam, cfg, (0, 3), cb_fb))
     launches = read_launches(kernels)
+    equal = bool(torch.equal(img, band_of(img_main)))
     emit({"phase": "render_fallback", "scene": "big-1m", "size": cfg.width,
-          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
-          "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
-          "run_s_all_render_main": main["run_s_all"],
-          "run_s_over_render_main": round(run_s / main["run_s"], 4),
-          "image_equals_render_main_bitwise": bool(torch.equal(img, img_main)),
+          "rows": list(BAND_ROWS), "spp": cfg.spp,
+          "max_depth": cfg.max_depth, "queue": 4096,
+          "run_s": round(run_s, 3), "run_s_render_main_band": band["run_s"],
+          "run_s_over_render_main_band": round(run_s / band["run_s"], 4),
+          "image_equals_render_main_rows_bitwise": equal,
           "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
           "overflow": ovf, "launches": launches})
     assert ovf == 0, f"render_fallback: overflow {ovf}"
-    assert bool(torch.equal(img, img_main)), \
-        "render_fallback: image differs from render_main's (must be bitwise)"
-    assert (nc, ns, n_iter) == (main["n_closest"], main["n_shadow"],
-                                main["steps_run"]), \
-        "render_fallback: counts differ from render_main's"
-    # 459 steps x 2 traversals x 4 sub-batches, one walk each.
+    assert equal, "render_fallback: the band differs from render_main's " \
+        "rows (must be bitwise)"
+    assert (nc, ns, n_iter) == (band["n_closest"], band["n_shadow"],
+                                band["steps_run"]), \
+        "render_fallback: counts differ from render_main's band"
+    # 2 traversals x 4 sub-batches a step, one walk each.
     assert launches["packed_walk"] == 2 * 4 * n_iter, launches
     assert launches["packed_walk_thread"] == 0, launches
     assert launches["pair_ray_reduce"] == 2 * 4 * n_iter, launches
@@ -3313,14 +3657,27 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     _, warm_s = run(meshes.big_camera(256, 256).to(DEV),
                     dataclasses.replace(cfg, width=256, height=256))
     times = []
-    for i in range(3):
-        if i == 2:
+    for i in range(2):
+        if i == 1:
             # The launch counts of the main path: zeroed just before one
             # full-width render, read just after it.
             zero_launches(kernels)
         (img, nc, ns, ovf, n_iter), dt = run()
         times.append(dt)
     launches = read_launches(kernels)
+    # The band the twins render, through the main path: the reference of
+    # their counts, its image the headline's rows bit for bit.
+    zero_launches(kernels)
+    (img_b, nc_b, ns_b, ovf_b, it_b), band_s = timed_sync(
+        lambda: render_band(scene, cam, cfg, key, cb))
+    band_launches = read_launches(kernels)
+    band = {"rows": list(BAND_ROWS), "run_s": round(band_s, 3),
+            "steps_run": it_b, "n_closest": nc_b, "n_shadow": ns_b,
+            "overflow": ovf_b, "mean_radiance": float(img_b.mean()),
+            "image_equals_render_main_rows_bitwise": bool(
+                torch.equal(img_b, band_of(img))),
+            "launches": band_launches}
+    del img_b
     # 2 traversals x 4 sub-batches a step, one launch each; the stage that
     # was asked for is the stage that ran.
     assert launches["pair_ray_reduce"] == 2 * 4 * n_iter, launches
@@ -3332,7 +3689,7 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     assert bool(torch.isfinite(img).all()), "render_main: image not finite"
     assert tuple(img.shape) == (cfg.height, cfg.width, 3)
     mean = float(img.mean())
-    run_s = sorted(times)[1]
+    run_s = min(times)
     line = {"phase": "render_main", "scene": "big-1m", "tris": n_tris,
             "size": cfg.width, "spp": cfg.spp, "max_depth": cfg.max_depth,
             "queue": 4096, "key": list(key),
@@ -3347,7 +3704,7 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
             "n_closest": nc, "n_shadow": ns, "overflow": ovf,
             "mean_radiance": mean,
             "rays_per_s": round((nc + ns) / run_s, 1),
-            "launches_per_render": launches,
+            "launches_per_render": launches, "band": band,
             "peak_mem_MB": round(torch.cuda.max_memory_allocated() / 1e6, 1),
             "vs_recorded": {
                 "n_closest": nc - RECORDED["n_closest"],
@@ -3376,6 +3733,10 @@ def phase_render_main(scene, cam, cb, cfg, build_s, n_tris):
     assert n_iter == RECORDED["steps_run"], f"steps_run {n_iter}"
     assert all(line["equals_port_record"].values()), \
         f"render_main moved from the port's record {PORT_RECORD}"
+    assert band["image_equals_render_main_rows_bitwise"] \
+        and band["overflow"] == 0, f"render_main: the band {band}"
+    assert band_launches["pair_ray_reduce"] == 2 * 4 * it_b, band_launches
+    check_fetch_launches(band_launches, cb, it_b)
     return {k: launches[k] for k in ("pair_ray_reduce", "fetch_fields")}, \
         line, img
 
@@ -3439,9 +3800,9 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
     ``level_hit_counts`` measures on the first closest-hit batch of every
     probe segment.
     (b) The command line's ``--autotune`` at the headline: the 1024² config
-    (probed at 512²), one headline render on the tuned BVH, its ``run_s``
-    beside ``render_main``'s; at overflow 0 its image must be
-    ``render_main``'s bit for bit."""
+    (probed at 512²), one render of the headline's band (``BAND_ROWS``) on
+    the tuned BVH, its ``run_s`` beside ``render_main``'s band render's; at
+    overflow 0 its rows must be ``render_main``'s bit for bit."""
     key, kw = (0, 3), dict(queue=4096, device=DEV)
     kernels = (pair_ray_reduce, packed_walk, fetch_rows,
                fetch_fields)
@@ -3535,17 +3896,15 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
     cb_h, tune_s, parts = tune_timed(scene_h, cam_h, cfg)
     cb_b = cb_h.to(DEV)
     del cb_h
+    band = main["band"]
     zero_launches(kernels)
-    sync()
-    t0 = time.time()
-    img, nc, ns, ovf, it = wavefront.render_wavefront_counts(
-        scene, cam_h.to(DEV), cfg, key, cb_b, backend="cluster", **kw)
-    sync()
-    run_s = time.time() - t0
+    (img, nc, ns, ovf, it), run_s = timed_sync(
+        lambda: render_band(scene, cam_h.to(DEV), cfg, key, cb_b))
     launches = read_launches(kernels)
-    equal = bool(torch.equal(img, img_main))
+    equal = bool(torch.equal(img, band_of(img_main)))
     emit({"phase": "render_autotune", "part": "headline_autotune",
-          "scene": "big-1m", "size": cfg.width, "spp": cfg.spp,
+          "scene": "big-1m", "size": cfg.width, "rows": list(BAND_ROWS),
+          "spp": cfg.spp,
           "max_depth": cfg.max_depth, "queue": 4096, "key": list(key),
           "probe_size": probe_size(cfg), "autotune_s": round(tune_s, 3),
           "autotune_parts": parts,
@@ -3553,47 +3912,47 @@ def phase_render_autotune(scene, scene_h, cb, cfg, main, img_main, img_fb):
                     "pair_mults": list(cb_b.pair_mults)},
           "default": default, "overflow": ovf, "steps_run": it,
           "n_closest": nc, "n_shadow": ns, "launches": launches,
-          "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
-          "run_s_over_render_main": round(run_s / main["run_s"], 4),
-          "image_equals_render_main_bitwise": equal,
-          "max_abs_diff": float((img - img_main).abs().max()),
+          "run_s": round(run_s, 3), "run_s_render_main_band": band["run_s"],
+          "run_s_over_render_main_band": round(run_s / band["run_s"], 4),
+          "image_equals_render_main_rows_bitwise": equal,
+          "max_abs_diff": float((img - band_of(img_main)).abs().max()),
           "mean_radiance": float(img.mean())})
     assert launches["pair_ray_reduce"] == 2 * 4 * it, launches
     check_fetch_launches(launches, cb_b, it)
     assert bool(torch.isfinite(img).all())
     if ovf == 0:
-        assert equal, "render_autotune: at overflow 0 the tuned headline " \
-            "must be render_main's image bit for bit"
+        assert equal, "render_autotune: at overflow 0 the tuned band " \
+            "must be render_main's rows bit for bit"
 
 
 def phase_render_split(scene, cam, cb, cfg, main, img_main):
-    """The headline render through the two-kernel pair stage, once:
-    bit-identical to ``render_main``'s image, timed beside it on the same
-    host.  Returns the launches of its kernels in the render."""
+    """The headline's band (``BAND_ROWS``) through the two-kernel pair
+    stage, once: bit-identical to ``render_main``'s rows, with the counts
+    of its band render, timed beside that render on the same host.
+    Returns the launches of its kernels in the render."""
     kernels = (pair_tile_isect, pair_segmin, pair_ray_reduce,
                pair_tile_isect_dedup, fetch_rows,
                fetch_fields)
+    band = main["band"]
     zero_launches(kernels)
     (img, nc, ns, ovf, n_iter), run_s = timed_sync(
-        lambda: wavefront.render_wavefront_counts(
-            scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
-            device=DEV, pair_stage="split"))
+        lambda: render_band(scene, cam, cfg, (0, 3), cb, pair_stage="split"))
     launches = read_launches(kernels)
+    equal = bool(torch.equal(img, band_of(img_main)))
     emit({"phase": "render_split", "scene": "big-1m", "size": cfg.width,
-          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
-          "run_s": round(run_s, 3),
-          "run_s_render_main": main["run_s"],
-          "run_s_all_render_main": main["run_s_all"],
-          "run_s_fused_over_split": round(main["run_s"] / run_s, 4),
-          "image_equals_render_main_bitwise": bool(torch.equal(img, img_main)),
+          "rows": list(BAND_ROWS), "spp": cfg.spp,
+          "max_depth": cfg.max_depth, "queue": 4096,
+          "run_s": round(run_s, 3), "run_s_render_main_band": band["run_s"],
+          "run_s_fused_over_split": round(band["run_s"] / run_s, 4),
+          "image_equals_render_main_rows_bitwise": equal,
           "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
           "overflow": ovf, "mean_radiance": float(img.mean()),
           "rays_per_s": round((nc + ns) / run_s, 1), "launches": launches})
-    assert bool(torch.equal(img, img_main)), \
-        "render_split: image differs from render_main's (must be bitwise)"
-    assert (nc, ns, ovf, n_iter) == (main["n_closest"], main["n_shadow"],
-                                     main["overflow"], main["steps_run"]), \
-        "render_split: counts differ from render_main's"
+    assert equal, "render_split: the band differs from render_main's rows " \
+        "(must be bitwise)"
+    assert (nc, ns, ovf, n_iter) == (band["n_closest"], band["n_shadow"],
+                                     band["overflow"], band["steps_run"]), \
+        "render_split: counts differ from render_main's band"
     assert launches["pair_tile_isect"] == 2 * 4 * n_iter, launches
     assert launches["pair_segmin"] == 2 * 4 * n_iter, launches
     assert launches["pair_ray_reduce"] == 0, launches
@@ -3655,12 +4014,15 @@ def phase_render_modes(scene, cam, cb, cfg, main, img_main,
     RR from 2 at 0.7, queue 4096, key (0, 3), the host SAH cluster BVH)
     through the cluster BVH's two other traversal modes
     (``ClusterBVH.traversal_mode`` "frontier" and "pairs"), one render
-    each, timed beside ``render_main``.  Every pair batch goes through
-    ``pair_tile_isect`` (K2), none through the fused stage, and the child
-    gathers are plain indexing (no ``fetch_fields``).  At overflow 0 the
-    image must be ``render_main``'s bit for bit with the port's counts; a
-    frontier render that overflows must keep the counts within 0.5 % and
-    the mean within 1 % of ``render_main``'s.
+    each in the default pair stage ("fused"), timed beside
+    ``render_main``.  Every pair batch goes through ``pair_ray_reduce``,
+    none through ``pair_tile_isect`` (K2) or any other pair kernel, and the
+    child gathers are plain indexing (no ``fetch_fields``); each mode
+    launches the fused kernel as often as the K2 twin launches K2
+    (``MODE_LAUNCHES``: one launch a batch, and the rounds are the
+    twin's).  "frontier" runs at
+    overflow 0: its image must be ``render_main``'s bit for bit with the
+    port's counts.
 
     The pair-major walk cuts its (ray, node) pairs to ``pair_mults[:3]`` x
     Q at every level, and at the BVH's own (8, 8, 6) it cuts the headline's
@@ -3668,11 +4030,15 @@ def phase_render_modes(scene, cam, cb, cfg, main, img_main,
     ``pair_level_loads``), as the JAX package's walk does on the same BVH
     and rays (tests/test_torch_pairs_headline.py::test_pairs_cuts_
     coherent_headline_blocks_as_jax_does); these modes flag no ray suspect,
-    so nothing is repaired.  Its counts and mean are printed beside
-    ``render_main``'s with the 0.5 % / 1 % bounds, which are not held for
-    this mode: only the per-level cuts must add up to its overflow.
+    so nothing is repaired.  Its cut must be exactly ``PAIRS_RECORD``'s
+    (281,374 candidates), its counts and mean that record's (the K2
+    stage's figures), and the per-level cuts must add
+    up to its overflow; its 0.5 % / 1 % distance from ``render_main``'s
+    counts is printed, not held.
 
-    With ``sliced`` (``--modes``), the headline once more in the compact
+    With ``sliced`` (``--modes``), the headline once more in "frontier"
+    through the "split" twin (K2 and array code): the image, counts and
+    rounds (K2's launches) must be the fused render's; and in the compact
     mode with every step as two strided lane slices
     (``wavefront_accum(step_slices=2)``), timed: its image must be
     ``render_main``'s bit for bit with the port's counts (the whole run
@@ -3686,12 +4052,14 @@ def phase_render_modes(scene, cam, cb, cfg, main, img_main,
     by_path = {}
     record = (PORT_RECORD["n_closest"], PORT_RECORD["n_shadow"],
               PORT_RECORD["steps_run"])
-    for mode in ("frontier", "pairs"):
+    runs = [("frontier", "fused")] + ([("frontier", "split")] if sliced
+                                      else []) + [("pairs", "fused")]
+    for mode, stage in runs:
         zero_launches(kernels)
         render = functools.partial(
             wavefront.render_wavefront_counts, scene, cam, cfg, (0, 3),
             cb._replace(traversal_mode=mode), queue=4096, backend="cluster",
-            device=DEV)
+            device=DEV, pair_stage=stage)
         levels = None
         if mode == "frontier":
             (img, nc, ns, ovf, n_iter), run_s = timed_sync(render)
@@ -3706,39 +4074,47 @@ def phase_render_modes(scene, cam, cb, cfg, main, img_main,
         within = bool(abs(d_counts["n_closest"]) <= 0.005
                       and abs(d_counts["n_shadow"]) <= 0.005
                       and abs(d_counts["mean_radiance"]) <= 0.01)
-        emit({"phase": "render_modes", "mode": mode, "scene": "big-1m",
-              "size": cfg.width, "spp": cfg.spp, "max_depth": cfg.max_depth,
-              "queue": 4096, "key": [0, 3],
-              "pair_mults": list(cb.pair_mults), "run_s": round(run_s, 3),
-              "run_s_render_main": main["run_s"],
-              "run_s_all_render_main": main["run_s_all"],
-              "run_s_over_render_main": round(run_s / main["run_s"], 4),
-              "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
-              "overflow": ovf, "mean_radiance": mean,
-              "rays_per_s": round((nc + ns) / run_s, 1),
-              "render_main": {k: main[k] for k in (
-                  "steps_run", "n_closest", "n_shadow", "overflow",
-                  "mean_radiance")},
-              "rel_vs_render_main": d_counts,
-              "within_counts_0.5pct_mean_1pct": within,
-              "bounds_held": mode != "pairs",
-              "image_equals_render_main_bitwise": equal,
-              "pair_levels": levels, "launches": launches})
+        pair_kernel = "pair_ray_reduce" if stage == "fused" \
+            else "pair_tile_isect"
+        line = {"phase": "render_modes", "mode": mode, "pair_stage": stage,
+                "scene": "big-1m", "size": cfg.width, "spp": cfg.spp,
+                "max_depth": cfg.max_depth, "queue": 4096, "key": [0, 3],
+                "pair_mults": list(cb.pair_mults), "run_s": round(run_s, 3),
+                "run_s_render_main": main["run_s"],
+                "run_s_all_render_main": main["run_s_all"],
+                "run_s_over_render_main": round(run_s / main["run_s"], 4),
+                "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
+                "overflow": ovf, "mean_radiance": mean,
+                "rays_per_s": round((nc + ns) / run_s, 1),
+                "render_main": {k: main[k] for k in (
+                    "steps_run", "n_closest", "n_shadow", "overflow",
+                    "mean_radiance")},
+                "rel_vs_render_main": d_counts,
+                "within_counts_0.5pct_mean_1pct": within,
+                "bounds_held": False if mode == "pairs" else "bitwise",
+                "image_equals_render_main_bitwise": equal,
+                "pair_kernel_launches": launches[pair_kernel],
+                "pair_kernel_launches_expected": MODE_LAUNCHES[mode],
+                "pair_levels": levels, "launches": launches}
+        if mode == "pairs":
+            line["pairs_record"] = PAIRS_RECORD
+        emit(line)
         assert bool(torch.isfinite(img).all()), f"{mode}: image not finite"
-        assert launches["pair_tile_isect"] > 0, launches
+        assert launches[pair_kernel] == MODE_LAUNCHES[mode], launches
         assert not any(n for k, n in launches.items()
-                       if k != "pair_tile_isect"), launches
-        if ovf == 0:
-            assert equal, f"render_modes {mode}: image differs from " \
-                "render_main's at overflow 0"
+                       if k != pair_kernel), launches
+        if mode == "frontier":
+            assert ovf == 0 and equal, f"render_modes {mode} {stage}: " \
+                "overflow, or the image differs from render_main's"
             assert (nc, ns, n_iter) == record, \
-                f"render_modes {mode}: counts moved from the port's record"
-        elif mode == "pairs":
-            assert sum(lv["dropped"] for lv in levels) == ovf, levels
+                f"render_modes {mode} {stage}: counts moved from the record"
         else:
-            assert within, f"render_modes {mode}: overflow {ovf} moved the " \
-                f"counts or the mean past 0.5 % / 1 %: {d_counts}"
-        by_path["render_modes_" + mode] = launches
+            assert sum(lv["dropped"] for lv in levels) == ovf, levels
+            assert (ovf, nc, ns, n_iter, mean) == tuple(PAIRS_RECORD[k] for k in (
+                "overflow", "n_closest", "n_shadow", "steps_run",
+                "mean_radiance")), f"render_modes pairs moved from its record"
+        by_path["render_modes_" + mode + ("" if stage == "fused"
+                                          else "_" + stage)] = launches
         del img
     if sliced:
         zero_launches(kernels)
@@ -3918,21 +4294,21 @@ def flat_render_walks(scene, cam, cfg, key, fb, img, fp32_ops_per_s):
     return out
 
 
-def phase_render_oracle(fp32_ops_per_s):
+def phase_render_oracle():
     """The oracle renderer through the dense-sweep backend (``"pallas"``)
     and the flat BVH walk (``"bvh"``): small renders held against the brute
     backend, the plain versions and the wavefront renderer (on the brute
     and on the backend's intersector), then the full-size renders (512x512,
-    spp 16, depth 4, the command line's defaults); on both scenes the
-    "bvh" renders' walks in both designs (``flat_render_walks``).  Returns
-    the launches of the dense kernels and of the flat walk on the full-size
-    Cornell mesh renders, and that render's walks' sums."""
+    spp 16, depth 4, the command line's defaults; the walks of the "bvh"
+    renders in both designs, ``flat_render_walks``, are ``--walks``'
+    A/B).  Returns the launches of the dense kernels and of the flat walk
+    on the full-size Cornell mesh renders."""
     scenes = {"cornell_mesh_4": cornell.cornell("mesh", mesh_subdiv=4),
               "cornell_spheres": cornell.cornell("spheres")}
     small = RenderConfig(width=64, height=64, spp=4, max_depth=3)
     full = RenderConfig(width=512, height=512, spp=16, max_depth=4)
     key = (0, 0)
-    launches, means, run_s_of, walks = {}, {}, {}, None
+    launches, means, run_s_of = {}, {}, {}
     for backend, kernels in (("pallas", (dense_closest, dense_anyhit)),
                              ("bvh", (flat_walk,))):
         out = []
@@ -3977,18 +4353,13 @@ def phase_render_oracle(fp32_ops_per_s):
                 f"{backend} {name}: wavefront renderer vs oracle renderer"
             cam = cornell.camera(full.width, full.height)
             scene, cam, bvh = scene_h.to(DEV), cam.to(DEV), bvh.to(DEV)
-            times = []
             torch.cuda.reset_peak_memory_stats()
-            for _ in range(2):
-                # The launch counts of this path: zeroed just before one
-                # full-size render, read just after it.
-                zero_launches(kernels)
-                sync()
-                t0 = time.time()
-                img = render(scene, cam, full, key, backend=backend, bvh=bvh,
-                             device=DEV)
-                sync()
-                times.append(time.time() - t0)
+            # The launch counts of this path: zeroed just before one
+            # full-size render (after the small ones above), read just
+            # after it.
+            zero_launches(kernels)
+            img, run_s = timed_sync(lambda: render(
+                scene, cam, full, key, backend=backend, bvh=bvh, device=DEV))
             n_launch = read_launches(kernels)
             hits = full.max_depth + 1
             shadow = scene.lights.count * full.ns_area_light
@@ -4006,7 +4377,6 @@ def phase_render_oracle(fp32_ops_per_s):
             mean = float(img.mean())
             means[backend, name] = mean
             rays_cast = full.n_pixels * full.spp * hits * (1 + shadow)
-            run_s = min(times)
             run_s_of[backend, name] = run_s
             line = {"scene": name, "size": full.width, "spp": full.spp,
                     "max_depth": full.max_depth, "key": list(key),
@@ -4028,7 +4398,6 @@ def phase_render_oracle(fp32_ops_per_s):
                                            "atol 1e-3; wavefront vs oracle "
                                            "on one intersector rtol 2e-4 "
                                            "atol 2e-5"},
-                    "run_s_all": [round(t, 3) for t in times],
                     "run_s": round(run_s, 3), "rays_cast": rays_cast,
                     "rays_cast_per_s": round(rays_cast / run_s, 1),
                     "launches": n_launch, "mean_radiance": mean,
@@ -4049,11 +4418,6 @@ def phase_render_oracle(fp32_ops_per_s):
                     <= 0.005 * means["pallas", name], \
                     f"bvh {name}: mean_radiance {mean} not within 0.5 % of " \
                     f"the pallas render's {means['pallas', name]}"
-            if backend == "bvh":
-                # Both scenes' walks: the Cornell spheres' test two
-                # spheres in the well-conditioned solve.
-                line["walks_per_design"] = flat_render_walks(
-                    scene, cam, full, key, bvh, img, fp32_ops_per_s)
             if name == "cornell_spheres":
                 line["anchor_mean_radiance"] = ORACLE_ANCHOR
                 line["vs_anchor"] = mean - ORACLE_ANCHOR
@@ -4065,11 +4429,9 @@ def phase_render_oracle(fp32_ops_per_s):
                     else "chip_smoke_cornell_mesh_bvh.png"
                 film.save(png, img.cpu().numpy())
                 launches.update(n_launch)
-                if backend == "bvh":
-                    walks = line["walks_per_design"]
             out.append(line)
         emit({"phase": "render_oracle", "backend": backend, "renders": out})
-    return launches, walks
+    return launches
 
 
 def phase_spheres_parity():
@@ -4134,43 +4496,43 @@ def phase_spheres_parity():
     return launches
 
 
-def phase_render_dedup(scene, cam, cb, cfg, main):
-    """The headline render once through the cluster-major pair stage, held
-    to this run's own ``render_main``.  Returns the launches of its kernel."""
+def phase_render_dedup(scene, cam, cb, cfg, main, img_main):
+    """The headline's band (``BAND_ROWS``) once through the cluster-major
+    pair stage, held to this run's band render of ``render_main``.
+    Returns the launches of its kernel."""
     kernels = (pair_tile_isect_dedup, pair_tile_isect, pair_segmin,
                pair_ray_reduce, fetch_rows,
                fetch_fields)
+    band = main["band"]
     zero_launches(kernels)
-    sync()
-    t0 = time.time()
-    img, nc, ns, ovf, n_iter = wavefront.render_wavefront_counts(
-        scene, cam, cfg, (0, 3), cb, queue=4096, backend="cluster",
-        device=DEV, pair_stage="dedup")
-    sync()
-    run_s = time.time() - t0
+    (img, nc, ns, ovf, n_iter), run_s = timed_sync(
+        lambda: render_band(scene, cam, cfg, (0, 3), cb, pair_stage="dedup"))
     launches = read_launches(kernels)
     mean = float(img.mean())
     emit({"phase": "render_dedup", "scene": "big-1m", "size": cfg.width,
-          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
-          "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
-          "run_s_all_render_main": main["run_s_all"],
+          "rows": list(BAND_ROWS), "spp": cfg.spp,
+          "max_depth": cfg.max_depth, "queue": 4096,
+          "run_s": round(run_s, 3), "run_s_render_main_band": band["run_s"],
           "steps_run": n_iter, "n_closest": nc, "n_shadow": ns,
           "overflow": ovf, "mean_radiance": mean,
           "rays_per_s": round((nc + ns) / run_s, 1),
           "launches": launches,
-          "vs_render_main": {"n_closest": nc - main["n_closest"],
-                             "n_shadow": ns - main["n_shadow"],
-                             "steps_run": n_iter - main["steps_run"],
-                             "mean_radiance": mean - main["mean_radiance"]}})
+          "image_equals_render_main_rows_bitwise": bool(
+              torch.equal(img, band_of(img_main))),
+          "vs_render_main_band": {
+              "n_closest": nc - band["n_closest"],
+              "n_shadow": ns - band["n_shadow"],
+              "steps_run": n_iter - band["steps_run"],
+              "mean_radiance": mean - band["mean_radiance"]}})
     assert bool(torch.isfinite(img).all()), "render_dedup: image not finite"
     assert ovf == 0, f"render_dedup: overflow {ovf}"
-    assert n_iter == RECORDED["steps_run"], f"render_dedup: steps_run {n_iter}"
-    assert abs(mean - main["mean_radiance"]) <= 0.01 * main["mean_radiance"], \
-        f"render_dedup: mean_radiance {mean} vs {main['mean_radiance']}"
+    assert n_iter == band["steps_run"], f"render_dedup: steps_run {n_iter}"
+    assert abs(mean - band["mean_radiance"]) <= 0.01 * band["mean_radiance"], \
+        f"render_dedup: mean_radiance {mean} vs {band['mean_radiance']}"
     for name, got in (("n_closest", nc), ("n_shadow", ns)):
-        assert abs(got - main[name]) <= 1e-3 * main[name], \
-            f"render_dedup: {name} {got} vs render_main's {main[name]}"
-    # 459 steps x 2 traversals x 4 sub-batches.
+        assert abs(got - band[name]) <= 1e-3 * band[name], \
+            f"render_dedup: {name} {got} vs render_main's band {band[name]}"
+    # 2 traversals x 4 sub-batches a step.
     assert launches["pair_tile_isect_dedup"] == 2 * 4 * n_iter, launches
     assert launches["pair_tile_isect"] == 0 and launches["pair_segmin"] == 0 \
         and launches["pair_ray_reduce"] == 0, launches
@@ -4226,7 +4588,8 @@ def phase_loop_1(scene, cam, cb, cfg, key, profile, pair_stage, n_warm,
         sync()
         wall = time.time() - t0
         wall_plain = wall
-        emit({"phase": "loop", "pair_stage": pair_stage, "fetch": fetch,
+        emit({"phase": "loop", "mode": cb.traversal_mode,
+              "pair_stage": pair_stage, "fetch": fetch,
               "steps": n_steps,
               "wall_ms_per_step": round(wall / n_steps * 1e3, 3),
               "host_read_ms_per_step": round(read_s / n_steps * 1e3, 3),
@@ -4257,7 +4620,8 @@ def phase_loop_1(scene, cam, cb, cfg, key, profile, pair_stage, n_warm,
                 "pair_major_kernel", "pair_tile_isect_kernel",
                 "pair_segmin_kernel", "pair_tile_isect_dedup_kernel",
                 "fetch_fields_kernel", "fetch_rows_kernel"))}
-    emit({"phase": "profile", "pair_stage": pair_stage, "fetch": fetch,
+    emit({"phase": "profile", "mode": cb.traversal_mode,
+          "pair_stage": pair_stage, "fetch": fetch,
           "steps": n_steps,
           "wall_ms_per_step_profiled": round(wall / n_steps * 1e3, 3),
           "device_kernels_per_step": round(len(kern) / n_steps, 1),
@@ -4276,6 +4640,25 @@ def phase_loop_1(scene, cam, cb, cfg, key, profile, pair_stage, n_warm,
           "top_device_kernels": [
               {"name": k[:80], "n_per_step": round(v[0] / n_steps, 1),
                "us_per_step": round(v[1] / n_steps, 1)} for k, v in top]})
+
+
+def phase_mode_kernels(scene, cam, cb, cfg, fp32_ops_per_s):
+    """``--modes``: the kernels phase's check of the frontier and
+    pair-major walks' pair batches (``check_mode_batches``) on their own,
+    with each batch's bound."""
+    _, _, _, mid_full, _ = queue_batches(scene, cam, cb, cfg, (0, 3), 4096,
+                                         N_WARM)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
+    cases, timing = check_mode_batches(cb, mid_full, flush, ab=True)
+    del flush
+    emit({"phase": "kernels_modes", "cases": cases,
+          "batches": {k: {**{f: v[f] for f in (
+              "shape", "ms", "trace_us", "trace_n", "trace_warm_us",
+              "trace_warm_n", "plain_ms", "path_ms", "twin_path_ms")
+              if f in v},
+              "bound_us": max(v["bytes"] / HBM_BYTES_PER_S,
+                              v["flops"] / fp32_ops_per_s) * 1e6}
+              for k, v in timing.items()}})
 
 
 def phase_loop_pairs(scene, cam, cb, cfg, key, n_warm=30, n_steps=10):
@@ -4587,10 +4970,10 @@ def lbvh_batches(scene, cam, lb, cfg, key, queue, n_warm):
 
 def phase_render_lbvh(scene, cam, cfg, lb, pk, main, img_main, img_packed,
                       fp32_ops_per_s):
-    """The headline (1024², spp 1, depth 4, queue 4096, key (0, 3)) through
-    the packed backend on the LBVH (one walk a traversal: the closest hit
-    and the shadow ray of each step); its counts and mean beside
-    ``render_main``'s.  Then the LBVH at ``render_exact``'s 256² cell
+    """The headline's band (``BAND_ROWS`` of 1024², spp 1, depth 4, queue
+    4096, key (0, 3)) through the packed backend on the LBVH (one walk a
+    traversal: the closest hit and the shadow ray of each step); its counts
+    and mean beside ``render_main``'s band render's.  Then the LBVH at ``render_exact``'s 256² cell
     against that phase's ``"packed"`` render on the SAH packed BVH (the
     same row test), and the walk in both designs bitwise against the plain
     walk on a camera and a bounce batch of the headline, closest and any
@@ -4598,14 +4981,13 @@ def phase_render_lbvh(scene, cam, cfg, lb, pk, main, img_main, img_packed,
     launches."""
     key = (0, 3)
     kernels = (packed_walk, pair_ray_reduce, fetch_fields, fetch_rows)
+    band = main["band"]
     zero_launches(kernels)
     (img, nc, ns, ovf, it), run_s = timed_sync(
-        lambda: wavefront.render_wavefront_counts(
-            scene, cam, cfg, key, lb, queue=4096, backend="packed",
-            device=DEV))
+        lambda: render_band(scene, cam, cfg, key, lb, backend="packed"))
     launches = read_launches(kernels)
     traversals = 1 + scene.lights.count * cfg.ns_area_light
-    diff = (img - img_main).abs().amax(-1)
+    diff = (img - band_of(img_main)).abs().amax(-1)
     mean = float(img.mean())
 
     # render_exact's cell, the same walk over two BVHs.
@@ -4643,17 +5025,18 @@ def phase_render_lbvh(scene, cam, cfg, lb, pk, main, img_main, img_packed,
                 cases.append(res)
     del flush
     emit({"phase": "render_lbvh", "scene": "big-1m", "size": cfg.width,
-          "spp": cfg.spp, "max_depth": cfg.max_depth, "queue": 4096,
+          "rows": list(BAND_ROWS), "spp": cfg.spp,
+          "max_depth": cfg.max_depth, "queue": 4096,
           "key": list(key), "backend": "packed", "bvh": "lbvh (1 table, "
           "1 primitive a leaf)", "n_nodes": lb.n_nodes,
-          "run_s": round(run_s, 3), "run_s_render_main": main["run_s"],
-          "run_s_over_render_main": round(run_s / main["run_s"], 4),
-          "steps_run": it, "steps_run_render_main": main["steps_run"],
+          "run_s": round(run_s, 3), "run_s_render_main_band": band["run_s"],
+          "run_s_over_render_main_band": round(run_s / band["run_s"], 4),
+          "steps_run": it, "steps_run_render_main_band": band["steps_run"],
           "overflow": ovf, "n_closest": nc, "n_shadow": ns,
-          "n_closest_render_main": main["n_closest"],
-          "n_shadow_render_main": main["n_shadow"],
+          "n_closest_render_main_band": band["n_closest"],
+          "n_shadow_render_main_band": band["n_shadow"],
           "mean_radiance": mean,
-          "mean_radiance_render_main": main["mean_radiance"],
+          "mean_radiance_render_main_band": band["mean_radiance"],
           "rays_per_s": round((nc + ns) / run_s, 1),
           "launches": launches, "traversals_per_step": traversals,
           "max_abs_diff_vs_render_main": float(diff.max()),
@@ -4665,39 +5048,54 @@ def phase_render_lbvh(scene, cam, cfg, lb, pk, main, img_main, img_packed,
                          "mean_radiance": float(img_s.mean())},
           "walks": cases,
           "tolerance": "counts within 0.5 % and mean within 1 % of "
-                       "render_main's (tile test and row test are two "
+                       "render_main's band render's (tile test and row test are two "
                        "intersectors: pixel differences printed, no limit); "
                        "the 256² LBVH render vs render_exact's packed render "
                        "rtol 1e-3 atol 1e-3; both walk designs bitwise the "
                        "plain walk and each other"})
     assert bool(torch.isfinite(img).all())
-    assert tuple(img.shape) == (cfg.height, cfg.width, 3)
+    assert tuple(img.shape) == (BAND_ROWS[1] - BAND_ROWS[0], cfg.width, 3)
     assert ovf == 0, "render_lbvh: the packed walk reported overflow"
     assert launches["packed_walk"] == traversals * it, launches
     assert launches["packed_walk_thread"] == 0, launches
     assert launches["pair_ray_reduce"] == launches["fetch_fields"] == 0
     for k, got in (("n_closest", nc), ("n_shadow", ns)):
-        assert abs(got - main[k]) <= 0.005 * main[k], (k, got, main[k])
-    assert abs(mean - main["mean_radiance"]) <= 0.01 * main["mean_radiance"]
+        assert abs(got - band[k]) <= 0.005 * band[k], (k, got, band[k])
+    assert abs(mean - band["mean_radiance"]) <= 0.01 * band["mean_radiance"]
     assert torch.allclose(img_s, img_packed, rtol=1e-3, atol=1e-3), \
         "render_lbvh: the 256² LBVH render vs render_exact's packed render"
     return {"packed_walk": launches["packed_walk"]}
 
 
 def phase_render_device(scene, cam, cfg, cd, pk, main, img_main):
-    """The headline through the fused pair stage on ``build_cluster_device``
-    (the command line's ``--bvh lbvh`` on the cluster backend), in the
-    command line's flow (``render_repaired``; ``pk`` is the fallback
-    ``attach_fallback`` would build).  At overflow 0 the image, counts and
-    steps must be ``render_main``'s; else every pixel that was not suspect
-    must be ``render_main``'s bit for bit, the repaired ones too or within
-    2e-4 / 2e-5.  Then the fused stage against the split stage, bitwise, on
-    three traversal batches of this build.  Returns the launches."""
+    """The headline's band (``BAND_ROWS``) through the fused pair stage on
+    ``build_cluster_device`` (the command line's ``--bvh lbvh`` on the
+    cluster backend).  At overflow 0 its rows, counts and steps must be
+    those of ``render_main``'s band render.  Where the band overflows, the
+    whole headline in the command line's flow (``render_repaired``; ``pk``
+    is the fallback ``attach_fallback`` would build): every pixel that was
+    not suspect ``render_main``'s bit for bit, the repaired ones too or
+    within 2e-4 / 2e-5.  Then the fused stage against the split stage,
+    bitwise, on three traversal batches of this build.  Returns the
+    launches."""
     key = (0, 3)
-    final, sus, rec = render_repaired(scene, cam, cfg, key, cd, pk)
-    ovf, it = rec["overflow"], rec["steps_run"]
-    clean = (sus == 0).reshape(cfg.height, cfg.width)
-    differ = (final != img_main).any(-1)
+    band = main["band"]
+    kernels = (pair_ray_reduce, pair_tile_isect, pair_segmin,
+               pair_tile_isect_dedup, packed_walk, fetch_rows, fetch_fields)
+    zero_launches(kernels)
+    (img, nc, ns, ovf, it), run_s = timed_sync(
+        lambda: render_band(scene, cam, cfg, key, cd))
+    rec = {"rows": list(BAND_ROWS), "overflow": ovf, "steps_run": it,
+           "n_closest": nc, "n_shadow": ns, "mean_radiance": float(img.mean()),
+           "run_s": round(run_s, 3), "rays_per_s": round((nc + ns) / run_s, 1),
+           "launches": read_launches(kernels)}
+    ref, clean = band_of(img_main), None
+    if ovf:
+        img, sus, rec["whole_headline"] = render_repaired(scene, cam, cfg, key,
+                                                          cd, pk)
+        it, ref = rec["whole_headline"]["steps_run"], img_main
+        clean = (sus == 0).reshape(cfg.height, cfg.width)
+    differ = (img != ref).any(-1)
     n_differ = int(differ.sum())
 
     # The fused and the split stage on three traversal batches.
@@ -4721,32 +5119,36 @@ def phase_render_device(scene, cam, cfg, cd, pk, main, img_main):
           "key": list(key), "pair_stage": "fused",
           "bvh": "build_cluster_device (Morton chunks, split_tau 0.5, "
                  "cap_scale 1.35)", **cluster_shape(cd), **rec,
-          "run_s_render_main": main["run_s"],
-          "run_s_over_render_main": round(rec["run_s"] / main["run_s"], 4),
+          "run_s_render_main_band": band["run_s"],
+          "run_s_over_render_main_band": round(run_s / band["run_s"], 4),
           "image_equals_render_main_bitwise": n_differ == 0,
           "pixels_differ_from_render_main": n_differ,
-          "max_abs_diff_vs_render_main": float(
-              (final - img_main).abs().max()),
+          "max_abs_diff_vs_render_main": float((img - ref).abs().max()),
           "fused_equals_split_bitwise": stages,
-          "tolerance": "overflow 0: image torch.equal to render_main's, "
-                       "counts and steps equal; else after the repair every "
+          "tolerance": "the band at overflow 0: its rows torch.equal to "
+                       "render_main's, counts and steps its band render's; "
+                       "else the whole headline after the repair: every "
                        "pixel that was not suspect bitwise, the rest rtol "
                        "2e-4 atol 2e-5; fused vs split bitwise"})
-    assert rec["launches"]["pair_ray_reduce"] == 2 * 4 * it, rec
+    launches = rec["whole_headline"]["launches"] if ovf else rec["launches"]
+    assert launches["pair_ray_reduce"] == 2 * 4 * it, rec
     assert all(stages.values()), stages
-    assert bool(torch.isfinite(final).all())
+    assert bool(torch.isfinite(img).all())
     if ovf == 0:
-        assert n_differ == 0, "render_device: image differs from render_main"
-        assert (rec["n_closest"], rec["n_shadow"], it) == (
-            main["n_closest"], main["n_shadow"], main["steps_run"]), \
-            "render_device: counts"
+        check_fetch_launches(launches, cd, it)
+        assert not any(launches[k] for k in (
+            "pair_tile_isect", "pair_segmin", "pair_tile_isect_dedup",
+            "packed_walk", "packed_walk_thread")), launches
+        assert n_differ == 0, "render_device: the band differs from " \
+            "render_main's rows"
+        assert (nc, ns, it) == (band["n_closest"], band["n_shadow"],
+                                band["steps_run"]), "render_device: counts"
     else:
         assert not bool((differ & clean).any()), \
             "render_device: a pixel that was not suspect differs"
-        assert torch.allclose(final, img_main, rtol=2e-4, atol=2e-5), \
+        assert torch.allclose(img, img_main, rtol=2e-4, atol=2e-5), \
             "render_device: repaired image vs render_main"
-    return {k: rec["launches"][k] for k in ("pair_ray_reduce",
-                                            "fetch_fields")}
+    return {k: launches[k] for k in ("pair_ray_reduce", "fetch_fields")}
 
 
 def render_repaired(scene, cam, cfg, key, cb, fallback):
@@ -4817,10 +5219,10 @@ ATRIUM_FEW = 0
 
 def phase_render_atrium():
     """The atrium (``meshes.atrium_scene``, about 1M triangles, two area
-    lights) at 512² (the headline's 1024² cut to a quarter of the pixels
-    to make room for the command line's phase), spp 1, depth 4, RR from 2
-    at 0.7, queue 4096, key (0, 3): (a) on the BVH of the command line's ``--autotune``
-    (``autotune_for_render`` probed at 512²), (b) on
+    lights) at 256² (the headline's 1024² cut to a sixteenth of the pixels
+    to keep the whole run inside its time limit), spp 1, depth 4, RR from 2
+    at 0.7, queue 4096, key (0, 3): (a) on the BVH of the command line's
+    ``--autotune`` (``autotune_for_render`` probed at 256²), (b) on
     ``build_cluster_device``; each through the command line's flow (one
     render flagging suspects, the exact fallback attached and the suspect
     pixels repaired where it overflowed).  The two final images must be
@@ -4838,9 +5240,9 @@ def phase_render_atrium():
     scene_h = meshes.atrium_scene()
     scene_s = time.time() - t0
     scene = scene_h.to(DEV)
-    cfg = RenderConfig(width=512, height=512, spp=1, max_depth=4,
+    cfg = RenderConfig(width=256, height=256, spp=1, max_depth=4,
                        rr_start=2, rr_prob=0.7)
-    cam_h = meshes.atrium_camera(512, 512)
+    cam_h = meshes.atrium_camera(256, 256)
     cam, key = cam_h.to(DEV), (0, 3)
     t0 = time.time()
     pk = native.build_packed_any(scene_h).to(DEV)
@@ -5357,7 +5759,8 @@ def grads_close(a, b, rtol=1e-4, atol=1e-6):
 
 def dist_child(rank, port, tmp, hint):
     """One of the two ranks of the dist phase's part (b): gloo, both on
-    cuda:0.  Builds big-1m and its BVHs itself; runs (b3) the 256²
+    cuda:0.  Loads big-1m's host arrays from ``tmp`` (the parent's, as
+    :func:`phase_dist` wrote them) and builds its BVHs itself; runs (b3) the 256²
     interleaved and contiguous renders, (b1) the headline interleaved,
     (b2) the grad cell; prints one JSON line a part and leaves the image
     (rank 0) and each rank's loss and gradients in ``tmp``."""
@@ -5368,7 +5771,8 @@ def dist_child(rank, port, tmp, hint):
                             rank=rank, world_size=2, timeout=DIST_TIMEOUT)
     try:
         t0 = time.time()
-        scene_h = meshes.big_scene(subdiv=8)
+        with open(os.path.join(tmp, "scene.pkl"), "rb") as f:
+            scene_h = pickle.load(f)
         cb = cluster.build_cluster_bvh(scene_h).to(DEV)
         cb_fb = cluster.attach_fallback(cb, scene_h)
         scene = scene_h.to(DEV)
@@ -5501,11 +5905,11 @@ def dist_only(scene_h):
         "n_closest", "n_shadow", "overflow", "steps_run")), \
         (nc, ns, ovf, n_iter)
     hint, _ = grad_hint(scene, cb)
-    by_path = phase_dist(scene, cb, cb_fb, main, img, hint)
+    by_path = phase_dist(scene_h, scene, cb, cb_fb, main, img, hint)
     emit({"phase": "dist", "part": "launches_by_path", **by_path})
 
 
-def phase_dist(scene, cb, cb_fb, main, img_main, hint):
+def phase_dist(scene_h, scene, cb, cb_fb, main, img_main, hint):
     """The port's distribution layer (``tpu_pt_torch.dist.sharding``) on the
     card.
 
@@ -5589,6 +5993,10 @@ def phase_dist(scene, cb, cb_fb, main, img_main, hint):
 
     t_b = time.time()
     with tempfile.TemporaryDirectory() as tmp:
+        # big-1m's host arrays for the two ranks: they load them, and do
+        # not build the scene again.
+        with open(os.path.join(tmp, "scene.pkl"), "wb") as f:
+            pickle.dump(scene_h, f, protocol=pickle.HIGHEST_PROTOCOL)
         lines = run_children(hint, tmp)
         for rank_lines in lines:
             for line in rank_lines:
@@ -5664,7 +6072,8 @@ def phase_dist(scene, cb, cb_fb, main, img_main, hint):
 
 def phase_paired(scene, cam, cb, cfg, n):
     """The headline render through the fused and the split pair stage
-    (``render_main``'s and ``render_split``'s), after one warm-up of each, n
+    (``render_main``'s and ``render_split``'s; with ``--modes``, in
+    ``cb``'s traversal mode "frontier"), after one warm-up of each, n
     times each in the order fused, split, split, fused, ...: every run_s,
     the medians and their ratio."""
     def run(stage):
@@ -5688,7 +6097,8 @@ def phase_paired(scene, cam, cb, cfg, n):
             assert out[1:] == counts, f"paired: {stage} counts moved"
             times[stage].append(dt)
     med = {k: statistics.median(v) for k, v in times.items()}
-    emit({"phase": "paired", "scene": "big-1m", "size": cfg.width,
+    emit({"phase": "paired", "mode": cb.traversal_mode, "scene": "big-1m",
+          "size": cfg.width,
           "runs_each": n, "order": "fused, split, split, fused, ...",
           "warmup_s": {k: round(v[1], 3) for k, v in first.items()},
           "run_s_fused": [round(t, 3) for t in times["fused"]],
@@ -5711,9 +6121,14 @@ def main():
     paired = int(args[args.index("--paired") + 1]) if "--paired" in args \
         else 0
     determinism_only = "--determinism" in args
+    full_run = not (paired or determinism_only or any(
+        a in args for a in ("--dist", "--modes", "--walks")))
     t_start = time.time()
     smi, fp32_ops_per_s = phase_device()
     phase_s = {}
+    # The libraries' builds and the atrium's host brute force overlap the
+    # scene's build.
+    builds = start_host_work() if full_run else None
 
     def run(name, fn, *a, **kw):
         """fn(*a, **kw), its seconds kept under ``name`` in phase_s."""
@@ -5742,7 +6157,7 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return
-    pk, cb_h, build_s, pk_s = run("build", phase_build, scene_h)
+    pk, cb_h, build_s, pk_s = run("build", phase_build, scene_h, builds)
     scene, cb = scene_h.to(DEV), cb_h.to(DEV)
     n_tris = scene_h.n_tris
     emit({"phase": "scene", "scene_build_s": round(t_scene, 2),
@@ -5757,10 +6172,20 @@ def main():
     if "--modes" in args:
         run("traverse", phase_traverse)
         run("determinism", phase_determinism, scene, cb)
+        run("kernels_modes", phase_mode_kernels, scene, cam, cb, cfg,
+            fp32_ops_per_s)
         _, main_line, img_main = run("render_main", phase_render_main, scene,
                                      cam, cb, cfg, build_s, n_tris)
         run("render_modes", phase_render_modes, scene, cam, cb, cfg,
             main_line, img_main, True)
+        if profile:
+            for stage in cluster.MODE_PAIR_STAGES:
+                run("loop_frontier_" + stage, phase_loop, scene, cam,
+                    cb._replace(traversal_mode="frontier"), cfg, (0, 3),
+                    profile, stage)
+        if paired:
+            run("paired_frontier", phase_paired, scene, cam,
+                cb._replace(traversal_mode="frontier"), cfg, paired)
         emit({"phase": "done", "total_s": round(time.time() - t_start, 1),
               "phase_s": phase_s})
         print(smi, flush=True)
@@ -5813,19 +6238,19 @@ def main():
     del lb, cd, img_packed
     run("render_autotune", phase_render_autotune, scene, scene_h, cb, cfg,
         main_line, img_main, img_fb)
-    del img_fb, scene_h
+    del img_fb
     launches.update(run("render_fallback", phase_render_fallback, scene, cam,
                         cb_fb, cfg, main_line, img_main))
-    by_path.update(run("dist", phase_dist, scene, cb, cb_fb, main_line,
-                       img_main, hint))
-    del cb_fb
+    by_path.update(run("dist", phase_dist, scene_h, scene, cb, cb_fb,
+                       main_line, img_main, hint))
+    del cb_fb, scene_h
     launches.update(run("render_split", phase_render_split, scene, cam, cb,
                         cfg, main_line, img_main))
     by_path.update(run("render_modes", phase_render_modes, scene, cam, cb,
                        cfg, main_line, img_main))
-    del img_main
     launches.update(run("render_dedup", phase_render_dedup, scene, cam, cb,
-                        cfg, main_line))
+                        cfg, main_line, img_main))
+    del img_main
     for pair_stage in ("fused", "split", "dedup"):
         run("loop_" + pair_stage, phase_loop, scene, cam, cb, cfg, (0, 3),
             profile, pair_stage)
@@ -5835,8 +6260,11 @@ def main():
         "fused", fetch="rows")
     if profile:
         run("loop_pairs", phase_loop_pairs, scene, cam, cb, cfg, (0, 3))
-    oracle_launches, flat_walks = run("render_oracle", phase_render_oracle,
-                                      fp32_ops_per_s)
+        for stage in cluster.MODE_PAIR_STAGES:
+            run("loop_frontier_" + stage, phase_loop, scene, cam,
+                cb._replace(traversal_mode="frontier"), cfg, (0, 3), profile,
+                stage)
+    oracle_launches = run("render_oracle", phase_render_oracle)
     launches.update(oracle_launches)
     launches.update(probe_launches)
     by_path["spheres_parity"] = run("spheres_parity", phase_spheres_parity)
@@ -5888,7 +6316,8 @@ def main():
     def other_batches(name):
         return {k.split("@")[1]: {**{f: v[f] for f in (
                     "ms", "trace_us", "trace_warm_us", "plain_ms",
-                    "library_ms", "twin_path_ms", "shape") if f in v},
+                    "library_ms", "twin_path_ms", "path_ms", "shape")
+                    if f in v},
                     **dict(zip(("bound_ms", "bound_by"), bound(v)))}
                 for k, v in timing.items() if k.startswith(name + "@")}
 
@@ -5909,11 +6338,14 @@ def main():
             row["trace_warm_n"] = tm["trace_warm_n"]
             row["launch_floor_us"] = timing["launch_floor_us"]
         if name in ("packed_walk", "flat_walk", "fetch_fields", "fetch_rows",
-                    "fetch_rows_t", "take_along"):
+                    "fetch_rows_t", "take_along", "pair_ray_reduce",
+                    "pair_tile_isect"):
             # The walks are timed at the whole 4096-lane queue (the flat
             # walk: at the oracle chunk's camera rays), the descent's
-            # fetches at its last fetch; the same numbers for the other
-            # batches and shapes timed.
+            # fetches at its last fetch, the pair kernels at the compact
+            # mode's mid-render sub-batch; the same numbers for the other
+            # batches and shapes timed (the pair kernels': the frontier
+            # and pair-major walks' batches too).
             row["shape"] = tm["shape"]
             row["other_batches"] = other_batches(name)
         if name == "fetch_fields":
@@ -5930,10 +6362,6 @@ def main():
                                          "trace_warm_us", "trace_warm_n")},
                 **dict(zip(("bound_ms", "bound_by"), bound(twin))),
                 "other_batches": other_batches(name + "_thread")}
-        if name == "flat_walk":
-            # The walks of one whole oracle render of the Cornell mesh, in
-            # each design: summed trace durations and summed bounds.
-            row["render_walks"] = flat_walks
         if name in ("fetch_fields", "fetch_rows", "fetch_rows_t",
                     "take_along"):
             row["launches_counted_in"] = (
@@ -5942,9 +6370,9 @@ def main():
                     "packed_walk", "flat_walk", "dense_closest",
                     "dense_anyhit"):
             # Its launches in one run of each command line path, one
-            # render of each device build's path, (K2) one headline in
-            # each of the cluster BVH's other traversal modes and (the
-            # dense kernels) the Cornell spheres' parity render.
+            # render of each device build's path, (the fused kernel) one
+            # headline in each of the cluster BVH's other traversal modes
+            # and (the dense kernels) the Cornell spheres' parity render.
             row["launches_by_path"] = {
                 path: got[name] for path, got in by_path.items()
                 if name in got}

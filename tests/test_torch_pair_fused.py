@@ -369,6 +369,119 @@ def test_pair_list_tail_beyond_the_last_segment_is_never_read():
 
 
 # ---------------------------------------------------------------------------
+# Gapped segments: the frontier walk's round 1
+# ---------------------------------------------------------------------------
+
+def _packed_segments(cid_rows, n):
+    """The segments of ``row_segments`` packed densely, without a sort: ray
+    q's ``n[q]`` pairs at ``[right[q] - n[q], right[q])``, ``right`` the
+    running sum of ``n``, moved by one scatter; the slots past
+    ``right[Q - 1]`` hold 0."""
+    Q, R = cid_rows.shape
+    cnt = n.to(torch.int64)
+    right = torch.cumsum(cnt, 0)
+    cols = torch.arange(R, device=cnt.device)[None, :]
+    pos = torch.where(cols < cnt[:, None], (right - cnt)[:, None] + cols,
+                      Q * R)
+    out = cid_rows.new_zeros((Q * R + 1,))
+    out.scatter_(0, pos.reshape(-1), cid_rows.reshape(-1))
+    return out[:Q * R], cnt, right
+
+
+def _round_one(ct, Q, seed):
+    """Rays (half aimed at the scene), their (Q,) bounds, the frontier
+    descent's first ``pb`` candidate rows (finite ones first) and counts:
+    the operands of round 1."""
+    ro, rd = rays(Q, seed)
+    ro[::2], rd[::2] = _aimed_rays(len(ro[::2]), seed + 100)
+    tmin = T(np.zeros((Q,), np.float32))
+    tmax = T(np.full((Q,), 1e30, np.float32))
+    cand, cand_t, _ = tcl._descend(ct, T(ro), 1.0 / T(rd), tmin[:, None],
+                                   tmax[:, None])
+    pb = min(ct.pair_budget, cand.shape[1])
+    live = cand_t[:, :pb] < INF
+    rows = cand[:, :pb]
+    if not tcl._cand_sorted(ct):
+        rows = tcl._compact_lanes(live, rows, pb)[0]
+    return T(ro), T(rd), tmin, tmax, rows, live.sum(1), pb
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_row_layout_round_one_equals_round_min(setups, name):
+    """Round 1 of the frontier walk: ``pair_ray_reduce_ref`` on the gapped
+    segments of the candidate rows (``row_segments``) gives ``_round_min``'s (t, gid, u, v)
+    over the split stage's (Q, pb) slots bit for bit, and its any-hit form
+    the rows' ``any``, rays with no live slot included; so does
+    ``_first_round`` in both stages."""
+    _, ct = setups[name]
+    Q = 512
+    ro, rd, tmin, tmax, rows, n, pb = _round_one(ct, Q, 21)
+    assert bool((n == 0).any()) and bool((n > 0).any())
+    cid, cnt, right = tpf.row_segments(rows, n)
+    assert cid.is_contiguous()                  # as the kernel takes it
+    ops = (ct.tiles, ct.tile_gid, ro, rd, tmin, tmax, cid, cnt, right)
+    fused = tpf.pair_ray_reduce_ref(*ops)
+    slots = torch.arange(Q * pb) % pb < n.repeat_interleave(pb)
+    t_p, u_p, v_p, g_p = tcl._test_pair_batch(
+        ct, ro, rd, tmin, tmax, torch.arange(Q).repeat_interleave(pb),
+        rows.reshape(-1), slots, use_kernels=False)
+    t, u, v, g = tcl._round_min(t_p, u_p, v_p, g_p, Q, pb)
+    for a, b in zip(fused, (t, g, u, v)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    occ = tpf.pair_ray_reduce_ref(*ops, any_hit=True)
+    assert torch.equal(occ, torch.any(t_p.reshape(Q, pb) < INF, dim=1))
+    assert bool((t < INF).any())
+    firsts = [tcl._first_round(ct, ro, rd, tmin, tmax, False, stage, False)
+              for stage in ("fused", "split")]
+    for a, b in zip(firsts[0][4], firsts[1][4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_packed_and_row_layouts_agree(setups, name):
+    """The same round-1 segments packed densely (``_packed_segments``: one
+    scatter) and left in their rows with gaps (``row_segments``): equal
+    results, closest and any hit."""
+    _, ct = setups[name]
+    ro, rd, tmin, tmax, rows, n, pb = _round_one(ct, 512, 23)
+    head = (ct.tiles, ct.tile_gid, ro, rd, tmin, tmax)
+    cid_p, cnt_p, right_p = _packed_segments(rows, n)
+    assert int(right_p[-1]) == int(n.sum()) and cid_p.shape == (512 * pb,)
+    for any_hit in (False, True):
+        a = tpf.pair_ray_reduce_ref(*head, *tpf.row_segments(rows, n),
+                                    any_hit=any_hit)
+        b = tpf.pair_ray_reduce_ref(*head, cid_p, cnt_p, right_p,
+                                    any_hit=any_hit)
+        for x, y in zip((a,) if any_hit else a, (b,) if any_hit else b):
+            assert torch.equal(x, y)
+
+
+def test_checked_form_takes_gaps_and_rows_and_refuses_overlap(setups):
+    """``pair_ray_reduce_checked`` on round 1's gapped row segments: the
+    unchecked results; a segment moved back into the gap before it is still
+    a valid list; a segment reaching into the one before it is refused."""
+    _, ct = setups["deep"]
+    ro, rd, tmin, tmax, rows, n, pb = _round_one(ct, 256, 25)
+    cid, cnt, right = tpf.row_segments(rows, n)
+    head = (ct.tiles, ct.tile_gid, ro, rd, tmin, tmax, cid)
+    assert bool((right[1:] - cnt[1:] > right[:-1]).any())      # gaps
+    q = int(torch.nonzero((cnt[1:] > 0) & (cnt[:-1] == 0))[0]) + 1
+    early = right.clone()
+    early[q] -= 1       # ray q's segment one slot into the empty row before
+    for ends in (right, early):
+        for any_hit in (False, True):
+            a = tpf.pair_ray_reduce_checked(*head, cnt, ends, any_hit)
+            b = tpf.pair_ray_reduce(*head, cnt, ends, any_hit)
+            for x, y in zip((a,) if any_hit else a, (b,) if any_hit else b):
+                assert torch.equal(x, y)
+    q = int(torch.nonzero((cnt > 0) & (torch.arange(256) > 0))[0])
+    back = right.clone()
+    back[q - 1] = right[q] - cnt[q] + 1     # ray q - 1 ends inside q's
+    with pytest.raises(AssertionError, match="disagree"):
+        tpf.pair_ray_reduce_checked(*head, cnt, back)
+
+
+# ---------------------------------------------------------------------------
 # The keyword, the wrapper's refusals, the counter
 # ---------------------------------------------------------------------------
 
@@ -510,7 +623,8 @@ def test_checked_form_passes_and_catches_bad_segments_and_poison(setups):
 def test_fused_kernel_matches_plain_version_and_split_kernels_on_the_card():
     """Needs an NVIDIA GPU and nvcc: the kernel, through its checked form,
     bit for bit against its plain version and against the split stage's
-    kernels, on real pair lists of three tile widths and on the edge cases."""
+    kernels, on real pair lists of three tile widths (and their frontier
+    round 1, gapped and packed) and on the edge cases."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     scene = jm.big_scene(4)
@@ -533,6 +647,22 @@ def test_fused_kernel_matches_plain_version_and_split_kernels_on_the_card():
             assert torch.equal(a, c)
         assert torch.equal(occ, ref[0] < INF)
         assert tpf.pair_ray_reduce.launches == n0 + 2
+        # Round 1 of the frontier walk: gapped row segments and packed.
+        ro, rd, tmin, tmax, rows, n, pb = _round_one(ct, 1024, 5)
+        head = (cd.tiles, cd.tile_gid) + tuple(
+            x.cuda() for x in (ro, rd, tmin, tmax))
+        rows, n = rows.cuda(), n.cuda()
+        for any_hit in (False, True):
+            ref = tpf.pair_ray_reduce_ref(*head, *tpf.row_segments(rows, n),
+                                          any_hit=any_hit)
+            got = (tpf.pair_ray_reduce_checked(
+                       *head, *tpf.row_segments(rows, n), any_hit),
+                   tpf.pair_ray_reduce_checked(
+                       *head, *_packed_segments(rows, n), any_hit))
+            for out in got:
+                for a, b in zip((out,) if any_hit else out,
+                                (ref,) if any_hit else ref):
+                    assert torch.equal(a, b)
     for name in EDGE_CASES:
         ops = tuple(T(x).cuda() for x in _edge_case(name)[0])
         for a, b in zip(tpf.pair_ray_reduce_checked(*ops),

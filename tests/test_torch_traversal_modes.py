@@ -10,7 +10,10 @@ rtol 1e-6 (XLA fuses the tile test's multiply-adds, torch does not), prim
 exact where t is equal and agreement > 0.99 (tests/test_cluster.py); inside
 the port the three modes select (t, lowest gid) from the same tile test,
 so they agree bit for bit; images rtol 2e-4 / atol 2e-5 against the JAX
-package."""
+package.  Both modes run both ray-major pair stages ("fused": every pair
+batch through ``pair_ray_reduce``; "split": through ``pair_tile_isect`` and
+array code), held to the JAX package alike and to each other bit for bit,
+round for round."""
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +40,7 @@ from tpu_pt_torch.scene import cornell as tc
 from torch_port_util import T, bvh_dict, rays, scene_dict
 
 MODES = ("frontier", "pairs")
+STAGES = ("fused", "split")
 HIT_FIELDS = ("hit", "t", "prim", "u", "v")
 
 
@@ -76,6 +80,9 @@ def _bounds(n, t_max=1e30):
     return np.zeros((n, 1), np.float32), np.full((n, 1), t_max, np.float32)
 
 
+_JAX_RUNS = {}
+
+
 def _jax_mode(cj, mode, ro, rd, t_min, t_max, t_occ):
     """The JAX package's counted closest hit and occlusion under ``mode``,
     one jitted call (the mode is read while it traces)."""
@@ -98,18 +105,22 @@ def _port_mode(ct, st, mode, ro, rd, t_min, t_max, t_occ, **kw):
             tcl.occluded_counted(ct, st, T(ro), T(rd), T(t_occ), **kw))
 
 
+@pytest.mark.parametrize("pair_stage", STAGES)
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", ["cornell", "mesh", "big", "starved"])
-def test_mode_matches_jax(setups, name, mode):
+def test_mode_matches_jax(setups, name, mode, pair_stage):
     sj, cj, st, ct = setups[name]
     n = 1024
     ro, rd = rays(n, 7)
     t_min, t_max = _bounds(n)
     t_occ = np.full((n, 1), 2.0, np.float32)
-    (h_j, ovf_j), (o_j, ovf_oj) = _jax_mode(cj, mode, ro, rd, t_min, t_max,
-                                           t_occ)
+    if (name, mode) not in _JAX_RUNS:       # one JAX compile for both stages
+        _JAX_RUNS[name, mode] = _jax_mode(cj, mode, ro, rd, t_min, t_max,
+                                          t_occ)
+    (h_j, ovf_j), (o_j, ovf_oj) = _JAX_RUNS[name, mode]
     (h_t, ovf_t), (o_t, ovf_ot) = _port_mode(ct, st, mode, ro, rd, t_min,
-                                             t_max, t_occ)
+                                             t_max, t_occ,
+                                             pair_stage=pair_stage)
     assert (int(ovf_t), int(ovf_ot)) == (int(ovf_j), int(ovf_oj))
     if name == "starved":
         assert int(ovf_t) > 0 or mode == "pairs"
@@ -203,8 +214,9 @@ def _coincident_scene():
                          jt.make_lights([]))
 
 
+@pytest.mark.parametrize("pair_stage", STAGES)
 @pytest.mark.parametrize("mode", ("compact",) + MODES)
-def test_tiebreak_in_every_mode(mode):
+def test_tiebreak_in_every_mode(mode, pair_stage):
     """tests/test_tiebreak.py::test_cluster_tiebreak in the port: every ray
     hits the three coincident copies at one t; each mode returns the
     lowest primitive id, brute force's hit, prim and t bit for bit."""
@@ -220,22 +232,26 @@ def test_tiebreak_in_every_mode(mode):
     ref = tbrute.intersect(st, T(ro), T(rd), t_min, t_max)
     assert bool(ref.hit.all()) and set(ref.prim.tolist()) <= {0, 1}
     got = tcl.intersect(ct._replace(traversal_mode=mode), st, T(ro), T(rd),
-                        t_min, t_max)
+                        t_min, t_max, pair_stage=pair_stage)
     for f in ("hit", "prim", "t"):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
 
 
+@pytest.mark.parametrize("pair_stage", STAGES)
 @pytest.mark.parametrize("name", ["mesh", "deep"])
-def test_modes_agree_bitwise_in_the_port(setups, name):
+def test_modes_agree_bitwise_in_the_port(setups, name, pair_stage):
     """At overflow 0 the three modes keep the same (t, lowest gid) of the
     same tile test: hit, t, prim, u and v (where hit) and occlusion bit for
-    bit."""
+    bit; the compact mode in its default stage, the other two in
+    ``pair_stage``."""
     _, _, st, ct = setups[name]
     n = 512
     ro, rd = rays(n, 17)
     t_min, t_max = _bounds(n)
     t_occ = np.full((n, 1), 2.0, np.float32)
-    out = {m: _port_mode(ct, st, m, ro, rd, t_min, t_max, t_occ)
+    out = {m: _port_mode(ct, st, m, ro, rd, t_min, t_max, t_occ,
+                         **({} if m == "compact" else
+                            {"pair_stage": pair_stage}))
            for m in ("compact",) + MODES}
     (h_c, ovf), (o_c, ovf_o) = out["compact"]
     assert int(ovf) == int(ovf_o) == 0
@@ -249,9 +265,12 @@ def test_modes_agree_bitwise_in_the_port(setups, name):
         assert torch.equal(o, o_c), mode
 
 
-def test_modes_test_pairs_with_pair_tile_isect(setups, monkeypatch):
-    """Every pair batch of both modes goes through ``pair_tile_isect`` (its
-    plain version on the CPU: the wrapper's), never the fused stage."""
+@pytest.mark.parametrize("pair_stage", STAGES)
+def test_each_pair_stage_launches_its_own_kernel(setups, monkeypatch,
+                                                 pair_stage):
+    """In both modes every pair batch goes through ``pair_ray_reduce``
+    under "fused" and never through ``pair_tile_isect``, and the reverse
+    under "split" (the wrappers' plain versions on the CPU)."""
     _, _, st, ct = setups["deep"]
     ro, rd = rays(256, 5)
     t_min, t_max = _bounds(256)
@@ -265,8 +284,11 @@ def test_modes_test_pairs_with_pair_tile_isect(setups, monkeypatch):
 
         monkeypatch.setattr(tcl, name, spy)
     for mode in MODES:
-        _port_mode(ct, st, mode, ro, rd, t_min, t_max, t_max)
-    assert calls["pair_tile_isect"] >= 4 and calls["pair_ray_reduce"] == 0
+        _port_mode(ct, st, mode, ro, rd, t_min, t_max, t_max,
+                   pair_stage=pair_stage)
+    used, unused = ("pair_ray_reduce", "pair_tile_isect")[::(
+        1 if pair_stage == "fused" else -1)]
+    assert calls[used] >= 4 and calls[unused] == 0, calls
 
 
 def test_other_pair_stages_and_unknown_modes_raise(setups):
@@ -275,12 +297,11 @@ def test_other_pair_stages_and_unknown_modes_raise(setups):
     t_min, t_max = (T(x) for x in _bounds(64))
     for mode in MODES:
         ct = cb._replace(traversal_mode=mode)
-        for stage in ("split", "dedup"):
-            with pytest.raises(ValueError, match="pair_stage='fused'"):
-                tcl.intersect_counted(ct, st, ro, rd, t_min, t_max,
-                                      pair_stage=stage)
-            with pytest.raises(ValueError, match="pair_stage='fused'"):
-                tcl.occluded_counted(ct, st, ro, rd, t_max, pair_stage=stage)
+        with pytest.raises(ValueError, match="no pair_stage 'dedup'"):
+            tcl.intersect_counted(ct, st, ro, rd, t_min, t_max,
+                                  pair_stage="dedup")
+        with pytest.raises(ValueError, match="no pair_stage 'dedup'"):
+            tcl.occluded_counted(ct, st, ro, rd, t_max, pair_stage="dedup")
         with pytest.raises(ValueError, match="unknown pair_stage"):
             tcl.intersect(ct, st, ro, rd, t_min, t_max, pair_stage="both")
     with pytest.raises(ValueError, match="unknown traversal_mode"):
@@ -288,8 +309,98 @@ def test_other_pair_stages_and_unknown_modes_raise(setups):
                       t_min, t_max)
 
 
+def _soup(n=4096, size=0.03, seed=0):
+    """``n`` small triangles scattered through [-1, 1]^3: a ray inside
+    crosses many overlapping cluster boxes and hits few triangles, so the
+    frontier walk needs several feedback rounds."""
+    rs = np.random.RandomState(seed)
+    c = rs.uniform(-1, 1, (n, 1, 3))
+    v = (c + rs.normal(scale=size, size=(n, 3, 3))).reshape(-1, 3)
+    return jt.make_scene(v.astype(np.float32),
+                         np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+                         np.zeros(n, np.int32),
+                         jt.make_materials([dict(kind=jt.MAT_DIFFUSE)]),
+                         jt.make_lights([]))
+
+
+@pytest.fixture(scope="module")
+def stage_cases(setups):
+    """name -> (port scene, port ClusterBVH, rays scale): "soup" (a 4-level
+    pyramid at a pair budget of 2: rays with 0, 1, 2 and more candidates,
+    three and more feedback rounds), "unsorted" (the Cornell mesh's one
+    level under a cap as wide as the level, so ``_descend`` leaves the
+    candidates unsorted and round 1 compacts them) and "starved" (both
+    modes truncate)."""
+    sj = _soup()
+    soup = convert.cluster_bvh_from_numpy(
+        bvh_dict(jcl.build_cluster_bvh(sj, tile=32, dense_start=8)), "cpu")
+    _, _, st_m, ct_m = setups["mesh"]
+    _, _, st_s, ct_s = setups["starved"]
+    n0 = ct_m.levels[0].shape[0]
+    return {"soup": (convert.scene_from_numpy(scene_dict(sj), "cpu"),
+                     soup._replace(pair_budget=2), 0.5),
+            "unsorted": (st_m, ct_m._replace(frontiers=(n0,), k_leaf=n0),
+                         1.0),
+            "starved": (st_s, ct_s, 0.3)}
+
+
 @pytest.mark.parametrize("mode", MODES)
-def test_truncation_is_counted_but_no_ray_is_suspect(setups, mode):
+@pytest.mark.parametrize("name", ["soup", "unsorted", "starved"])
+def test_stages_agree_bitwise_round_for_round(stage_cases, monkeypatch,
+                                              name, mode):
+    """"fused" and "split" in both modes: hit, t, u, v and occlusion bit for
+    bit on every ray, prim where there is a hit (and on every ray in the
+    frontier walk: its gid is 0 on a miss in both stages), the same
+    overflow, and as many rounds (batches through ``_live_pairs``)."""
+    st, ct, scale = stage_cases[name]
+    ct = ct._replace(traversal_mode=mode)
+    n = 2048
+    ro, rd = rays(n, 17)
+    ro = ro * np.float32(scale)
+    t_min, t_max = _bounds(n)
+    t_occ = np.full((n, 1), 2.0, np.float32)
+    rounds = []
+    real = tcl._live_pairs
+
+    def spy(*a, **kw):
+        rounds[-1] += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tcl, "_live_pairs", spy)
+    out = {}
+    for stage in STAGES:
+        rounds.append(0)
+        h, ovf = tcl.intersect_counted(ct, st, T(ro), T(rd), T(t_min),
+                                       T(t_max), pair_stage=stage)
+        rounds.append(0)
+        o, ovf_o = tcl.occluded_counted(ct, st, T(ro), T(rd), T(t_occ),
+                                        pair_stage=stage)
+        out[stage] = (h, int(ovf), o, int(ovf_o))
+    (h_f, ovf_f, o_f, ovf_of), (h_s, ovf_s, o_s, ovf_os) = out.values()
+    m = h_s.hit[:, 0]
+    assert rounds[:2] == rounds[2:] and (ovf_f, ovf_of) == (ovf_s, ovf_os)
+    for f in ("hit", "t", "u", "v"):
+        assert torch.equal(getattr(h_f, f), getattr(h_s, f)), f
+    assert torch.equal(h_f.prim[m], h_s.prim[m])
+    if mode == "frontier":
+        assert torch.equal(h_f.prim, h_s.prim)
+    assert torch.equal(o_f, o_s) and int(m.sum()) > 0
+    if name == "starved":
+        assert ovf_f + ovf_of > 0
+    if name == "unsorted":
+        assert not tcl._cand_sorted(ct)
+    if name == "soup" and mode == "frontier":
+        n_cand, _ = tcl.candidate_stats(ct, T(ro), T(rd), T(t_min), T(t_max))
+        pb = ct.pair_budget
+        for want in (n_cand == 0, n_cand == 1, n_cand == pb, n_cand > pb):
+            assert bool(want.any())
+        assert rounds[0] >= 3 and rounds[1] >= 2, rounds     # feedback rounds
+
+
+@pytest.mark.parametrize("pair_stage", STAGES)
+@pytest.mark.parametrize("mode", MODES)
+def test_truncation_is_counted_but_no_ray_is_suspect(setups, mode,
+                                                     pair_stage):
     """The standing contract of both modes, as in the JAX package: the
     overflow is counted, the suspect mask is all False (so the repair flow
     finds nothing to repair), and an attached fallback is not walked."""
@@ -298,14 +409,16 @@ def test_truncation_is_counted_but_no_ray_is_suspect(setups, mode):
     ro, rd = rays(2048, 10)
     ro = ro * np.float32(0.3)
     t_min, t_max = (T(x) for x in _bounds(2048))
-    isect, occl = tdriver._intersectors_suspect("cluster", ct)
+    isect, occl = tdriver._intersectors_suspect("cluster", ct,
+                                                pair_stage=pair_stage)
     _, ovf, sus = isect(st, T(ro), T(rd), t_min, t_max)
     _, ovf_o, sus_o = occl(st, T(ro), T(rd), t_max)
     assert int(ovf) + int(ovf_o) > 0
     assert sus.dtype == torch.bool and not bool(sus.any() | sus_o.any())
-    h = tcl.intersect(ct, st, T(ro), T(rd), t_min, t_max)
+    h = tcl.intersect(ct, st, T(ro), T(rd), t_min, t_max,
+                      pair_stage=pair_stage)
     h_fb = tcl.intersect(tcl.attach_fallback(ct, st), st, T(ro), T(rd),
-                         t_min, t_max)
+                         t_min, t_max, pair_stage=pair_stage)
     for f in HIT_FIELDS:
         assert torch.equal(getattr(h, f), getattr(h_fb, f)), f
 

@@ -45,8 +45,9 @@ above (the default, the only one that flags suspects), the "frontier" walk (per-
 best-t feedback rounds, ``_traverse``; ``candidate_stats``) or the "pairs"
 walk (a ray-sorted list of live (ray, node) pairs cut to a budget at every
 level, ``_traverse_pairs``; ``pairs_stats``), the JAX package's earlier
-traversals; those two test every pair batch with
-``kernels.cluster_isect.pair_tile_isect``.  The capacity tooling sizes the
+traversals; those two take the "fused" and "split" pair stages for every
+pair batch (round 1 of the frontier walk as gapped segments, one a ray)
+and refuse "dedup".  The capacity tooling sizes the
 compact budgets from measured rays (``level_hit_counts``, ``autotune_*``);
 everything runs under ``torch.no_grad()`` semantics (no tensor requires
 grad).
@@ -70,7 +71,7 @@ from tpu_pt_torch.kernels.cluster_isect import (
 from tpu_pt_torch.kernels.fetch import (
     fetch_fields, fetch_fields_ref, fetch_rows, fetch_rows_ref)
 from tpu_pt_torch.kernels.pair_fused import (
-    pair_ray_reduce, pair_ray_reduce_ref)
+    pair_ray_reduce, pair_ray_reduce_ref, row_segments)
 from tpu_pt_torch.kernels.pair_scan import pair_segmin, pair_segmin_ref
 from tpu_pt_torch.render.brute import Hit
 from tpu_pt_torch.scene.types import Scene
@@ -632,6 +633,12 @@ def _sort_trunc(te, idx, cap: int):
     return te[:, :cap], idx[:, :cap], ovf
 
 
+def _top_sorted(cb: ClusterBVH) -> bool:
+    """Whether ``_descend`` sorts (and cuts) the top level: only where it is
+    wider than its cap."""
+    return cb.levels[0].shape[0] > cb.frontiers[0]
+
+
 def _descend(cb: ClusterBVH, ro, rd_inv, t_min, t_max):
     """Frontier descent: a dense slab test of the top level, then per level
     the children of the kept nodes (a gather of their rows), a slab test
@@ -639,7 +646,7 @@ def _descend(cb: ClusterBVH, ro, rd_inv, t_min, t_max):
     the leaves).  Returns (cand (Q, K) i64 cluster ids, t-ascending,
     cand_t (Q, K) rounded-down entry t, INF in dead slots, overflow (Q,)
     i64 finite candidates cut at any level).  The top level is sorted only
-    where it is wider than its cap."""
+    where it is wider than its cap (``_top_sorted``)."""
     Q = ro.shape[0]
     levels = cb.levels
     caps = cb.frontiers
@@ -653,9 +660,8 @@ def _descend(cb: ClusterBVH, ro, rd_inv, t_min, t_max):
     idx = torch.arange(levels[0].shape[0], device=ro.device)[None, :] \
         .expand(te.shape)
     overflow = torch.zeros((Q,), dtype=torch.int64, device=ro.device)
-    F = min(caps[0], levels[0].shape[0])
-    if te.shape[1] > F:
-        te, idx, ovf = _sort_trunc(te, idx, F)
+    if _top_sorted(cb):
+        te, idx, ovf = _sort_trunc(te, idx, caps[0])
         overflow = overflow + ovf
 
     eight = torch.arange(8, device=ro.device)
@@ -674,9 +680,9 @@ def _descend(cb: ClusterBVH, ro, rd_inv, t_min, t_max):
 
 
 def _round_min(t_p, u_p, v_p, g_p, Q: int, pb: int):
-    """Round 1 of the frontier walk: per ray the (t, lowest gid) minimum of
-    its first ``pb`` pairs, a plain (Q, pb) reduce.  Returns (best_t, u, v,
-    gid), gid 0 where nothing hits."""
+    """Round 1 of the frontier walk's split stage: per ray the (t, lowest
+    gid) minimum of its first ``pb`` pairs, a plain (Q, pb) reduce.
+    Returns (best_t, u, v, gid), gid 0 where nothing hits."""
     t_p = t_p.reshape(Q, pb)
     g_2d = g_p.reshape(Q, pb)
     best_t = torch.min(t_p, dim=1).values
@@ -694,14 +700,11 @@ def _round_min(t_p, u_p, v_p, g_p, Q: int, pb: int):
 def _live_pairs(cand, live, Q: int, P2: int):
     """The live (ray, candidate) slots flattened ray-major (a stable sort of
     the ray keys, dead slots keyed Q) and cut to the first ``P2``.
-    Returns (ray (<= P2,) with Q on dead pairs, cluster id, live mask,
-    ray clamped into range)."""
+    Returns (ray (<= P2,) with Q on dead pairs, cluster id)."""
     ray_of = torch.arange(Q, device=cand.device)[:, None].expand(cand.shape)
     key = torch.where(live, ray_of, Q).reshape(-1)
     ray_c, order = torch.sort(key, stable=True)
-    cid_c = cand.reshape(-1)[order[:P2]]
-    ray_c = ray_c[:P2]
-    return ray_c, cid_c, ray_c < Q, torch.clamp_max(ray_c, Q - 1)
+    return ray_c[:P2], cand.reshape(-1)[order[:P2]]
 
 
 def _consumed(ray_c, Q: int):
@@ -712,37 +715,125 @@ def _consumed(ray_c, Q: int):
             torch.searchsorted(ray_c, arq, side="right"))
 
 
-def _first_round(cb: ClusterBVH, ro, rd, t_min1, t_max1, use_kernels: bool):
+def _list_closest(cb: ClusterBVH, ro, rd, t_min1, t_max1, ray, cid,
+                  use_kernels: bool, pair_stage: str):
+    """Per-ray nearest hit over a ray-sorted pair list (``ray`` Q on the
+    dead tail): one batch of the frontier walk's feedback rounds, or the
+    pair-major walk's whole list.  Returns (t, gid, u, v, pairs of each
+    ray).  t is INF where nothing hits, -0 as +0; u, v are 0 there.
+
+    "fused": ``pair_ray_reduce`` on the list's segments; gid 0 where
+    nothing hits.  "split": K2 ``pair_tile_isect`` (``_test_pair_batch``),
+    then ``_seg_min`` and the segment ends' gathers; where a ray has pairs
+    but no hit, gid is the id on lane 0 of a tile of its (K2's lane on a
+    miss).  Both select the same (t, lowest gid) and its u, v; no caller
+    reads gid, u or v where nothing hits (``intersect_counted`` reports no
+    hit there, and the frontier walk takes a round's result only where it
+    is nearer)."""
+    Q = ro.shape[0]
+    left, right = _consumed(ray, Q)
+    cnt = right - left
+    if pair_stage == "fused":
+        t, g, u, v = _reduce_pairs_closest_fused(
+            cb, ro, rd, t_min1, t_max1, cid, cnt, right, use_kernels)
+        return t + 0.0, g, u, v, cnt
+    ray_c = torch.clamp_max(ray, Q - 1)
+    t_p, u_p, v_p, g_p = _test_pair_batch(
+        cb, ro, rd, t_min1, t_max1, ray_c, cid, ray < Q, use_kernels)
+    seg_start = torch.ones_like(ray, dtype=torch.bool)
+    seg_start[1:] = ray_c[1:] != ray_c[:-1]
+    mt, mi = _seg_min(t_p, seg_start, gid=g_p)
+    has = cnt > 0
+    endpos = torch.clamp(right - 1, 0, ray.shape[0] - 1)
+    bi = mi[endpos]
+    return (torch.where(has, mt[endpos], INF), torch.where(has, g_p[bi], 0),
+            torch.where(has, u_p[bi], 0.0), torch.where(has, v_p[bi], 0.0),
+            cnt)
+
+
+def _list_anyhit(cb: ClusterBVH, ro, rd, t_min1, t_max1, ray, cid,
+                 use_kernels: bool, pair_stage: str):
+    """Per-ray occlusion over a ray-sorted pair list: a live pair with a hit
+    in range occludes its ray.  "fused": ``pair_ray_reduce``'s any-hit
+    form; "split": K2, then an integer scatter-add.  Returns ((Q,) bool,
+    pairs of each ray)."""
+    Q = ro.shape[0]
+    left, right = _consumed(ray, Q)
+    cnt = right - left
+    if pair_stage == "fused":
+        return _reduce_pairs_anyhit_fused(cb, ro, rd, t_min1, t_max1, cid,
+                                          cnt, right, use_kernels), cnt
+    ok = ray < Q
+    ray_c = torch.clamp_max(ray, Q - 1)
+    t_p = _test_pair_batch(cb, ro, rd, t_min1, t_max1, ray_c, cid, ok,
+                           use_kernels)[0]
+    hit_pair = ((t_p < INF) & ok).to(torch.int32)
+    n_hit = torch.zeros((Q,), dtype=torch.int32, device=ro.device)
+    return n_hit.index_add_(0, ray_c, hit_pair) > 0, cnt
+
+
+def _cand_sorted(cb: ClusterBVH) -> bool:
+    """Whether ``_descend``'s candidates are sorted by entry t (then a ray's
+    finite candidates come first): every level below the top is."""
+    return len(cb.levels) > 1 or _top_sorted(cb)
+
+
+def _first_round(cb: ClusterBVH, ro, rd, t_min1, t_max1, use_kernels: bool,
+                 pair_stage: str, any_hit: bool):
     """The frontier descent and round 1 of its walks: the first
     ``pair_budget`` slots of every ray tested.  Returns (cand, cand_t,
-    overflow, pb, the batch's per-pair (t, u, v, gid), ray-major)."""
+    overflow, pb, round 1's per-ray result: (t, gid, u, v) with gid 0 and
+    u = v = 0 where nothing hits, or the (Q,) occlusion).
+
+    "fused": one ``pair_ray_reduce`` over ray q's segment at the start of
+    its slots ``[q pb, (q + 1) pb)`` (``row_segments``: its finite
+    candidates, moved there by a lane compaction where ``_descend`` left
+    them unsorted; the rest of the row a gap); "split": K2 on the (Q x pb)
+    slots, then ``_round_min`` or a row ``any``."""
     cand, cand_t, ovf = _descend(cb, ro, 1.0 / rd, t_min1[:, None],
                                  t_max1[:, None])
+    Q = ro.shape[0]
     pb = min(cb.pair_budget, cand.shape[1])
-    arq = torch.arange(ro.shape[0], device=ro.device)
-    return cand, cand_t, ovf, pb, _test_pair_batch(
+    live = cand_t[:, :pb] < INF
+    if pair_stage == "fused":
+        rows = cand[:, :pb]
+        if not _cand_sorted(cb):
+            rows = _compact_lanes(live, rows, pb)[0]
+        reduce = _reduce_pairs_anyhit_fused if any_hit else \
+            _reduce_pairs_closest_fused
+        return cand, cand_t, ovf, pb, reduce(
+            cb, ro, rd, t_min1, t_max1,
+            *row_segments(rows, torch.sum(live, dim=1)), use_kernels)
+    arq = torch.arange(Q, device=ro.device)
+    t_p, u_p, v_p, g_p = _test_pair_batch(
         cb, ro, rd, t_min1, t_max1, arq.repeat_interleave(pb),
-        cand[:, :pb].reshape(-1), (cand_t[:, :pb] < INF).reshape(-1),
-        use_kernels)
+        cand[:, :pb].reshape(-1), live.reshape(-1), use_kernels)
+    if any_hit:
+        return cand, cand_t, ovf, pb, torch.any(t_p.reshape(Q, pb) < INF,
+                                                dim=1)
+    t, u, v, g = _round_min(t_p, u_p, v_p, g_p, Q, pb)
+    return cand, cand_t, ovf, pb, (t, g, u, v)
 
 
-def _traverse(cb: ClusterBVH, ro, rd, t_min, t_max, use_kernels: bool = True):
+def _traverse(cb: ClusterBVH, ro, rd, t_min, t_max, use_kernels: bool = True,
+              pair_stage: str = "fused"):
     """Closest hit over the frontier descent's candidates, exact for any
     pair budget: the candidates of a ray are t_entry-ascending, so the
     untested ones lie behind its best hit.  Round 1 tests the first
     ``pair_budget`` slots of every ray; then each round flattens the slots
     [cursor, end) of every ray, end = the candidates whose entry t is <=
     the ray's best t, cuts the list to P2 = max(Q // 2, 1024) pairs, tests
-    them and takes the per-ray (t, lowest gid) minimum (``_seg_min``).  A
-    round consumes at least one pair, and it runs while any ray has one
-    left (one host read a round).  Returns (best_t (Q, 1), gid, u (Q, 1),
-    v (Q, 1), n_overflow)."""
+    them and takes the per-ray (t, lowest gid) minimum (``_list_closest``).
+    A round consumes at least one pair, and it runs while any ray has one
+    left (one host read a round).  ``pair_stage`` ("fused" or "split")
+    picks how every batch is tested and reduced; both give the same bits
+    and rounds.  Returns (best_t (Q, 1), gid, u (Q, 1), v (Q, 1),
+    n_overflow); gid, u and v are 0 where nothing hits."""
     Q = ro.shape[0]
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
-    cand, cand_t, ovf, pb, first = _first_round(cb, ro, rd, t_min1, t_max1,
-                                                use_kernels)
-    bt, bu, bv, bg = _round_min(*first, Q, pb)
+    cand, cand_t, ovf, pb, (bt, bg, bu, bv) = _first_round(
+        cb, ro, rd, t_min1, t_max1, use_kernels, pair_stage, any_hit=False)
 
     P2 = max(Q // 2, 1024)
     slots = torch.arange(cand.shape[1], device=ro.device)[None, :]
@@ -754,30 +845,21 @@ def _traverse(cb: ClusterBVH, ro, rd, t_min, t_max, use_kernels: bool = True):
         if not bool(torch.any(end > cur)):
             break
         live = (slots >= cur[:, None]) & (slots < end[:, None])
-        ray_c, cid_c, ok, ray_cc = _live_pairs(cand, live, Q, P2)
-        t_p, u_p, v_p, g_p = _test_pair_batch(
-            cb, ro, rd, t_min1, t_max1, ray_cc, cid_c, ok, use_kernels)
-        seg_start = torch.ones_like(ok)
-        seg_start[1:] = ray_cc[1:] != ray_cc[:-1]
-        mt, mi = _seg_min(t_p, seg_start, gid=g_p)
-        left, right = _consumed(ray_c, Q)
-        has = right > left
-        endpos = torch.clamp(right - 1, 0, ray_c.shape[0] - 1)
-        bt_new = torch.where(has, mt[endpos], INF)
-        bi = mi[endpos]
-        g_new = g_p[bi]
-        better = has & ((bt_new < bt)
-                        | ((bt_new == bt) & (bt < INF) & (g_new < bg)))
+        ray_c, cid_c = _live_pairs(cand, live, Q, P2)
+        bt_new, g_new, u_new, v_new, n = _list_closest(
+            cb, ro, rd, t_min1, t_max1, ray_c, cid_c, use_kernels, pair_stage)
+        # bt_new is INF where the ray had no pair or no hit: never better.
+        better = (bt_new < bt) | ((bt_new == bt) & (bt < INF) & (g_new < bg))
         bt = torch.where(better, bt_new, bt)
-        bu = torch.where(better, u_p[bi], bu)
-        bv = torch.where(better, v_p[bi], bv)
+        bu = torch.where(better, u_new, bu)
+        bv = torch.where(better, v_new, bv)
         bg = torch.where(better, g_new, bg)
-        cur = cur + (right - left)
+        cur = cur + n
     return bt[:, None], bg, bu[:, None], bv[:, None], torch.sum(ovf)
 
 
 def _traverse_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
-                     use_kernels: bool = True):
+                     use_kernels: bool = True, pair_stage: str = "fused"):
     """Occlusion over the frontier descent's candidates: round 1 tests the
     first ``pair_budget`` slots of every ray; then each round tests the
     remaining finite candidates of the rays not yet occluded (cut to P2
@@ -785,9 +867,8 @@ def _traverse_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
     Q = ro.shape[0]
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
-    cand, cand_t, ovf, pb, first = _first_round(cb, ro, rd, t_min1, t_max1,
-                                                use_kernels)
-    occ = torch.any(first[0].reshape(Q, pb) < INF, dim=1)
+    cand, cand_t, ovf, pb, occ = _first_round(
+        cb, ro, rd, t_min1, t_max1, use_kernels, pair_stage, any_hit=True)
 
     P2 = max(Q // 2, 1024)
     slots = torch.arange(cand.shape[1], device=ro.device)[None, :]
@@ -796,14 +877,11 @@ def _traverse_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
     while bool(torch.any(~occ & (n_fin > cur))):
         live = (slots >= cur[:, None]) & (slots < n_fin[:, None]) \
             & ~occ[:, None]
-        ray_c, cid_c, ok, ray_cc = _live_pairs(cand, live, Q, P2)
-        t_p = _test_pair_batch(cb, ro, rd, t_min1, t_max1, ray_cc, cid_c, ok,
-                               use_kernels)[0]
-        hit_pair = ((t_p < INF) & ok).to(torch.int32)
-        n_hit = torch.zeros((Q,), dtype=torch.int32, device=ro.device)
-        occ = occ | (n_hit.index_add_(0, ray_cc, hit_pair) > 0)
-        left, right = _consumed(ray_c, Q)
-        cur = cur + (right - left)
+        ray_c, cid_c = _live_pairs(cand, live, Q, P2)
+        occ_new, n = _list_anyhit(cb, ro, rd, t_min1, t_max1, ray_c, cid_c,
+                                  use_kernels, pair_stage)
+        occ = occ | occ_new
+        cur = cur + n
     return occ, torch.sum(ovf)
 
 
@@ -875,48 +953,30 @@ def _descend_pairs(cb: ClusterBVH, ro, rd_inv, t_min1, t_max1,
 
 
 def _traverse_pairs(cb: ClusterBVH, ro, rd, t_min, t_max,
-                    use_kernels: bool = True):
+                    use_kernels: bool = True, pair_stage: str = "fused"):
     """Closest hit through the pair-major walk, exact: every live candidate
     is tile-tested and the per-ray nearest is a segmented (t, lowest gid)
-    minimum over the ray-sorted pair list.  Returns (best_t (Q, 1), gid,
-    u (Q, 1), v (Q, 1), n_dropped)."""
-    Q = ro.shape[0]
+    minimum over the ray-sorted pair list (``_list_closest``, in the form
+    ``pair_stage`` names).  Returns (best_t (Q, 1), gid, u (Q, 1),
+    v (Q, 1), n_dropped)."""
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
     rayP, cidP, dropped = _descend_pairs(cb, ro, 1.0 / rd, t_min1, t_max1)
-    P = rayP.shape[0]
-    rayPc = torch.clamp_max(rayP, Q - 1)
-    t_p, u_p, v_p, g_p = _test_pair_batch(
-        cb, ro, rd, t_min1, t_max1, rayPc, cidP, rayP < Q, use_kernels)
-    seg_start = torch.ones_like(rayP, dtype=torch.bool)
-    seg_start[1:] = rayPc[1:] != rayPc[:-1]
-    mt, mi = _seg_min(t_p, seg_start, gid=g_p)
-    left, right = _consumed(rayP, Q)
-    has = right > left
-    endpos = torch.clamp(right - 1, 0, P - 1)
-    best_t = torch.where(has, mt[endpos], INF)
-    bi = mi[endpos]
-    return (best_t[:, None], torch.where(has, g_p[bi], 0),
-            torch.where(has, u_p[bi], 0.0)[:, None],
-            torch.where(has, v_p[bi], 0.0)[:, None], dropped)
+    t, g, u, v, _ = _list_closest(cb, ro, rd, t_min1, t_max1, rayP, cidP,
+                                  use_kernels, pair_stage)
+    return t[:, None], g, u[:, None], v[:, None], dropped
 
 
 def _traverse_pairs_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
-                           use_kernels: bool = True):
-    """Occlusion through the pair-major walk: a live pair with a hit in
-    range occludes its ray (an integer scatter-add).  Returns ((Q,) bool,
-    n_dropped)."""
-    Q = ro.shape[0]
+                           use_kernels: bool = True,
+                           pair_stage: str = "fused"):
+    """Occlusion through the pair-major walk (``_list_anyhit``).  Returns
+    ((Q,) bool, n_dropped)."""
     t_min1 = t_min[:, 0]
     t_max1 = t_max[:, 0]
     rayP, cidP, dropped = _descend_pairs(cb, ro, 1.0 / rd, t_min1, t_max1)
-    pair_ok = rayP < Q
-    rayPc = torch.clamp_max(rayP, Q - 1)
-    t_p = _test_pair_batch(cb, ro, rd, t_min1, t_max1, rayPc, cidP, pair_ok,
-                           use_kernels)[0]
-    hit_pair = ((t_p < INF) & pair_ok).to(torch.int32)
-    n_hit = torch.zeros((Q,), dtype=torch.int32, device=ro.device)
-    return n_hit.index_add_(0, rayPc, hit_pair) > 0, dropped
+    return _list_anyhit(cb, ro, rd, t_min1, t_max1, rayP, cidP, use_kernels,
+                        pair_stage)[0], dropped
 
 
 def pairs_stats(cb: ClusterBVH, ro, rd, t_min, t_max):
@@ -1321,11 +1381,13 @@ GATHER_BF16 = True
 # one flat pair batch, in SPLIT_CLOSEST / SPLIT_ANYHIT strided sub-batches),
 # "frontier" (per-ray t-sorted frontiers and best-t feedback rounds,
 # ``_traverse``) or "pairs" (the pair-major walk, ``_traverse_pairs``).  The
-# last two traverse the whole batch at once, test their pairs with
-# ``pair_tile_isect`` and run only the "fused" pair_stage keyword; they
-# report their truncation but flag no ray suspect and never walk the
+# last two traverse the whole batch at once and take the ray-major pair
+# stages only (``MODE_PAIR_STAGES``: "fused" reduces every pair batch with
+# ``pair_ray_reduce``, "split" with ``pair_tile_isect`` and array code);
+# they report their truncation but flag no ray suspect and never walk the
 # fallback.
 TRAVERSAL_MODES = ("compact", "frontier", "pairs")
+MODE_PAIR_STAGES = ("fused", "split")
 
 
 def _traversal_mode(cb: ClusterBVH, pair_stage: str) -> str:
@@ -1336,10 +1398,11 @@ def _traversal_mode(cb: ClusterBVH, pair_stage: str) -> str:
     if mode not in TRAVERSAL_MODES:
         raise ValueError(f"unknown traversal_mode {mode!r}: expected one of "
                          f"{', '.join(TRAVERSAL_MODES)}")
-    if mode != "compact" and pair_stage != "fused":
-        raise ValueError(f"traversal_mode {mode!r} tests its pairs with "
-                         f"pair_tile_isect and has no pair_stage "
-                         f"{pair_stage!r}: pass pair_stage='fused'")
+    if mode != "compact" and pair_stage not in MODE_PAIR_STAGES:
+        raise ValueError(f"traversal_mode {mode!r} has no pair_stage "
+                         f"{pair_stage!r}: it takes "
+                         f"{' or '.join(map(repr, MODE_PAIR_STAGES))} (the "
+                         f"compact mode also takes 'dedup')")
     return mode
 
 
@@ -1524,10 +1587,13 @@ def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
     ``_dedup_supported``).
 
     ``cb.traversal_mode`` selects the walk; the "frontier" and
-    "pairs" modes take only ``pair_stage="fused"`` (they test pairs with
-    ``pair_tile_isect``), append an all-False suspect mask (their
-    truncation is counted, not located: the repair flow cannot repair it)
-    and ignore an attached fallback, as the JAX package's do."""
+    "pairs" modes take ``"fused"`` (every pair batch through
+    ``pair_ray_reduce``) and ``"split"`` (through ``pair_tile_isect`` and
+    array code), bit-identical in hit, t, occlusion and rounds (and in
+    prim, u, v where there is a hit), and refuse ``"dedup"``; they append
+    an all-False suspect mask (their truncation is counted, not located:
+    the repair flow cannot repair it) and ignore an attached fallback, as
+    the JAX package's do."""
     mode = _traversal_mode(cb, pair_stage)
     t_max_b = as_col(t_max, ro.shape[0], ro.device)
     if mode == "compact":
@@ -1536,7 +1602,7 @@ def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
     else:
         walk = _traverse_pairs if mode == "pairs" else _traverse
         best_t, gid, u, v, ovf = walk(cb, ro, rd, t_min, t_max_b,
-                                      use_kernels)
+                                      use_kernels, pair_stage)
         if suspect_out is not None:
             suspect_out.append(torch.zeros((ro.shape[0],), dtype=torch.bool,
                                            device=ro.device))
@@ -1569,7 +1635,7 @@ def occluded_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_max,
     else:
         walk = _traverse_pairs_anyhit if mode == "pairs" else \
             _traverse_anyhit
-        occ, ovf = walk(cb, ro, rd, t_min, t_max, use_kernels)
+        occ, ovf = walk(cb, ro, rd, t_min, t_max, use_kernels, pair_stage)
         if suspect_out is not None:
             suspect_out.append(torch.zeros((ro.shape[0],), dtype=torch.bool,
                                            device=ro.device))

@@ -38,6 +38,11 @@ thread that launches on that stream: two host threads must not launch
 graph that is replayed beside others.  ``pair_ray_reduce_checked`` is the
 form that verifies what the kernel relies on (ordered, consistent segments
 before the launch, zero counters after it).
+
+Segments may leave gaps between them: a slot that lies in no ray's segment
+is never tested.  ``row_segments`` gives the frontier walk's round 1 in that
+form, each ray's live candidates left in its row of the (Q, pair_budget)
+slots.
 """
 
 from __future__ import annotations
@@ -158,8 +163,8 @@ def pair_ray_reduce(tiles, tile_gid, ro, rd, t_min, t_max, cid, cnt, right,
     t_max: (Q,) f32; cid: (P,) i64 (clamped into [0, C) by the function);
     cnt, right: (Q,) i64, ray q's pairs at ``[right[q] - cnt[q], right[q])``
     inside [0, P], ``right`` not decreasing, segments not overlapping (the
-    shape ``_flat_pairs`` gives them).  The list beyond the last segment is
-    never read.
+    shape ``_flat_pairs`` gives them; gaps between them are allowed).  The
+    list beyond the last segment is never read.
 
     Returns per ray (t (Q,) f32, gid (Q,) i32, u, v) of the nearest hit over
     the ray's pairs, lowest gid at equal t; (INF, 0, 0, 0) where the segment
@@ -221,7 +226,7 @@ def pair_ray_reduce_checked(tiles, tile_gid, ro, rd, t_min, t_max, cid, cnt,
     (they read the device).  Before the launch: finite tile geometry (NaN
     geometry silently masks hits); ``right`` inside [0, P] and not
     decreasing; ``cnt`` not negative and no segment reaching back into the
-    one before it.  After it: a reported hit has t inside [t_min, t_max] and
+    one before it (a gap is fine).  After it: a reported hit has t inside [t_min, t_max] and
     finite u, v, a ray without pairs reports none, and the per-ray counters
     of the stream are all zero again.  Raises AssertionError."""
     _check_shapes(tiles, tile_gid, ro, rd, t_min, t_max, cid, cnt, right)
@@ -259,3 +264,14 @@ def pair_ray_reduce_checked(tiles, tile_gid, ro, rd, t_min, t_max, cid, cnt,
                                  "zero; later launches on this stream are "
                                  "not to be trusted")
     return out
+
+
+def row_segments(cid_rows, n):
+    """Per-ray candidate rows as a gapped pair list: ray q's segment is the
+    first ``n[q]`` slots of row q of ``cid_rows`` ((Q, R) i64), and the rest
+    of the row is a gap.  Returns (cid (Q R,), cnt, right) for
+    ``pair_ray_reduce``: no pair is moved."""
+    Q, R = cid_rows.shape
+    cnt = n.to(torch.int64)
+    right = torch.arange(0, Q * R, R, device=cnt.device) + cnt
+    return cid_rows.reshape(-1).contiguous(), cnt, right
